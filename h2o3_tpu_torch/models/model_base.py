@@ -1,0 +1,171 @@
+"""Model / ModelBuilder — a minimal port of ``h2o3_tpu/models/model_base.py``.
+
+Every algorithm trains against a per-row weight vector (0 = excluded) and
+scores through ``Model._score_raw``, which maps a frame to predictions on
+its device. Training metrics come from the predictions the fit already made
+(``ModelBuilder._last_train_raw``), not from re-scoring the frame. The
+reference's cross-validation, checkpoints, DKV, locks, telemetry and mesh
+slices are left out of this slice.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from typing import Any, Sequence
+
+import torch
+
+from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.types import VecType
+from h2o3_tpu_torch.frame.vec import Vec
+from h2o3_tpu_torch.models.data_info import response_as_float
+from h2o3_tpu_torch.models.job import Job
+from h2o3_tpu_torch.models.metrics import binomial_metrics, regression_metrics
+
+
+class Model:
+    """A trained model: artifacts + scoring + metrics (reference: ``hex.Model``)."""
+
+    algo = "model"
+
+    def __init__(self, key: str, params: dict, response_column: str | None,
+                 response_domain: tuple[str, ...] | None,
+                 output: dict[str, Any]):
+        self.key = key
+        self.params = dict(params)   # a snapshot: the builder stays reusable
+        self.response_column = response_column
+        self.response_domain = response_domain  # None for regression
+        self.output = output
+        self.training_metrics = None
+        self.run_time_ms: int = 0
+
+    @property
+    def nclasses(self) -> int:
+        return len(self.response_domain) if self.response_domain else 0
+
+    @property
+    def is_classifier(self) -> bool:
+        return self.nclasses >= 2
+
+    def _score_raw(self, frame: Frame) -> torch.Tensor:
+        """Predictions on the frame's device: [rows] for regression,
+        [rows, nclasses] probabilities for classification."""
+        raise NotImplementedError
+
+    def predict(self, frame: Frame) -> Frame:
+        """Score a frame (reference: ``Model.score`` → prediction frame)."""
+        raw = self._score_raw(frame)
+        if not self.is_classifier:
+            return Frame(["predict"], [Vec.from_device(raw, VecType.NUM)])
+        labels = decision_labels(raw).to(torch.int32)
+        names = ["predict"] + [f"p{d}" for d in self.response_domain]
+        vecs = [Vec.from_device(labels, VecType.CAT, domain=self.response_domain)]
+        vecs += [Vec.from_device(raw[:, k].contiguous(), VecType.NUM)
+                 for k in range(self.nclasses)]
+        return Frame(names, vecs)
+
+    def model_performance(self, frame: Frame):
+        """Metrics of this model on a frame that holds the response."""
+        if self.response_column not in frame:
+            raise ValueError(f"frame lacks response column {self.response_column!r}")
+        y, valid = response_as_float(frame.vec(self.response_column))
+        return compute_metrics(self._score_raw(frame), y, valid, self.nclasses)
+
+    def __repr__(self) -> str:
+        lines = [f"{type(self).__name__}(key={self.key!r})"]
+        if self.training_metrics:
+            lines.append(f"  train: {self.training_metrics!r}")
+        return "\n".join(lines)
+
+
+def decision_labels(raw: torch.Tensor) -> torch.Tensor:
+    """Class labels from [n, K] probabilities (argmax; for binomial that is
+    the 0.5 threshold)."""
+    return raw.argmax(dim=1)
+
+
+def compute_metrics(raw: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                    nclasses: int):
+    if nclasses == 0:
+        return regression_metrics(raw, y, mask)
+    if nclasses == 2:
+        return binomial_metrics(raw[:, 1].contiguous(), y, mask)
+    raise NotImplementedError("multinomial metrics are not ported yet")
+
+
+class ModelBuilder:
+    """Algorithm training base (reference: ``hex.ModelBuilder``: validate
+    params → fit → training metrics)."""
+
+    algo = "base"
+
+    def __init__(self, **params):
+        self.params = self.defaults()
+        unknown = set(params) - set(self.params) - {"model_id"}
+        if unknown:
+            raise ValueError(f"{type(self).__name__}: unknown parameters "
+                             f"{sorted(unknown)}; valid: {sorted(self.params)}")
+        self.params.update(params)
+        self.model_id = params.get("model_id")
+        self.job: Job | None = None
+        self.model: Model | None = None
+        self._last_train_raw = None
+
+    @classmethod
+    def defaults(cls) -> dict:
+        return dict(seed=-1, weights_column=None, ignored_columns=None)
+
+    def _fit(self, job: Job, frame: Frame, x: list[str], y: str,
+             weights: torch.Tensor) -> Model:
+        """Train on rows where weights > 0."""
+        raise NotImplementedError
+
+    def train(self, x: Sequence[str] | None = None, y: str | None = None,
+              training_frame: Frame | None = None) -> Model:
+        """Train on ``training_frame``, on the frame's device (reference:
+        h2o-py ``estimator.train``)."""
+        frame = training_frame
+        if frame is None:
+            raise ValueError("training_frame is required")
+        if y is None:
+            raise ValueError(f"{self.algo} is supervised: y is required")
+        ignored = set(self.params.get("ignored_columns") or [])
+        if self.params.get("weights_column"):
+            ignored.add(self.params["weights_column"])
+        x = [c for c in (x if x is not None else frame.names)
+             if c != y and c not in ignored and frame.vec(c).type.on_device]
+        if not x:
+            raise ValueError("no usable feature columns")
+        base_w = frame.row_mask().float()
+        if self.params.get("weights_column"):
+            base_w = base_w * frame.vec(self.params["weights_column"]).data
+        self.job = Job(f"{self.algo} on {frame.key or 'frame'}")
+        t0 = time.time()
+
+        def fit(job: Job) -> Model:
+            model = self._fit(job, frame, x, y, base_w)
+            model.run_time_ms = int((time.time() - t0) * 1000)
+            model.training_metrics = self._holdout_metrics(model, frame, y,
+                                                           base_w)
+            return model
+
+        self.model = self.job.run(fit).result
+        if self.job.status == Job.FAILED:
+            raise self.job.exception
+        return self.model
+
+    def _holdout_metrics(self, model: Model, frame: Frame, y: str,
+                         w: torch.Tensor):
+        """Training metrics from the fit's own final predictions when it
+        cached them (the boosting loop's margins), else by scoring."""
+        raw = self._last_train_raw
+        self._last_train_raw = None
+        if raw is None:
+            raw = model._score_raw(frame)
+        yy, valid = response_as_float(frame.vec(y))
+        return compute_metrics(raw, yy, (w > 0) & valid, model.nclasses)
+
+
+def make_model_key(algo: str, model_id: str | None) -> str:
+    return model_id or f"{algo}_{uuid.uuid4().hex[:10]}"
