@@ -8,17 +8,21 @@ Phases, each of which fails the run on error:
 1. the card's name and power limit, the torch and CUDA versions, and the
    build of every CUDA kernel from ``h2o3_tpu_torch/csrc`` (timed);
 2. the histogram kernel held against its plain PyTorch version on the card
-   at small shapes, at 2^14 nodes, and at the main path's 11M x 28 shape;
+   at small shapes (one with every row in node 0, one with inputs that
+   start off their vector alignment), at 2^14 nodes, at 257 int16 bins,
+   and at the main path's 11M x 28 shapes (one with 11,000,003 rows);
 3. a 100k-row GBM trained on the CPU (plain path) and on the card (kernel),
-   which must agree on training AUC and margins;
+   which must agree on every split, on training AUC and on margins;
 4. the main path at full width: binomial GBM on the 11M x 28 HIGGS-shaped
    frame (64 bins, depth 6, 20 trees, learn rate 0.1) trained once to warm
    up and once timed, then scored — the kernel must launch exactly 120
    times in the timed training — and once more under torch.profiler for
    the device's busy share and its costliest kernels;
-5. the kernel timed at each level's shape of the main path, beside its
-   plain version, one ``index_add_`` call computing the same function, and
-   its memory bound.
+5. the kernel timed at each level's shape of the main path, beside PR 1's
+   time, its plain version, one ``index_add_`` call computing the same
+   function, its memory bound, and the same kernel with its slab updates
+   compiled out (its load and scan time), with the launch plan of each
+   level.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -43,6 +47,10 @@ F32_FLOPS_PER_S = 67e12
 # the main path: bench.py's bench_gbm configuration
 ROWS, NFEAT, NTREES, DEPTH, NBINS = 11_000_000, 28, 20, 6, 64
 
+#: the first kernel's ms per launch at levels 0-5 of the main path (PR 1;
+#: PERF.md section 6, NVIDIA H100 80GB HBM3 at 700.00 W), for comparison
+PR1_LEVEL_MS = (3.570, 3.223, 3.221, 3.208, 3.207, 3.201)
+
 
 def higgs_arrays(rows: int) -> dict:
     """The HIGGS-shaped frame's columns: bench.py's ``_higgs_frame``
@@ -58,10 +66,19 @@ def higgs_arrays(rows: int) -> dict:
 
 
 def hist_inputs(R: int, F: int, n_bins_tot: int, n_nodes: int, dtype,
-                gen: torch.Generator, node=None) -> tuple:
+                gen: torch.Generator, node=None, skew: int = 0) -> tuple:
     """Random histogram inputs on the card: bins in [0, n_bins_tot), nodes
-    in [-1, n_nodes) unless given, g normal, h in [0.1, 1.1), w ones."""
+    in [-1, n_nodes) unless given, g normal, h in [0.1, 1.1), w ones. With
+    ``skew`` each tensor is a contiguous view that starts ``skew`` elements
+    into its buffer, off the kernel's vector alignment."""
     dev = torch.device("cuda")
+
+    def at_skew(t):
+        buf = torch.empty(t.numel() + skew, dtype=t.dtype, device=dev)
+        view = buf[skew:].view(t.shape)
+        view.copy_(t)
+        return view
+
     binned_T = torch.randint(0, n_bins_tot, (F, R), generator=gen,
                              device=dev).to(dtype)
     if node is None:
@@ -70,7 +87,8 @@ def hist_inputs(R: int, F: int, n_bins_tot: int, n_nodes: int, dtype,
     g = torch.randn(R, generator=gen, device=dev)
     h = torch.rand(R, generator=gen, device=dev) + 0.1
     w = torch.ones(R, device=dev)
-    return binned_T, node, g, h, w
+    out = binned_T, node, g, h, w
+    return tuple(map(at_skew, out)) if skew else out
 
 
 def level_nodes(R: int, level: int, gen: torch.Generator) -> tuple:
@@ -125,16 +143,25 @@ def phase_kernel_checks() -> float:
     """Phase 2: kernel against the plain version; returns the max abs err."""
     from h2o3_tpu_torch.ops.hist import level_histograms, level_histograms_plain
     gen = torch.Generator(device="cuda").manual_seed(7)
-    shapes = [  # (R, F, bins incl. NA, N, dtype)
-        (4096, 7, 17, 8, torch.int16),
-        (2048, 3, 257, 128, torch.int16),
-        (1 << 20, 4, 65, 1 << 14, torch.int8),
-        (ROWS, NFEAT, NBINS + 1, 1, torch.int8),
-        (ROWS, NFEAT, NBINS + 1, 16, torch.int8),
+    Bt = NBINS + 1
+    shapes = [  # (R, F, bins incl. NA, N, dtype, what)
+        (4096, 7, 17, 8, torch.int16, ""),
+        (2048, 3, 257, 128, torch.int16, ""),
+        (4099, 5, Bt, 1, torch.int8, "node0"),    # every row in one node
+        (4099, 5, Bt, 4, torch.int8, "skew"),     # views off alignment
+        (4099, 5, Bt, 4, torch.int16, "skew"),
+        (1 << 20, 4, Bt, 1 << 14, torch.int8, ""),
+        (ROWS, NFEAT, Bt, 1, torch.int8, ""),
+        (ROWS + 3, NFEAT, Bt, 1, torch.int8, ""),  # rows not a multiple of 4
+        (ROWS, NFEAT, Bt, 2, torch.int8, ""),
+        (ROWS, NFEAT, Bt, 16, torch.int8, ""),
     ]
     worst = 0.0
-    for R, F, Bt, N, dt in shapes:
-        args = hist_inputs(R, F, Bt, N, dt, gen)
+    for R, F, Bt, N, dt, what in shapes:
+        node = (torch.zeros(R, dtype=torch.int32, device="cuda")
+                if what == "node0" else None)
+        args = hist_inputs(R, F, Bt, N, dt, gen, node=node,
+                           skew=1 if what == "skew" else 0)
         got = level_histograms(*args, N, Bt)
         want = level_histograms_plain(*args, N, Bt)
         torch.cuda.synchronize()
@@ -145,11 +172,11 @@ def phase_kernel_checks() -> float:
         # atomics add in another order than the plain version's index_add_:
         # the only difference is float32 rounding of long sums
         ok = bool((err <= 1e-5 * scale + 1e-5 * want.abs()).all())
-        print(f"hist R={R} F={F} Bt={Bt} N={N} {str(dt)[6:]}: max abs err "
-              f"{max_abs:.3e} max rel err {rel:.3e} max|hist| {scale:.4g} "
-              f"{'ok' if ok else 'FAIL'}")
+        shape = f"R={R} F={F} Bt={Bt} N={N} {str(dt)[6:]} {what}".strip()
+        print(f"hist {shape}: max abs err {max_abs:.3e} max rel err "
+              f"{rel:.3e} max|hist| {scale:.4g} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"kernel disagrees at R={R} F={F} Bt={Bt} N={N}")
+            raise AssertionError(f"kernel disagrees at {shape}")
         worst = max(worst, max_abs)
         del args, got, want, err
     torch.cuda.empty_cache()
@@ -158,8 +185,9 @@ def phase_kernel_checks() -> float:
 
 def phase_kernel_times() -> dict:
     """Phase 5: the kernel at each main-path level's shape."""
-    from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops,
+    from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops, launch_plan,
                                          level_histograms,
+                                         level_histograms_loads_only,
                                          level_histograms_plain)
     gen = torch.Generator(device="cuda").manual_seed(5)
     Bt = NBINS + 1
@@ -172,6 +200,9 @@ def phase_kernel_times() -> dict:
         calls = level_histograms.launches
         ms = cuda_ms(lambda: level_histograms(binned_T, node, g, h, w, N, Bt),
                      reps=20)
+        loads_ms = cuda_ms(lambda: level_histograms_loads_only(
+            binned_T, node, g, h, w, N, Bt), reps=20)
+        plan = launch_plan(binned_T, N, Bt)
         plain_ms = cuda_ms(lambda: level_histograms_plain(
             binned_T, node, g, h, w, N, Bt), reps=3, warmup=1)
         # the yardstick: one index_add_ of the [F*R, 3] stats of the active
@@ -191,12 +222,22 @@ def phase_kernel_times() -> dict:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / F32_FLOPS_PER_S else "operations")
         row = dict(level=level, N=N, active_rows=active, ms=ms,
+                   pr1_ms=PR1_LEVEL_MS[level], loads_only_ms=loads_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops)
-        print(f"hist level {level} N={N} active={active}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms, gbps=nbytes / ms / 1e6,
+                   bytes=nbytes, flops=flops)
+        print(f"hist level {level} N={N} active={active}: kernel {ms:.4f} ms "
+              f"(PR 1 {PR1_LEVEL_MS[level]:.3f} ms), "
+              f"{100 * bound_ms / ms:.1f}% of bound {bound_ms:.4f} ms "
+              f"({bound_by}, {nbytes / 1e6:.1f} MB), "
+              f"{nbytes / ms / 1e6:.1f} GB/s; updates out {loads_ms:.4f} ms; "
+              f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; plan "
+              f"{plan['kernel']} Fb={plan['features_per_group']} "
+              f"groups={plan['groups']} Nb={plan['nodes_per_block']} "
+              f"node_blocks={plan['node_blocks']} copies={plan['copies']} "
+              f"owners={plan['owners']} smem={plan['smem_bytes']} B "
+              f"blocks={plan['blocks']}")
         rows.append(row)
         del node
     torch.cuda.empty_cache()
@@ -262,8 +303,9 @@ def phase_cross_device() -> None:
           f"arrays, {same(('feat', 'thresh_bin', 'na_left', 'is_split'))}/5 "
           f"with identical splits, |dAUC| {d_auc:.2e}, max |dmargin| "
           f"{d_margin:.2e}")
-    if d_auc >= 1e-4 or not torch.allclose(margins["cpu"], margins["cuda"],
-                                           atol=1e-4):
+    if (same(("feat", "thresh_bin", "na_left", "is_split")) != len(pairs)
+            or d_auc >= 1e-4
+            or not torch.allclose(margins["cpu"], margins["cuda"], atol=1e-4)):
         raise AssertionError("card and CPU GBMs disagree")
 
 
@@ -353,8 +395,10 @@ def main() -> int:
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in times)
         else "operations", library_ms=mean("library_ms"),
+        bound_share=mean("bound_ms") / mean("ms"),
         levels=[{k: r[k] for k in ("level", "N", "active_rows", "ms",
-                                   "plain_ms", "library_ms", "bound_ms")}
+                                   "pr1_ms", "loads_only_ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_share")}
                 for r in times])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel]}))

@@ -1,10 +1,10 @@
 // Level histograms of tree growth, in CUDA C++ for Hopper (sm_90a).
 //
-// Replaces the TPU kernel h2o3_tpu/ops/pallas_hist.py (hist_pallas, body
-// _hist_kernel, pallas_call at line 179), which builds the same histograms
-// as a one-hot bf16 contraction on the TPU's matrix unit over 1024-row
-// tiles. None of that form is carried over: this card has fast atomics in
-// shared memory, so the kernel counts rows into a histogram held there.
+// Replaces the TPU kernel h2o3_tpu/ops/pallas_hist.py (hist_pallas at line
+// 150, body _hist_kernel, pallas_call at line 179), which builds the same
+// histograms as a one-hot bf16 contraction on the TPU's matrix unit over
+// 1024-row tiles. None of that form is carried over: the card counts rows
+// into histograms held in shared memory.
 //
 // What it computes, for feature f < F, node n < N and bin b < Bt:
 //
@@ -19,129 +19,661 @@
 // instead drops ids >= its padded stride. The two agree on every bin that
 // binning produces, which lies in [0, nbins]. Negative ids, which binning
 // never produces, are skipped so that they cannot write outside the slab.
-//
-// Design (the gpu_hist form). A block takes one feature, one block of Nb
-// nodes and a chunk of rows. It zeroes a private float32 slab [Nb, Bt, 3]
-// in shared memory, walks its rows with coalesced reads of binned_T[f, r]
-// and node[r], skips rows outside its node block before any atomic, adds
-// (g, h, w) into the slab with shared-memory atomicAdd, and then flushes
-// the slab into `out` with global atomicAdd. Sums are exact float32; the
-// TPU's bf16 precision modes, row tiles and node-block ceiling are gone.
-// Nb comes from the shared-memory budget (the wrapper's _plan); a slab
-// above 48 KB is dynamic shared memory after cudaFuncSetAttribute, so every
-// depth up to 16 (2^14 nodes per call) and 257 bins in int16 are covered.
+// Sums are float32, added in an order that varies from run to run, so their
+// last bits do too.
 //
 // Bound at the main-path shape (R = 11,000,000 rows, F = 28, Bt = 65, int8
 // bins): memory. Each launch must read 11M x 28 B of bins plus 4 B of node
-// and 12 B of g/h/w per row, about 484 MB: 0.145 ms at 3.35 TB/s. Its
+// and 12 B of g/h/w per row, about 484 MB: 0.1445 ms at 3.35 TB/s. Its
 // arithmetic, three float adds per active row and feature (under 1 GFLOP),
-// is far below the card's float32 rate.
-// What the design does about that bound: bins are read once, by byte loads
-// that are coalesced across a warp. node and g/h/w are needed by every
-// feature; the grid puts the feature in x, the fastest-varying block index,
-// so that the F blocks of one row chunk are scheduled together and can find
-// those arrays in L2 (how much they do is not measured).
-// What it leaves for later:
-//  - at level 0 every row sits in one node, so all atomics of a feature land
-//    on 65 x 3 shared addresses and serialise (chip_smoke.py times level 0
-//    beside the levels with half the rows active; PERF.md has the numbers);
-//    per-warp sub-histograms, or a redesign around TMA, are for later PRs;
-//  - bins are loaded one byte per thread; 4- or 16-byte vector loads are for
-//    later;
-//  - float32 atomics add in a different order from run to run, so sums vary
-//    in the last bits between runs. A split whose gain nearly ties another
-//    can then come out differently between this kernel and the plain
-//    version; a deterministic fixed-point mode is for a later PR.
+// is far below the card's float32 rate. What the byte count does not show
+// is the shared memory the adds go through: up to 924M float adds a launch.
+//
+// The first version ran one feature per block and added with shared-memory
+// atomicAdd. On this card a float atomicAdd in shared memory is a
+// compare-and-swap loop (SASS ATOMS.CAST.SPIN): about 2 adds per clock per
+// SM at best, which holds any atomic design above 1.8 ms at level 0. So the
+// main path runs a kernel without atomics:
+//
+// lane_hist_kernel. A block owns a group of up to 32 features and a block of
+// Nb nodes; lane l of every warp owns feature l of the group, for all three
+// stats. A warp's 32 lanes thus never write the same address, and the slab
+// is laid out [stat][node][bin][lane] so that they never share a bank
+// either: each add is a plain shared load, add and store. Warps never share
+// an address because each owns either a copy of the slab (N = 1: 8 copies,
+// each warp taking its own rows) or a class of nodes (n mod owners), or a
+// mix (N = 2: 4 copies x 2 owners); the copies are summed before the flush.
+// A tile of rows is staged in shared memory by the whole block: node, g, h
+// and w read once with 16-byte vector loads of four rows, the group's bins
+// four rows to a word (32-bit for int8, 64-bit for int16). Feature row f
+// starts at element f*R, which is aligned only when R is a multiple of
+// four; otherwise the four bins straddle two aligned words, both of which
+// hold bins of this row, and a funnel shift joins them. Nothing is copied or
+// padded in device memory. The next tile's loads are in flight, in
+// registers, while a tile is counted. Each warp scans its part of the
+// tile's nodes 32 at a time, lists the rows it owns (a ballot and a prefix
+// count), and counts them four at a time: the four rows' slab entries are
+// all loaded before any is stored, a row that hits the bin of an earlier
+// row of the four adds onto that row's sum, and a zero row fills the last
+// four. The grid is persistent: as many blocks as the
+// SMs hold (one each), split over feature groups and node blocks, each
+// walking every row_splits-th tile and flushing its slab once, with global
+// atomics (native float adds in L2), at the end.
+// A lane's slab holds 3 x Nb x Bt floats, so Nb is at most 8 at Bt = 65;
+// N = 16 (level 5) takes two node blocks, each reading every row.
+//
+// atomic_hist_kernel. Where one block holds too few nodes for that (a deep
+// level, or 257 bins), the wrapper's plan degrades to the first design: one
+// block per feature group of Fb (1 at those shapes), a node block from a
+// 96 KB budget, shared-memory atomicAdd, rows four to a thread.
+//
+// What is left for later: a class (K) batch dimension; a deterministic
+// fixed-point mode (integer shared atomics are native and about 4x faster);
+// bulk asynchronous copies (TMA) for the staging, which the registers'
+// prefetch does by hand.
+//
+// Kind 1 of h2o3_level_hist launches lane_hist_kernel with the slab updates
+// compiled out: it stages and scans the same bytes and adds nothing.
+// chip_smoke.py times it beside the real kernel to separate load time from
+// update time; nothing on the path launches it.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// Four bins of one feature as one word.
+template <typename BinT> struct Word;
+template <> struct Word<int8_t> { using T = unsigned int; };
+template <> struct Word<int16_t> { using T = unsigned long long; };
+
+// Bins of rows e..e+3 of the flat [F*R] array, e counted from `wbase`, the
+// aligned word at or below the array's start. Rows come in fours from a
+// multiple of four, so the shift s is the same for a whole feature row.
+// Branch-free, and both loads unconditional (the second re-reads the first
+// word where one word holds all four bins), so that the loads of many calls
+// go out together.
+__device__ __forceinline__ unsigned join(unsigned lo, unsigned hi, int s) {
+  return __funnelshift_r(lo, hi, 8 * s);
+}
+__device__ __forceinline__ unsigned long long join(unsigned long long lo,
+                                                   unsigned long long hi,
+                                                   int s) {
+  return s ? (lo >> (16 * s)) | (hi << (64 - 16 * s)) : lo;
+}
 
 template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
-level_hist_kernel(const BinT* __restrict__ binned_T,
-                  const int32_t* __restrict__ node,
-                  const float* __restrict__ g,
-                  const float* __restrict__ h,
-                  const float* __restrict__ w,
-                  float* __restrict__ out,
-                  long long R, int N, int Bt, int Nb,
-                  long long rows_per_block) {
-  extern __shared__ float slab[];
-  const int f = blockIdx.x;
-  const int n0 = blockIdx.z * Nb;
-  const int nn = (N - n0 < Nb) ? (N - n0) : Nb;
-  const int len = nn * Bt * 3;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) slab[i] = 0.0f;
-  __syncthreads();
+__device__ __forceinline__ typename Word<BinT>::T load_bins4(
+    const typename Word<BinT>::T* __restrict__ wbase, long long e) {
+  using W = typename Word<BinT>::T;
+  const long long q = e >> 2;
+  const int s = static_cast<int>(e & 3);
+  const W lo = __ldg(wbase + q);
+  const W hi = __ldg(wbase + q + (s != 0));
+  return join(lo, hi, s);
+}
 
-  const long long r0 = (long long)blockIdx.y * rows_per_block;
-  const long long r1 = (r0 + rows_per_block < R) ? r0 + rows_per_block : R;
-  const BinT* bins = binned_T + (long long)f * R;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    // node -1 and nodes of other blocks both fail this unsigned test
-    const unsigned n = (unsigned)(node[r] - n0);
-    if (n >= (unsigned)nn) continue;
-    int b = (int)bins[r];
-    if (b < 0) continue;
-    b = (b < Bt) ? b : Bt - 1;
-    float* s = slab + ((int)n * Bt + b) * 3;
-    atomicAdd(s, g[r]);
-    atomicAdd(s + 1, h[r]);
-    atomicAdd(s + 2, w[r]);
+// Bins of feature row `row0` (an element index of binned_T) at rows
+// r..r+3, zero past R: the last rows are read one at a time.
+template <typename BinT>
+__device__ __forceinline__ typename Word<BinT>::T load_bins(
+    const BinT* __restrict__ binned_T,
+    const typename Word<BinT>::T* __restrict__ wbase, long long bin_skew,
+    long long row0, long long r, long long R) {
+  using W = typename Word<BinT>::T;
+  constexpr int kBits = 8 * sizeof(BinT);
+  if (r + 4 <= R) return load_bins4<BinT>(wbase, bin_skew + row0 + r);
+  W v = 0;
+  for (int k = 0; k < 4 && r + k < R; ++k)
+    v |= (static_cast<W>(binned_T[row0 + r + k]) & ((W(1) << kBits) - 1))
+         << (kBits * k);
+  return v;
+}
+
+// node, g, h and w of rows r..r+3: 16-byte loads where all four arrays are
+// aligned for them (kVec) and the four rows exist; node -1 past R.
+struct Quad {
+  int4 n;
+  float4 g, h, w;
+};
+
+template <bool kVec>
+__device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ h,
+                                          const float* __restrict__ w,
+                                          long long r, long long R) {
+  Quad q;
+  if (kVec && r + 4 <= R) {
+    q.n = __ldg(reinterpret_cast<const int4*>(node + r));
+    q.g = __ldg(reinterpret_cast<const float4*>(g + r));
+    q.h = __ldg(reinterpret_cast<const float4*>(h + r));
+    q.w = __ldg(reinterpret_cast<const float4*>(w + r));
+    return q;
   }
-  __syncthreads();
+  int n[4];
+  float gg[4], hh[4], ww[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool in = r + k < R;
+    n[k] = in ? __ldg(node + r + k) : -1;
+    gg[k] = in ? __ldg(g + r + k) : 0.0f;
+    hh[k] = in ? __ldg(h + r + k) : 0.0f;
+    ww[k] = in ? __ldg(w + r + k) : 0.0f;
+  }
+  q.n = make_int4(n[0], n[1], n[2], n[3]);
+  q.g = make_float4(gg[0], gg[1], gg[2], gg[3]);
+  q.h = make_float4(hh[0], hh[1], hh[2], hh[3]);
+  q.w = make_float4(ww[0], ww[1], ww[2], ww[3]);
+  return q;
+}
 
-  float* o = out + ((long long)f * N + n0) * Bt * 3;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const float v = slab[i];
-    if (v != 0.0f) atomicAdd(o + i, v);
+// ---------------------------------------------------------------------------
+// lane_hist_kernel
+
+constexpr int kLaneThreadsMax = 256;   // 8 warps: copies x owners
+// Tile rows per warp: 64 int8 or 32 int16, so that a tile's bins are the
+// same bytes either way (_LANE_ROWS_PER_WARP in hist.py).
+template <typename BinT> __host__ __device__ constexpr int rows_per_warp() {
+  return 64 / static_cast<int>(sizeof(BinT));
+}
+// Bin words one thread stages per tile: 32 features x T/4 quads over 32 x
+// warps threads. Word j of thread t is quad t % (T/4) of feature
+// j * feat_step() + t / (T/4).
+template <typename BinT> __host__ __device__ constexpr int words_per_thread() {
+  return rows_per_warp<BinT>() / 4;
+}
+template <typename BinT> __host__ __device__ constexpr int feat_step() {
+  return 32 / words_per_thread<BinT>();
+}
+
+constexpr int kList = 64;   // a warp's row list: a window and a batch's rest
+// Shared memory of the lane kernel in 32-bit words: the slab copies
+// [copies][3][Nb][Bt][32]; the staged tile's stats [T + 1][4] (g, h, w and
+// the row's node offset; row T is a zero row), node [T], each warp's row
+// list [kList], and bins [Fb][T*sizeof(BinT)/4 + 1] (the odd stride puts
+// each lane's feature row on its own bank; the last word holds row T's bin,
+// 0). hist.py's _lane_smem_bytes mirrors it.
+template <typename BinT>
+long long lane_smem_words(int Nb, int Bt, int Fb, int copies, int warps) {
+  const long long T = static_cast<long long>(rows_per_warp<BinT>()) * warps;
+  const long long stride = T * static_cast<long long>(sizeof(BinT)) / 4 + 1;
+  return static_cast<long long>(copies) * 3 * Nb * Bt * 32 + 4 * (T + 1) + T
+         + kList * warps + Fb * stride;
+}
+
+// The next tile's bytes, held in registers while the current tile is
+// counted: one quad of rows (threads below T/4) and the group's bin words.
+template <typename BinT>
+struct Staged {
+  Quad q;
+  typename Word<BinT>::T b[words_per_thread<BinT>()];
+};
+
+template <typename BinT, bool kVec>
+__device__ __forceinline__ void load_tile(
+    Staged<BinT>& st, const BinT* __restrict__ binned_T,
+    const typename Word<BinT>::T* __restrict__ wbase, long long bin_skew,
+    const int32_t* __restrict__ node, const float* __restrict__ g,
+    const float* __restrict__ h, const float* __restrict__ w, long long R,
+    long long r0, int quads, int f0, int fb) {
+  const int qd = threadIdx.x % quads;
+  const int fl = threadIdx.x / quads;
+  const long long r = r0 + 4 * qd;
+  if (static_cast<int>(threadIdx.x) < quads)
+    st.q = load_quad<kVec>(node, g, h, w, r, R);
+  if (r0 + 4 * quads <= R) {
+    // a whole tile: every load goes out at once, unconditionally (words of
+    // features past the group re-read its last feature and are not stored)
+#pragma unroll
+    for (int j = 0; j < words_per_thread<BinT>(); ++j) {
+      const int f = min(j * feat_step<BinT>() + fl, fb - 1);
+      st.b[j] = load_bins4<BinT>(
+          wbase, bin_skew + static_cast<long long>(f0 + f) * R + r);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < words_per_thread<BinT>(); ++j) {
+      const int f = j * feat_step<BinT>() + fl;
+      st.b[j] = f < fb ? load_bins<BinT>(binned_T, wbase, bin_skew,
+                                         static_cast<long long>(f0 + f) * R,
+                                         r, R)
+                       : 0;
+    }
   }
 }
 
 template <typename BinT>
-cudaError_t launch(const void* binned_T, const void* node, const void* g,
-                   const void* h, const void* w, void* out, long long R,
-                   int F, int N, int Bt, int Nb, int n_chunks,
-                   long long rows_per_block, int smem_bytes,
-                   cudaStream_t stream) {
-  auto kernel = level_hist_kernel<BinT>;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return e;
+__device__ __forceinline__ void store_tile(const Staged<BinT>& st,
+                                           float4* stats_s, int* node_s,
+                                           unsigned* bins_s, int quads,
+                                           int stride, int fb, int n0,
+                                           int Bt) {
+  const int qd = threadIdx.x % quads;
+  const int fl = threadIdx.x / quads;
+  if (static_cast<int>(threadIdx.x) < quads) {
+    const Quad& q = st.q;
+    const int k = 4 * qd;
+    reinterpret_cast<int4*>(node_s)[qd] = q.n;
+    // .w: the row's node offset in a slab copy, (node - n0) * Bt * 32
+    // (meaningless for rows of other blocks, which are never counted)
+    const int m = Bt * 32;
+    stats_s[k] = make_float4(q.g.x, q.h.x, q.w.x,
+                             __int_as_float((q.n.x - n0) * m));
+    stats_s[k + 1] = make_float4(q.g.y, q.h.y, q.w.y,
+                                 __int_as_float((q.n.y - n0) * m));
+    stats_s[k + 2] = make_float4(q.g.z, q.h.z, q.w.z,
+                                 __int_as_float((q.n.z - n0) * m));
+    stats_s[k + 3] = make_float4(q.g.w, q.h.w, q.w.w,
+                                 __int_as_float((q.n.w - n0) * m));
   }
-  const int n_node_blocks = (N + Nb - 1) / Nb;
-  const dim3 grid(F, n_chunks, n_node_blocks);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const BinT*>(binned_T), static_cast<const int32_t*>(node),
-      static_cast<const float*>(g), static_cast<const float*>(h),
-      static_cast<const float*>(w), static_cast<float*>(out), R, N, Bt, Nb,
-      rows_per_block);
+  constexpr int kU32 = sizeof(BinT);   // 32-bit words per bin word
+#pragma unroll
+  for (int j = 0; j < words_per_thread<BinT>(); ++j) {
+    const int f = j * feat_step<BinT>() + fl;
+    if (f < fb) {
+      unsigned* dst = bins_s + f * stride + kU32 * qd;
+      dst[0] = static_cast<unsigned>(st.b[j]);
+      if (kU32 == 2)
+        dst[1] = static_cast<unsigned>(
+            static_cast<unsigned long long>(st.b[j]) >> 32);
+    }
+  }
+}
+
+// Four listed rows into the lane's slab column. A row with a negative bin
+// adds zeros to bin 0. The four rows' entries are all loaded before any is
+// stored; a row that hits the bin of an earlier row of the four adds onto
+// that row's sum, and the stores, in row order, leave the last sum in place.
+// kPad: rows listed as `pad` are the zero row, counted into the node at
+// slab offset pad_off (one the warp owns, so that no other warp writes it).
+template <typename BinT, bool kUpdate, bool kPad>
+__device__ __forceinline__ void count4(float* my, int stat_len,
+                                       const float4* stats_s,
+                                       const unsigned* frow, int4 k4, int Bt,
+                                       int pad, int pad_off, float& sink) {
+  const int k[4] = {k4.x, k4.y, k4.z, k4.w};
+  float v[4][3];
+  int a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 sj = stats_s[k[j]];
+    const int b = static_cast<int>(reinterpret_cast<const BinT*>(frow)[k[j]]);
+    v[j][0] = b >= 0 ? sj.x : 0.0f;
+    v[j][1] = b >= 0 ? sj.y : 0.0f;
+    v[j][2] = b >= 0 ? sj.z : 0.0f;
+    const int off = kPad && k[j] == pad ? pad_off : __float_as_int(sj.w);
+    a[j] = off + min(max(b, 0), Bt - 1) * 32;
+  }
+  if (!kUpdate) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sink += v[j][0] + v[j][1] * v[j][2] + static_cast<float>(a[j] & 0xff);
+    return;
+  }
+  float o[4][3];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int s = 0; s < 3; ++s) o[j][s] = my[s * stat_len + a[j]];
+#pragma unroll
+  for (int j = 1; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < j; ++e)
+      if (a[j] == a[e])
+#pragma unroll
+        for (int s = 0; s < 3; ++s) o[j][s] = o[e][s] + v[e][s];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int s = 0; s < 3; ++s) my[s * stat_len + a[j]] = o[j][s] + v[j][s];
+}
+
+template <typename BinT, bool kVec, bool kUpdate>
+__global__ void __launch_bounds__(kLaneThreadsMax, 1)
+lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
+                 const int32_t* __restrict__ node,
+                 const float* __restrict__ g, const float* __restrict__ h,
+                 const float* __restrict__ w, float* __restrict__ out,
+                 long long R, int F, int N, int Bt, int Fb, int Nb,
+                 int copies, int owners, int row_splits) {
+  using W = typename Word<BinT>::T;
+  extern __shared__ float4 smem4[];
+  const int warps = blockDim.x / 32;
+  const int T = rows_per_warp<BinT>() * warps;
+  const int quads = T / 4;
+  const int stride = T * static_cast<int>(sizeof(BinT)) / 4 + 1;
+
+  // block -> (feature group, node block, row split), feature group fastest
+  // so that the groups of one tile are scheduled together
+  const int groups = (F + Fb - 1) / Fb;
+  const int node_blocks = (N + Nb - 1) / Nb;
+  int bid = blockIdx.x;
+  const int f0 = (bid % groups) * Fb;
+  bid /= groups;
+  const int fb = min(Fb, F - f0);
+  const int n0 = (bid % node_blocks) * Nb;
+  const int nn = min(Nb, N - n0);
+  const int split = bid / node_blocks;
+
+  const int stat_len = Nb * Bt * 32;   // floats of one stat of one copy
+  const int copy_len = 3 * stat_len;
+  float* slab = reinterpret_cast<float*>(smem4);
+  float4* stats_s = reinterpret_cast<float4*>(slab + copies * copy_len);
+  int* node_s = reinterpret_cast<int*>(stats_s + T + 1);
+  int* lists = node_s + T;
+  unsigned* bins_s = reinterpret_cast<unsigned*>(lists + kList * warps);
+  for (int i = threadIdx.x; i < copies * copy_len; i += blockDim.x)
+    slab[i] = 0.0f;
+  // the zero row T: no stats, and bin 0 in every feature row
+  if (threadIdx.x == 0) stats_s[T] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int f = threadIdx.x; f < Fb; f += blockDim.x)
+    bins_s[f * stride + stride - 1] = 0u;
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = warp / owners;            // slab copy and part of the tile
+  const int p = warp % owners;            // class of nodes owned
+  float* my = slab + c * copy_len + lane;
+  // lanes past the group count feature 0's bins into their own slab
+  // column, which is never flushed
+  const unsigned* frow = bins_s + (lane < fb ? lane : 0) * stride;
+  int* list = lists + kList * warp;
+  const int part = T / copies;            // rows of the tile per copy
+  float sink = 0.0f;
+
+  const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
+  const long long tiles = (R + T - 1) / T;
+  Staged<BinT> st;
+  if (split < tiles)
+    load_tile<BinT, kVec>(st, binned_T, wbase, bin_skew, node, g, h, w, R,
+                          static_cast<long long>(split) * T, quads, f0, fb);
+  for (long long t = split; t < tiles; t += row_splits) {
+    __syncthreads();   // the last tile is counted (and the slab zeroed)
+    store_tile<BinT>(st, stats_s, node_s, bins_s, quads, stride, fb, n0,
+                     Bt);
+    __syncthreads();
+    if (t + row_splits < tiles)   // in flight while this tile is counted
+      load_tile<BinT, kVec>(st, binned_T, wbase, bin_skew, node, g, h, w, R,
+                            (t + row_splits) * T, quads, f0, fb);
+    // the copy's rows, 32 at a time: each warp lists the rows it owns,
+    // counts them four at a time, and carries the rest to the next window
+    int listed = 0;
+    for (int k0 = c * part; k0 < (c + 1) * part; k0 += 32) {
+      const unsigned ln = static_cast<unsigned>(node_s[k0 + lane] - n0);
+      const bool own = ln < static_cast<unsigned>(nn)
+                       && static_cast<int>(ln & (owners - 1)) == p;
+      const unsigned mask = __ballot_sync(0xffffffffu, own);
+      if (own) list[listed + __popc(mask & ((1u << lane) - 1))] = k0 + lane;
+      listed += __popc(mask);
+      __syncwarp();
+      const int full = listed & ~3;
+      for (int i = 0; i < full; i += 4)
+        count4<BinT, kUpdate, false>(
+            my, stat_len, stats_s, frow,
+            *reinterpret_cast<const int4*>(list + i), Bt, 0, 0, sink);
+      const int rest = listed - full;
+      const int r = lane < rest ? list[full + lane] : 0;
+      __syncwarp();
+      if (lane < rest) list[lane] = r;
+      listed = rest;
+      __syncwarp();
+    }
+    if (listed) {   // the last rows, with the zero row after them
+      if (lane >= listed && lane < 4) list[lane] = T;
+      __syncwarp();
+      count4<BinT, kUpdate, true>(
+          my, stat_len, stats_s, frow, *reinterpret_cast<const int4*>(list),
+          Bt, T, p * Bt * 32, sink);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // sum the copies and flush: slab index (stat, node, bin, lane) ->
+  // out[f0 + lane, (n0 + node)*Bt + bin, stat]
+  for (int i = threadIdx.x; i < copy_len; i += blockDim.x) {
+    float v = slab[i];
+    for (int cc = 1; cc < copies; ++cc) v += slab[cc * copy_len + i];
+    const int l = i % 32;
+    if (v != 0.0f && l < fb) {
+      const int nb = i / 32;          // (stat * Nb + node) * Bt + bin
+      const int b = nb % Bt;
+      const int sn = nb / Bt;
+      const int s = sn / Nb, n = sn % Nb;
+      atomicAdd(out + ((static_cast<long long>(f0 + l) * N + n0 + n) * Bt
+                       + b) * 3 + s, v);
+    }
+  }
+  // keeps the loads-only instance's loads alive; never true for real data
+  if (!kUpdate && sink == 1.0e38f) out[0] = sink;
+}
+
+// ---------------------------------------------------------------------------
+// atomic_hist_kernel
+
+constexpr int kThreads = 256;
+constexpr int kTileRows = kThreads * 4;   // _ATOMIC_TILE_ROWS in hist.py
+
+template <typename BinT, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+atomic_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
+                   const int32_t* __restrict__ node,
+                   const float* __restrict__ g, const float* __restrict__ h,
+                   const float* __restrict__ w, float* __restrict__ out,
+                   long long R, int F, int N, int Bt, int Fb, int Nb,
+                   int row_splits) {
+  using W = typename Word<BinT>::T;
+  constexpr int kBits = 8 * sizeof(BinT);
+  extern __shared__ float slab[];
+  const int groups = (F + Fb - 1) / Fb;
+  const int node_blocks = (N + Nb - 1) / Nb;
+  int bid = blockIdx.x;
+  const int f0 = (bid % groups) * Fb;
+  bid /= groups;
+  const int fb = min(Fb, F - f0);
+  const int n0 = (bid % node_blocks) * Nb;
+  const int nn = min(Nb, N - n0);
+  const int split = bid / node_blocks;
+
+  const int node_len = Bt * 3;
+  const int feat_len = nn * node_len;
+  const int len = fb * feat_len;
+  for (int i = threadIdx.x; i < len; i += kThreads) slab[i] = 0.0f;
+  __syncthreads();
+
+  const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
+  const long long tiles = (R + kTileRows - 1) / kTileRows;
+  for (long long t = split; t < tiles; t += row_splits) {
+    const long long r = t * kTileRows + 4 * threadIdx.x;
+    const Quad q = load_quad<kVec>(node, g, h, w, r, R);
+    const int nd[4] = {q.n.x, q.n.y, q.n.z, q.n.w};
+    const float v[3][4] = {{q.g.x, q.g.y, q.g.z, q.g.w},
+                           {q.h.x, q.h.y, q.h.z, q.h.w},
+                           {q.w.x, q.w.y, q.w.z, q.w.w}};
+    int off[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // node -1 and nodes of other blocks both fail this unsigned test
+      const unsigned n = static_cast<unsigned>(nd[k] - n0);
+      off[k] = n < static_cast<unsigned>(nn) ? static_cast<int>(n) * node_len
+                                             : -1;
+    }
+    for (int j = 0; j < fb; ++j) {
+      const W word = load_bins<BinT>(binned_T, wbase, bin_skew,
+                                     static_cast<long long>(f0 + j) * R, r,
+                                     R);
+      float* fslab = slab + j * feat_len;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int b = static_cast<int>(static_cast<BinT>(word >> (kBits * k)));
+        if (off[k] < 0 || b < 0) continue;
+        b = b < Bt ? b : Bt - 1;
+        float* s = fslab + off[k] + b * 3;
+        atomicAdd(s, v[0][k]);
+        atomicAdd(s + 1, v[1][k]);
+        atomicAdd(s + 2, v[2][k]);
+      }
+    }
+  }
+  __syncthreads();
+
+  float* o = out + (static_cast<long long>(f0) * N + n0) * node_len;
+  const long long out_feat = static_cast<long long>(N) * node_len;
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const float v = slab[i];
+    if (v != 0.0f) {
+      const int j = i / feat_len;
+      atomicAdd(o + j * out_feat + (i - j * feat_len), v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+struct Args {
+  const void* binned_T;
+  const void* node;
+  const void* g;
+  const void* h;
+  const void* w;
+  void* out;
+  long long R;
+  int F, N, Bt, Fb, Nb, copies, owners, row_splits, smem_bytes;
+  cudaStream_t stream;
+};
+
+template <typename K>
+cudaError_t prepare(K kernel, int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
+bool vec_aligned(const Args& a) {
+  return ((reinterpret_cast<uintptr_t>(a.node)
+           | reinterpret_cast<uintptr_t>(a.g)
+           | reinterpret_cast<uintptr_t>(a.h)
+           | reinterpret_cast<uintptr_t>(a.w)) & 15) == 0;
+}
+
+template <typename BinT>
+long long skew_of(const void* binned_T) {
+  return static_cast<long long>(
+      (reinterpret_cast<uintptr_t>(binned_T) % sizeof(typename Word<BinT>::T))
+      / sizeof(BinT));
+}
+
+long long grid_of(const Args& a) {
+  return static_cast<long long>((a.F + a.Fb - 1) / a.Fb)
+         * ((a.N + a.Nb - 1) / a.Nb) * a.row_splits;
+}
+
+template <typename BinT, bool kUpdate>
+cudaError_t launch_lanes(const Args& a) {
+  const long long blocks = grid_of(a);
+  const int warps = a.copies * a.owners;
+  if (blocks < 1 || blocks > INT_MAX || a.Fb > 32 || warps < 1
+      || warps * 32 > kLaneThreadsMax
+      || 4 * lane_smem_words<BinT>(a.Nb, a.Bt, a.Fb, a.copies, warps)
+             != a.smem_bytes)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = vec_aligned(a) ? lane_hist_kernel<BinT, true, kUpdate>
+                               : lane_hist_kernel<BinT, false, kUpdate>;
+  cudaError_t e = prepare(kernel, a.smem_bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, a.smem_bytes,
+           a.stream>>>(
+      static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
+      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.h), static_cast<const float*>(a.w),
+      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.Nb, a.copies,
+      a.owners, a.row_splits);
   return cudaGetLastError();
+}
+
+template <typename BinT>
+cudaError_t launch_atomic(const Args& a) {
+  const long long blocks = grid_of(a);
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  auto kernel = vec_aligned(a) ? atomic_hist_kernel<BinT, true>
+                               : atomic_hist_kernel<BinT, false>;
+  cudaError_t e = prepare(kernel, a.smem_bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, a.smem_bytes,
+           a.stream>>>(
+      static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
+      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.h), static_cast<const float*>(a.w),
+      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.Nb,
+      a.row_splits);
+  return cudaGetLastError();
+}
+
+// kind 0: lanes, 1: lanes with the updates compiled out, 2: atomic
+int dispatch(int kind, int bin_bytes, const Args& a) {
+  if (bin_bytes == 1) {
+    if (kind == 0) return launch_lanes<int8_t, true>(a);
+    if (kind == 1) return launch_lanes<int8_t, false>(a);
+    if (kind == 2) return launch_atomic<int8_t>(a);
+  }
+  if (bin_bytes == 2) {
+    if (kind == 0) return launch_lanes<int16_t, true>(a);
+    if (kind == 1) return launch_lanes<int16_t, false>(a);
+    if (kind == 2) return launch_atomic<int16_t>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem_bytes);
 }
 
 }  // namespace
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
-// The Python wrapper (h2o3_tpu_torch/ops/hist.py) has checked every
-// argument and planned Nb, n_chunks, rows_per_block and smem_bytes.
-extern "C" int h2o3_level_hist(const void* binned_T, int bin_bytes,
+// Launches a histogram kernel on `stream`; returns the cudaError_t of the
+// launch. kind 0 is lane_hist_kernel, 1 the same with its updates compiled
+// out (a measurement instance), 2 atomic_hist_kernel. The Python wrapper
+// (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb,
+// Nb, copies, owners (lanes only), row_splits and smem_bytes.
+extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,
-                               long long R, int F, int N, int Bt, int Nb,
-                               int n_chunks, long long rows_per_block,
-                               int smem_bytes, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bin_bytes == 1)
-    return launch<int8_t>(binned_T, node, g, h, w, out, R, F, N, Bt, Nb,
-                          n_chunks, rows_per_block, smem_bytes, s);
-  if (bin_bytes == 2)
-    return launch<int16_t>(binned_T, node, g, h, w, out, R, F, N, Bt, Nb,
-                           n_chunks, rows_per_block, smem_bytes, s);
+                               long long R, int F, int N, int Bt, int Fb,
+                               int Nb, int copies, int owners,
+                               int row_splits, int smem_bytes,
+                               void* stream) {
+  const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, Nb, copies,
+               owners, row_splits, smem_bytes,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(kind, bin_bytes, a);
+}
+
+// Blocks of kernel `kind` (0 or 2) one SM holds with `threads` threads and
+// `smem_bytes` of dynamic shared memory, into *blocks; returns the
+// cudaError_t of the query.
+extern "C" int h2o3_level_hist_blocks_per_sm(int kind, int bin_bytes,
+                                             int threads, int smem_bytes,
+                                             int* blocks) {
+  if (kind == 0 && bin_bytes == 1)
+    return occupancy(lane_hist_kernel<int8_t, true, true>, threads,
+                     smem_bytes, blocks);
+  if (kind == 0 && bin_bytes == 2)
+    return occupancy(lane_hist_kernel<int16_t, true, true>, threads,
+                     smem_bytes, blocks);
+  if (kind == 2 && bin_bytes == 1)
+    return occupancy(atomic_hist_kernel<int8_t, true>, threads, smem_bytes,
+                     blocks);
+  if (kind == 2 && bin_bytes == 2)
+    return occupancy(atomic_hist_kernel<int16_t, true>, threads, smem_bytes,
+                     blocks);
   return cudaErrorInvalidValue;
 }
 

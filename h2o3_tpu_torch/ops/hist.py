@@ -8,27 +8,51 @@ For every feature f, node n < N and bin b < Bt::
 Rows at node -1 add nothing. :func:`level_histograms_plain` is the plain
 PyTorch version (the same function as the JAX reference's
 ``models/tree.py:_level_histograms``); :func:`level_histograms` launches the
-hand-written CUDA kernel ``csrc/hist.cu`` on CUDA tensors and takes the plain
-version only for tensors on the CPU. ``level_histograms.launches`` counts
-kernel launches.
+hand-written CUDA kernels of ``csrc/hist.cu`` on CUDA tensors (the lane
+kernel, without atomics, where a block holds the level's slab; the atomic
+kernel where it does not) and takes the plain version only for tensors on
+the CPU. ``level_histograms.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-#: shared memory one block may hold for its slab: two such blocks fit on an
-#: SM (228 KB), and a slab above 48 KB is opted in by the C entry point
-_SMEM_BUDGET = 96 * 1024
 #: largest dynamic shared memory of one block on Hopper
 _SMEM_MAX = 227 * 1024
-#: blocks to aim for per launch: 16 per SM of the H100's 132
-_TARGET_BLOCKS = 132 * 16
-#: fewest rows per block, so that zeroing and flushing a slab stay small
-#: beside counting rows into it
-_MIN_ROWS_PER_BLOCK = 4096
-#: CUDA's limit on grid dimensions y and z
-_GRID_YZ_MAX = 65535
+#: shared memory of one SM, and what CUDA reserves of it for each block
+_SMEM_PER_SM = 228 * 1024
+_SMEM_PER_BLOCK_RESERVED = 1024
+#: SMs of the H100 SXM, for plans made without a card
+_SMS = 132
+#: fewest row tiles per block, so that zeroing and flushing a slab stay
+#: small beside counting rows into it
+_MIN_TILES_PER_BLOCK = 2
+#: CUDA's limit on grid dimension x (the kernels' grids are one-dimensional)
+_GRID_X_MAX = 2 ** 31 - 1
+
+# lane_hist_kernel (kind 0; kind 1 is its loads-only instance)
+#: most warps of a block, and most lanes (features) of a feature group
+_LANE_WARPS = 8
+_LANE_FEATURES = 32
+#: tile rows per warp for int8 bins; int16 takes half (rows_per_warp)
+_LANE_ROWS_PER_WARP = 64
+#: most node blocks the lane kernel is planned for: each reads every row
+_LANE_MAX_NODE_BLOCKS = 4
+
+# atomic_hist_kernel (kind 2)
+#: shared memory one block may hold for its slab: two such blocks fit on an
+#: SM
+_SMEM_BUDGET = 96 * 1024
+#: threads per block, and the rows one tile of them covers (kThreads and
+#: kTileRows)
+_ATOMIC_THREADS = 256
+_ATOMIC_TILE_ROWS = 1024
+
+_KIND = {"lanes": 0, "lanes_loads_only": 1, "atomic": 2}
 
 
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
@@ -51,24 +75,105 @@ def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
     return out
 
 
-def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int) -> dict:
-    """Launch shape: nodes per block (from the shared-memory budget), node
-    blocks, row chunks and rows per block, and the slab's bytes."""
-    per_node = n_bins_tot * 3 * 4
-    if per_node > _SMEM_MAX:
-        raise ValueError(f"{n_bins_tot} bins per node need {per_node} bytes "
+def _lane_smem_bytes(Nb: int, Bt: int, Fb: int, copies: int, warps: int,
+                     bin_bytes: int) -> int:
+    """Shared memory of lane_hist_kernel (lane_smem_words in hist.cu): the
+    slab copies [copies, 3, Nb, Bt, 32] float32, the staged tile's stats
+    [T + 1, 4] (row T is a zero row) and node [T], each warp's row list of
+    64, and the tile's bins [Fb, T*bin_bytes/4 + 1] words."""
+    T = _LANE_ROWS_PER_WARP // bin_bytes * warps
+    return 4 * (copies * 3 * Nb * Bt * 32 + 4 * (T + 1) + T + 64 * warps
+                + Fb * (T * bin_bytes // 4 + 1))
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (x.bit_length() - 1)
+
+
+def _lane_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
+    """lane_hist_kernel's shape, or None where one block holds too few
+    nodes for it: feature groups of at most 32 (one per lane), Nb nodes
+    per block (what shared memory holds beside a full tile), owners (node
+    classes, one warp each) and slab copies (one set of owners each), with
+    copies x owners warps."""
+    groups = -(-F // _LANE_FEATURES)
+    fb = -(-F // groups)
+    per_node = 3 * n_bins_tot * 32 * 4
+    avail = _SMEM_MAX - _lane_smem_bytes(0, n_bins_tot, fb, 0, _LANE_WARPS,
+                                         bin_bytes)
+    nb = min(n_nodes, avail // per_node)
+    if nb < 1 or -(-n_nodes // nb) > _LANE_MAX_NODE_BLOCKS:
+        return None
+    owners = _pow2_floor(min(nb, _LANE_WARPS))
+    copies = _pow2_floor(min(_LANE_WARPS // owners, avail // (nb * per_node)))
+    warps = copies * owners
+    return dict(kernel="lanes", features_per_group=fb, groups=groups,
+                nodes_per_block=nb, node_blocks=-(-n_nodes // nb),
+                copies=copies, owners=owners, warps=warps,
+                slab_bytes=nb * per_node,
+                smem_bytes=_lane_smem_bytes(nb, n_bins_tot, fb, copies,
+                                            warps, bin_bytes),
+                tile_rows=_LANE_ROWS_PER_WARP // bin_bytes * warps)
+
+
+def _atomic_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
+    """atomic_hist_kernel's shape: Fb features per group and Nb nodes per
+    block, chosen so that the slab [Fb, Nb, Bt, 3] float32 fits the budget
+    and the bytes read per row, node blocks x (F bins + feature groups x
+    16 B of node/g/h/w), are fewest (then the fewest groups)."""
+    per = n_bins_tot * 3 * 4            # one feature of one node
+    if per > _SMEM_MAX:
+        raise ValueError(f"{n_bins_tot} bins per node need {per} bytes "
                          f"of shared memory; a block has {_SMEM_MAX}")
-    nb = min(n_nodes, max(1, _SMEM_BUDGET // per_node))
-    n_node_blocks = -(-n_nodes // nb)
-    if n_node_blocks > _GRID_YZ_MAX:
-        raise ValueError(f"{n_nodes} nodes need {n_node_blocks} node blocks; "
-                         f"the grid allows {_GRID_YZ_MAX}")
-    want = max(1, -(-_TARGET_BLOCKS // (F * n_node_blocks)))
-    rows = max(-(-R // want), _MIN_ROWS_PER_BLOCK, nb * n_bins_tot * 3)
-    rows = max(rows, -(-R // _GRID_YZ_MAX))
-    return dict(nodes_per_block=nb, node_blocks=n_node_blocks,
-                chunks=max(1, -(-R // rows)), rows_per_block=rows,
-                smem_bytes=nb * per_node)
+    best = None
+    for groups in range(1, F + 1):
+        fb = -(-F // groups)            # groups of equal size, within one
+        nb = min(n_nodes, _SMEM_BUDGET // (fb * per))
+        if nb == 0 or -(-F // fb) != groups:
+            continue
+        node_blocks = -(-n_nodes // nb)
+        key = (node_blocks * (F * bin_bytes + groups * 16), groups)
+        if best is None or key < best[0]:
+            best = key, fb, groups, nb, node_blocks
+    if best is None:     # one node's bins exceed the budget, not the block
+        best = None, 1, F, 1, n_nodes
+    _, fb, groups, nb, node_blocks = best
+    return dict(kernel="atomic", features_per_group=fb, groups=groups,
+                nodes_per_block=nb, node_blocks=node_blocks, copies=1,
+                owners=1, warps=_ATOMIC_THREADS // 32,
+                slab_bytes=fb * nb * per, smem_bytes=fb * nb * per,
+                tile_rows=_ATOMIC_TILE_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int,
+                 bin_bytes: int = 1) -> dict:
+    """The kernel and its block shape: the lane kernel wherever its plan
+    exists, else the atomic kernel."""
+    return (_lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
+            or _atomic_plan(F, n_nodes, n_bins_tot, bin_bytes))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
+          sms: int = _SMS, blocks_per_sm: int | None = None) -> dict:
+    """Launch shape: :func:`_kernel_plan`'s fields, plus the row tiles and
+    the persistent grid: about as many blocks as ``sms`` SMs hold at
+    ``blocks_per_sm`` (the card's occupancy; without it, what shared memory
+    and threads allow), split over feature groups and node blocks, each
+    block walking every ``row_splits``-th tile."""
+    p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes)
+    if blocks_per_sm is None:
+        blocks_per_sm = min(64 // p["warps"], _SMEM_PER_SM
+                            // (p["smem_bytes"] + _SMEM_PER_BLOCK_RESERVED))
+    combos = p["groups"] * p["node_blocks"]
+    tiles = -(-R // p["tile_rows"])
+    splits = max(1, min(-(-sms * max(1, blocks_per_sm) // combos),
+                        tiles // _MIN_TILES_PER_BLOCK))
+    if combos * splits > _GRID_X_MAX:
+        raise ValueError(f"{combos} feature groups x node blocks exceed the "
+                         f"grid's {_GRID_X_MAX} blocks")
+    return dict(p, tiles=tiles, row_splits=splits, blocks=combos * splits)
 
 
 def _check(binned_T, node, g, h, w, n_nodes, n_bins_tot) -> None:
@@ -97,19 +202,44 @@ def _check(binned_T, node, g, h, w, n_nodes, n_bins_tot) -> None:
                          "must be positive")
 
 
-def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
-                     g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
-                     n_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """[F, n_nodes*n_bins_tot, 3] level histograms.
+@functools.lru_cache(maxsize=64)
+def _blocks_per_sm(device_index: int, kind: int, bin_bytes: int,
+                   threads: int, smem_bytes: int) -> int:
+    """Blocks of kernel ``kind`` one SM of the card holds, from CUDA's
+    occupancy calculator."""
+    from h2o3_tpu_torch.ops import _build
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().h2o3_level_hist_blocks_per_sm(
+            kind, bin_bytes, threads, smem_bytes, ctypes.byref(blocks))
+    _build.check(err, "level histogram occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the histogram kernel does not fit an SM at "
+                           f"{smem_bytes} bytes of shared memory")
+    return blocks.value
 
-    ``binned_T`` [F, R] int8/int16, ``node`` [R] int32 (-1 = inactive),
-    ``g``/``h``/``w`` [R] float32, all contiguous on one device. On a CUDA
-    device this launches ``csrc/hist.cu`` (or raises); on the CPU it is
-    :func:`level_histograms_plain`."""
+
+def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int) -> dict:
+    """The plan :func:`level_histograms` launches with for these CUDA
+    inputs: :func:`_plan` at the card's SM count and occupancy."""
+    F, R = binned_T.shape
+    bb = binned_T.element_size()
+    dev = binned_T.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    k = _kernel_plan(F, n_nodes, n_bins_tot, bb)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
+                 _blocks_per_sm(dev, _KIND[k["kernel"]], bb, 32 * k["warps"],
+                                k["smem_bytes"]))
+
+
+def _launch(loads_only: bool, binned_T, node, g, h, w, n_nodes: int,
+            n_bins_tot: int) -> torch.Tensor:
+    """Check the inputs, plan, and launch the planned kernel (or the lane
+    kernel's loads-only instance) on CUDA tensors; returns the
+    zero-initialised output it added into."""
     _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
-    if binned_T.device.type == "cpu":
-        return level_histograms_plain(binned_T, node, g, h, w, n_nodes,
-                                      n_bins_tot)
     if binned_T.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {binned_T.device}")
     F, R = binned_T.shape
@@ -119,20 +249,57 @@ def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
         return out
     from h2o3_tpu_torch.ops import _build
     lib = _build.library()
-    p = _plan(R, F, n_nodes, n_bins_tot)
+    p = launch_plan(binned_T, n_nodes, n_bins_tot)
+    kind = _KIND[p["kernel"]]
+    if loads_only:
+        if p["kernel"] != "lanes":
+            raise ValueError("the loads-only instance exists for the lane "
+                             "kernel only")
+        kind = _KIND["lanes_loads_only"]
     with torch.cuda.device(binned_T.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.h2o3_level_hist(
-            binned_T.data_ptr(), binned_T.element_size(), node.data_ptr(),
-            g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(), R, F,
-            n_nodes, n_bins_tot, p["nodes_per_block"], p["chunks"],
-            p["rows_per_block"], p["smem_bytes"], stream)
-    _build.check(err, "level histogram kernel launch")
-    level_histograms.launches += 1
+            kind, binned_T.data_ptr(), binned_T.element_size(),
+            node.data_ptr(), g.data_ptr(), h.data_ptr(), w.data_ptr(),
+            out.data_ptr(), R, F, n_nodes, n_bins_tot,
+            p["features_per_group"], p["nodes_per_block"], p["copies"],
+            p["owners"], p["row_splits"], p["smem_bytes"], stream)
+    _build.check(err, f"level histogram ({p['kernel']}) launch")
+    return out
+
+
+def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
+                     g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                     n_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """[F, n_nodes*n_bins_tot, 3] level histograms.
+
+    ``binned_T`` [F, R] int8/int16, ``node`` [R] int32 (-1 = inactive),
+    ``g``/``h``/``w`` [R] float32, all contiguous on one device. On a CUDA
+    device this launches ``csrc/hist.cu`` (or raises); on the CPU it is
+    :func:`level_histograms_plain`."""
+    if binned_T.device.type == "cpu":
+        _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
+        return level_histograms_plain(binned_T, node, g, h, w, n_nodes,
+                                      n_bins_tot)
+    out = _launch(False, binned_T, node, g, h, w, n_nodes, n_bins_tot)
+    if binned_T.shape[1]:
+        level_histograms.launches += 1
     return out
 
 
 level_histograms.launches = 0
+
+
+def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
+                                g: torch.Tensor, h: torch.Tensor,
+                                w: torch.Tensor, n_nodes: int,
+                                n_bins_tot: int) -> torch.Tensor:
+    """The lane kernel of :func:`level_histograms` with its slab updates
+    compiled out, on the same plan: it stages and decodes the same bytes and
+    returns zeros. A measurement instance (chip_smoke.py times it to
+    separate load time from update time); nothing on the training path
+    calls it, and it adds nothing to ``level_histograms.launches``."""
+    return _launch(True, binned_T, node, g, h, w, n_nodes, n_bins_tot)
 
 
 def hist_bytes(R: int, F: int, n_nodes: int, n_bins_tot: int,

@@ -135,18 +135,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
     (4096, 7, 8, 17), (2048, 3, 128, 257), (1 << 20, 4, 1 << 14, 65),
     (11_000_000, 28, 1, 65), (11_000_000, 28, 16, 65),
     (100_000, 28, 1 << 14, 257),
+    (11_000_000, 28, 2, 65), (11_000_000, 28, 8, 65), (200_000, 28, 16, 65),
+    (4099, 5, 1, 65),
 ])
 def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
     """Every depth up to 16 (2^14 nodes) and 257 bins plan within the grid
-    and shared-memory limits, and the chunks cover every row."""
+    and shared-memory limits: feature groups cover every feature once, node
+    blocks every node, row tiles every row, and slab copies fit the
+    budget."""
     p = hist._plan(R, F, N, Bt)
-    assert p["nodes_per_block"] * p["node_blocks"] >= N
-    assert (p["node_blocks"] - 1) * p["nodes_per_block"] < N
-    assert p["smem_bytes"] == p["nodes_per_block"] * Bt * 12
-    assert p["smem_bytes"] <= hist._SMEM_BUDGET or p["nodes_per_block"] == 1
-    assert p["chunks"] * p["rows_per_block"] >= R
-    assert (p["chunks"] - 1) * p["rows_per_block"] < R
-    assert max(p["chunks"], p["node_blocks"]) <= hist._GRID_YZ_MAX
+    fb, nb = p["features_per_group"], p["nodes_per_block"]
+    # each feature in exactly one group, each node in exactly one block
+    assert p["groups"] * fb >= F and (p["groups"] - 1) * fb < F
+    assert p["node_blocks"] * nb >= N and (p["node_blocks"] - 1) * nb < N
+    assert p["tiles"] * p["tile_rows"] >= R
+    assert (p["tiles"] - 1) * p["tile_rows"] < R
+    assert 1 <= p["row_splits"] <= p["tiles"]   # no split without a tile
+    if p["kernel"] == "lanes":
+        # a lane per feature, a slab of [3, Nb, Bt, 32 lanes] per copy, and
+        # copies x owners warps, each owner a class of the block's nodes
+        assert fb <= 32 and p["slab_bytes"] == nb * Bt * 3 * 32 * 4
+        assert p["copies"] * p["owners"] == p["warps"] <= 8
+        assert p["owners"] <= nb
+        assert p["copies"] * p["slab_bytes"] < p["smem_bytes"]
+        assert p["tile_rows"] == 64 * p["warps"]
+    else:
+        assert p["slab_bytes"] == fb * nb * Bt * 12
+        assert p["smem_bytes"] == p["slab_bytes"]
+        assert p["smem_bytes"] <= hist._SMEM_BUDGET or fb == nb == 1
+    assert p["copies"] in (1, 2, 4, 8)
+    assert p["smem_bytes"] <= hist._SMEM_MAX
+    assert p["blocks"] == p["groups"] * p["node_blocks"] * p["row_splits"]
+    assert p["blocks"] <= hist._GRID_X_MAX
+
+
+@pytest.mark.parametrize("N,node_blocks,copies,owners", [
+    (1, 1, 8, 1), (2, 1, 4, 2), (4, 1, 2, 4), (8, 1, 1, 8), (16, 2, 1, 8),
+])
+def test_launch_plan_of_the_main_path_levels(N, node_blocks, copies, owners):
+    """At 11M x 28 int8 rows and 65 bins every level runs the lane kernel
+    with all 28 features in one group: slab copies where nodes are few,
+    node owners where they are many, two node blocks at N = 16, and one
+    block per SM of the H100's 132."""
+    p = hist._plan(11_000_000, 28, N, 65)
+    assert p["kernel"] == "lanes" and p["groups"] == 1
+    assert (p["node_blocks"], p["copies"], p["owners"]) == \
+        (node_blocks, copies, owners)
+    assert p["blocks"] == hist._SMS
+
+
+@pytest.mark.parametrize("R,F,N,Bt", [
+    (1 << 20, 4, 1 << 14, 65), (2048, 3, 128, 257),
+])
+def test_launch_plan_degrades_to_the_atomic_kernel(R, F, N, Bt):
+    """Where a block holds too few nodes for the lane kernel (2^14 nodes,
+    or 257 bins at 128 nodes), the plan takes the atomic kernel."""
+    assert hist._plan(R, F, N, Bt, 2 if Bt > 126 else 1)["kernel"] == "atomic"
 
 
 def test_launch_plan_refuses_a_slab_beyond_shared_memory():
@@ -161,13 +205,27 @@ def test_bound_counts_each_input_once():
     assert hist.hist_flops(1000, 28) == 3 * 1000 * 28
 
 
+def test_loads_only_instance_needs_the_card():
+    data = _data(7, 64, 3, 16, 2)
+    t = lambda a: torch.from_numpy(a)
+    with pytest.raises(ValueError):
+        hist.level_histograms_loads_only(
+            t(np.ascontiguousarray(data[0].T)), *map(t, data[1:]), 2, 17)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,F,B,N,dtype", [
-    (4096, 7, 16, 8, np.int16), (2048, 3, 256, 128, np.int16),
-    (1 << 18, 4, 64, 1 << 14, np.int8),
+@pytest.mark.parametrize("R,F,B,N,dtype,node0", [
+    (4096, 7, 16, 8, np.int16, False), (2048, 3, 256, 128, np.int16, False),
+    (1 << 18, 4, 64, 1 << 14, np.int8, False),
+    (4099, 5, 64, 4, np.int8, False),        # rows not a multiple of 4
+    (4099, 5, 64, 1, np.int8, True),         # one node: the slab copies
+    (1 << 16, 28, 64, 16, np.int8, False),   # four feature groups
+    (2048, 3, 256, 128, np.int16, True),
 ])
-def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype):
+def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype, node0):
     data = _data(6, R, F, B, N, dtype=dtype)
+    if node0:
+        data[1][:] = 0
     before = hist.level_histograms.launches
     got = _port(hist.level_histograms, *data, N, B + 1, device=cuda_device)
     assert hist.level_histograms.launches == before + 1
