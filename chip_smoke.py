@@ -18,11 +18,12 @@ Phases, each of which fails the run on error:
    up and once timed, then scored — the kernel must launch exactly 120
    times in the timed training — and once more under torch.profiler for
    the device's busy share and its costliest kernels;
-5. the kernel timed at each level's shape of the main path, beside PR 1's
-   time, its plain version, one ``index_add_`` call computing the same
-   function, its memory bound, and the same kernel with its slab updates
-   compiled out (its load and scan time), with the launch plan of each
-   level.
+5. the kernel timed at each level's shape of the main path, beside the
+   first kernel's time (from PERF.md), its plain version, one
+   ``index_add_`` call computing the same function, its memory bound, and
+   two measurement instances of the same kernel: with its slab updates
+   compiled out (staging, listing and decoding) and with only its tile
+   staging, with the launch plan of each level.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -47,9 +48,10 @@ F32_FLOPS_PER_S = 67e12
 # the main path: bench.py's bench_gbm configuration
 ROWS, NFEAT, NTREES, DEPTH, NBINS = 11_000_000, 28, 20, 6, 64
 
-#: the first kernel's ms per launch at levels 0-5 of the main path (PR 1;
-#: PERF.md section 6, NVIDIA H100 80GB HBM3 at 700.00 W), for comparison
-PR1_LEVEL_MS = (3.570, 3.223, 3.221, 3.208, 3.207, 3.201)
+#: the first kernel's ms per launch at levels 0-5 of the main path (one
+#: feature per block, shared atomics; PERF.md section 6, NVIDIA H100 80GB
+#: HBM3 at 700.00 W), for comparison
+FIRST_KERNEL_MS = (3.570, 3.223, 3.221, 3.208, 3.207, 3.201)
 
 
 def higgs_arrays(rows: int) -> dict:
@@ -202,6 +204,8 @@ def phase_kernel_times() -> dict:
                      reps=20)
         loads_ms = cuda_ms(lambda: level_histograms_loads_only(
             binned_T, node, g, h, w, N, Bt), reps=20)
+        staging_ms = cuda_ms(lambda: level_histograms_loads_only(
+            binned_T, node, g, h, w, N, Bt, scan=False), reps=20)
         plan = launch_plan(binned_T, N, Bt)
         plain_ms = cuda_ms(lambda: level_histograms_plain(
             binned_T, node, g, h, w, N, Bt), reps=3, warmup=1)
@@ -222,16 +226,17 @@ def phase_kernel_times() -> dict:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / F32_FLOPS_PER_S else "operations")
         row = dict(level=level, N=N, active_rows=active, ms=ms,
-                   pr1_ms=PR1_LEVEL_MS[level], loads_only_ms=loads_ms,
+                   loads_only_ms=loads_ms, staging_only_ms=staging_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms, gbps=nbytes / ms / 1e6,
                    bytes=nbytes, flops=flops)
         print(f"hist level {level} N={N} active={active}: kernel {ms:.4f} ms "
-              f"(PR 1 {PR1_LEVEL_MS[level]:.3f} ms), "
+              f"(first kernel {FIRST_KERNEL_MS[level]:.3f} ms), "
               f"{100 * bound_ms / ms:.1f}% of bound {bound_ms:.4f} ms "
               f"({bound_by}, {nbytes / 1e6:.1f} MB), "
-              f"{nbytes / ms / 1e6:.1f} GB/s; updates out {loads_ms:.4f} ms; "
+              f"{nbytes / ms / 1e6:.1f} GB/s; updates out {loads_ms:.4f} ms, "
+              f"staging only {staging_ms:.4f} ms; "
               f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; plan "
               f"{plan['kernel']} Fb={plan['features_per_group']} "
               f"groups={plan['groups']} Nb={plan['nodes_per_block']} "
@@ -397,8 +402,9 @@ def main() -> int:
         else "operations", library_ms=mean("library_ms"),
         bound_share=mean("bound_ms") / mean("ms"),
         levels=[{k: r[k] for k in ("level", "N", "active_rows", "ms",
-                                   "pr1_ms", "loads_only_ms", "plain_ms",
-                                   "library_ms", "bound_ms", "bound_share")}
+                                   "loads_only_ms", "staging_only_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_share")}
                 for r in times])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernel]}))

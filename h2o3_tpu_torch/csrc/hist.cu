@@ -62,20 +62,28 @@
 // A lane's slab holds 3 x Nb x Bt floats, so Nb is at most 8 at Bt = 65;
 // N = 16 (level 5) takes two node blocks, each reading every row.
 //
-// atomic_hist_kernel. Where one block holds too few nodes for that (a deep
-// level, or 257 bins), the wrapper's plan degrades to the first design: one
-// block per feature group of Fb (1 at those shapes), a node block from a
-// 96 KB budget, shared-memory atomicAdd, rows four to a thread.
+// atomic_hist_kernel. Where the lane kernel was measured the slower (many
+// node blocks, each reading every row, or blocks of fewer than 8 warps, as
+// at 129 and 257 bins; hist.py's _LANE_MAX_NODE_BLOCKS), the wrapper's plan
+// takes the first design: one block per feature, a node block from a 96 KB
+// budget, one row per thread per tile, and shared-memory atomicAdd.
 //
 // What is left for later: a class (K) batch dimension; a deterministic
 // fixed-point mode (integer shared atomics are native and about 4x faster);
-// bulk asynchronous copies (TMA) for the staging, which the registers'
-// prefetch does by hand.
+// a ring of bulk asynchronous copies (cp.async.bulk) for the staging. Such
+// a ring stages 512-row tiles faster than the registers' prefetch, but not
+// 256-row tiles (bench/tile_staging.cu), and only 256-row stages fit: the
+// slab takes 199,680 of the block's 232,448 bytes at every main-path level.
+// Bulk copies also land each array linearly at 16-byte aligned addresses,
+// which gives up the stats' float4 per row and the odd bin-row stride that
+// keep the counting loop, which holds the kernel, at one conflict-free
+// shared load per row and feature.
 //
-// Kind 1 of h2o3_level_hist launches lane_hist_kernel with the slab updates
-// compiled out: it stages and scans the same bytes and adds nothing.
-// chip_smoke.py times it beside the real kernel to separate load time from
-// update time; nothing on the path launches it.
+// Kinds 1 and 2 of h2o3_level_hist launch lane_hist_kernel with the slab
+// updates compiled out (it stages, lists and decodes the same rows and adds
+// nothing) and with only the tile staging left. chip_smoke.py times them
+// beside the real kernel to split its time into staging, listing and
+// decoding, and updates; nothing on the path launches them.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -173,6 +181,10 @@ __device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
 // lane_hist_kernel
 
 constexpr int kLaneThreadsMax = 256;   // 8 warps: copies x owners
+// Modes of the lane kernel: count rows into the slab; the same with the
+// slab updates compiled out (stages, lists and decodes the same rows); only
+// stage the tiles. The last two are measurement instances.
+enum { kCount, kUpdatesOut, kStagingOnly };
 // Tile rows per warp: 64 int8 or 32 int16, so that a tile's bins are the
 // same bytes either way (_LANE_ROWS_PER_WARP in hist.py).
 template <typename BinT> __host__ __device__ constexpr int rows_per_warp() {
@@ -330,7 +342,7 @@ __device__ __forceinline__ void count4(float* my, int stat_len,
     for (int s = 0; s < 3; ++s) my[s * stat_len + a[j]] = o[j][s] + v[j][s];
 }
 
-template <typename BinT, bool kVec, bool kUpdate>
+template <typename BinT, bool kVec, int kMode>
 __global__ void __launch_bounds__(kLaneThreadsMax, 1)
 lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                  const int32_t* __restrict__ node,
@@ -397,6 +409,7 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
     if (t + row_splits < tiles)   // in flight while this tile is counted
       load_tile<BinT, kVec>(st, binned_T, wbase, bin_skew, node, g, h, w, R,
                             (t + row_splits) * T, quads, f0, fb);
+    if (kMode == kStagingOnly) continue;
     // the copy's rows, 32 at a time: each warp lists the rows it owns,
     // counts them four at a time, and carries the rest to the next window
     int listed = 0;
@@ -410,7 +423,7 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
       __syncwarp();
       const int full = listed & ~3;
       for (int i = 0; i < full; i += 4)
-        count4<BinT, kUpdate, false>(
+        count4<BinT, kMode == kCount, false>(
             my, stat_len, stats_s, frow,
             *reinterpret_cast<const int4*>(list + i), Bt, 0, 0, sink);
       const int rest = listed - full;
@@ -423,7 +436,7 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
     if (listed) {   // the last rows, with the zero row after them
       if (lane >= listed && lane < 4) list[lane] = T;
       __syncwarp();
-      count4<BinT, kUpdate, true>(
+      count4<BinT, kMode == kCount, true>(
           my, stat_len, stats_s, frow, *reinterpret_cast<const int4*>(list),
           Bt, T, p * Bt * 32, sink);
       __syncwarp();
@@ -447,86 +460,57 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
     }
   }
   // keeps the loads-only instance's loads alive; never true for real data
-  if (!kUpdate && sink == 1.0e38f) out[0] = sink;
+  if (kMode == kUpdatesOut && sink == 1.0e38f) out[0] = sink;
 }
 
 // ---------------------------------------------------------------------------
-// atomic_hist_kernel
+// atomic_hist_kernel: the first kernel, on the persistent grid. A block owns
+// one feature and a block of Nb nodes; each thread adds its rows (one row
+// of every tile of kThreads rows) with shared-memory atomicAdd.
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = kThreads * 4;   // _ATOMIC_TILE_ROWS in hist.py
+constexpr int kThreads = 256;   // also the rows of a tile (_ATOMIC_THREADS)
 
-template <typename BinT, bool kVec>
+template <typename BinT>
 __global__ void __launch_bounds__(kThreads)
-atomic_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
+atomic_hist_kernel(const BinT* __restrict__ binned_T,
                    const int32_t* __restrict__ node,
                    const float* __restrict__ g, const float* __restrict__ h,
                    const float* __restrict__ w, float* __restrict__ out,
-                   long long R, int F, int N, int Bt, int Fb, int Nb,
+                   long long R, int F, int N, int Bt, int Nb,
                    int row_splits) {
-  using W = typename Word<BinT>::T;
-  constexpr int kBits = 8 * sizeof(BinT);
   extern __shared__ float slab[];
-  const int groups = (F + Fb - 1) / Fb;
+  // block -> (feature, node block, row split), feature fastest
   const int node_blocks = (N + Nb - 1) / Nb;
-  int bid = blockIdx.x;
-  const int f0 = (bid % groups) * Fb;
-  bid /= groups;
-  const int fb = min(Fb, F - f0);
+  const int f = blockIdx.x % F;
+  const int bid = blockIdx.x / F;
   const int n0 = (bid % node_blocks) * Nb;
   const int nn = min(Nb, N - n0);
   const int split = bid / node_blocks;
-
-  const int node_len = Bt * 3;
-  const int feat_len = nn * node_len;
-  const int len = fb * feat_len;
+  const int len = nn * Bt * 3;
   for (int i = threadIdx.x; i < len; i += kThreads) slab[i] = 0.0f;
   __syncthreads();
 
-  const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
-  const long long tiles = (R + kTileRows - 1) / kTileRows;
-  for (long long t = split; t < tiles; t += row_splits) {
-    const long long r = t * kTileRows + 4 * threadIdx.x;
-    const Quad q = load_quad<kVec>(node, g, h, w, r, R);
-    const int nd[4] = {q.n.x, q.n.y, q.n.z, q.n.w};
-    const float v[3][4] = {{q.g.x, q.g.y, q.g.z, q.g.w},
-                           {q.h.x, q.h.y, q.h.z, q.h.w},
-                           {q.w.x, q.w.y, q.w.z, q.w.w}};
-    int off[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // node -1 and nodes of other blocks both fail this unsigned test
-      const unsigned n = static_cast<unsigned>(nd[k] - n0);
-      off[k] = n < static_cast<unsigned>(nn) ? static_cast<int>(n) * node_len
-                                             : -1;
-    }
-    for (int j = 0; j < fb; ++j) {
-      const W word = load_bins<BinT>(binned_T, wbase, bin_skew,
-                                     static_cast<long long>(f0 + j) * R, r,
-                                     R);
-      float* fslab = slab + j * feat_len;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int b = static_cast<int>(static_cast<BinT>(word >> (kBits * k)));
-        if (off[k] < 0 || b < 0) continue;
-        b = b < Bt ? b : Bt - 1;
-        float* s = fslab + off[k] + b * 3;
-        atomicAdd(s, v[0][k]);
-        atomicAdd(s + 1, v[1][k]);
-        atomicAdd(s + 2, v[2][k]);
-      }
-    }
+  const BinT* bins = binned_T + static_cast<long long>(f) * R;
+  const long long step = static_cast<long long>(row_splits) * kThreads;
+  for (long long r = static_cast<long long>(split) * kThreads + threadIdx.x;
+       r < R; r += step) {
+    // node -1 and nodes of other blocks both fail this unsigned test
+    const unsigned n = static_cast<unsigned>(node[r] - n0);
+    if (n >= static_cast<unsigned>(nn)) continue;
+    int b = static_cast<int>(bins[r]);
+    if (b < 0) continue;
+    b = min(b, Bt - 1);
+    float* s = slab + (static_cast<int>(n) * Bt + b) * 3;
+    atomicAdd(s, g[r]);
+    atomicAdd(s + 1, h[r]);
+    atomicAdd(s + 2, w[r]);
   }
   __syncthreads();
 
-  float* o = out + (static_cast<long long>(f0) * N + n0) * node_len;
-  const long long out_feat = static_cast<long long>(N) * node_len;
+  float* o = out + (static_cast<long long>(f) * N + n0) * Bt * 3;
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const float v = slab[i];
-    if (v != 0.0f) {
-      const int j = i / feat_len;
-      atomicAdd(o + j * out_feat + (i - j * feat_len), v);
-    }
+    if (v != 0.0f) atomicAdd(o + i, v);
   }
 }
 
@@ -571,7 +555,7 @@ long long grid_of(const Args& a) {
          * ((a.N + a.Nb - 1) / a.Nb) * a.row_splits;
 }
 
-template <typename BinT, bool kUpdate>
+template <typename BinT, int kMode>
 cudaError_t launch_lanes(const Args& a) {
   const long long blocks = grid_of(a);
   const int warps = a.copies * a.owners;
@@ -580,8 +564,8 @@ cudaError_t launch_lanes(const Args& a) {
       || 4 * lane_smem_words<BinT>(a.Nb, a.Bt, a.Fb, a.copies, warps)
              != a.smem_bytes)
     return cudaErrorInvalidConfiguration;
-  auto kernel = vec_aligned(a) ? lane_hist_kernel<BinT, true, kUpdate>
-                               : lane_hist_kernel<BinT, false, kUpdate>;
+  auto kernel = vec_aligned(a) ? lane_hist_kernel<BinT, true, kMode>
+                               : lane_hist_kernel<BinT, false, kMode>;
   cudaError_t e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
   kernel<<<static_cast<unsigned>(blocks), warps * 32, a.smem_bytes,
@@ -597,32 +581,34 @@ cudaError_t launch_lanes(const Args& a) {
 template <typename BinT>
 cudaError_t launch_atomic(const Args& a) {
   const long long blocks = grid_of(a);
-  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  auto kernel = vec_aligned(a) ? atomic_hist_kernel<BinT, true>
-                               : atomic_hist_kernel<BinT, false>;
+  if (blocks < 1 || blocks > INT_MAX || a.Fb != 1)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = atomic_hist_kernel<BinT>;
   cudaError_t e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
   kernel<<<static_cast<unsigned>(blocks), kThreads, a.smem_bytes,
            a.stream>>>(
-      static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
+      static_cast<const BinT*>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.Nb,
-      a.row_splits);
+      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Nb, a.row_splits);
   return cudaGetLastError();
 }
 
-// kind 0: lanes, 1: lanes with the updates compiled out, 2: atomic
+// kinds 0-2: lane_hist_kernel in mode kCount, kUpdatesOut, kStagingOnly;
+// 3: atomic_hist_kernel
 int dispatch(int kind, int bin_bytes, const Args& a) {
   if (bin_bytes == 1) {
-    if (kind == 0) return launch_lanes<int8_t, true>(a);
-    if (kind == 1) return launch_lanes<int8_t, false>(a);
-    if (kind == 2) return launch_atomic<int8_t>(a);
+    if (kind == 0) return launch_lanes<int8_t, kCount>(a);
+    if (kind == 1) return launch_lanes<int8_t, kUpdatesOut>(a);
+    if (kind == 2) return launch_lanes<int8_t, kStagingOnly>(a);
+    if (kind == 3) return launch_atomic<int8_t>(a);
   }
   if (bin_bytes == 2) {
-    if (kind == 0) return launch_lanes<int16_t, true>(a);
-    if (kind == 1) return launch_lanes<int16_t, false>(a);
-    if (kind == 2) return launch_atomic<int16_t>(a);
+    if (kind == 0) return launch_lanes<int16_t, kCount>(a);
+    if (kind == 1) return launch_lanes<int16_t, kUpdatesOut>(a);
+    if (kind == 2) return launch_lanes<int16_t, kStagingOnly>(a);
+    if (kind == 3) return launch_atomic<int16_t>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -639,10 +625,11 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 }  // namespace
 
 // Launches a histogram kernel on `stream`; returns the cudaError_t of the
-// launch. kind 0 is lane_hist_kernel, 1 the same with its updates compiled
-// out (a measurement instance), 2 atomic_hist_kernel. The Python wrapper
-// (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb,
-// Nb, copies, owners (lanes only), row_splits and smem_bytes.
+// launch. kind 0 is lane_hist_kernel, 1 and 2 its measurement instances
+// (updates out, staging only), 3 atomic_hist_kernel. The Python wrapper
+// (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb
+// (1 for the atomic kernel), Nb, copies, owners (lanes only), row_splits
+// and smem_bytes.
 extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,
@@ -656,23 +643,23 @@ extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
   return dispatch(kind, bin_bytes, a);
 }
 
-// Blocks of kernel `kind` (0 or 2) one SM holds with `threads` threads and
+// Blocks of kernel `kind` (0 or 3) one SM holds with `threads` threads and
 // `smem_bytes` of dynamic shared memory, into *blocks; returns the
 // cudaError_t of the query.
 extern "C" int h2o3_level_hist_blocks_per_sm(int kind, int bin_bytes,
                                              int threads, int smem_bytes,
                                              int* blocks) {
   if (kind == 0 && bin_bytes == 1)
-    return occupancy(lane_hist_kernel<int8_t, true, true>, threads,
+    return occupancy(lane_hist_kernel<int8_t, true, kCount>, threads,
                      smem_bytes, blocks);
   if (kind == 0 && bin_bytes == 2)
-    return occupancy(lane_hist_kernel<int16_t, true, true>, threads,
+    return occupancy(lane_hist_kernel<int16_t, true, kCount>, threads,
                      smem_bytes, blocks);
-  if (kind == 2 && bin_bytes == 1)
-    return occupancy(atomic_hist_kernel<int8_t, true>, threads, smem_bytes,
+  if (kind == 3 && bin_bytes == 1)
+    return occupancy(atomic_hist_kernel<int8_t>, threads, smem_bytes,
                      blocks);
-  if (kind == 2 && bin_bytes == 2)
-    return occupancy(atomic_hist_kernel<int16_t, true>, threads, smem_bytes,
+  if (kind == 3 && bin_bytes == 2)
+    return occupancy(atomic_hist_kernel<int16_t>, threads, smem_bytes,
                      blocks);
   return cudaErrorInvalidValue;
 }

@@ -9,9 +9,9 @@ Rows at node -1 add nothing. :func:`level_histograms_plain` is the plain
 PyTorch version (the same function as the JAX reference's
 ``models/tree.py:_level_histograms``); :func:`level_histograms` launches the
 hand-written CUDA kernels of ``csrc/hist.cu`` on CUDA tensors (the lane
-kernel, without atomics, where a block holds the level's slab; the atomic
-kernel where it does not) and takes the plain version only for tensors on
-the CPU. ``level_histograms.launches`` counts kernel launches.
+kernel, without atomics, at the shapes where it was measured the faster; the
+atomic kernel elsewhere) and takes the plain version only for tensors on the
+CPU. ``level_histograms.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,36 +23,34 @@ import torch
 
 #: largest dynamic shared memory of one block on Hopper
 _SMEM_MAX = 227 * 1024
-#: shared memory of one SM, and what CUDA reserves of it for each block
-_SMEM_PER_SM = 228 * 1024
-_SMEM_PER_BLOCK_RESERVED = 1024
-#: SMs of the H100 SXM, for plans made without a card
-_SMS = 132
 #: fewest row tiles per block, so that zeroing and flushing a slab stay
 #: small beside counting rows into it
 _MIN_TILES_PER_BLOCK = 2
 #: CUDA's limit on grid dimension x (the kernels' grids are one-dimensional)
 _GRID_X_MAX = 2 ** 31 - 1
 
-# lane_hist_kernel (kind 0; kind 1 is its loads-only instance)
+# lane_hist_kernel: kinds 0-2 of h2o3_level_hist are its modes (the kernel,
+# then its updates-out and staging-only measurement instances)
+_COUNT, _UPDATES_OUT, _STAGING_ONLY = 0, 1, 2
 #: most warps of a block, and most lanes (features) of a feature group
 _LANE_WARPS = 8
 _LANE_FEATURES = 32
 #: tile rows per warp for int8 bins; int16 takes half (rows_per_warp)
 _LANE_ROWS_PER_WARP = 64
-#: most node blocks the lane kernel is planned for: each reads every row
-_LANE_MAX_NODE_BLOCKS = 4
+#: most node blocks (each of which reads every row) at which the lane kernel
+#: beat the atomic kernel, by warps per block, at 11M rows x 28 features
+#: (bench/hist_crossover.py on the H100): with 8 warps up to 64 (not 128),
+#: with 4 one (not 2), with 2 or 1 none. Elsewhere the atomic kernel is
+#: planned.
+_LANE_MAX_NODE_BLOCKS = {8: 64, 4: 1}
 
-# atomic_hist_kernel (kind 2)
+# atomic_hist_kernel: kind 3
+_ATOMIC = 3
 #: shared memory one block may hold for its slab: two such blocks fit on an
 #: SM
 _SMEM_BUDGET = 96 * 1024
-#: threads per block, and the rows one tile of them covers (kThreads and
-#: kTileRows)
+#: threads per block, which are also the rows of one tile (kThreads)
 _ATOMIC_THREADS = 256
-_ATOMIC_TILE_ROWS = 1024
-
-_KIND = {"lanes": 0, "lanes_loads_only": 1, "atomic": 2}
 
 
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
@@ -91,18 +89,18 @@ def _pow2_floor(x: int) -> int:
 
 
 def _lane_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
-    """lane_hist_kernel's shape, or None where one block holds too few
-    nodes for it: feature groups of at most 32 (one per lane), Nb nodes
-    per block (what shared memory holds beside a full tile), owners (node
-    classes, one warp each) and slab copies (one set of owners each), with
-    copies x owners warps."""
+    """lane_hist_kernel's shape, or None where a block cannot hold one
+    node's slab beside a tile: feature groups of at most 32 (one per lane),
+    Nb nodes per block (what shared memory holds beside a full tile), owners
+    (node classes, one warp each) and slab copies (one set of owners each),
+    with copies x owners warps."""
     groups = -(-F // _LANE_FEATURES)
     fb = -(-F // groups)
     per_node = 3 * n_bins_tot * 32 * 4
     avail = _SMEM_MAX - _lane_smem_bytes(0, n_bins_tot, fb, 0, _LANE_WARPS,
                                          bin_bytes)
     nb = min(n_nodes, avail // per_node)
-    if nb < 1 or -(-n_nodes // nb) > _LANE_MAX_NODE_BLOCKS:
+    if nb < 1:
         return None
     owners = _pow2_floor(min(nb, _LANE_WARPS))
     copies = _pow2_floor(min(_LANE_WARPS // owners, avail // (nb * per_node)))
@@ -116,59 +114,51 @@ def _lane_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
                 tile_rows=_LANE_ROWS_PER_WARP // bin_bytes * warps)
 
 
-def _atomic_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
-    """atomic_hist_kernel's shape: Fb features per group and Nb nodes per
-    block, chosen so that the slab [Fb, Nb, Bt, 3] float32 fits the budget
-    and the bytes read per row, node blocks x (F bins + feature groups x
-    16 B of node/g/h/w), are fewest (then the fewest groups)."""
-    per = n_bins_tot * 3 * 4            # one feature of one node
+def _atomic_plan(F: int, n_nodes: int, n_bins_tot: int):
+    """atomic_hist_kernel's shape: one feature per block and as many nodes
+    as the slab [Nb, Bt, 3] float32 fits in the budget (at least one)."""
+    per = n_bins_tot * 3 * 4            # one node's bins
     if per > _SMEM_MAX:
         raise ValueError(f"{n_bins_tot} bins per node need {per} bytes "
                          f"of shared memory; a block has {_SMEM_MAX}")
-    best = None
-    for groups in range(1, F + 1):
-        fb = -(-F // groups)            # groups of equal size, within one
-        nb = min(n_nodes, _SMEM_BUDGET // (fb * per))
-        if nb == 0 or -(-F // fb) != groups:
-            continue
-        node_blocks = -(-n_nodes // nb)
-        key = (node_blocks * (F * bin_bytes + groups * 16), groups)
-        if best is None or key < best[0]:
-            best = key, fb, groups, nb, node_blocks
-    if best is None:     # one node's bins exceed the budget, not the block
-        best = None, 1, F, 1, n_nodes
-    _, fb, groups, nb, node_blocks = best
-    return dict(kernel="atomic", features_per_group=fb, groups=groups,
-                nodes_per_block=nb, node_blocks=node_blocks, copies=1,
-                owners=1, warps=_ATOMIC_THREADS // 32,
-                slab_bytes=fb * nb * per, smem_bytes=fb * nb * per,
-                tile_rows=_ATOMIC_TILE_ROWS)
+    nb = min(n_nodes, max(1, _SMEM_BUDGET // per))
+    return dict(kernel="atomic", features_per_group=1, groups=F,
+                nodes_per_block=nb, node_blocks=-(-n_nodes // nb), copies=1,
+                owners=1, warps=_ATOMIC_THREADS // 32, slab_bytes=nb * per,
+                smem_bytes=nb * per, tile_rows=_ATOMIC_THREADS)
 
 
 @functools.lru_cache(maxsize=256)
-def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int,
-                 bin_bytes: int = 1) -> dict:
-    """The kernel and its block shape: the lane kernel wherever its plan
-    exists, else the atomic kernel."""
-    return (_lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
-            or _atomic_plan(F, n_nodes, n_bins_tot, bin_bytes))
+def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
+                 kernel: str | None = None) -> dict:
+    """The kernel and its block shape: ``kernel`` ("lanes" or "atomic")
+    where given, else the lane kernel wherever it was measured the faster
+    (``_LANE_MAX_NODE_BLOCKS``), else the atomic kernel."""
+    if kernel != "atomic":
+        lanes = _lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
+        if kernel == "lanes" and lanes is None:
+            raise ValueError(f"the lane kernel holds no node of "
+                             f"{n_bins_tot} bins")
+        if kernel == "lanes" or (lanes and lanes["node_blocks"]
+                                 <= _LANE_MAX_NODE_BLOCKS.get(lanes["warps"],
+                                                              0)):
+            return lanes
+    return _atomic_plan(F, n_nodes, n_bins_tot)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
-          sms: int = _SMS, blocks_per_sm: int | None = None) -> dict:
+def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
+          sms: int, blocks_per_sm: int, kernel: str | None = None) -> dict:
     """Launch shape: :func:`_kernel_plan`'s fields, plus the row tiles and
-    the persistent grid: about as many blocks as ``sms`` SMs hold at
-    ``blocks_per_sm`` (the card's occupancy; without it, what shared memory
-    and threads allow), split over feature groups and node blocks, each
-    block walking every ``row_splits``-th tile."""
-    p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes)
-    if blocks_per_sm is None:
-        blocks_per_sm = min(64 // p["warps"], _SMEM_PER_SM
-                            // (p["smem_bytes"] + _SMEM_PER_BLOCK_RESERVED))
+    the persistent grid: about ``sms`` x ``blocks_per_sm`` blocks (the
+    card's SMs and the kernel's occupancy at this shape), split over
+    feature groups and node blocks, each block walking every
+    ``row_splits``-th tile."""
+    p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel)
     combos = p["groups"] * p["node_blocks"]
     tiles = -(-R // p["tile_rows"])
-    splits = max(1, min(-(-sms * max(1, blocks_per_sm) // combos),
+    # at most one wave: a block more than the SMs hold would double the time
+    splits = max(1, min(sms * blocks_per_sm // combos,
                         tiles // _MIN_TILES_PER_BLOCK))
     if combos * splits > _GRID_X_MAX:
         raise ValueError(f"{combos} feature groups x node blocks exceed the "
@@ -219,26 +209,31 @@ def _blocks_per_sm(device_index: int, kind: int, bin_bytes: int,
     return blocks.value
 
 
-def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int) -> dict:
+def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
+                kernel: str | None = None) -> dict:
     """The plan :func:`level_histograms` launches with for these CUDA
-    inputs: :func:`_plan` at the card's SM count and occupancy."""
+    inputs (or, with ``kernel``, the plan of that kernel): :func:`_plan` at
+    the card's SM count and the kernel's occupancy."""
     F, R = binned_T.shape
     bb = binned_T.element_size()
     dev = binned_T.device.index
     if dev is None:
         dev = torch.cuda.current_device()
-    k = _kernel_plan(F, n_nodes, n_bins_tot, bb)
+    k = _kernel_plan(F, n_nodes, n_bins_tot, bb, kernel)
+    kind = _ATOMIC if k["kernel"] == "atomic" else _COUNT
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
-                 _blocks_per_sm(dev, _KIND[k["kernel"]], bb, 32 * k["warps"],
-                                k["smem_bytes"]))
+                 _blocks_per_sm(dev, kind, bb, 32 * k["warps"],
+                                k["smem_bytes"]), kernel)
 
 
-def _launch(loads_only: bool, binned_T, node, g, h, w, n_nodes: int,
-            n_bins_tot: int) -> torch.Tensor:
-    """Check the inputs, plan, and launch the planned kernel (or the lane
-    kernel's loads-only instance) on CUDA tensors; returns the
-    zero-initialised output it added into."""
+def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
+            kernel: str | None = None, mode: int = _COUNT) -> torch.Tensor:
+    """Check the inputs, plan, and launch on CUDA tensors the planned kernel
+    (or ``kernel``, "lanes" or "atomic"), or the lane kernel in a
+    measurement ``mode``; returns the zero-initialised output it added
+    into. Each launch of a kernel in its counting mode adds one to
+    ``level_histograms.launches``."""
     _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
     if binned_T.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {binned_T.device}")
@@ -249,13 +244,9 @@ def _launch(loads_only: bool, binned_T, node, g, h, w, n_nodes: int,
         return out
     from h2o3_tpu_torch.ops import _build
     lib = _build.library()
-    p = launch_plan(binned_T, n_nodes, n_bins_tot)
-    kind = _KIND[p["kernel"]]
-    if loads_only:
-        if p["kernel"] != "lanes":
-            raise ValueError("the loads-only instance exists for the lane "
-                             "kernel only")
-        kind = _KIND["lanes_loads_only"]
+    p = launch_plan(binned_T, n_nodes, n_bins_tot,
+                    "lanes" if mode != _COUNT else kernel)
+    kind = _ATOMIC if p["kernel"] == "atomic" else mode
     with torch.cuda.device(binned_T.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.h2o3_level_hist(
@@ -265,6 +256,8 @@ def _launch(loads_only: bool, binned_T, node, g, h, w, n_nodes: int,
             p["features_per_group"], p["nodes_per_block"], p["copies"],
             p["owners"], p["row_splits"], p["smem_bytes"], stream)
     _build.check(err, f"level histogram ({p['kernel']}) launch")
+    if mode == _COUNT:
+        level_histograms.launches += 1
     return out
 
 
@@ -281,10 +274,7 @@ def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
         _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
         return level_histograms_plain(binned_T, node, g, h, w, n_nodes,
                                       n_bins_tot)
-    out = _launch(False, binned_T, node, g, h, w, n_nodes, n_bins_tot)
-    if binned_T.shape[1]:
-        level_histograms.launches += 1
-    return out
+    return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot)
 
 
 level_histograms.launches = 0
@@ -293,13 +283,16 @@ level_histograms.launches = 0
 def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
                                 g: torch.Tensor, h: torch.Tensor,
                                 w: torch.Tensor, n_nodes: int,
-                                n_bins_tot: int) -> torch.Tensor:
+                                n_bins_tot: int,
+                                scan: bool = True) -> torch.Tensor:
     """The lane kernel of :func:`level_histograms` with its slab updates
-    compiled out, on the same plan: it stages and decodes the same bytes and
-    returns zeros. A measurement instance (chip_smoke.py times it to
-    separate load time from update time); nothing on the training path
-    calls it, and it adds nothing to ``level_histograms.launches``."""
-    return _launch(True, binned_T, node, g, h, w, n_nodes, n_bins_tot)
+    compiled out, on the lane plan: it stages, lists and decodes the same
+    rows and returns zeros; with ``scan=False`` it only stages the tiles.
+    Measurement instances (chip_smoke.py times them to split load, scan and
+    update time); nothing on the training path calls them, and they add
+    nothing to ``level_histograms.launches``."""
+    return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot,
+                   mode=_UPDATES_OUT if scan else _STAGING_ONLY)
 
 
 def hist_bytes(R: int, F: int, n_nodes: int, n_bins_tot: int,

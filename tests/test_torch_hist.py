@@ -58,6 +58,12 @@ def _port(fn, binned, node, g, h, w, N, Bt, device="cpu"):
     return out.cpu().numpy()
 
 
+def _plan(R, F, N, Bt, bin_bytes=1, kernel=None):
+    """The launch plan on the H100's 132 SMs at one block per SM (on the
+    card, CUDA's occupancy query gives the blocks per SM)."""
+    return hist._plan(R, F, N, Bt, bin_bytes, 132, 1, kernel)
+
+
 def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
@@ -143,7 +149,7 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
     and shared-memory limits: feature groups cover every feature once, node
     blocks every node, row tiles every row, and slab copies fit the
     budget."""
-    p = hist._plan(R, F, N, Bt)
+    p = _plan(R, F, N, Bt)
     fb, nb = p["features_per_group"], p["nodes_per_block"]
     # each feature in exactly one group, each node in exactly one block
     assert p["groups"] * fb >= F and (p["groups"] - 1) * fb < F
@@ -160,9 +166,10 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
         assert p["copies"] * p["slab_bytes"] < p["smem_bytes"]
         assert p["tile_rows"] == 64 * p["warps"]
     else:
-        assert p["slab_bytes"] == fb * nb * Bt * 12
+        # one feature per block, a node block from the budget
+        assert fb == 1 and p["slab_bytes"] == nb * Bt * 12
         assert p["smem_bytes"] == p["slab_bytes"]
-        assert p["smem_bytes"] <= hist._SMEM_BUDGET or fb == nb == 1
+        assert p["smem_bytes"] <= hist._SMEM_BUDGET or nb == 1
     assert p["copies"] in (1, 2, 4, 8)
     assert p["smem_bytes"] <= hist._SMEM_MAX
     assert p["blocks"] == p["groups"] * p["node_blocks"] * p["row_splits"]
@@ -177,11 +184,11 @@ def test_launch_plan_of_the_main_path_levels(N, node_blocks, copies, owners):
     with all 28 features in one group: slab copies where nodes are few,
     node owners where they are many, two node blocks at N = 16, and one
     block per SM of the H100's 132."""
-    p = hist._plan(11_000_000, 28, N, 65)
+    p = _plan(11_000_000, 28, N, 65)
     assert p["kernel"] == "lanes" and p["groups"] == 1
     assert (p["node_blocks"], p["copies"], p["owners"]) == \
         (node_blocks, copies, owners)
-    assert p["blocks"] == hist._SMS
+    assert p["blocks"] == 132
 
 
 @pytest.mark.parametrize("R,F,N,Bt", [
@@ -190,12 +197,38 @@ def test_launch_plan_of_the_main_path_levels(N, node_blocks, copies, owners):
 def test_launch_plan_degrades_to_the_atomic_kernel(R, F, N, Bt):
     """Where a block holds too few nodes for the lane kernel (2^14 nodes,
     or 257 bins at 128 nodes), the plan takes the atomic kernel."""
-    assert hist._plan(R, F, N, Bt, 2 if Bt > 126 else 1)["kernel"] == "atomic"
+    assert _plan(R, F, N, Bt, 2 if Bt > 126 else 1)["kernel"] == "atomic"
+
+
+@pytest.mark.parametrize("N,Bt,kernel", [
+    (512, 65, "lanes"), (1024, 65, "atomic"), (4, 129, "lanes"),
+    (8, 129, "atomic"), (1, 257, "atomic"),
+])
+def test_launch_plan_takes_the_kernel_measured_faster(N, Bt, kernel):
+    """The switch between the kernels where bench/hist_crossover.py found
+    it on the H100 at 11M rows x 28 features: the lane kernel with 8 warps
+    (65 bins) up to 64 node blocks, with 4 warps (129 bins) in one node
+    block, with 2 warps (257 bins) never."""
+    assert _plan(11_000_000, 28, N, Bt, 1 if Bt < 128 else 2)["kernel"] == \
+        kernel
+
+
+@pytest.mark.parametrize("kernel,N,Bt,node_blocks,groups", [
+    ("atomic", 16, 65, 1, 28), ("lanes", 1 << 14, 65, 2048, 1),
+    ("lanes", 128, 257, 64, 1),
+])
+def test_launch_plan_takes_the_kernel_it_is_given(kernel, N, Bt, node_blocks,
+                                                  groups):
+    """A forced kernel (the crossover bench times both) gets its own plan
+    at any shape it can hold."""
+    p = _plan(1_000_000, 28, N, Bt, 2 if Bt > 126 else 1, kernel)
+    assert p["kernel"] == kernel
+    assert (p["node_blocks"], p["groups"]) == (node_blocks, groups)
 
 
 def test_launch_plan_refuses_a_slab_beyond_shared_memory():
     with pytest.raises(ValueError):
-        hist._plan(1000, 1, 1, 20_000)
+        _plan(1000, 1, 1, 20_000)
 
 
 def test_bound_counts_each_input_once():
@@ -205,12 +238,14 @@ def test_bound_counts_each_input_once():
     assert hist.hist_flops(1000, 28) == 3 * 1000 * 28
 
 
-def test_loads_only_instance_needs_the_card():
+@pytest.mark.parametrize("scan", [True, False])
+def test_loads_only_instance_needs_the_card(scan):
     data = _data(7, 64, 3, 16, 2)
     t = lambda a: torch.from_numpy(a)
     with pytest.raises(ValueError):
         hist.level_histograms_loads_only(
-            t(np.ascontiguousarray(data[0].T)), *map(t, data[1:]), 2, 17)
+            t(np.ascontiguousarray(data[0].T)), *map(t, data[1:]), 2, 17,
+            scan=scan)
 
 
 @pytest.mark.cuda
