@@ -6,9 +6,12 @@ unless the caller asks for the CPU, either per call (``device="cpu"``) or
 for the whole process (:func:`set_device`). With no card and no such
 request they raise: nothing moves to the CPU quietly.
 
-This slice: binomial and gaussian GBM training and scoring, with the level
-histograms of tree growth built by a hand-written CUDA kernel
-(``csrc/hist.cu``, wrapped by :mod:`h2o3_tpu_torch.ops.hist`).
+So far: GBM (bernoulli, multinomial, gaussian, poisson, gamma, tweedie,
+laplace, quantile and huber, with offsets), DRF and XGBoost (gbtree)
+training and scoring, with row and column sampling; the level histograms
+of tree growth, one call per level for all the class trees of a round, are
+built by hand-written CUDA kernels (``csrc/hist.cu``, wrapped by
+:mod:`h2o3_tpu_torch.ops.hist`).
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device

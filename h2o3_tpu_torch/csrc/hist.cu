@@ -68,7 +68,19 @@
 // takes the first design: one block per feature, a node block from a 96 KB
 // budget, one row per thread per tile, and shared-memory atomicAdd.
 //
-// What is left for later: a class (K) batch dimension; a deterministic
+// Classes. Multinomial GBM and DRF grow K class trees per round; the JAX
+// reference runs the Pallas kernel under jax.vmap over them, one dispatch
+// per level. Here one launch covers all K: the grid's y dimension is the
+// class, each block offsets node, g, h (class stride R), w (stride R, or 0
+// where all classes share one weight row) and out (stride F*N*Bt*3) by its
+// class, and the persistent plan splits the SMs over K times the feature
+// groups and node blocks. Each class's slab is its own, so the plan of one
+// class is the plan of the batch. Every class re-reads the bins: the bound
+// counts them once (at K = 3, 11M x 28 int8: 748 MB, 0.2233 ms), so a
+// batch runs at most 1/K of it until a later kernel reads each bin word
+// once for all K classes.
+//
+// What is left for later: bins read once for all classes; a deterministic
 // fixed-point mode (integer shared atomics are native and about 4x faster);
 // a ring of bulk asynchronous copies (cp.async.bulk) for the staging. Such
 // a ring stages 512-row tiles faster than the registers' prefetch, but not
@@ -349,9 +361,20 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                  const float* __restrict__ g, const float* __restrict__ h,
                  const float* __restrict__ w, float* __restrict__ out,
                  long long R, int F, int N, int Bt, int Fb, int Nb,
-                 int copies, int owners, int row_splits) {
+                 int copies, int owners, int row_splits,
+                 long long w_stride) {
   using W = typename Word<BinT>::T;
   extern __shared__ float4 smem4[];
+  // class k = blockIdx.y: its own node/g/h rows, w (shared when w_stride
+  // is 0) and output; the bins are the same for every class
+  {
+    const long long k = blockIdx.y;
+    node += k * R;
+    g += k * R;
+    h += k * R;
+    w += k * w_stride;
+    out += k * F * static_cast<long long>(N) * Bt * 3;
+  }
   const int warps = blockDim.x / 32;
   const int T = rows_per_warp<BinT>() * warps;
   const int quads = T / 4;
@@ -477,8 +500,16 @@ atomic_hist_kernel(const BinT* __restrict__ binned_T,
                    const float* __restrict__ g, const float* __restrict__ h,
                    const float* __restrict__ w, float* __restrict__ out,
                    long long R, int F, int N, int Bt, int Nb,
-                   int row_splits) {
+                   int row_splits, long long w_stride) {
   extern __shared__ float slab[];
+  {   // class k = blockIdx.y, as in lane_hist_kernel
+    const long long k = blockIdx.y;
+    node += k * R;
+    g += k * R;
+    h += k * R;
+    w += k * w_stride;
+    out += k * F * static_cast<long long>(N) * Bt * 3;
+  }
   // block -> (feature, node block, row split), feature fastest
   const int node_blocks = (N + Nb - 1) / Nb;
   const int f = blockIdx.x % F;
@@ -526,6 +557,8 @@ struct Args {
   void* out;
   long long R;
   int F, N, Bt, Fb, Nb, copies, owners, row_splits, smem_bytes;
+  int K;                // classes: the grid's y dimension
+  long long w_stride;   // elements between two classes' w (0: shared)
   cudaStream_t stream;
 };
 
@@ -536,11 +569,19 @@ cudaError_t prepare(K kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
+// 16-byte loads need every class's node/g/h/w rows aligned: the bases,
+// and class strides of a multiple of four elements
 bool vec_aligned(const Args& a) {
   return ((reinterpret_cast<uintptr_t>(a.node)
            | reinterpret_cast<uintptr_t>(a.g)
            | reinterpret_cast<uintptr_t>(a.h)
-           | reinterpret_cast<uintptr_t>(a.w)) & 15) == 0;
+           | reinterpret_cast<uintptr_t>(a.w)) & 15) == 0
+         && (a.K == 1 || (a.R % 4 == 0 && a.w_stride % 4 == 0));
+}
+
+// the class dimension and its strides, as the kernels take them
+bool classes_ok(const Args& a) {
+  return a.K >= 1 && a.K <= 65535 && (a.w_stride == 0 || a.w_stride == a.R);
 }
 
 template <typename BinT>
@@ -559,8 +600,8 @@ template <typename BinT, int kMode>
 cudaError_t launch_lanes(const Args& a) {
   const long long blocks = grid_of(a);
   const int warps = a.copies * a.owners;
-  if (blocks < 1 || blocks > INT_MAX || a.Fb > 32 || warps < 1
-      || warps * 32 > kLaneThreadsMax
+  if (blocks < 1 || blocks > INT_MAX || !classes_ok(a) || a.Fb > 32
+      || warps < 1 || warps * 32 > kLaneThreadsMax
       || 4 * lane_smem_words<BinT>(a.Nb, a.Bt, a.Fb, a.copies, warps)
              != a.smem_bytes)
     return cudaErrorInvalidConfiguration;
@@ -568,30 +609,31 @@ cudaError_t launch_lanes(const Args& a) {
                                : lane_hist_kernel<BinT, false, kMode>;
   cudaError_t e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
-  kernel<<<static_cast<unsigned>(blocks), warps * 32, a.smem_bytes,
-           a.stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.K));
+  kernel<<<grid, warps * 32, a.smem_bytes, a.stream>>>(
       static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
       static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.Nb, a.copies,
-      a.owners, a.row_splits);
+      a.owners, a.row_splits, a.w_stride);
   return cudaGetLastError();
 }
 
 template <typename BinT>
 cudaError_t launch_atomic(const Args& a) {
   const long long blocks = grid_of(a);
-  if (blocks < 1 || blocks > INT_MAX || a.Fb != 1)
+  if (blocks < 1 || blocks > INT_MAX || !classes_ok(a) || a.Fb != 1)
     return cudaErrorInvalidConfiguration;
   auto kernel = atomic_hist_kernel<BinT>;
   cudaError_t e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, a.smem_bytes,
-           a.stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.K));
+  kernel<<<grid, kThreads, a.smem_bytes, a.stream>>>(
       static_cast<const BinT*>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Nb, a.row_splits);
+      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Nb, a.row_splits,
+      a.w_stride);
   return cudaGetLastError();
 }
 
@@ -629,16 +671,17 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 // (updates out, staging only), 3 atomic_hist_kernel. The Python wrapper
 // (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb
 // (1 for the atomic kernel), Nb, copies, owners (lanes only), row_splits
-// and smem_bytes.
+// and smem_bytes. K classes: node, g and h are [K, R], w is [K, R]
+// (w_stride = R) or one [R] row for all (w_stride = 0), out [K, F, N*Bt, 3].
 extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,
                                long long R, int F, int N, int Bt, int Fb,
                                int Nb, int copies, int owners,
-                               int row_splits, int smem_bytes,
-                               void* stream) {
+                               int row_splits, int smem_bytes, int K,
+                               long long w_stride, void* stream) {
   const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, Nb, copies,
-               owners, row_splits, smem_bytes,
+               owners, row_splits, smem_bytes, K, w_stride,
                static_cast<cudaStream_t>(stream)};
   return dispatch(kind, bin_bytes, a);
 }

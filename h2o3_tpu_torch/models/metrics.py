@@ -1,4 +1,4 @@
-"""Model metrics — the binomial and regression part of
+"""Model metrics — the regression, binomial and multinomial part of
 ``h2o3_tpu/models/metrics.py``.
 
 Binomial AUC uses the reference's 400-bin streaming histogram of scores
@@ -62,6 +62,23 @@ class ModelMetricsBinomial(MetricsBase):
         return (f"ModelMetricsBinomial(auc={self.auc:.5f}, pr_auc={self.pr_auc:.5f}, "
                 f"logloss={self.logloss:.5f}, rmse={self.rmse:.5f}, "
                 f"mean_per_class_error={self.mean_per_class_error:.5f})")
+
+
+@dataclasses.dataclass
+class ModelMetricsMultinomial(MetricsBase):
+    logloss: float
+    mean_per_class_error: float
+    confusion_matrix: np.ndarray   # [K, K], rows = actual, columns = predicted
+
+    @property
+    def accuracy(self) -> float:
+        cm = self.confusion_matrix
+        return float(np.trace(cm) / max(cm.sum(), 1))
+
+    def __repr__(self):
+        return (f"ModelMetricsMultinomial(logloss={self.logloss:.5f}, "
+                f"mean_per_class_error={self.mean_per_class_error:.5f}, "
+                f"accuracy={self.accuracy:.4f})")
 
 
 def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
@@ -133,3 +150,36 @@ def binomial_metrics(p: torch.Tensor, y: torch.Tensor,
         logloss=r["logloss"], mean_per_class_error=float(mpce),
         max_f1_threshold=b / NBINS, confusion_matrix=np.array([[tn, fp], [fn, tp]]),
         ks=ks)
+
+
+def _multinomial_pass(probs: torch.Tensor, y: torch.Tensor,
+                      mask: torch.Tensor, nclass: int) -> dict:
+    """One pass: logloss and MSE of the true class's probability, and the
+    confusion matrix as one ``index_add_`` on actual*K + predicted."""
+    w = mask.float()
+    n = w.sum()
+    yi = torch.where(mask, y.long(), 0)
+    p_true = probs.gather(1, yi[:, None])[:, 0].clamp(1e-15, 1.0)
+    logloss = -(w * torch.log(p_true)).sum() / n
+    mse = (w * (1.0 - p_true) ** 2).sum() / n
+    pred = probs.argmax(dim=1)
+    idx = torch.where(mask, yi * nclass + pred, 0)
+    cm = torch.zeros(nclass * nclass, dtype=torch.float32, device=probs.device)
+    cm.index_add_(0, idx, w)
+    return dict(n=float(n), logloss=float(logloss), mse=float(mse),
+                cm=cm.reshape(nclass, nclass).cpu().numpy())
+
+
+def multinomial_metrics(probs: torch.Tensor, y: torch.Tensor,
+                        mask: torch.Tensor,
+                        nclass: int) -> ModelMetricsMultinomial:
+    """Logloss, MSE, mean per-class error and the confusion matrix of
+    [rows, K] class probabilities against class ids ``y``."""
+    r = _multinomial_pass(probs, y, mask, nclass)
+    cm = np.asarray(r["cm"], np.float64)
+    row = cm.sum(axis=1)
+    per_class_err = 1.0 - np.diag(cm) / np.maximum(row, 1e-30)
+    mpce = float(per_class_err[row > 0].mean()) if (row > 0).any() else 0.0
+    return ModelMetricsMultinomial(
+        nobs=int(r["n"]), mse=r["mse"], logloss=r["logloss"],
+        mean_per_class_error=mpce, confusion_matrix=cm)

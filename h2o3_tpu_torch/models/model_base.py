@@ -21,7 +21,9 @@ from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.models.data_info import response_as_float
 from h2o3_tpu_torch.models.job import Job
-from h2o3_tpu_torch.models.metrics import binomial_metrics, regression_metrics
+from h2o3_tpu_torch.models.metrics import (binomial_metrics,
+                                           multinomial_metrics,
+                                           regression_metrics)
 
 
 class Model:
@@ -91,7 +93,7 @@ def compute_metrics(raw: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
         return regression_metrics(raw, y, mask)
     if nclasses == 2:
         return binomial_metrics(raw[:, 1].contiguous(), y, mask)
-    raise NotImplementedError("multinomial metrics are not ported yet")
+    return multinomial_metrics(raw, y, mask, nclasses)
 
 
 class ModelBuilder:
@@ -131,8 +133,9 @@ class ModelBuilder:
         if y is None:
             raise ValueError(f"{self.algo} is supervised: y is required")
         ignored = set(self.params.get("ignored_columns") or [])
-        if self.params.get("weights_column"):
-            ignored.add(self.params["weights_column"])
+        for col in ("weights_column", "offset_column"):
+            if self.params.get(col):
+                ignored.add(self.params[col])
         x = [c for c in (x if x is not None else frame.names)
              if c != y and c not in ignored and frame.vec(c).type.on_device]
         if not x:

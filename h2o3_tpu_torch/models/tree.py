@@ -7,9 +7,13 @@ on the card), a vectorised cumsum+argmax split search over
 [F, nodes, bins, direction], and a gather that routes rows to next-level
 node ids. At level d >= 1 only the smaller child of each split is
 histogrammed; its sibling is the parent's histogram minus the child's
-(sibling subtraction). The reference's ``vmap`` over K trees is a K=1 call;
-categorical group splits, monotone and interaction constraints and column
-sampling are left for later slices.
+(sibling subtraction). The reference's ``vmap`` over the K class trees of a
+round is a class axis written out (:func:`grow_trees_batched`): every
+per-row and per-node array leads with K, and each level makes one histogram
+call for all K trees; :func:`grow_tree` is the K = 1 case. With
+``col_rate`` < 1 each level draws its own feature mask from an explicit
+``torch.Generator``. Categorical group splits and monotone and interaction
+constraints are left for later slices.
 
 Uses (g, h) gradient-pair stats with h = w for H2O GBM's mean-leaf
 semantics, exactly as the reference does.
@@ -55,18 +59,23 @@ HEAP_FIELDS = ("feat", "thresh_bin", "thresh_val", "na_left", "is_split",
 
 
 def _histograms(binned_T, node_local, g, h, w, n_nodes: int, n_bins_tot: int):
-    """Level histograms [F, n_nodes*n_bins_tot, 3]: the CUDA kernel on the
-    card, its plain version on the CPU (reference ``_histograms``)."""
+    """Level histograms [K, F, n_nodes*n_bins_tot, 3] of K class trees in one
+    call: the CUDA kernel on the card, its plain version on the CPU
+    (reference ``_histograms`` under ``vmap``)."""
     return level_histograms(binned_T, node_local, g, h, w, n_nodes, n_bins_tot)
 
 
 def _node_totals(node_local, g, h, w, n_nodes: int):
-    """Per-node (G, H, W) sums — all the final level needs."""
+    """Per-node (G, H, W) sums [K, n_nodes, 3] of K trees — all the final
+    level needs: one ``index_add_`` on k*n_nodes + node."""
+    K, R = node_local.shape
     active = node_local >= 0
-    ids = torch.where(active, node_local, 0).long()
-    stats = torch.stack([torch.where(active, v, 0.0) for v in (g, h, w)], 1)
-    out = torch.zeros((n_nodes, 3), dtype=torch.float32, device=g.device)
-    return out.index_add_(0, ids, stats)
+    cls = torch.arange(K, device=g.device)[:, None] * n_nodes
+    ids = torch.where(active, cls + node_local, 0).long().reshape(-1)
+    stats = torch.stack([torch.where(active, v, 0.0)
+                         for v in (g, h, w.expand(K, R))], -1).reshape(-1, 3)
+    out = torch.zeros((K * n_nodes, 3), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, ids, stats).reshape(K, n_nodes, 3)
 
 
 def _leaf_value(G, H, W, reg_lambda, reg_alpha):
@@ -80,6 +89,8 @@ def _find_splits(hists, n_bins: int, min_rows, reg_lambda, reg_alpha, gamma,
 
     hists: [F, N*(n_bins+1), 3]. Candidate split t in [1, n_bins-1]: bins < t
     go left; the missing bin (index n_bins) goes to the better direction.
+    ``feat_mask`` is [F], or [N, F] for a mask per node (the class trees of a
+    batch, each with its own level mask, searched as one level).
     Returns per-node best (gain, feat, t, na_left, G, H, W, child values and
     weights, left-membership [N, n_bins])."""
     F = hists.shape[0]
@@ -107,7 +118,9 @@ def _find_splits(hists, n_bins: int, min_rows, reg_lambda, reg_alpha, gamma,
 
     parent = half(G, H)[None, None, :, None]
     gain = 0.5 * (half(gl, hl) + half(gr, hr) - parent) - gamma
-    ok = (wl >= min_rows) & (wr >= min_rows) & feat_mask[None, :, None, None]
+    fm = (feat_mask[None, :, None, None] if feat_mask.dim() == 1
+          else feat_mask.T[None, :, :, None])
+    ok = (wl >= min_rows) & (wr >= min_rows) & fm
     vl = _leaf_value(gl, hl, wl, reg_lambda, reg_alpha)
     vr = _leaf_value(gr, hr, wr, reg_lambda, reg_alpha)
     gain = torch.where(ok, gain, -torch.inf)
@@ -134,44 +147,73 @@ def _route_rows(binned, node_local, feat, member, na_left, do_split,
                 n_bins: int):
     """Advance rows to next-level node ids (local: nl*2 + {0, 1}); rows of
     frozen (leaf) nodes get -1. ``binned`` is [rows, F]; ``member`` [N, B]
-    is the left-membership of each bin at each node."""
+    is the left-membership of each bin at each node. A class batch passes
+    ``node_local`` [K, rows] and ``feat``/``na_left``/``do_split`` [K, N],
+    ``member`` [K, N, B]."""
+    if node_local.dim() == 1:
+        return _route_rows(binned, node_local[None], feat[None], member[None],
+                           na_left[None], do_split[None], n_bins)[0]
     active = node_local >= 0
     nl = torch.where(active, node_local, 0).long()
-    f = feat[nl].long()
-    split = do_split[nl] & active
-    b = binned.gather(1, f.clamp_min(0)[:, None])[:, 0].long()
+    f = feat.gather(1, nl).long()
+    split = do_split.gather(1, nl) & active
+    # [rows, K] gather of each row's split feature, back to [K, rows]
+    b = binned.gather(1, f.clamp_min(0).T).T.contiguous().long()
     is_na = b >= n_bins
-    left = torch.where(is_na, na_left[nl],
-                       member[nl, b.clamp_max(n_bins - 1)])
+    cls = torch.arange(node_local.shape[0], device=nl.device)[:, None]
+    left = torch.where(is_na, na_left.gather(1, nl),
+                       member[cls, nl, b.clamp_max(n_bins - 1)])
     child = nl * 2 + torch.where(left, 0, 1)
     return torch.where(split, child, -1).to(torch.int32)
 
 
-def _grow_tree_device(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
-                      n_bins: int, min_rows, reg_lambda, reg_alpha, gamma,
-                      min_split_improvement):
-    """Grow one whole tree; returns the heap tensors (``HEAP_FIELDS`` order)
-    plus each row's leaf value (what boosting adds to the margins).
+def _level_feat_mask(feat_mask, col_rate: float, generator):
+    """Per-level column sampling (reference ``_grow_tree_device``): each
+    tree's features pass with probability ``col_rate``, one drawn feature is
+    forced in BEFORE the draw is intersected with ``feat_mask`` [K, F], and
+    a tree whose mask comes out empty keeps ``feat_mask``."""
+    K, F = feat_mask.shape
+    dev = feat_mask.device
+    sub = torch.rand((K, F), generator=generator, device=dev) < col_rate
+    forced = torch.randint(0, F, (K,), generator=generator, device=dev)
+    sub[torch.arange(K, device=dev), forced] = True
+    m = feat_mask & sub
+    return torch.where(m.any(1, keepdim=True), m, feat_mask)
+
+
+def _grow_batched(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
+                  n_bins: int, min_rows, reg_lambda, reg_alpha, gamma,
+                  min_split_improvement, col_rate: float = 1.0,
+                  generator: torch.Generator | None = None):
+    """Grow K whole trees, one per row of ``g``/``h`` [K, rows]; returns
+    the heap tensors [K, heap] (``HEAP_FIELDS`` order) plus each row's leaf
+    value [K, rows] (what boosting adds to the margins).
 
     ``binned`` [rows, F] and ``binned_T`` [F, rows] hold the same int8/int16
     bins (routing gathers rows, the histogram kernel reads features);
-    ``edges`` [F, n_bins-1] float32; ``g``/``h``/``w`` [rows] float32;
-    ``feat_mask`` [F] bool. Hyperparameters are Python floats: torch casts
-    them to float32 inside each float32 op, the rounding the reference's
-    traced float32 scalars get."""
+    ``edges`` [F, n_bins-1] float32; ``w`` [K, rows], or [rows] shared by
+    the K trees; ``feat_mask`` [F] or [K, F] bool. ``col_rate`` < 1 draws a
+    feature mask per tree and level from ``generator`` (on the tensors'
+    device). Hyperparameters are Python floats: torch casts them to float32
+    inside each float32 op, the rounding the reference's traced float32
+    scalars get."""
     dev = g.device
     B = n_bins
     Bt = B + 1
+    K, R = g.shape
     F = binned.shape[1]
-    R = binned.shape[0]
-    node_local = torch.zeros(R, dtype=torch.int32, device=dev)
+    if feat_mask.dim() == 1:
+        feat_mask = feat_mask.expand(K, F)
+    node_local = torch.zeros((K, R), dtype=torch.int32, device=dev)
     levels = {k: [] for k in HEAP_FIELDS}
-    row_leaf = torch.zeros(R, dtype=torch.float32, device=dev)
+    row_leaf = torch.zeros((K, R), dtype=torch.float32, device=dev)
     # sibling-subtraction state (reference ScoreBuildHistogram2 / gpu_hist
-    # "hist subtraction trick")
+    # "hist subtraction trick"), per class
     prev_hists = prev_do = chosen_left = None
     for d in range(depth):
         N = 2 ** d
+        lmask = (feat_mask if col_rate >= 1.0
+                 else _level_feat_mask(feat_mask, col_rate, generator))
         if d == 0:
             hists = _histograms(binned_T, node_local, g, h, w, N, Bt)
         else:
@@ -181,23 +223,33 @@ def _grow_tree_device(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
                       + torch.where(chosen_left, 0, 1))
             act = node_local >= 0
             par = torch.where(act, node_local // 2, 0).long()
-            at_chosen = act & (node_local == chosen[par])
+            at_chosen = act & (node_local == chosen.gather(1, par))
             node_slot = torch.where(at_chosen, par, -1).to(torch.int32)
             part = _histograms(binned_T, node_slot, g, h, w, P, Bt)
-            part4 = part.reshape(F, P, Bt, 3)
-            prev4 = prev_hists.reshape(F, P, Bt, 3)
+            part4 = part.reshape(K, F, P, Bt, 3)
+            prev4 = prev_hists.reshape(K, F, P, Bt, 3)
             # sibling by subtraction — only where the parent really split
             # (a frozen parent's children hold no rows; its stale histogram
             # must not leak into phantom nodes)
-            other4 = torch.where(prev_do[None, :, None, None],
+            other4 = torch.where(prev_do[:, None, :, None, None],
                                  prev4 - part4, 0.0)
-            cl = chosen_left[None, :, None, None]
+            cl = chosen_left[:, None, :, None, None]
             left4 = torch.where(cl, part4, other4)
             right4 = torch.where(cl, other4, part4)
-            hists = torch.stack([left4, right4], dim=2).reshape(F, N * Bt, 3)
-        (gain, feat, t, na_left, G, H, W, vl_b, vr_b, wl_b, wr_b,
-         member) = _find_splits(hists, B, min_rows, reg_lambda, reg_alpha,
-                                gamma, feat_mask)
+            del part, part4, prev4, other4
+            hists = torch.stack([left4, right4], dim=3).reshape(K, F, N * Bt, 3)
+            del left4, right4
+        # the K trees' N nodes searched as one level of K*N nodes, each
+        # with its tree's feature mask (per class, the reference's order)
+        flat = hists.reshape(K, F, N * Bt, 3).transpose(0, 1).reshape(
+            F, K * N * Bt, 3)
+        mask = lmask[0] if K == 1 else lmask.repeat_interleave(N, 0)
+        split = _find_splits(flat, B, min_rows, reg_lambda, reg_alpha, gamma,
+                             mask)
+        del flat
+        (gain, feat, t, na_left, G, H, W, vl_b, vr_b, wl_b, wr_b) = (
+            a.reshape(K, N) for a in split[:-1])
+        member = split[-1].reshape(K, N, B)
         prev_hists = hists
         chosen_left = wl_b <= wr_b
         do = (gain > min_split_improvement) & torch.isfinite(gain) & (W > 0)
@@ -216,37 +268,75 @@ def _grow_tree_device(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
         # rows whose node froze at this level take its leaf value
         active = node_local >= 0
         nl = torch.where(active, node_local, 0).long()
-        row_leaf = torch.where(active & ~do[nl], leaf[nl], row_leaf)
+        row_leaf = torch.where(active & ~do.gather(1, nl), leaf.gather(1, nl),
+                               row_leaf)
         node_local = _route_rows(binned, node_local, lv_feat, member,
                                  na_left, do, B)
+    del prev_hists
 
     # final level: every surviving node is a leaf; only per-node totals
     N = 2 ** depth
     tot = _node_totals(node_local, g, h, w, N)
-    leaf = _leaf_value(tot[:, 0], tot[:, 1], tot[:, 2], reg_lambda, reg_alpha)
-    levels["feat"].append(torch.full((N,), -1, dtype=torch.int32, device=dev))
-    levels["thresh_bin"].append(torch.zeros(N, dtype=torch.int32, device=dev))
-    levels["thresh_val"].append(torch.zeros(N, dtype=torch.float32, device=dev))
-    levels["na_left"].append(torch.zeros(N, dtype=torch.bool, device=dev))
-    levels["is_split"].append(torch.zeros(N, dtype=torch.bool, device=dev))
+    leaf = _leaf_value(tot[..., 0], tot[..., 1], tot[..., 2], reg_lambda,
+                       reg_alpha)
+    levels["feat"].append(torch.full((K, N), -1, dtype=torch.int32, device=dev))
+    levels["thresh_bin"].append(torch.zeros((K, N), dtype=torch.int32,
+                                            device=dev))
+    levels["thresh_val"].append(torch.zeros((K, N), dtype=torch.float32,
+                                            device=dev))
+    levels["na_left"].append(torch.zeros((K, N), dtype=torch.bool, device=dev))
+    levels["is_split"].append(torch.zeros((K, N), dtype=torch.bool, device=dev))
     levels["leaf"].append(leaf)
-    levels["gain"].append(torch.zeros(N, dtype=torch.float32, device=dev))
-    levels["cover"].append(tot[:, 2])
+    levels["gain"].append(torch.zeros((K, N), dtype=torch.float32, device=dev))
+    levels["cover"].append(tot[..., 2])
     active = node_local >= 0
     nl = torch.where(active, node_local, 0).long()
-    row_leaf = torch.where(active, leaf[nl], row_leaf)
-    return tuple(torch.cat(levels[k]) for k in HEAP_FIELDS) + (row_leaf,)
+    row_leaf = torch.where(active, leaf.gather(1, nl), row_leaf)
+    return tuple(torch.cat(levels[k], dim=1) for k in HEAP_FIELDS) + (row_leaf,)
 
 
-def grow_tree(binned, binned_T, edges, g, h, w, params: TreeParams,
-              feat_mask) -> tuple[Tree, torch.Tensor]:
-    """Grow one tree; returns it and each training row's leaf value."""
-    out = _grow_tree_device(
+def _grow_tree_device(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
+                      n_bins: int, min_rows, reg_lambda, reg_alpha, gamma,
+                      min_split_improvement, col_rate: float = 1.0,
+                      generator: torch.Generator | None = None):
+    """Grow one whole tree (the K = 1 case of :func:`_grow_batched`):
+    ``g``/``h``/``w`` [rows], ``feat_mask`` [F]; returns the heap tensors
+    (``HEAP_FIELDS`` order) plus each row's leaf value."""
+    out = _grow_batched(binned, binned_T, edges, g[None], h[None], w,
+                        feat_mask, depth, n_bins, min_rows, reg_lambda,
+                        reg_alpha, gamma, min_split_improvement, col_rate,
+                        generator)
+    return tuple(a[0] for a in out)
+
+
+def grow_trees_batched(binned, binned_T, edges, g, h, w, params: TreeParams,
+                       feat_mask, col_rate: float = 1.0,
+                       generator: torch.Generator | None = None
+                       ) -> tuple[list[Tree], torch.Tensor]:
+    """Grow K trees (leading axis of ``g``/``h``, and of ``w`` unless it is
+    one row for all) with one histogram call per level; returns the trees
+    and each tree's training-row leaf values [K, rows]. ``col_rate`` < 1
+    resamples each tree's feature mask every level from ``generator``."""
+    out = _grow_batched(
         binned, binned_T, edges, g, h, w, feat_mask, params.max_depth,
         params.nbins, float(params.min_rows), float(params.reg_lambda),
         float(params.reg_alpha), float(params.gamma),
-        float(params.min_split_improvement))
-    return Tree(**dict(zip(HEAP_FIELDS, out[:-1]))), out[-1]
+        float(params.min_split_improvement), float(col_rate), generator)
+    trees = [Tree(**{f: a[k] for f, a in zip(HEAP_FIELDS, out[:-1])})
+             for k in range(g.shape[0])]
+    return trees, out[-1]
+
+
+def grow_tree(binned, binned_T, edges, g, h, w, params: TreeParams,
+              feat_mask, col_rate: float = 1.0,
+              generator: torch.Generator | None = None
+              ) -> tuple[Tree, torch.Tensor]:
+    """Grow one tree (K = 1 batched growth); returns it and each training
+    row's leaf value."""
+    trees, preds = grow_trees_batched(binned, binned_T, edges, g[None],
+                                      h[None], w, params, feat_mask,
+                                      col_rate, generator)
+    return trees[0], preds[0]
 
 
 def _stack(trees: list[Tree], attr: str) -> torch.Tensor:

@@ -5,13 +5,17 @@ For every feature f, node n < N and bin b < Bt::
     hist[f, n*Bt + b, :] = sum over rows r with node[r] == n and
                            min(bin[f, r], Bt - 1) == b of (g[r], h[r], w[r])
 
-Rows at node -1 add nothing. :func:`level_histograms_plain` is the plain
-PyTorch version (the same function as the JAX reference's
-``models/tree.py:_level_histograms``); :func:`level_histograms` launches the
-hand-written CUDA kernels of ``csrc/hist.cu`` on CUDA tensors (the lane
-kernel, without atomics, at the shapes where it was measured the faster; the
-atomic kernel elsewhere) and takes the plain version only for tensors on the
-CPU. ``level_histograms.launches`` counts kernel launches.
+Rows at node -1 add nothing. A batch of K classes (the reference's
+``jax.vmap`` of ``hist_pallas`` over the K class trees of a multinomial
+round) passes ``node``, ``g`` and ``h`` as [K, R] and ``w`` as [K, R] or as
+one [R] row that every class shares, and gets [K, F, N*Bt, 3] back.
+:func:`level_histograms_plain` is the plain PyTorch version (the same
+function as the JAX reference's ``models/tree.py:_level_histograms``);
+:func:`level_histograms` launches the hand-written CUDA kernels of
+``csrc/hist.cu`` on CUDA tensors (the lane kernel, without atomics, at the
+shapes where it was measured the faster; the atomic kernel elsewhere), one
+launch for all K classes, and takes the plain version only for tensors on
+the CPU. ``level_histograms.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ _SMEM_MAX = 227 * 1024
 #: fewest row tiles per block, so that zeroing and flushing a slab stay
 #: small beside counting rows into it
 _MIN_TILES_PER_BLOCK = 2
-#: CUDA's limit on grid dimension x (the kernels' grids are one-dimensional)
+#: CUDA's limits on grid dimensions x (feature groups, node blocks and row
+#: splits) and y (classes)
 _GRID_X_MAX = 2 ** 31 - 1
+_GRID_Y_MAX = 65535
 
 # lane_hist_kernel: kinds 0-2 of h2o3_level_hist are its modes (the kernel,
 # then its updates-out and staging-only measurement instances)
@@ -56,21 +62,31 @@ _ATOMIC_THREADS = 256
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
                            g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                            n_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """[F, n_nodes*n_bins_tot, 3] float32 histograms of (g, h, w), built
-    feature by feature with ``index_add_`` (the reference scans features
-    with one ``segment_sum`` per stat)."""
+    """[F, n_nodes*n_bins_tot, 3] float32 histograms of (g, h, w), or
+    [K, F, n_nodes*n_bins_tot, 3] for a batch of K classes, built feature by
+    feature with one ``index_add_`` onto (k*N + node)*Bt + bin ids (the
+    reference scans features with one ``segment_sum`` per stat). A 1-D call
+    is the K = 1 batch."""
+    if node.dim() == 1:
+        return level_histograms_plain(binned_T, node[None], g[None],
+                                      h[None], w, n_nodes, n_bins_tot)[0]
+    K, R = node.shape
     F = binned_T.shape[0]
+    NB = n_nodes * n_bins_tot
     active = node >= 0
-    base = torch.where(active, node.long() * n_bins_tot, 0)
-    stats = torch.stack([torch.where(active, v, 0.0) for v in (g, h, w)], 1)
-    out = torch.zeros((F, n_nodes * n_bins_tot, 3), dtype=torch.float32,
+    cls = torch.arange(K, device=node.device)[:, None] * n_nodes
+    base = torch.where(active, (cls + node.long()) * n_bins_tot, 0)
+    stats = torch.stack([torch.where(active, v, 0.0)
+                         for v in (g, h, w.expand(K, R))], -1).reshape(-1, 3)
+    out = torch.zeros((F, K * NB, 3), dtype=torch.float32,
                       device=binned_T.device)
     for f in range(F):
         b = binned_T[f].long()
-        keep = active & (b >= 0)     # the kernel skips negative bins too
-        ids = base + b.clamp_max(n_bins_tot - 1)
+        # the kernel skips negative bins too
+        keep = (active & (b >= 0)).reshape(-1)
+        ids = (base + b.clamp_max(n_bins_tot - 1)).reshape(-1)
         out[f].index_add_(0, ids[keep], stats[keep])
-    return out
+    return out.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
 
 
 def _lane_smem_bytes(Nb: int, Bt: int, Fb: int, copies: int, warps: int,
@@ -148,22 +164,27 @@ def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
 
 @functools.lru_cache(maxsize=256)
 def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
-          sms: int, blocks_per_sm: int, kernel: str | None = None) -> dict:
+          sms: int, blocks_per_sm: int, kernel: str | None = None,
+          K: int = 1) -> dict:
     """Launch shape: :func:`_kernel_plan`'s fields, plus the row tiles and
     the persistent grid: about ``sms`` x ``blocks_per_sm`` blocks (the
-    card's SMs and the kernel's occupancy at this shape), split over
-    feature groups and node blocks, each block walking every
-    ``row_splits``-th tile."""
+    card's SMs and the kernel's occupancy at this shape), split over the K
+    classes (the grid's y dimension), feature groups and node blocks, each
+    block walking every ``row_splits``-th tile. Each class has a slab of
+    its own, so the kernel and its block shape do not depend on K."""
     p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel)
     combos = p["groups"] * p["node_blocks"]
     tiles = -(-R // p["tile_rows"])
     # at most one wave: a block more than the SMs hold would double the time
-    splits = max(1, min(sms * blocks_per_sm // combos,
+    splits = max(1, min(sms * blocks_per_sm // (combos * K),
                         tiles // _MIN_TILES_PER_BLOCK))
     if combos * splits > _GRID_X_MAX:
         raise ValueError(f"{combos} feature groups x node blocks exceed the "
                          f"grid's {_GRID_X_MAX} blocks")
-    return dict(p, tiles=tiles, row_splits=splits, blocks=combos * splits)
+    if K > _GRID_Y_MAX:
+        raise ValueError(f"{K} classes exceed the grid's {_GRID_Y_MAX}")
+    return dict(p, tiles=tiles, row_splits=splits, classes=K,
+                blocks=combos * splits * K)
 
 
 def _check(binned_T, node, g, h, w, n_nodes, n_bins_tot) -> None:
@@ -173,12 +194,16 @@ def _check(binned_T, node, g, h, w, n_nodes, n_bins_tot) -> None:
     if binned_T.dim() != 2:
         raise ValueError(f"binned_T must be [F, R], got {tuple(binned_T.shape)}")
     F, R = binned_T.shape
-    if node.dtype != torch.int32 or tuple(node.shape) != (R,):
-        raise TypeError(f"node must be int32 [{R}], got {node.dtype} "
-                        f"{tuple(node.shape)}")
-    for name, v in (("g", g), ("h", h), ("w", w)):
-        if v.dtype != torch.float32 or tuple(v.shape) != (R,):
-            raise TypeError(f"{name} must be float32 [{R}], got {v.dtype} "
+    if node.dtype != torch.int32 or node.dim() not in (1, 2) \
+            or node.shape[-1] != R or (node.dim() == 2 and node.shape[0] == 0):
+        raise TypeError(f"node must be int32 [{R}] or [K, {R}], got "
+                        f"{node.dtype} {tuple(node.shape)}")
+    shape = tuple(node.shape)
+    for name, v, shapes in (("g", g, (shape,)), ("h", h, (shape,)),
+                            ("w", w, (shape, (R,)))):
+        if v.dtype != torch.float32 or tuple(v.shape) not in shapes:
+            raise TypeError(f"{name} must be float32 "
+                            f"{' or '.join(map(str, shapes))}, got {v.dtype} "
                             f"{tuple(v.shape)}")
     for name, v in (("binned_T", binned_T), ("node", node), ("g", g),
                     ("h", h), ("w", w)):
@@ -210,10 +235,10 @@ def _blocks_per_sm(device_index: int, kind: int, bin_bytes: int,
 
 
 def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
-                kernel: str | None = None) -> dict:
+                kernel: str | None = None, K: int = 1) -> dict:
     """The plan :func:`level_histograms` launches with for these CUDA
-    inputs (or, with ``kernel``, the plan of that kernel): :func:`_plan` at
-    the card's SM count and the kernel's occupancy."""
+    inputs and K classes (or, with ``kernel``, the plan of that kernel):
+    :func:`_plan` at the card's SM count and the kernel's occupancy."""
     F, R = binned_T.shape
     bb = binned_T.element_size()
     dev = binned_T.device.index
@@ -224,28 +249,30 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
                  _blocks_per_sm(dev, kind, bb, 32 * k["warps"],
-                                k["smem_bytes"]), kernel)
+                                k["smem_bytes"]), kernel, K)
 
 
 def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             kernel: str | None = None, mode: int = _COUNT) -> torch.Tensor:
     """Check the inputs, plan, and launch on CUDA tensors the planned kernel
     (or ``kernel``, "lanes" or "atomic"), or the lane kernel in a
-    measurement ``mode``; returns the zero-initialised output it added
-    into. Each launch of a kernel in its counting mode adds one to
-    ``level_histograms.launches``."""
+    measurement ``mode``, once for all classes of a batch; returns the
+    zero-initialised output it added into. Each launch of a kernel in its
+    counting mode adds one to ``level_histograms.launches``."""
     _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
     if binned_T.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {binned_T.device}")
     F, R = binned_T.shape
-    out = torch.zeros((F, n_nodes * n_bins_tot, 3), dtype=torch.float32,
+    batched = node.dim() == 2
+    K = node.shape[0] if batched else 1
+    out = torch.zeros((K, F, n_nodes * n_bins_tot, 3), dtype=torch.float32,
                       device=binned_T.device)
     if R == 0:
-        return out
+        return out if batched else out[0]
     from h2o3_tpu_torch.ops import _build
     lib = _build.library()
     p = launch_plan(binned_T, n_nodes, n_bins_tot,
-                    "lanes" if mode != _COUNT else kernel)
+                    "lanes" if mode != _COUNT else kernel, K)
     kind = _ATOMIC if p["kernel"] == "atomic" else mode
     with torch.cuda.device(binned_T.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -254,22 +281,25 @@ def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             node.data_ptr(), g.data_ptr(), h.data_ptr(), w.data_ptr(),
             out.data_ptr(), R, F, n_nodes, n_bins_tot,
             p["features_per_group"], p["nodes_per_block"], p["copies"],
-            p["owners"], p["row_splits"], p["smem_bytes"], stream)
+            p["owners"], p["row_splits"], p["smem_bytes"], K,
+            R if w.dim() == 2 else 0, stream)
     _build.check(err, f"level histogram ({p['kernel']}) launch")
     if mode == _COUNT:
         level_histograms.launches += 1
-    return out
+    return out if batched else out[0]
 
 
 def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
                      g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                      n_nodes: int, n_bins_tot: int) -> torch.Tensor:
-    """[F, n_nodes*n_bins_tot, 3] level histograms.
+    """[F, n_nodes*n_bins_tot, 3] level histograms, or
+    [K, F, n_nodes*n_bins_tot, 3] for a batch of K classes.
 
-    ``binned_T`` [F, R] int8/int16, ``node`` [R] int32 (-1 = inactive),
-    ``g``/``h``/``w`` [R] float32, all contiguous on one device. On a CUDA
-    device this launches ``csrc/hist.cu`` (or raises); on the CPU it is
-    :func:`level_histograms_plain`."""
+    ``binned_T`` [F, R] int8/int16; ``node`` [R] or [K, R] int32 (-1 =
+    inactive); ``g``/``h`` float32 shaped as ``node``; ``w`` float32 shaped
+    as ``node`` or [R] (one weight row for every class); all contiguous on
+    one device. On a CUDA device this launches ``csrc/hist.cu`` once (or
+    raises); on the CPU it is :func:`level_histograms_plain`."""
     if binned_T.device.type == "cpu":
         _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
         return level_histograms_plain(binned_T, node, g, h, w, n_nodes,
@@ -296,13 +326,15 @@ def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
 
 
 def hist_bytes(R: int, F: int, n_nodes: int, n_bins_tot: int,
-               bin_bytes: int) -> int:
-    """Bytes the function must move: each input read once (bins, node,
-    g/h/w), the output written once."""
-    return (R * F * bin_bytes + R * 4 + R * 12
-            + F * n_nodes * n_bins_tot * 3 * 4)
+               bin_bytes: int, K: int = 1, w_per_class: bool = False) -> int:
+    """Bytes the function must move for K classes: each input read once
+    (the bins once for all classes, node/g/h per class, w per class or one
+    shared row), the output written once."""
+    return (R * F * bin_bytes + K * R * 12 + (K if w_per_class else 1) * R * 4
+            + K * F * n_nodes * n_bins_tot * 3 * 4)
 
 
 def hist_flops(active_rows: int, F: int) -> int:
-    """Float adds the function needs: three per active row and feature."""
+    """Float adds the function needs: three per active row (summed over the
+    classes of a batch) and feature."""
     return 3 * active_rows * F

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from h2o3_tpu.models.tree import _level_histograms
@@ -49,6 +50,30 @@ def _data(seed, R, F, B, N, dtype=np.int16, hi=None):
     h = (rng.random(R) + 0.1).astype(np.float32)
     w = np.ones(R, np.float32)
     return binned, node, g, h, w
+
+
+def _batch(seed, R, F, B, N, K=3, w_per_class=False, dtype=np.int16):
+    """A class batch on :func:`_data`'s bins: node [K, R] in [-1, N), g and
+    h [K, R], w [K, R] in [0.5, 1.5) or one shared [R] row of ones."""
+    binned = _data(seed, R, F, B, N, dtype=dtype)[0]
+    rng = np.random.default_rng(seed + 100)
+    node = rng.integers(-1, N, size=(K, R)).astype(np.int32)
+    g = rng.normal(size=(K, R)).astype(np.float32)
+    h = (rng.random((K, R)) + 0.1).astype(np.float32)
+    w = ((rng.random((K, R)) + 0.5).astype(np.float32) if w_per_class
+         else np.ones(R, np.float32))
+    return binned, node, g, h, w
+
+
+def _vmapped(fn, binned_arg, node, g, h, w, N, Bt):
+    """A reference histogram function under jax.vmap over the class axis
+    (w batched or shared), as ``_grow_batched`` runs it."""
+    return np.asarray(jax.vmap(
+        lambda nd, gg, hh, ww: fn(jnp.asarray(binned_arg), nd, gg, hh, ww, N,
+                                  Bt),
+        in_axes=(0, 0, 0, 0 if w.ndim == 2 else None))(
+            jnp.asarray(node), jnp.asarray(g), jnp.asarray(h),
+            jnp.asarray(w)))
 
 
 def _port(fn, binned, node, g, h, w, N, Bt, device="cpu"):
@@ -94,6 +119,48 @@ def test_plain_matches_pallas_kernel_interpret(pallas_interpret, R, F, B, N):
         jnp.asarray(h), jnp.asarray(w), N, B + 1))
     _close(_port(hist.level_histograms_plain, binned, node, g, h, w, N, B + 1),
            want)
+
+
+@pytest.mark.parametrize("w_per_class", [False, True])
+@pytest.mark.parametrize("R,F,B,N", SHAPES)
+def test_batched_plain_matches_reference_vmap_segment_sum(R, F, B, N,
+                                                          w_per_class):
+    data = _batch(10, R, F, B, N, w_per_class=w_per_class)
+    want = _vmapped(_level_histograms, data[0], *data[1:], N, B + 1)
+    got = _port(hist.level_histograms_plain, *data, N, B + 1)
+    assert got.shape == (3, F, N * (B + 1), 3)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("w_per_class", [False, True])
+@pytest.mark.parametrize("R,F,B,N", SHAPES)
+def test_batched_plain_matches_vmapped_pallas_kernel_interpret(
+        pallas_interpret, R, F, B, N, w_per_class):
+    data = _batch(11, R, F, B, N, w_per_class=w_per_class)
+    want = _vmapped(pallas_hist.hist_pallas, np.ascontiguousarray(data[0].T),
+                    *data[1:], N, B + 1)
+    _close(_port(hist.level_histograms_plain, *data, N, B + 1), want)
+
+
+@pytest.mark.parametrize("w_per_class", [False, True])
+def test_one_class_batch_equals_the_2d_call_exactly(w_per_class):
+    binned, node, g, h, w = _data(12, 3000, 5, 16, 4)
+    bw = w[None] if w_per_class else w
+    one = _port(hist.level_histograms_plain, binned, node[None], g[None],
+                h[None], bw, 4, 17)
+    assert one.shape == (1, 5, 4 * 17, 3)
+    np.testing.assert_array_equal(
+        one[0], _port(hist.level_histograms_plain, binned, node, g, h, w, 4,
+                      17))
+
+
+def test_batched_wrapper_on_cpu_launches_nothing():
+    data = _batch(13, 2048, 3, 16, 8)
+    before = hist.level_histograms.launches
+    np.testing.assert_array_equal(
+        _port(hist.level_histograms, *data, 8, 17),
+        _port(hist.level_histograms_plain, *data, 8, 17))
+    assert hist.level_histograms.launches == before
 
 
 def test_out_of_range_bins_clamp_like_the_reference():
@@ -226,6 +293,38 @@ def test_launch_plan_takes_the_kernel_it_is_given(kernel, N, Bt, node_blocks,
     assert (p["node_blocks"], p["groups"]) == (node_blocks, groups)
 
 
+@pytest.mark.parametrize("R,F,N,Bt,bb,K", [
+    (11_000_000, 28, 1, 65, 1, 3), (11_000_000, 28, 16, 65, 1, 3),
+    (11_000_000, 28, 1, 257, 2, 1), (11_000_000, 28, 16, 257, 2, 1),
+    (11_000_000, 28, 1024, 65, 1, 1), (11_000_000, 28, 4096, 65, 1, 1),
+    (100_000, 28, 8, 65, 1, 10),
+])
+def test_launch_plan_of_class_batches_and_the_new_paths(R, F, N, Bt, bb, K):
+    """A batch of K classes keeps the kernel and block shape of one class
+    (each class has its own slab) and splits the persistent grid over the
+    classes: at most one block per SM of the H100's 132 in all. The
+    XGBoost levels (257 int16 bins) and DRF's deep levels run the atomic
+    kernel."""
+    one = _plan(R, F, N, Bt, bb)
+    p = hist._plan(R, F, N, Bt, bb, 132, 1, None, K)
+    for key in ("kernel", "features_per_group", "nodes_per_block",
+                "copies", "owners", "smem_bytes", "tiles"):
+        assert p[key] == one[key], key
+    assert p["classes"] == K
+    assert p["blocks"] == p["groups"] * p["node_blocks"] * p["row_splits"] * K
+    assert p["blocks"] <= max(132, p["groups"] * p["node_blocks"] * K)
+    if Bt == 257 or N >= 1024:
+        assert p["kernel"] == "atomic"
+
+
+def test_bound_counts_the_bins_once_for_a_class_batch():
+    # the multinomial level at K = 3: bins once, node/g/h per class, one w
+    assert hist.hist_bytes(11_000_000, 28, 1, 65, 1, K=3) == \
+        11_000_000 * (28 + 3 * 12 + 4) + 3 * 28 * 65 * 3 * 4
+    assert hist.hist_bytes(10, 2, 1, 5, 2, K=3, w_per_class=True) == \
+        10 * (4 + 3 * 16) + 3 * 2 * 5 * 12
+
+
 def test_launch_plan_refuses_a_slab_beyond_shared_memory():
     with pytest.raises(ValueError):
         _plan(1000, 1, 1, 20_000)
@@ -264,5 +363,22 @@ def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype, node0):
     before = hist.level_histograms.launches
     got = _port(hist.level_histograms, *data, N, B + 1, device=cuda_device)
     assert hist.level_histograms.launches == before + 1
+    _close(got, _port(hist.level_histograms_plain, *data, N, B + 1,
+                      device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,F,B,N,dtype,w_per_class", [
+    (4096, 7, 16, 8, np.int16, False), (4096, 7, 16, 8, np.int16, True),
+    (4099, 5, 64, 4, np.int8, True),     # rows not a multiple of 4
+    (2048, 3, 256, 128, np.int16, True),  # the atomic kernel
+    (1 << 16, 28, 64, 16, np.int8, False),
+])
+def test_batched_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype,
+                                              w_per_class):
+    data = _batch(14, R, F, B, N, w_per_class=w_per_class, dtype=dtype)
+    before = hist.level_histograms.launches
+    got = _port(hist.level_histograms, *data, N, B + 1, device=cuda_device)
+    assert hist.level_histograms.launches == before + 1   # one for all K
     _close(got, _port(hist.level_histograms_plain, *data, N, B + 1,
                       device=cuda_device))
