@@ -7,18 +7,28 @@ Phases, each of which fails the run on error:
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build of every CUDA kernel from ``h2o3_tpu_torch/csrc`` (timed);
-2. the histogram kernel held against its plain PyTorch version on the card
-   at small shapes (one with every row in node 0, one with inputs that
-   start off their vector alignment), at 2^14 nodes, at 257 int16 bins,
-   at the main path's 11M x 28 shapes (one with 11,000,003 rows), at the
-   XGBoost level-0 shape (257 int16 bins) and a deep DRF level (1024
-   nodes); then class batches (K = 3, w shared and per class, at small
-   shapes and at the 11M x 28 multinomial level-0 shape), and a K = 1
-   batch against the 2-D call;
-3. small models trained on the CPU (plain path) and on the card (kernel),
+2. the histogram kernels held against their plain PyTorch version on the
+   card at small shapes (one with every row in node 0, one with inputs
+   that start off their vector alignment), at 2^14 nodes, at 257 int16
+   bins, at the main path's 11M x 28 shapes (one with 11,000,003 rows), at
+   the XGBoost level-0 shape (257 int16 bins) and a deep DRF level (1024
+   nodes); the global kernel forced through the plan at DRF's 1024 and
+   4096 nodes (11M x 28), at 2^14 nodes (1M rows), at 16 and 64 nodes of
+   257 int16 bins, at 4099 rows and on offset views; then class batches
+   (K = 3, w shared and per class, at small shapes, at 1024 nodes on the
+   global kernel and at the 11M x 28 multinomial level-0 shape), the
+   plan's own kernel at every DRF level, and a K = 1 batch against the 2-D
+   call;
+3. small models trained on the CPU (plain path) and on the card (kernels),
    which must agree on every split, on the training metric and on the
    margins: a 100k-row binomial GBM, multinomial GBM (K = 3) and XGBoost
-   (256 bins), sampling off;
+   (256 bins), sampling off; then a 200k-row GBM of depth 12, whose levels
+   of 32 to 1024 nodes run the global kernel, held to the metric and to
+   the first tree's leaves on the rows it routes through splits alike
+   (near-ties flip with the order of the sums; it prints how many heap
+   nodes and rows agree), and trained twice more on the card as witnesses
+   of what the order of the sums alone moves: the same plan again, and the
+   lane kernel at every level;
 4. the main path at full width: binomial GBM on the 11M x 28 HIGGS-shaped
    frame (64 bins, depth 6, 20 trees, learn rate 0.1) trained once to warm
    up and once timed, then scored — the kernel must launch exactly 120
@@ -31,24 +41,29 @@ Phases, each of which fails the run on error:
    compiled out (staging, listing and decoding) and with only its tile
    staging, with the launch plan of each level;
 6. the three further paths on phase 4's frame, each warmed up, timed
-   (launches counted), profiled and scored (the scored metric must equal
-   the training one): XGBoost as bench.py's bench_xgboost (10 trees, depth
-   6, 256 bins, eta 0.3; exactly 60 launches), multinomial GBM on a
-   3-class label drawn from the same X (K = 3, 64 bins, depth 6, 20
-   rounds; exactly 120 launches, one per level for all three classes) and
-   DRF at its defaults (depth 14, 64 bins, sample_rate 0.632, mtries 5),
-   cut from 50 trees to 5 (exactly 70 launches); then the kernel timed at
-   each path's level shapes as in phase 5 (multinomial and XGBoost levels
-   0-5, DRF's levels 11 and 13 at 1024 and 4096 nodes).
+   (launches counted by kernel and held to the plan's), profiled and
+   scored (the scored metric must equal the training one): XGBoost as
+   bench.py's bench_xgboost (10 trees, depth 6, 256 bins, eta 0.3; 60
+   launches: the atomic kernel at levels 0-2, the global kernel at 3-5),
+   multinomial GBM on a 3-class label drawn from the same X (K = 3, 64
+   bins, depth 6, 20 rounds; 120 launches, one per level for all three
+   classes) and DRF at its defaults (50 trees, depth 14, 64 bins,
+   sample_rate 0.632, mtries 5; 700 launches: the lane kernel at levels
+   0-5, the global kernel at 6-13); then the kernel timed at each path's
+   level shapes as in phase 5 (multinomial and XGBoost levels 0-5, every
+   DRF level from 1 to 4096 nodes), with, at the global kernel's levels,
+   its update bound and the other two kernels' times.
 
 The line before the last is the ``kernels`` JSON object (the main path's
-object, then one per further path with its ``path``); the last line is
+object, one per further path with its ``path``, and one for the global
+kernel at the DRF levels it takes); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -66,9 +81,12 @@ F32_FLOPS_PER_S = 67e12
 ROWS, NFEAT, NTREES, DEPTH, NBINS = 11_000_000, 28, 20, 6, 64
 # the XGBoost path: bench.py's bench_xgboost configuration
 XGB_TREES, XGB_BINS = 10, 256
-# the DRF path at DRF's defaults, cut from 50 trees to 5 to hold the
-# script's time
-DRF_TREES, DRF_DEPTH, DRF_MTRIES = 5, 14, 5
+# the DRF path at DRF's defaults (50 trees, depth 14, mtries sqrt(28))
+DRF_TREES, DRF_DEPTH, DRF_MTRIES = 50, 14, 5
+#: 16-byte float reductions into global memory per second at random
+#: addresses of a 3 MB array (bench/global_red_rates.cu on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W): what bounds the global kernel's updates
+RED_V4_PER_S = 8.966e10
 
 #: the first kernel's ms per launch at levels 0-5 of the main path (one
 #: feature per block, shared atomics; PERF.md section 6, NVIDIA H100 80GB
@@ -198,56 +216,121 @@ def check_hist(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return max_abs
 
 
+def check_call(args: tuple, N: int, Bt: int, what: str,
+               kernel: str | None = None) -> tuple:
+    """One kernel call held against the plain version: the plan's own
+    kernel through ``level_histograms``, or ``kernel`` forced through the
+    plan. Returns the kernel that ran and the max abs err."""
+    from h2o3_tpu_torch.ops import hist
+    node = args[1]
+    K = node.shape[0] if node.dim() == 2 else 1
+    used = hist.launch_plan(args[0], N, Bt, kernel, K)["kernel"]
+    got = (hist._launch(*args, N, Bt, kernel) if kernel
+           else hist.level_histograms(*args, N, Bt))
+    err = check_hist(got, hist.level_histograms_plain(*args, N, Bt),
+                     f"{what} [{used}]")
+    return used, err
+
+
 def phase_kernel_checks() -> dict:
     """Phase 2: kernel against the plain version, 2-D calls and class
-    batches; returns the max abs err of each path's shapes."""
-    from h2o3_tpu_torch.ops.hist import level_histograms, level_histograms_plain
+    batches, every kernel of the plan (the global kernel also forced
+    through the plan) and the plan's own choice at every DRF level; returns
+    the max abs err of each path's shapes and of the global kernel's."""
+    from h2o3_tpu_torch.ops.hist import (launch_plan, level_histograms,
+                                         level_histograms_plain)
     gen = torch.Generator(device="cuda").manual_seed(7)
     Bt = NBINS + 1
-    shapes = [  # (R, F, bins incl. NA, N, dtype, what, path)
-        (4096, 7, 17, 8, torch.int16, "", "binomial"),
-        (2048, 3, 257, 128, torch.int16, "", "xgboost_257"),
-        (4099, 5, Bt, 1, torch.int8, "node0", "binomial"),  # one node
-        (4099, 5, Bt, 4, torch.int8, "skew", "binomial"),   # off alignment
-        (4099, 5, Bt, 4, torch.int16, "skew", "binomial"),
-        (1 << 20, 4, Bt, 1 << 14, torch.int8, "", "drf_depth14"),
-        (ROWS, NFEAT, Bt, 1, torch.int8, "", "binomial"),
-        (ROWS + 3, NFEAT, Bt, 1, torch.int8, "", "binomial"),  # rows % 4
-        (ROWS, NFEAT, Bt, 2, torch.int8, "", "binomial"),
-        (ROWS, NFEAT, Bt, 16, torch.int8, "", "binomial"),
+    G = "global"
+    shapes = [  # (R, F, bins incl. NA, N, dtype, what, path, kernel)
+        (4096, 7, 17, 8, torch.int16, "", "binomial", None),
+        (2048, 3, 257, 128, torch.int16, "", "xgboost_257", None),
+        (4099, 5, Bt, 1, torch.int8, "node0", "binomial", None),  # one node
+        (4099, 5, Bt, 4, torch.int8, "skew", "binomial", None),   # unaligned
+        (4099, 5, Bt, 4, torch.int16, "skew", "binomial", None),
+        (1 << 20, 4, Bt, 1 << 14, torch.int8, "", "drf_depth14", None),
+        (ROWS, NFEAT, Bt, 1, torch.int8, "", "binomial", None),
+        # rows not a multiple of 4
+        (ROWS + 3, NFEAT, Bt, 1, torch.int8, "", "binomial", None),
+        (ROWS, NFEAT, Bt, 2, torch.int8, "", "binomial", None),
+        (ROWS, NFEAT, Bt, 16, torch.int8, "", "binomial", None),
         # the XGBoost level-0 shape (atomic kernel) and a deep DRF level
-        (ROWS, NFEAT, XGB_BINS + 1, 1, torch.int16, "", "xgboost_257"),
-        (ROWS, NFEAT, Bt, 1024, torch.int8, "", "drf_depth14"),
+        (ROWS, NFEAT, XGB_BINS + 1, 1, torch.int16, "", "xgboost_257", None),
+        (ROWS, NFEAT, Bt, 1024, torch.int8, "", "drf_depth14", None),
+        # the global kernel forced through the plan: DRF's deepest levels,
+        # 2^14 nodes, 257 int16 bins, rows not a multiple of four, and
+        # offset views (bins, node, g, h and w off their alignment)
+        (ROWS, NFEAT, Bt, 1024, torch.int8, "", G, G),
+        (ROWS, NFEAT, Bt, 4096, torch.int8, "", G, G),
+        (1_000_000, NFEAT, Bt, 1 << 14, torch.int8, "", G, G),
+        (ROWS, NFEAT, XGB_BINS + 1, 16, torch.int16, "", G, G),
+        (ROWS, NFEAT, XGB_BINS + 1, 64, torch.int16, "", G, G),
+        (4099, 5, Bt, 64, torch.int8, "", G, G),
+        (4099, 5, Bt, 64, torch.int8, "skew", G, G),
+        (1 << 20, NFEAT, XGB_BINS + 1, 64, torch.int16, "skew", G, G),
     ]
     worst: dict[str, float] = {}
-    for R, F, Bt_, N, dt, what, path in shapes:
+
+    def note(path: str, used: str, err: float) -> None:
+        worst[path] = max(worst.get(path, 0.0), err)
+        if used == G:
+            worst[G] = max(worst.get(G, 0.0), err)
+
+    for R, F, Bt_, N, dt, what, path, kernel in shapes:
         node = (torch.zeros(R, dtype=torch.int32, device="cuda")
                 if what == "node0" else None)
         args = hist_inputs(R, F, Bt_, N, dt, gen, node=node,
                            skew=1 if what == "skew" else 0)
         shape = f"R={R} F={F} Bt={Bt_} N={N} {str(dt)[6:]} {what}".strip()
-        err = check_hist(level_histograms(*args, N, Bt_),
-                         level_histograms_plain(*args, N, Bt_), shape)
-        worst[path] = max(worst.get(path, 0.0), err)
+        note(path, *check_call(args, N, Bt_, shape, kernel))
         del args
     # class batches (K = 3): w shared and per class, the lane kernel with
-    # rows a multiple of four and not, the atomic kernel, and the
-    # multinomial level-0 shape at full width
-    batches = [  # (R, F, bins incl. NA, N, dtype, K, w per class)
-        (4096, 7, 17, 8, torch.int16, 3, False),
-        (4096, 7, 17, 8, torch.int16, 3, True),
-        (4099, 5, Bt, 4, torch.int8, 3, True),
-        (2048, 3, 257, 128, torch.int16, 3, True),
-        (ROWS, NFEAT, Bt, 1, torch.int8, 3, False),
+    # rows a multiple of four and not, the atomic kernel, the global kernel
+    # (planned at 128 nodes of 257 bins, forced at 1024 nodes of 65), and
+    # the multinomial level-0 shape at full width
+    batches = [  # (R, F, bins incl. NA, N, dtype, K, w per class, kernel)
+        (4096, 7, 17, 8, torch.int16, 3, False, None),
+        (4096, 7, 17, 8, torch.int16, 3, True, None),
+        (4099, 5, Bt, 4, torch.int8, 3, True, None),
+        (4096, 7, 257, 1, torch.int16, 3, True, None),
+        (2048, 3, 257, 128, torch.int16, 3, True, None),
+        (4099, 5, Bt, 1024, torch.int8, 3, True, G),
+        (ROWS, NFEAT, Bt, 1024, torch.int8, 3, False, G),
+        (ROWS, NFEAT, Bt, 1024, torch.int8, 3, True, G),
+        (ROWS, NFEAT, Bt, 1, torch.int8, 3, False, None),
     ]
-    for R, F, Bt_, N, dt, K, wk in batches:
+    for R, F, Bt_, N, dt, K, wk, kernel in batches:
         args = batch_inputs(R, F, Bt_, N, dt, gen, K, wk)
         shape = (f"R={R} F={F} Bt={Bt_} N={N} {str(dt)[6:]} K={K} "
                  f"w {'per class' if wk else 'shared'}")
-        err = check_hist(level_histograms(*args, N, Bt_),
-                         level_histograms_plain(*args, N, Bt_), shape)
-        worst["multinomial_k3"] = max(worst.get("multinomial_k3", 0.0), err)
+        note("multinomial_k3", *check_call(args, N, Bt_, shape, kernel))
         del args
+    # the plan's own kernel at every DRF level (11M x 28, 65 bins): level d
+    # >= 1 holds half the rows in 2^(d-1) nodes; level 0 every row in node
+    # 0, so that each entry sums about 170k rows and the plain version's own
+    # float32 rounding nears the tolerance: there the kernel is held to
+    # float64 sums, with the plain version's distance from them beside it
+    binned_T, _, g, h, w = hist_inputs(ROWS, NFEAT, Bt, 1, torch.int8, gen)
+    for level in range(1, DRF_DEPTH):
+        N, node = level_nodes(ROWS, level, gen)
+        note("drf_depth14", *check_call(
+            (binned_T, node, g, h, w), N, Bt,
+            f"DRF level {level} R={ROWS} F={NFEAT} Bt={Bt} N={N} int8"))
+        del node
+    _, node = level_nodes(ROWS, 0, gen)
+    stats = torch.stack([g, h, w], 1).double()
+    exact = torch.stack([torch.zeros((Bt, 3), dtype=torch.float64,
+                                     device="cuda").index_add_(
+        0, binned_T[f].long(), stats) for f in range(NFEAT)])
+    what = f"DRF level 0 R={ROWS} F={NFEAT} Bt={Bt} N=1 int8"
+    plain = level_histograms_plain(binned_T, node, g, h, w, 1, Bt)
+    print(f"{what}: plain version against float64 sums: max abs err "
+          f"{float((plain - exact).abs().max()):.3e}")
+    note("drf_depth14", launch_plan(binned_T, 1, Bt)["kernel"], check_hist(
+        level_histograms(binned_T, node, g, h, w, 1, Bt), exact,
+        f"{what} against float64 sums"))
+    del plain
+    del binned_T, node, g, h, w, stats, exact
     # a K = 1 batch against the 2-D call: both launch the same kernel and
     # flush with float atomicAdd, so they are held to the same tolerance
     binned_T, node, g, h, w = hist_inputs(ROWS, NFEAT, Bt, 2, torch.int8, gen)
@@ -279,7 +362,7 @@ def phase_kernel_times() -> dict:
     for level in range(DEPTH):
         N, node = level_nodes(ROWS, level, gen)
         active = int((node >= 0).sum())
-        calls = level_histograms.launches
+        calls = dict(level_histograms.kernel_launches)
         ms = cuda_ms(lambda: level_histograms(binned_T, node, g, h, w, N, Bt),
                      reps=20)
         loads_ms = cuda_ms(lambda: level_histograms_loads_only(
@@ -299,7 +382,8 @@ def phase_kernel_times() -> dict:
             (NFEAT * N * Bt, 3), device="cuda").index_add_(0, ids, src),
             reps=5, warmup=1)
         del ids, src, act
-        level_histograms.launches = calls   # timing launches are not counted
+        # timing launches are not counted
+        level_histograms.kernel_launches = calls
         nbytes = hist_bytes(ROWS, NFEAT, N, Bt, 1)
         flops = hist_flops(active, NFEAT)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
@@ -383,44 +467,156 @@ def _tree_sets(model) -> list:
     return out["trees_multi"] if "trees_multi" in out else [out["trees"]]
 
 
-def cross_device(what: str, cols: dict, make, metric: str) -> None:
+def _routed_alike(a, b, X: torch.Tensor, keys: tuple) -> tuple:
+    """The heap index of the leaf each row reaches in tree ``a`` and [rows]
+    True where its path runs only through heap nodes whose split
+    (``keys``) is the same in tree ``b``: there both route the row alike,
+    to the same leaf."""
+    alike = torch.stack([getattr(a, k).cpu() == getattr(b, k).cpu()
+                         for k in keys]).all(0)
+    depth = int(np.log2(alike.numel() + 1)) - 1
+    for d in range(1, depth + 1):   # a node is alike if its parent is
+        i = torch.arange(2 ** d - 1, 2 ** (d + 1) - 1)
+        alike[i] &= alike[(i - 1) // 2]
+    feat, tv = a.feat.cpu(), a.thresh_val.cpu()
+    na_l, is_sp = a.na_left.cpu(), a.is_split.cpu()
+    idx = torch.zeros(X.shape[0], dtype=torch.long)
+    for _ in range(depth):   # the raw-value walk of tree.predict_raw
+        x = X.gather(1, feat[idx].clamp_min(0).long()[:, None])[:, 0]
+        left = torch.where(torch.isnan(x), na_l[idx], x < tv[idx])
+        idx = torch.where(is_sp[idx], idx * 2 + torch.where(left, 1, 2), idx)
+    return idx, alike[idx]
+
+
+SPLIT_KEYS = ("feat", "thresh_bin", "na_left", "is_split")
+
+
+def _split_agreement(ma, mb) -> tuple:
+    """Heap nodes whose split (feature, threshold, NA side, split or not)
+    is the same in two models' trees, trees split alike throughout, and
+    their totals."""
+    pairs = [(a, b) for sa, sb in zip(_tree_sets(ma), _tree_sets(mb))
+             for a, b in zip(sa, sb)]
+    alike = [torch.stack([getattr(a, k).cpu() == getattr(b, k).cpu()
+                          for k in SPLIT_KEYS]).all(0) for a, b in pairs]
+    return (sum(int(x.sum()) for x in alike), sum(x.numel() for x in alike),
+            sum(bool(x.all()) for x in alike), len(pairs))
+
+
+@contextlib.contextmanager
+def plan_taking(kernel: str):
+    """The plan taking ``kernel`` at every level of every bin count, for a
+    witness run (the lane kernel holds any node count of up to 129
+    bins)."""
+    from h2o3_tpu_torch.ops import hist
+    saved = hist._KERNEL_SWITCH
+    hist._KERNEL_SWITCH = {b: (kernel, hist._GLOBAL_MAX_NODES + 1)
+                           for b in saved}
+    hist._kernel_plan.cache_clear()
+    hist._plan.cache_clear()
+    try:
+        yield
+    finally:
+        hist._KERNEL_SWITCH = saved
+        hist._kernel_plan.cache_clear()
+        hist._plan.cache_clear()
+
+
+def cross_device(what: str, cols: dict, make, metric: str,
+                 exact_splits: bool = True) -> dict:
     """One small model trained on the CPU (plain path) and on the card
-    (kernel): every split must agree, the training ``metric`` within 1e-4
-    and the margins within atol 1e-4 (float32 sums in another order)."""
+    (kernels): the training ``metric`` within 1e-4 and the margins within
+    atol 1e-4 (float32 sums in another order), and, with ``exact_splits``,
+    every split equal. A deep tree's nodes take their histograms by
+    repeated sibling subtraction, which carries the rounding of root-sized
+    sums, so a near-tie between splits may flip with the order of the sums
+    and move the rows under it, and every later tree sees those rows'
+    gradients change. Without ``exact_splits`` the margins are therefore
+    held on the first tree: its leaf values within 1e-4 on the rows it
+    routes through splits alike on both devices; the script prints how many
+    heap nodes and rows agree in each tree. It then trains two witnesses of
+    what the order of the sums alone does, on the card: the same plan
+    again (the global kernel's reductions land in another order from run
+    to run) and the lane kernel at every level (no atomics: one fixed order,
+    not the CPU's), and prints how many heap nodes and first-tree rows
+    agree between each pair of runs. Returns the kernels' launches on the
+    card."""
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+    from h2o3_tpu_torch.ops.hist import level_histograms
+    runs = [("cpu", "cpu", None), ("cuda", "cuda", None)]
+    if not exact_splits:
+        runs += [("cuda again", "cuda", None),
+                 ("cuda, lanes at every level", "cuda", "lanes")]
     models, margins = {}, {}
-    for dev in ("cpu", "cuda"):
+    for name, dev, kernel in runs:
         fr = Frame.from_arrays(cols, device=dev)
         t0 = time.perf_counter()
-        models[dev] = make().train(x=[f"x{i}" for i in range(NFEAT)], y="y",
-                                   training_frame=fr)
-        margins[dev] = _margins(models[dev], fr).cpu()
-        print(f"cross-device {what} on {dev}: "
+        level_histograms.kernel_launches = dict.fromkeys(
+            level_histograms.kernel_launches, 0)
+        with plan_taking(kernel) if kernel else contextlib.nullcontext():
+            models[name] = make().train(x=[f"x{i}" for i in range(NFEAT)],
+                                        y="y", training_frame=fr)
+        margins[name] = _margins(models[name], fr).cpu()
+        print(f"cross-device {what} on {name}: "
               f"{time.perf_counter() - t0:.2f} s, {metric} "
-              f"{getattr(models[dev].training_metrics, metric):.6f}")
+              f"{getattr(models[name].training_metrics, metric):.6f}, "
+              f"kernel launches {level_histograms.kernel_launches}")
+        if name == "cuda":
+            launches = dict(level_histograms.kernel_launches)
     pairs = [(a, b) for sa, sb in zip(_tree_sets(models["cpu"]),
                                       _tree_sets(models["cuda"]))
              for a, b in zip(sa, sb)]
-    same = lambda keys: sum(all(torch.equal(getattr(a, k).cpu(),
-                                            getattr(b, k).cpu())
-                                for k in keys) for a, b in pairs)
+    same_heaps = sum(all(torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())
+                         for k in HEAP_FIELDS) for a, b in pairs)
     d_metric = abs(getattr(models["cpu"].training_metrics, metric)
                    - getattr(models["cuda"].training_metrics, metric))
     d_margin = float((margins["cpu"] - margins["cuda"]).abs().max())
-    n_split = same(("feat", "thresh_bin", "na_left", "is_split"))
-    print(f"cross-device {what}: {same(HEAP_FIELDS)}/{len(pairs)} trees with "
+    entries, total, n_split, _ = _split_agreement(models["cpu"],
+                                                  models["cuda"])
+    print(f"cross-device {what}: {same_heaps}/{len(pairs)} trees with "
           f"identical heap arrays, {n_split}/{len(pairs)} with identical "
-          f"splits, |d{metric}| {d_metric:.2e}, max |dmargin| "
-          f"{d_margin:.2e}")
-    if n_split != len(pairs) or d_metric >= 1e-4 \
-            or not torch.allclose(margins["cpu"], margins["cuda"], atol=1e-4):
+          f"splits, {entries}/{total} heap nodes with the same split, "
+          f"|d{metric}| {d_metric:.2e}, max |dmargin| {d_margin:.2e}; "
+          f"kernel launches on the card {launches}")
+    if exact_splits:
+        ok = n_split == len(pairs) and torch.allclose(
+            margins["cpu"], margins["cuda"], atol=1e-4)
+    else:
+        X = torch.from_numpy(np.stack([cols[f"x{i}"] for i in range(NFEAT)],
+                                      1))
+        for t, (a, b) in enumerate(pairs):
+            idx, rows = _routed_alike(a, b, X, SPLIT_KEYS)
+            d_leaf = float((a.leaf.cpu()[idx] - b.leaf.cpu()[idx])[rows]
+                           .abs().max())
+            print(f"cross-device {what}, tree {t}: {int(rows.sum())}/"
+                  f"{rows.numel()} rows routed through splits alike, max "
+                  f"|dleaf| there {d_leaf:.2e}")
+            if t == 0:
+                ok = d_leaf < 1e-4
+        names = [name for name, _, _ in runs]
+        for i, x in enumerate(names):
+            for y in names[i + 1:]:
+                entries, total, _, _ = _split_agreement(models[x], models[y])
+                rows = _routed_alike(_tree_sets(models[x])[0][0],
+                                     _tree_sets(models[y])[0][0], X,
+                                     SPLIT_KEYS)[1]
+                print(f"split order witness, {what}, {x} vs {y}: "
+                      f"{total - entries}/{total} heap nodes split "
+                      f"differently, {rows.numel() - int(rows.sum())}/"
+                      f"{rows.numel()} rows routed differently in tree 0, "
+                      f"max |dmargin| "
+                      f"{float((margins[x] - margins[y]).abs().max()):.2e}")
+    if not ok or d_metric >= 1e-4:
         raise AssertionError(f"card and CPU {what} disagree")
+    return launches
 
 
 def phase_cross_device() -> None:
     """Phase 3: small binomial GBM, multinomial GBM (K = 3) and XGBoost
-    (256 bins) on the CPU and on the card, sampling off."""
+    (256 bins) on the CPU and on the card, sampling off; then a deep GBM
+    (depth 12, levels of up to 1024 nodes) whose deep levels run the
+    global kernel on the card."""
     from h2o3_tpu_torch.models.gbm import GBM
     from h2o3_tpu_torch.models.xgboost import XGBoost
     cols = higgs_arrays(100_000)
@@ -433,6 +629,12 @@ def phase_cross_device() -> None:
         ntrees=5, max_depth=6, nbins=64, learn_rate=0.1, seed=42), "logloss")
     cross_device("XGBoost 100k x 28, 256 bins", cols, lambda: XGBoost(
         ntrees=5, max_depth=6, max_bin=XGB_BINS, eta=0.3, seed=42), "auc")
+    deep = cross_device("GBM 200k x 28, depth 12", higgs_arrays(200_000),
+                        lambda: GBM(ntrees=3, max_depth=12, nbins=NBINS,
+                                    learn_rate=0.1, seed=42), "auc",
+                        exact_splits=False)
+    if deep["global"] == 0:
+        raise AssertionError("the deep GBM never launched the global kernel")
 
 
 def build_frame():
@@ -449,24 +651,46 @@ def build_frame():
     return fr
 
 
-def run_path(what: str, train, warm, fr, ntrees: int, expected: int,
-             metrics) -> dict:
-    """Train once to warm up (``warm``: fewer trees at the same shapes) and
-    once timed, with the kernel's launches counted from 0; then score the
-    frame and hold the scored metrics to the training ones. ``metrics``
-    names the metrics, each with its tolerance."""
+def planned_launches(ntrees: int, depth: int, Bt: int, bin_bytes: int,
+                     K: int = 1) -> dict:
+    """Launches of each kernel that a training of ``ntrees`` trees (rounds)
+    of ``depth`` levels makes: one per level, of the kernel the plan takes
+    at the level's node count (1 at levels 0 and 1, 2^(d-1) at level d)."""
+    from h2o3_tpu_torch.ops.hist import _kernel_plan, level_histograms
+    out = dict.fromkeys(level_histograms.kernel_launches, 0)
+    for d in range(depth):
+        out[_kernel_plan(NFEAT, max(1, 2 ** (d - 1)), Bt, bin_bytes, None,
+                         K)["kernel"]] += ntrees
+    return out
+
+
+def reset_launches() -> None:
+    """Every kernel launch count to 0."""
     from h2o3_tpu_torch.ops.hist import level_histograms
+    level_histograms.kernel_launches = dict.fromkeys(
+        level_histograms.kernel_launches, 0)
+
+
+def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
+             metrics, kernels: tuple) -> dict:
+    """Train once to warm up (``warm``: fewer trees at the same shapes) and
+    once timed, with the kernels' launches counted from 0 and held to
+    ``expected`` (launches by kernel), each of ``kernels`` at least once;
+    then score the frame and hold the scored metrics to the training ones.
+    ``metrics`` names the metrics, each with its tolerance."""
+    from h2o3_tpu_torch.ops.hist import launch_count, level_histograms
     t0 = time.perf_counter()
     warm()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    level_histograms.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     model = train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = level_histograms.launches
+    launches = launch_count()
+    by_kernel = dict(level_histograms.kernel_launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -478,12 +702,13 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: int,
                       f"{getattr(scored, m):.6f}" for m, v in trained.items())
     print(f"{what}: warm-up {warm_s:.2f} s, timed {seconds:.3f} s, "
           f"{ROWS * ntrees / seconds:.4g} rows*trees/s, kernel launches "
-          f"{launches}, peak device memory {peak:.2f} GiB; {shown}; "
-          f"scoring {score_s:.3f} s")
+          f"{launches} {by_kernel}, peak device memory {peak:.2f} GiB; "
+          f"{shown}; scoring {score_s:.3f} s")
     prof = profile_training(train, seconds)
-    if launches != expected:
-        raise AssertionError(f"{what}: kernel launched {launches} times, "
-                             f"expected {expected}")
+    if by_kernel != expected or launches != sum(expected.values()) \
+            or not all(by_kernel[k] for k in kernels):
+        raise AssertionError(f"{what}: kernels launched {by_kernel}, "
+                             f"expected {expected}, each of {kernels}")
     for m, tol in metrics.items():
         if not np.isfinite(trained[m]) or \
                 abs(getattr(scored, m) - trained[m]) >= tol:
@@ -494,9 +719,9 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: int,
             or not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]),
                                   atol=1e-4):
         raise AssertionError(f"{what}: scores are not probabilities")
-    return dict(seconds=seconds, launches=launches, score_s=score_s,
-                rows_trees_per_s=ROWS * ntrees / seconds, peak_gib=peak,
-                **trained, **prof)
+    return dict(seconds=seconds, launches=launches, by_kernel=by_kernel,
+                score_s=score_s, rows_trees_per_s=ROWS * ntrees / seconds,
+                peak_gib=peak, **trained, **prof)
 
 
 def phase_new_paths(fr) -> dict:
@@ -518,7 +743,8 @@ def phase_new_paths(fr) -> dict:
     out["xgboost_257"] = run_path(
         f"XGBoost {ROWS} x {NFEAT}, {XGB_TREES} trees depth {DEPTH} "
         f"{XGB_BINS} bins", xgb(XGB_TREES), xgb(2), fr, XGB_TREES,
-        XGB_TREES * DEPTH, {"auc": 1e-4})
+        planned_launches(XGB_TREES, DEPTH, XGB_BINS + 1, 2), {"auc": 1e-4},
+        ("atomic", "global"))
 
     t0 = time.perf_counter()
     codes = multi_codes(fr.vec("x0").data, fr.vec("x1").data,
@@ -539,7 +765,8 @@ def phase_new_paths(fr) -> dict:
     out["multinomial_k3"] = run_path(
         f"multinomial GBM {ROWS} x {NFEAT}, K = 3, {NTREES} rounds depth "
         f"{DEPTH} {NBINS} bins", multi(NTREES), multi(2), frm, NTREES,
-        NTREES * DEPTH, {"logloss": 1e-4, "mean_per_class_error": 1e-4})
+        planned_launches(NTREES, DEPTH, NBINS + 1, 1, 3),
+        {"logloss": 1e-4, "mean_per_class_error": 1e-4}, ("lanes",))
     del frm, codes
 
     def drf(n):
@@ -550,7 +777,9 @@ def phase_new_paths(fr) -> dict:
     out["drf_depth14"] = run_path(
         f"DRF {ROWS} x {NFEAT}, {DRF_TREES} trees depth {DRF_DEPTH} {NBINS} "
         f"bins, sample_rate 0.632, mtries {DRF_MTRIES}", drf(DRF_TREES),
-        drf(1), fr, DRF_TREES, DRF_TREES * DRF_DEPTH, {"auc": 1e-9})
+        drf(1), fr, DRF_TREES,
+        planned_launches(DRF_TREES, DRF_DEPTH, NBINS + 1, 1), {"auc": 1e-9},
+        ("lanes", "global"))
     torch.cuda.empty_cache()
     return out
 
@@ -558,7 +787,7 @@ def phase_new_paths(fr) -> dict:
 def phase_main_path(fr) -> dict:
     """Phase 4: bench_gbm's configuration on the full 11M x 28 frame."""
     from h2o3_tpu_torch.models.gbm import GBM
-    from h2o3_tpu_torch.ops.hist import level_histograms
+    from h2o3_tpu_torch.ops.hist import launch_count, level_histograms
 
     def train():
         return GBM(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS,
@@ -569,12 +798,13 @@ def phase_main_path(fr) -> dict:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    level_histograms.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     model = train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = level_histograms.launches
+    launches = launch_count()
+    by_kernel = dict(level_histograms.kernel_launches)
     auc = model.training_metrics.auc
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -587,13 +817,15 @@ def phase_main_path(fr) -> dict:
     print(f"main path GBM {ROWS} x {NFEAT}, {NTREES} trees depth {DEPTH} "
           f"{NBINS} bins: warm-up {warm:.2f} s, timed {seconds:.3f} s, "
           f"{ROWS * NTREES / seconds:.4g} rows*trees/s, training AUC "
-          f"{auc:.6f}, kernel launches {launches}, peak device memory "
-          f"{peak:.2f} GiB")
+          f"{auc:.6f}, kernel launches {launches} {by_kernel}, peak device "
+          f"memory {peak:.2f} GiB")
     print(f"scoring {ROWS} rows: {score_s:.3f} s, scored AUC {scored_auc:.6f}")
-    expected = NTREES * DEPTH   # one histogram per level of every tree
-    if launches != expected:
-        raise AssertionError(f"kernel launched {launches} times, "
-                             f"expected {expected}")
+    # one histogram per level of every tree, all on the lane kernel
+    expected = planned_launches(NTREES, DEPTH, NBINS + 1, 1)
+    if launches != NTREES * DEPTH or by_kernel != expected \
+            or expected["lanes"] != NTREES * DEPTH:
+        raise AssertionError(f"kernels launched {launches} times "
+                             f"{by_kernel}, expected {expected}")
     if not (np.isfinite(auc) and auc > 0.5):
         raise AssertionError(f"training AUC {auc}")
     if ps.shape != (ROWS,) or not bool(torch.isfinite(ps).all()) \
@@ -617,16 +849,20 @@ def cuda_ms_auto(fn, budget_ms: float = 300.0, max_reps: int = 20) -> float:
 def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts) -> list:
     """The kernel, its plain version and one ``index_add_`` computing the
     same function, timed at each ``(level, N, node)`` layout of a path,
-    beside the bound (each input once: the bins once for all classes)."""
-    from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops, launch_plan,
-                                         level_histograms,
+    beside the bound (each input once: the bins once for all classes) and,
+    where the plan takes the global kernel, the other two kernels' times in
+    the same run and, printed only, its update bound (one 16-byte reduction
+    per active (row, feature) at ``RED_V4_PER_S``, a rate this run does not
+    measure)."""
+    from h2o3_tpu_torch.ops.hist import (_launch, hist_bytes, hist_flops,
+                                         launch_plan, level_histograms,
                                          level_histograms_plain)
     F, R = binned_T.shape
     K = g.shape[0] if g.dim() == 2 else 1
     rows = []
     for level, N, node in layouts:
         active = int((node >= 0).sum())
-        calls = level_histograms.launches
+        calls = dict(level_histograms.kernel_launches)
         ms = cuda_ms_auto(lambda: level_histograms(binned_T, node, g, h, w, N,
                                                    Bt))
         plain_ms = cuda_ms(lambda: level_histograms_plain(
@@ -648,7 +884,8 @@ def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts) -> list:
             (K * F * N * Bt, 3), device="cuda").index_add_(0, ids, src),
             reps=3, warmup=1)
         del ids, src
-        level_histograms.launches = calls   # timing launches are not counted
+        # timing launches are not counted
+        level_histograms.kernel_launches = dict(calls)
         nbytes = hist_bytes(R, F, N, Bt, binned_T.element_size(), K,
                             w.dim() == 2)
         flops = hist_flops(active, F)
@@ -656,26 +893,38 @@ def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts) -> list:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / F32_FLOPS_PER_S else "operations")
         plan = launch_plan(binned_T, N, Bt, K=K)
+        update_ms = other_ms = None
+        if plan["kernel"] == "global":
+            update_ms = active * F / RED_V4_PER_S * 1e3
+            other_ms = {k: cuda_ms_auto(lambda k=k: _launch(
+                binned_T, node, g, h, w, N, Bt, k)) for k in ("lanes",
+                                                               "atomic")}
+            level_histograms.kernel_launches = dict(calls)
         print(f"hist {what} level {level} N={N} K={K} active={active}: kernel "
               f"{ms:.4f} ms, {100 * bound_ms / ms:.1f}% of bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); plain "
-              f"{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; plan "
-              f"{plan['kernel']} groups={plan['groups']} "
+              f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)"
+              + (f", update bound {update_ms:.4f} ms; lanes "
+                 f"{other_ms['lanes']:.4f} ms, atomic {other_ms['atomic']:.4f}"
+                 " ms" if update_ms is not None else "") +
+              f"; plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; "
+              f"plan {plan['kernel']} groups={plan['groups']} "
               f"Nb={plan['nodes_per_block']} "
               f"node_blocks={plan['node_blocks']} copies={plan['copies']} "
               f"owners={plan['owners']} smem={plan['smem_bytes']} B "
               f"blocks={plan['blocks']}")
-        rows.append(dict(level=level, N=N, active_rows=active, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         bound_share=bound_ms / ms))
+        rows.append(dict(level=level, N=N, active_rows=active,
+                         kernel=plan["kernel"], ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_share=bound_ms / ms,
+                         lanes_ms=other_ms and other_ms["lanes"],
+                         atomic_ms=other_ms and other_ms["atomic"]))
     return rows
 
 
 def phase_new_path_times() -> dict:
     """Phase 6's kernel times at each new path's level shapes: the
     multinomial levels (K = 3, shared w) and the XGBoost levels (257 int16
-    bins) of one tree, and DRF's deepest levels (1024 and 4096 nodes)."""
+    bins) of one tree, and every DRF level (1 to 4096 nodes)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     Bt = NBINS + 1
     out = {}
@@ -692,7 +941,8 @@ def phase_new_path_times() -> dict:
     g, h, w = hist_inputs(ROWS, 1, 2, 1, torch.int8, gen)[2:]
     out["drf_depth14"] = time_levels(
         "DRF", binned_T, g, h, w, Bt,
-        [(level, *level_nodes(ROWS, level, gen)) for level in (11, 13)])
+        [(level, *level_nodes(ROWS, level, gen))
+         for level in range(DRF_DEPTH)])
     del binned_T
     binned_T = torch.randint(0, XGB_BINS + 1, (NFEAT, ROWS), generator=gen,
                              device="cuda").to(torch.int16)
@@ -704,12 +954,13 @@ def phase_new_path_times() -> dict:
     return out
 
 
-def kernel_entry(launches: int, max_err: float, times: list, **extra) -> dict:
+def kernel_entry(launches: int, max_err: float, times: list,
+                 name: str = "level_histograms", **extra) -> dict:
     """One object of the ``kernels`` line: per launch, averaged over the
     path's timed level shapes."""
     mean = lambda k: sum(r[k] for r in times) / len(times)
     return dict(
-        name="level_histograms", route="cuda",
+        name=name, route="cuda",
         source="h2o3_tpu_torch/csrc/hist.cu",
         replaces="h2o3_tpu/ops/pallas_hist.py:179",
         launches=launches, max_abs_err=max_err,
@@ -717,9 +968,9 @@ def kernel_entry(launches: int, max_err: float, times: list, **extra) -> dict:
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in times)
         else "operations", library_ms=mean("library_ms"),
         bound_share=mean("bound_ms") / mean("ms"), **extra,
-        levels=[{k: r[k] for k in r if k not in ("bound_by", "bytes",
-                                                  "flops", "gbps")}
-                for r in times])
+        levels=[{k: r[k] for k in r
+                 if k not in ("bound_by", "bytes", "flops", "gbps")
+                 and r[k] is not None} for r in times])
 
 
 def main() -> int:
@@ -748,6 +999,12 @@ def main() -> int:
     kernels += [kernel_entry(new_paths[path]["launches"], max_err[path],
                              new_times[path], path=path)
                 for path in ("multinomial_k3", "xgboost_257", "drf_depth14")]
+    # the global kernel: its launches in the DRF training, its times at the
+    # DRF levels the plan gives it
+    deep = [r for r in new_times["drf_depth14"] if r["kernel"] == "global"]
+    kernels.append(kernel_entry(
+        new_paths["drf_depth14"]["by_kernel"]["global"], max_err["global"],
+        deep, name="global_hist_kernel", path="drf_depth14"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

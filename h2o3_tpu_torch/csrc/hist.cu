@@ -4,7 +4,8 @@
 // 150, body _hist_kernel, pallas_call at line 179), which builds the same
 // histograms as a one-hot bf16 contraction on the TPU's matrix unit over
 // 1024-row tiles. None of that form is carried over: the card counts rows
-// into histograms held in shared memory.
+// into histograms held in shared memory, or, where nodes are many, adds
+// them straight into L2.
 //
 // What it computes, for feature f < F, node n < N and bin b < Bt:
 //
@@ -62,11 +63,42 @@
 // A lane's slab holds 3 x Nb x Bt floats, so Nb is at most 8 at Bt = 65;
 // N = 16 (level 5) takes two node blocks, each reading every row.
 //
-// atomic_hist_kernel. Where the lane kernel was measured the slower (many
-// node blocks, each reading every row, or blocks of fewer than 8 warps, as
-// at 129 and 257 bins; hist.py's _LANE_MAX_NODE_BLOCKS), the wrapper's plan
-// takes the first design: one block per feature, a node block from a 96 KB
-// budget, one row per thread per tile, and shared-memory atomicAdd.
+// atomic_hist_kernel. Where the lane and the global kernel were both
+// measured the slower (fewer than 4 nodes of 257 bins: XGBoost's levels
+// 0-2), the wrapper's plan takes the first design: one block per feature, a node block from a 96 KB budget,
+// one row per thread per tile, and shared-memory atomicAdd.
+//
+// global_hist_kernel. Both kernels above give each node block every row, so
+// at many nodes they read the rows node_blocks times (252 times for the
+// atomic kernel at 1024 nodes of 65 bins, 924 at 4096) and lost 13-26x to
+// one index_add_. The reference never ran its kernel there either: beyond
+// 32 node blocks pallas_hist.py sends a level to the scatter path
+// (models/tree.py:_level_histograms, a segment_sum). This kernel is that
+// path's counterpart on the card. It reads each row once per pass whatever
+// N is: a block stages a tile of 1024 rows' node, g, h and w with 16-byte
+// loads, drops the rows at node -1 (and rows of zeros, which add nothing:
+// DRF's Poisson bootstrap at rate 0.632 leaves e^-0.632, about half, of its
+// rows at weight 0) with a
+// ballot and a prefix count before any bin is read, stages the tile's bins
+// of the pass's features four rows to a word, and then adds every (listed
+// row, feature) into global memory with one 16-byte fire-and-forget float
+// reduction (REDG.E.ADD.F32x4) into a [K, F, N*Bt, 4] scratch, whose first
+// three floats the wrapper keeps. On this card the v4 reduction carries three
+// floats for the cost of one: 8.97e10 of them a second at random addresses
+// of a 3 MB array, as many as scalar ones, so 3.1x the entries of three
+// scalar adds (bench/global_red_rates.cu). Reductions miss L2 beyond it
+// (1.98e10 a second at 90 MB), so the features are walked in passes, every
+// block over all its rows per pass, each pass's entries about 8 MiB: at 4096
+// nodes of 65 bins (89 MB of output) 14 passes of 2 features took 3.15 ms
+// against 8.68 ms in one pass and 4.64 ms at 32 MiB a pass
+// (bench/hist_crossover.py). The best budget lies far below the 50 MB L2,
+// which the streamed rows share (loads marked evict-first, ld.global.cs,
+// were tried and changed nothing). The grid is persistent, one wave of the
+// SMs times CUDA's occupancy, over rows and classes. Where all rows add
+// into few entries the reductions contend, and below the plan's switch the
+// lane or the atomic kernel is faster. What bounds it is the reduction
+// rate: one per active (row, feature), 1.72 ms at 5.5M rows x 28 at 8.97e10
+// a second, against its 1.93 ms at 1024 nodes.
 //
 // Classes. Multinomial GBM and DRF grow K class trees per round; the JAX
 // reference runs the Pallas kernel under jax.vmap over them, one dispatch
@@ -80,6 +112,11 @@
 // batch runs at most 1/K of it until a later kernel reads each bin word
 // once for all K classes.
 //
+// The plan (hist.py:_KERNEL_SWITCH) takes each kernel where
+// bench/hist_crossover.py measured it the fastest: the lane kernel below 32
+// nodes at 65 bins and below 8 at 129, the atomic kernel below 4 at 257, and
+// the global kernel from there on.
+//
 // What is left for later: bins read once for all classes; a deterministic
 // fixed-point mode (integer shared atomics are native and about 4x faster);
 // a ring of bulk asynchronous copies (cp.async.bulk) for the staging. Such
@@ -91,7 +128,8 @@
 // keep the counting loop, which holds the kernel, at one conflict-free
 // shared load per row and feature.
 //
-// Kinds 1 and 2 of h2o3_level_hist launch lane_hist_kernel with the slab
+// Kinds 0 and 3 of h2o3_level_hist are the lane and the atomic kernel, 4 the
+// global kernel. Kinds 1 and 2 launch lane_hist_kernel with the slab
 // updates compiled out (it stages, lists and decodes the same rows and adds
 // nothing) and with only the tile staging left. chip_smoke.py times them
 // beside the real kernel to split its time into staging, listing and
@@ -546,6 +584,137 @@ atomic_hist_kernel(const BinT* __restrict__ binned_T,
 }
 
 // ---------------------------------------------------------------------------
+// global_hist_kernel: each row read once for all features, whatever N is; the
+// sums go straight to global memory as fire-and-forget reductions (RED),
+// which the card's L2 adds natively. A block stages a tile of rows, lists
+// the rows it must add (a ballot and a prefix count), stages the tile's bins
+// of a pass's features, and then adds every (listed row, feature) once.
+
+constexpr int kGlobalThreads = 256;
+constexpr int kGlobalRows = 4 * kGlobalThreads;   // a quad of rows a thread
+constexpr int kGlobalWarps = kGlobalThreads / 32;
+constexpr int kRowBits = 10;                       // log2(kGlobalRows)
+static_assert(kGlobalRows == 1 << kRowBits, "a list entry packs the row");
+
+// Shared memory: the list [kGlobalRows] of float4 (g, h, w, node << 10 |
+// row), each warp's count of listed rows, and the tile's bins, four rows to
+// a word [Fb][kGlobalRows / 4]. hist.py's _global_smem_bytes mirrors it.
+template <typename BinT>
+long long global_smem_bytes(int Fb) {
+  return 16LL * kGlobalRows + 4LL * kGlobalWarps
+         + static_cast<long long>(Fb) * kGlobalRows * sizeof(BinT);
+}
+
+// One 16-byte reduction per (row, feature) into out laid out
+// [K, F, N*Bt, 4] (the fourth float stays 0).
+template <typename BinT, bool kVec>
+__global__ void __launch_bounds__(kGlobalThreads)
+global_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
+                   const int32_t* __restrict__ node,
+                   const float* __restrict__ g, const float* __restrict__ h,
+                   const float* __restrict__ w, float* __restrict__ out,
+                   long long R, int F, int N, int Bt, int Fb, int row_splits,
+                   long long w_stride) {
+  using W = typename Word<BinT>::T;
+  extern __shared__ float4 smem4[];
+  {   // class k = blockIdx.y, as in lane_hist_kernel
+    const long long k = blockIdx.y;
+    node += k * R;
+    g += k * R;
+    h += k * R;
+    w += k * w_stride;
+    out += k * F * static_cast<long long>(N) * Bt * 4;
+  }
+  float4* list = smem4;
+  int* warp_n = reinterpret_cast<int*>(list + kGlobalRows);
+  W* bins_w = reinterpret_cast<W*>(warp_n + kGlobalWarps);
+  const BinT* bins_s = reinterpret_cast<const BinT*>(bins_w);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const unsigned below = (1u << lane) - 1;
+  const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
+  const long long tiles = (R + kGlobalRows - 1) / kGlobalRows;
+
+  // features in passes of Fb, every block over all its rows per pass, so
+  // that the entries in use at a time stay in L2
+  for (int f0 = 0; f0 < F; f0 += Fb) {
+    const int fb = min(Fb, F - f0);
+    for (long long t = blockIdx.x; t < tiles; t += row_splits) {
+      const long long r = t * kGlobalRows + 4 * tid;
+      const Quad q = load_quad<kVec>(node, g, h, w, r, R);
+      const int n[4] = {q.n.x, q.n.y, q.n.z, q.n.w};
+      const float gg[4] = {q.g.x, q.g.y, q.g.z, q.g.w};
+      const float hh[4] = {q.h.x, q.h.y, q.h.z, q.h.w};
+      const float ww[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+      // a row is listed if it sits at a node of this call and adds
+      // something: node -1 (and a row of zeros, which adds nothing) is
+      // dropped before any of its bins is read
+      bool keep[4];
+      int pos[4];
+      int listed = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        keep[j] = static_cast<unsigned>(n[j]) < static_cast<unsigned>(N)
+                  && (gg[j] != 0.0f || hh[j] != 0.0f || ww[j] != 0.0f);
+        const unsigned m = __ballot_sync(0xffffffffu, keep[j]);
+        pos[j] = listed + __popc(m & below);
+        listed += __popc(m);
+      }
+      __syncthreads();   // the last tile's list and bins are consumed
+      if (lane == 0) warp_n[warp] = listed;
+      if (keep[0] || keep[1] || keep[2] || keep[3]) {
+        for (int f = 0; f < fb; ++f) {
+          const long long row0 = static_cast<long long>(f0 + f) * R;
+          bins_w[f * (kGlobalRows / 4) + tid] =
+              load_bins<BinT>(binned_T, wbase, bin_skew, row0, r, R);
+        }
+      }
+      __syncthreads();
+      int base = 0, count = 0;
+#pragma unroll
+      for (int i = 0; i < kGlobalWarps; ++i) {
+        const int c = warp_n[i];
+        base += i < warp ? c : 0;
+        count += c;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (keep[j])
+          list[base + pos[j]] = make_float4(
+              gg[j], hh[j], ww[j], __int_as_float((n[j] << kRowBits)
+                                                  | (4 * tid + j)));
+      __syncthreads();
+      if (count == 0) continue;
+      // (feature, listed row) items f * count + i, kGlobalThreads apart
+      int f = tid / count;
+      int i = tid - f * count;
+      const int fstep = kGlobalThreads / count;
+      const int istep = kGlobalThreads - fstep * count;
+      while (f < fb) {
+        const float4 e = list[i];
+        const int packed = __float_as_int(e.w);
+        const int b = static_cast<int>(
+            bins_s[f * kGlobalRows + (packed & (kGlobalRows - 1))]);
+        if (b >= 0) {
+          const long long a =
+              (static_cast<long long>(f0 + f) * N + (packed >> kRowBits)) * Bt
+              + min(b, Bt - 1);
+          atomicAdd(reinterpret_cast<float4*>(out) + a,
+                    make_float4(e.x, e.y, e.z, 0.0f));
+        }
+        i += istep;
+        f += fstep;
+        if (i >= count) {
+          i -= count;
+          ++f;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 struct Args {
@@ -562,9 +731,12 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Every launch sets its kernel's dynamic shared memory ceiling, also below
+// the 48 KB default: the occupancy query (h2o3_level_hist_blocks_per_sm)
+// sets the ceiling to the size it asks about, and a launch above a lower
+// ceiling that a later query left is refused.
 template <typename K>
 cudaError_t prepare(K kernel, int smem_bytes) {
-  if (smem_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
@@ -637,20 +809,47 @@ cudaError_t launch_atomic(const Args& a) {
   return cudaGetLastError();
 }
 
+// the largest node id a list entry packs beside the row
+constexpr int kGlobalMaxNodes = 1 << (31 - kRowBits);
+
+template <typename BinT>
+cudaError_t launch_global(const Args& a) {
+  if (a.row_splits < 1 || !classes_ok(a) || a.Fb < 1 || a.Fb > a.F
+      || a.N > kGlobalMaxNodes
+      || (reinterpret_cast<uintptr_t>(a.out) & 15) != 0
+      || global_smem_bytes<BinT>(a.Fb) != a.smem_bytes)
+    return cudaErrorInvalidConfiguration;
+  auto kernel = vec_aligned(a) ? global_hist_kernel<BinT, true>
+                               : global_hist_kernel<BinT, false>;
+  cudaError_t e = prepare(kernel, a.smem_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(a.row_splits),
+                  static_cast<unsigned>(a.K));
+  kernel<<<grid, kGlobalThreads, a.smem_bytes, a.stream>>>(
+      static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
+      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.h), static_cast<const float*>(a.w),
+      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.row_splits,
+      a.w_stride);
+  return cudaGetLastError();
+}
+
 // kinds 0-2: lane_hist_kernel in mode kCount, kUpdatesOut, kStagingOnly;
-// 3: atomic_hist_kernel
+// 3: atomic_hist_kernel; 4: global_hist_kernel
 int dispatch(int kind, int bin_bytes, const Args& a) {
   if (bin_bytes == 1) {
     if (kind == 0) return launch_lanes<int8_t, kCount>(a);
     if (kind == 1) return launch_lanes<int8_t, kUpdatesOut>(a);
     if (kind == 2) return launch_lanes<int8_t, kStagingOnly>(a);
     if (kind == 3) return launch_atomic<int8_t>(a);
+    if (kind == 4) return launch_global<int8_t>(a);
   }
   if (bin_bytes == 2) {
     if (kind == 0) return launch_lanes<int16_t, kCount>(a);
     if (kind == 1) return launch_lanes<int16_t, kUpdatesOut>(a);
     if (kind == 2) return launch_lanes<int16_t, kStagingOnly>(a);
     if (kind == 3) return launch_atomic<int16_t>(a);
+    if (kind == 4) return launch_global<int16_t>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -668,11 +867,13 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 
 // Launches a histogram kernel on `stream`; returns the cudaError_t of the
 // launch. kind 0 is lane_hist_kernel, 1 and 2 its measurement instances
-// (updates out, staging only), 3 atomic_hist_kernel. The Python wrapper
-// (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb
-// (1 for the atomic kernel), Nb, copies, owners (lanes only), row_splits
-// and smem_bytes. K classes: node, g and h are [K, R], w is [K, R]
-// (w_stride = R) or one [R] row for all (w_stride = 0), out [K, F, N*Bt, 3].
+// (updates out, staging only), 3 atomic_hist_kernel, 4 global_hist_kernel.
+// The Python wrapper (h2o3_tpu_torch/ops/hist.py) has checked every
+// argument and planned Fb (1 for the atomic kernel, the features of a pass
+// for the global one), Nb, copies, owners (lanes only), row_splits and
+// smem_bytes. K classes: node, g and h are [K, R], w is [K, R] (w_stride =
+// R) or one [R] row for all (w_stride = 0), out [K, F, N*Bt, 3] ([K, F,
+// N*Bt, 4], 16-byte aligned, for the global kernel).
 extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,
@@ -686,7 +887,7 @@ extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
   return dispatch(kind, bin_bytes, a);
 }
 
-// Blocks of kernel `kind` (0 or 3) one SM holds with `threads` threads and
+// Blocks of kernel `kind` (0, 3 or 4) one SM holds with `threads` threads and
 // `smem_bytes` of dynamic shared memory, into *blocks; returns the
 // cudaError_t of the query.
 extern "C" int h2o3_level_hist_blocks_per_sm(int kind, int bin_bytes,
@@ -703,6 +904,12 @@ extern "C" int h2o3_level_hist_blocks_per_sm(int kind, int bin_bytes,
                      blocks);
   if (kind == 3 && bin_bytes == 2)
     return occupancy(atomic_hist_kernel<int16_t>, threads, smem_bytes,
+                     blocks);
+  if (kind == 4 && bin_bytes == 1)
+    return occupancy(global_hist_kernel<int8_t, true>, threads, smem_bytes,
+                     blocks);
+  if (kind == 4 && bin_bytes == 2)
+    return occupancy(global_hist_kernel<int16_t, true>, threads, smem_bytes,
                      blocks);
   return cudaErrorInvalidValue;
 }

@@ -12,10 +12,14 @@ one [R] row that every class shares, and gets [K, F, N*Bt, 3] back.
 :func:`level_histograms_plain` is the plain PyTorch version (the same
 function as the JAX reference's ``models/tree.py:_level_histograms``);
 :func:`level_histograms` launches the hand-written CUDA kernels of
-``csrc/hist.cu`` on CUDA tensors (the lane kernel, without atomics, at the
-shapes where it was measured the faster; the atomic kernel elsewhere), one
-launch for all K classes, and takes the plain version only for tensors on
-the CPU. ``level_histograms.launches`` counts kernel launches.
+``csrc/hist.cu`` on CUDA tensors, one launch for all K classes: each level
+takes the kernel that ``bench/hist_crossover.py`` measured the fastest at its
+node and bin count (the lane kernel, without atomics, where nodes are few;
+the global kernel, which reads each row once and adds into L2, where they
+are many; the atomic kernel below four nodes of 257 bins, where it still
+wins). It takes the plain version only for tensors on the CPU.
+``level_histograms.kernel_launches`` counts each kernel's launches and
+:func:`launch_count` their sum.
 """
 
 from __future__ import annotations
@@ -43,12 +47,6 @@ _LANE_WARPS = 8
 _LANE_FEATURES = 32
 #: tile rows per warp for int8 bins; int16 takes half (rows_per_warp)
 _LANE_ROWS_PER_WARP = 64
-#: most node blocks (each of which reads every row) at which the lane kernel
-#: beat the atomic kernel, by warps per block, at 11M rows x 28 features
-#: (bench/hist_crossover.py on the H100): with 8 warps up to 64 (not 128),
-#: with 4 one (not 2), with 2 or 1 none. Elsewhere the atomic kernel is
-#: planned.
-_LANE_MAX_NODE_BLOCKS = {8: 64, 4: 1}
 
 # atomic_hist_kernel: kind 3
 _ATOMIC = 3
@@ -57,6 +55,33 @@ _ATOMIC = 3
 _SMEM_BUDGET = 96 * 1024
 #: threads per block, which are also the rows of one tile (kThreads)
 _ATOMIC_THREADS = 256
+
+# global_hist_kernel: kind 4, one 16-byte reduction per (row, feature) into
+# a [K, F, N*Bt, 4] scratch
+_GLOBAL = 4
+#: threads per block; a tile is four rows a thread (kGlobalRows)
+_GLOBAL_THREADS = 256
+_GLOBAL_ROWS = 4 * _GLOBAL_THREADS
+#: most features whose bins a block stages per pass, and the largest node
+#: count a list entry packs beside its row (kGlobalMaxNodes)
+_GLOBAL_MAX_FEATURES = 32
+_GLOBAL_MAX_NODES = 2 ** 21
+#: histogram bytes one pass of features keeps in use at once: 8 MiB was the
+#: fastest budget at 1024 and 4096 nodes (65 bins) and at 1024 nodes of 257
+#: bins, against 4, 16 and 32 MiB and one pass (bench/hist_crossover.py on
+#: the H100)
+_GLOBAL_L2_BYTES = 8 * 2 ** 20
+
+#: the kernel a level takes, from where bench/hist_crossover.py measured
+#: each the fastest at 11M rows x 28 features on the H100 (K = 1 and 3
+#: alike): by the bins (incl. NA) up to which an entry holds, the kernel
+#: below a node count and the global kernel from it on. A bin count between
+#: or beyond the measured ones takes the entry of the least measured count
+#: at or above it, or else the largest.
+_KERNEL_SWITCH = {65: ("lanes", 32), 129: ("lanes", 8), 257: ("atomic", 4)}
+
+#: kind of h2o3_level_hist by planned kernel (the lane kernel's is its mode)
+_KINDS = {"atomic": _ATOMIC, "global": _GLOBAL}
 
 
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
@@ -144,22 +169,56 @@ def _atomic_plan(F: int, n_nodes: int, n_bins_tot: int):
                 smem_bytes=nb * per, tile_rows=_ATOMIC_THREADS)
 
 
+def _global_smem_bytes(Fb: int, bin_bytes: int) -> int:
+    """Shared memory of global_hist_kernel (global_smem_bytes in hist.cu):
+    the list of a tile's rows [T] float4, each warp's count, and the tile's
+    bins [Fb, T]."""
+    return (16 * _GLOBAL_ROWS + 4 * (_GLOBAL_THREADS // 32)
+            + Fb * _GLOBAL_ROWS * bin_bytes)
+
+
+def _global_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
+                 K: int) -> dict:
+    """global_hist_kernel's shape: the histogram entries of all K classes
+    cut into as many parts of ``_GLOBAL_L2_BYTES`` as they fill (at least
+    one per ``_GLOBAL_MAX_FEATURES`` features, at most one per feature),
+    the features spread evenly over them, each group a pass that every
+    block walks over its rows in turn; no node blocks."""
+    if n_nodes > _GLOBAL_MAX_NODES:
+        raise ValueError(f"the global kernel takes at most "
+                         f"{_GLOBAL_MAX_NODES} nodes, got {n_nodes}")
+    per_feature = K * n_nodes * n_bins_tot * 16   # float4 entries
+    passes = min(F, max(-(-F // _GLOBAL_MAX_FEATURES),
+                        -(-F * per_feature // _GLOBAL_L2_BYTES)))
+    fb = -(-F // passes)
+    return dict(kernel="global", features_per_group=fb, groups=-(-F // fb),
+                nodes_per_block=n_nodes, node_blocks=1, copies=1, owners=1,
+                warps=_GLOBAL_THREADS // 32, slab_bytes=0,
+                smem_bytes=_global_smem_bytes(fb, bin_bytes),
+                tile_rows=_GLOBAL_ROWS)
+
+
 @functools.lru_cache(maxsize=256)
 def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
-                 kernel: str | None = None) -> dict:
-    """The kernel and its block shape: ``kernel`` ("lanes" or "atomic")
-    where given, else the lane kernel wherever it was measured the faster
-    (``_LANE_MAX_NODE_BLOCKS``), else the atomic kernel."""
-    if kernel != "atomic":
-        lanes = _lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
-        if kernel == "lanes" and lanes is None:
-            raise ValueError(f"the lane kernel holds no node of "
-                             f"{n_bins_tot} bins")
-        if kernel == "lanes" or (lanes and lanes["node_blocks"]
-                                 <= _LANE_MAX_NODE_BLOCKS.get(lanes["warps"],
-                                                              0)):
-            return lanes
-    return _atomic_plan(F, n_nodes, n_bins_tot)
+                 kernel: str | None = None, K: int = 1) -> dict:
+    """The kernel and its block shape: ``kernel`` ("lanes", "atomic" or
+    "global") where given, else the one ``_KERNEL_SWITCH`` takes at this
+    node and bin count. Only the global kernel's shape depends on the K
+    classes."""
+    if kernel is None:
+        key = min((b for b in _KERNEL_SWITCH if b >= n_bins_tot),
+                  default=max(_KERNEL_SWITCH))
+        below, min_nodes = _KERNEL_SWITCH[key]
+        kernel = "global" if n_nodes >= min_nodes else below
+    if kernel == "global":
+        return _global_plan(F, n_nodes, n_bins_tot, bin_bytes, K)
+    if kernel == "atomic":
+        return _atomic_plan(F, n_nodes, n_bins_tot)
+    lanes = _lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
+    if lanes is None:
+        raise ValueError(f"the lane kernel holds no node of {n_bins_tot} "
+                         "bins")
+    return lanes
 
 
 @functools.lru_cache(maxsize=256)
@@ -171,9 +230,12 @@ def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
     card's SMs and the kernel's occupancy at this shape), split over the K
     classes (the grid's y dimension), feature groups and node blocks, each
     block walking every ``row_splits``-th tile. Each class has a slab of
-    its own, so the kernel and its block shape do not depend on K."""
-    p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel)
-    combos = p["groups"] * p["node_blocks"]
+    its own, so the kernel and its block shape do not depend on K, except
+    for the global kernel's passes."""
+    p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel, K)
+    # the global kernel's feature groups are passes that every block walks
+    combos = p["node_blocks"] * (1 if p["kernel"] == "global"
+                                 else p["groups"])
     tiles = -(-R // p["tile_rows"])
     # at most one wave: a block more than the SMs hold would double the time
     splits = max(1, min(sms * blocks_per_sm // (combos * K),
@@ -244,8 +306,8 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
     dev = binned_T.device.index
     if dev is None:
         dev = torch.cuda.current_device()
-    k = _kernel_plan(F, n_nodes, n_bins_tot, bb, kernel)
-    kind = _ATOMIC if k["kernel"] == "atomic" else _COUNT
+    k = _kernel_plan(F, n_nodes, n_bins_tot, bb, kernel, K)
+    kind = _KINDS.get(k["kernel"], _COUNT)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
                  _blocks_per_sm(dev, kind, bb, 32 * k["warps"],
@@ -255,25 +317,29 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
 def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             kernel: str | None = None, mode: int = _COUNT) -> torch.Tensor:
     """Check the inputs, plan, and launch on CUDA tensors the planned kernel
-    (or ``kernel``, "lanes" or "atomic"), or the lane kernel in a
+    (or ``kernel``, "lanes", "atomic" or "global"), or the lane kernel in a
     measurement ``mode``, once for all classes of a batch; returns the
-    zero-initialised output it added into. Each launch of a kernel in its
-    counting mode adds one to ``level_histograms.launches``."""
+    zero-initialised output it added into (the global kernel adds into a
+    scratch of four floats an entry, whose first three are returned). Each
+    launch of a kernel in its counting mode adds one to its kernel's count
+    in ``level_histograms.kernel_launches``."""
     _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
     if binned_T.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {binned_T.device}")
     F, R = binned_T.shape
     batched = node.dim() == 2
     K = node.shape[0] if batched else 1
-    out = torch.zeros((K, F, n_nodes * n_bins_tot, 3), dtype=torch.float32,
-                      device=binned_T.device)
+    shape = (K, F, n_nodes * n_bins_tot, 3)
     if R == 0:
+        out = torch.zeros(shape, dtype=torch.float32, device=binned_T.device)
         return out if batched else out[0]
     from h2o3_tpu_torch.ops import _build
     lib = _build.library()
     p = launch_plan(binned_T, n_nodes, n_bins_tot,
                     "lanes" if mode != _COUNT else kernel, K)
-    kind = _ATOMIC if p["kernel"] == "atomic" else mode
+    kind = _KINDS.get(p["kernel"], mode)
+    out = torch.zeros(shape[:-1] + (4 if kind == _GLOBAL else 3,),
+                      dtype=torch.float32, device=binned_T.device)
     with torch.cuda.device(binned_T.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.h2o3_level_hist(
@@ -285,7 +351,9 @@ def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             R if w.dim() == 2 else 0, stream)
     _build.check(err, f"level histogram ({p['kernel']}) launch")
     if mode == _COUNT:
-        level_histograms.launches += 1
+        level_histograms.kernel_launches[p["kernel"]] += 1
+    if kind == _GLOBAL:
+        out = out[..., :3].contiguous()
     return out if batched else out[0]
 
 
@@ -307,7 +375,12 @@ def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
     return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot)
 
 
-level_histograms.launches = 0
+level_histograms.kernel_launches = {"lanes": 0, "atomic": 0, "global": 0}
+
+
+def launch_count() -> int:
+    """Kernel launches of :func:`level_histograms`, all kernels together."""
+    return sum(level_histograms.kernel_launches.values())
 
 
 def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
@@ -320,7 +393,7 @@ def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
     rows and returns zeros; with ``scan=False`` it only stages the tiles.
     Measurement instances (chip_smoke.py times them to split load, scan and
     update time); nothing on the training path calls them, and they add
-    nothing to ``level_histograms.launches``."""
+    nothing to ``level_histograms.kernel_launches``."""
     return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot,
                    mode=_UPDATES_OUT if scan else _STAGING_ONLY)
 

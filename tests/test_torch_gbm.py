@@ -163,11 +163,11 @@ def test_fold_binned_reproduces_the_boosting_margins_exactly():
 
 
 def test_training_on_cpu_launches_no_kernel():
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
     cols, _ = higgs_cols(2000, seed=7)
     m = GBM(ntrees=2, max_depth=3, nbins=16).train(
         y="y", training_frame=Frame.from_arrays(cols))
-    assert hist.level_histograms.launches == before
+    assert hist.launch_count() == before
     assert m.training_metrics.auc > 0.5
 
 

@@ -21,6 +21,9 @@ from h2o3_tpu_torch.ops import hist
 
 #: the shapes of tests/test_pallas_interpret.py: (rows, features, bins, nodes)
 SHAPES = [(4096, 7, 16, 8), (2048, 3, 256, 128)]
+#: SHAPES and a level of 4096 nodes (DRF's deepest at depth 14), which the
+#: reference's Pallas path sends to its scatter fallback
+PLAIN_SHAPES = SHAPES + [(20_000, 3, 64, 4096)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,10 +86,10 @@ def _port(fn, binned, node, g, h, w, N, Bt, device="cpu"):
     return out.cpu().numpy()
 
 
-def _plan(R, F, N, Bt, bin_bytes=1, kernel=None):
+def _plan(R, F, N, Bt, bin_bytes=1, kernel=None, K=1):
     """The launch plan on the H100's 132 SMs at one block per SM (on the
     card, CUDA's occupancy query gives the blocks per SM)."""
-    return hist._plan(R, F, N, Bt, bin_bytes, 132, 1, kernel)
+    return hist._plan(R, F, N, Bt, bin_bytes, 132, 1, kernel, K)
 
 
 def _close(got, want):
@@ -94,7 +97,7 @@ def _close(got, want):
                                atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("R,F,B,N", SHAPES)
+@pytest.mark.parametrize("R,F,B,N", PLAIN_SHAPES)
 def test_plain_matches_reference_segment_sum(R, F, B, N):
     data = _data(0, R, F, B, N)
     want = np.asarray(_level_histograms(*map(jnp.asarray, data), N, B + 1))
@@ -156,11 +159,11 @@ def test_one_class_batch_equals_the_2d_call_exactly(w_per_class):
 
 def test_batched_wrapper_on_cpu_launches_nothing():
     data = _batch(13, 2048, 3, 16, 8)
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
     np.testing.assert_array_equal(
         _port(hist.level_histograms, *data, 8, 17),
         _port(hist.level_histograms_plain, *data, 8, 17))
-    assert hist.level_histograms.launches == before
+    assert hist.launch_count() == before
 
 
 def test_out_of_range_bins_clamp_like_the_reference():
@@ -182,11 +185,11 @@ def test_int8_bins_equal_int16_bins():
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     data = _data(4, 2048, 3, 16, 8)
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
     got = _port(hist.level_histograms, *data, 8, 17)
     np.testing.assert_array_equal(
         got, _port(hist.level_histograms_plain, *data, 8, 17))
-    assert hist.level_histograms.launches == before
+    assert hist.launch_count() == before
 
 
 @pytest.mark.parametrize("bad,exc", [
@@ -232,6 +235,13 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
         assert p["owners"] <= nb
         assert p["copies"] * p["slab_bytes"] < p["smem_bytes"]
         assert p["tile_rows"] == 64 * p["warps"]
+    elif p["kernel"] == "global":
+        # every node in one block's reach; the feature groups are passes
+        # of about one L2 budget of v4 entries each
+        assert p["node_blocks"] == 1 and fb <= 32 and p["slab_bytes"] == 0
+        assert (fb - 1) * N * Bt * 16 <= hist._GLOBAL_L2_BYTES or fb == 1
+        assert p["smem_bytes"] == hist._global_smem_bytes(fb, 1)
+        assert p["tile_rows"] == 1024 and p["warps"] == 8
     else:
         # one feature per block, a node block from the budget
         assert fb == 1 and p["slab_bytes"] == nb * Bt * 12
@@ -239,7 +249,9 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
         assert p["smem_bytes"] <= hist._SMEM_BUDGET or nb == 1
     assert p["copies"] in (1, 2, 4, 8)
     assert p["smem_bytes"] <= hist._SMEM_MAX
-    assert p["blocks"] == p["groups"] * p["node_blocks"] * p["row_splits"]
+    # the global kernel's blocks walk its feature groups in time
+    groups = 1 if p["kernel"] == "global" else p["groups"]
+    assert p["blocks"] == groups * p["node_blocks"] * p["row_splits"]
     assert p["blocks"] <= hist._GRID_X_MAX
 
 
@@ -259,35 +271,123 @@ def test_launch_plan_of_the_main_path_levels(N, node_blocks, copies, owners):
 
 
 @pytest.mark.parametrize("R,F,N,Bt", [
-    (1 << 20, 4, 1 << 14, 65), (2048, 3, 128, 257),
+    (1 << 20, 4, 1, 600), (2048, 3, 1, 1000),
 ])
 def test_launch_plan_degrades_to_the_atomic_kernel(R, F, N, Bt):
-    """Where a block holds too few nodes for the lane kernel (2^14 nodes,
-    or 257 bins at 128 nodes), the plan takes the atomic kernel."""
-    assert _plan(R, F, N, Bt, 2 if Bt > 126 else 1)["kernel"] == "atomic"
+    """Where a block holds no node's slab for the lane kernel (over about
+    520 bins) and the node count is below the global kernel's switch, the
+    plan takes the atomic kernel."""
+    assert hist._lane_plan(F, N, Bt, 2) is None
+    assert _plan(R, F, N, Bt, 2)["kernel"] == "atomic"
 
 
 @pytest.mark.parametrize("N,Bt,kernel", [
-    (512, 65, "lanes"), (1024, 65, "atomic"), (4, 129, "lanes"),
-    (8, 129, "atomic"), (1, 257, "atomic"),
+    (16, 65, "lanes"), (32, 65, "global"), (512, 65, "global"),
+    (1024, 65, "global"), (1 << 14, 65, "global"), (4, 129, "lanes"),
+    (8, 129, "global"), (1, 257, "atomic"), (2, 257, "atomic"),
+    (4, 257, "global"), (16, 257, "global"), (1, 17, "lanes"),
+    (32, 17, "global"),
 ])
 def test_launch_plan_takes_the_kernel_measured_faster(N, Bt, kernel):
     """The switch between the kernels where bench/hist_crossover.py found
-    it on the H100 at 11M rows x 28 features: the lane kernel with 8 warps
-    (65 bins) up to 64 node blocks, with 4 warps (129 bins) in one node
-    block, with 2 warps (257 bins) never."""
+    it on the H100 at 11M rows x 28 features (``_KERNEL_SWITCH``): the
+    global kernel from 32 nodes at 65 bins, from 8 at 129 and from 4 at
+    257; below that the lane kernel at 65 and 129 bins and the atomic
+    kernel at 257. Fewer bins follow 65's entry."""
     assert _plan(11_000_000, 28, N, Bt, 1 if Bt < 128 else 2)["kernel"] == \
         kernel
 
 
+def test_kernel_switch_is_one_table_by_bins():
+    # the entries bench/hist_crossover.py measured: 65, 129, 257 bins
+    assert hist._KERNEL_SWITCH == {65: ("lanes", 32), 129: ("lanes", 8),
+                                   257: ("atomic", 4)}
+
+
+@pytest.mark.parametrize("N,Bt,kernel", [
+    (4, 100, "lanes"), (8, 100, "global"), (2, 200, "atomic"),
+    (4, 200, "global"), (1, 600, "atomic"), (2, 1000, "atomic"),
+    (4, 600, "global"), (16, 2, "lanes"),
+])
+def test_unmeasured_bins_take_the_next_measured_entry(N, Bt, kernel):
+    """A bin count between the measured ones takes the entry of the least
+    measured count at or above it, one beyond them the largest entry."""
+    assert hist._kernel_plan(28, N, Bt, 1 if Bt < 128 else 2)["kernel"] == \
+        kernel
+
+
+def test_lane_entries_hold_a_lane_plan_below_their_switch():
+    """Wherever the table takes the lane kernel (up to 129 bins, below its
+    node count), the lane kernel holds the level."""
+    prev = 1
+    for top, (kernel, min_nodes) in sorted(hist._KERNEL_SWITCH.items()):
+        if kernel == "lanes":
+            for Bt in range(prev, top + 1):
+                for N in range(1, min_nodes):
+                    assert hist._lane_plan(28, N, Bt, 2) is not None
+        prev = top + 1
+
+
+@pytest.mark.parametrize("Bt,bb,K,kernels", [
+    # DRF at depth 14 (65 bins): levels 0-13
+    (65, 1, 1, ["lanes"] * 6 + ["global"] * 8),
+    # XGBoost at depth 6 (257 int16 bins) and multinomial GBM (K = 3)
+    (257, 2, 1, ["atomic"] * 3 + ["global"] * 3),
+    (65, 1, 3, ["lanes"] * 6),
+])
+def test_launch_plan_of_each_level_of_the_paths(Bt, bb, K, kernels):
+    """The kernel each level takes on the measured switch: level 0 and 1
+    histogram one node, level d >= 1 the smaller children of 2^(d-1)
+    parents. The binomial main path (depth 6) stays on the lane kernel."""
+    nodes = [max(1, 2 ** (d - 1)) for d in range(len(kernels))]
+    assert [_plan(11_000_000, 28, N, Bt, bb, K=K)["kernel"]
+            for N in nodes] == kernels
+
+
+@pytest.mark.parametrize("R,F,N,Bt,bb,K,passes", [
+    (11_000_000, 28, 1024, 65, 1, 1, 4),    # DRF level 11: 4 passes of 7
+    (11_000_000, 28, 4096, 65, 1, 1, 14),   # DRF level 13: 14 of 2
+    (11_000_000, 28, 1024, 65, 1, 3, 10),   # three classes: 3x the entries
+    (11_000_000, 28, 32, 65, 1, 1, 1),
+    (1_000_000, 28, 1 << 14, 65, 1, 1, 28),
+    (11_000_000, 28, 64, 257, 2, 1, 1),
+    (4099, 5, 1024, 65, 1, 3, 2),
+    (11_000_000, 100, 8, 65, 1, 1, 4),      # at most 32 features a pass
+])
+def test_global_plan_walks_features_in_passes_within_l2(R, F, N, Bt, bb, K,
+                                                        passes):
+    """The global kernel (forced, as phase 2 of chip_smoke.py forces it)
+    splits the v4 entries of all K classes into as many parts of the L2
+    budget as they fill (at least one per 32 features, at most one per
+    feature) and spreads the features evenly over them, so that each pass
+    of every block over its rows keeps about one budget of entries in use;
+    every node is in one block's reach and no feature group is spread over
+    blocks: the persistent grid is rows x classes."""
+    p = _plan(R, F, N, Bt, bb, "global", K)
+    fb = p["features_per_group"]
+    parts = min(F, max(-(-F // 32),
+                       -(-K * F * N * Bt * 16 // hist._GLOBAL_L2_BYTES)))
+    assert p["kernel"] == "global" and p["groups"] == passes
+    assert fb == -(-F // parts) and passes == -(-F // fb)
+    assert p["smem_bytes"] == 16 * 1024 + 32 + fb * 1024 * bb
+    assert p["node_blocks"] == 1 and p["nodes_per_block"] == N
+    assert p["blocks"] == p["row_splits"] * K <= 132
+
+
+def test_global_plan_refuses_more_nodes_than_an_entry_packs():
+    with pytest.raises(ValueError):
+        _plan(1000, 3, 2 ** 22, 65, 1, "global")
+
+
 @pytest.mark.parametrize("kernel,N,Bt,node_blocks,groups", [
     ("atomic", 16, 65, 1, 28), ("lanes", 1 << 14, 65, 2048, 1),
-    ("lanes", 128, 257, 64, 1),
+    ("lanes", 128, 257, 64, 1), ("global", 1, 65, 1, 1),
+    ("global", 1 << 14, 65, 1, 28),
 ])
 def test_launch_plan_takes_the_kernel_it_is_given(kernel, N, Bt, node_blocks,
                                                   groups):
-    """A forced kernel (the crossover bench times both) gets its own plan
-    at any shape it can hold."""
+    """A forced kernel (the crossover bench times all three) gets its own
+    plan at any shape it can hold."""
     p = _plan(1_000_000, 28, N, Bt, 2 if Bt > 126 else 1, kernel)
     assert p["kernel"] == kernel
     assert (p["node_blocks"], p["groups"]) == (node_blocks, groups)
@@ -302,8 +402,9 @@ def test_launch_plan_takes_the_kernel_it_is_given(kernel, N, Bt, node_blocks,
 def test_launch_plan_of_class_batches_and_the_new_paths(R, F, N, Bt, bb, K):
     """A batch of K classes keeps the kernel and block shape of one class
     (each class has its own slab) and splits the persistent grid over the
-    classes: at most one block per SM of the H100's 132 in all. The
-    XGBoost levels (257 int16 bins) and DRF's deep levels run the atomic
+    classes: at most one block per SM of the H100's 132 in all. DRF's deep
+    levels and the XGBoost levels (257 int16 bins) of four nodes or more
+    run the global kernel, XGBoost's levels of one or two nodes the atomic
     kernel."""
     one = _plan(R, F, N, Bt, bb)
     p = hist._plan(R, F, N, Bt, bb, 132, 1, None, K)
@@ -311,9 +412,12 @@ def test_launch_plan_of_class_batches_and_the_new_paths(R, F, N, Bt, bb, K):
                 "copies", "owners", "smem_bytes", "tiles"):
         assert p[key] == one[key], key
     assert p["classes"] == K
-    assert p["blocks"] == p["groups"] * p["node_blocks"] * p["row_splits"] * K
-    assert p["blocks"] <= max(132, p["groups"] * p["node_blocks"] * K)
-    if Bt == 257 or N >= 1024:
+    groups = 1 if p["kernel"] == "global" else p["groups"]
+    assert p["blocks"] == groups * p["node_blocks"] * p["row_splits"] * K
+    assert p["blocks"] <= max(132, groups * p["node_blocks"] * K)
+    if N >= 1024 or (Bt == 257 and N >= 4):
+        assert p["kernel"] == "global"
+    elif Bt == 257:
         assert p["kernel"] == "atomic"
 
 
@@ -355,14 +459,23 @@ def test_loads_only_instance_needs_the_card(scan):
     (4099, 5, 64, 1, np.int8, True),         # one node: the slab copies
     (1 << 16, 28, 64, 16, np.int8, False),   # four feature groups
     (2048, 3, 256, 128, np.int16, True),
+    # the global kernel: 1024 nodes, 257 bins at 64 nodes, rows not a
+    # multiple of 4 (2^14 nodes is the third case above)
+    (1 << 16, 28, 64, 1024, np.int8, False),
+    (1 << 16, 28, 256, 64, np.int16, False),
+    (4099, 5, 64, 64, np.int8, False),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype, node0):
     data = _data(6, R, F, B, N, dtype=dtype)
     if node0:
         data[1][:] = 0
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
+    by_kernel = dict(hist.level_histograms.kernel_launches)
     got = _port(hist.level_histograms, *data, N, B + 1, device=cuda_device)
-    assert hist.level_histograms.launches == before + 1
+    assert hist.launch_count() == before + 1
+    planned = _plan(R, F, N, B + 1, np.dtype(dtype).itemsize)["kernel"]
+    assert hist.level_histograms.kernel_launches[planned] == \
+        by_kernel[planned] + 1
     _close(got, _port(hist.level_histograms_plain, *data, N, B + 1,
                       device=cuda_device))
 
@@ -371,14 +484,17 @@ def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype, node0):
 @pytest.mark.parametrize("R,F,B,N,dtype,w_per_class", [
     (4096, 7, 16, 8, np.int16, False), (4096, 7, 16, 8, np.int16, True),
     (4099, 5, 64, 4, np.int8, True),     # rows not a multiple of 4
-    (2048, 3, 256, 128, np.int16, True),  # the atomic kernel
+    (2048, 3, 256, 1, np.int16, True),    # the atomic kernel
     (1 << 16, 28, 64, 16, np.int8, False),
+    # the global kernel
+    (2048, 3, 256, 128, np.int16, True), (4099, 5, 64, 1024, np.int8, True),
+    (1 << 16, 28, 64, 1024, np.int8, False),
 ])
 def test_batched_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype,
                                               w_per_class):
     data = _batch(14, R, F, B, N, w_per_class=w_per_class, dtype=dtype)
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
     got = _port(hist.level_histograms, *data, N, B + 1, device=cuda_device)
-    assert hist.level_histograms.launches == before + 1   # one for all K
+    assert hist.launch_count() == before + 1   # one for all K
     _close(got, _port(hist.level_histograms_plain, *data, N, B + 1,
                       device=cuda_device))

@@ -84,9 +84,9 @@ def models():
     jm = jxgb.XGBoost(**PARAMS).train(y="y",
                                       training_frame=JFrame.from_arrays(cols))
     fr = Frame.from_arrays(cols)
-    before = hist.level_histograms.launches
+    before = hist.launch_count()
     pm = pxgb.XGBoost(**PARAMS).train(y="y", training_frame=fr)
-    assert hist.level_histograms.launches == before   # the CPU launches none
+    assert hist.launch_count() == before   # the CPU launches none
     return cols, jm, pm, fr
 
 
