@@ -5,8 +5,10 @@
 
 Phases, each of which fails the run on error:
 
-1. the card's name and power limit, the torch and CUDA versions, and the
-   build of every CUDA kernel from ``h2o3_tpu_torch/csrc`` (timed);
+1. the card's name and power limit, the torch and CUDA versions, the build
+   of every CUDA kernel from ``h2o3_tpu_torch/csrc`` (timed), and the fixed
+   kernel's machine code: native integer shared atomics (ATOMS.ADD), no
+   compare-and-swap loop, 64-bit reductions for its flushes;
 2. the histogram kernels held against their plain PyTorch version on the
    card at small shapes (one with every row in node 0, one with inputs
    that start off their vector alignment), at 2^14 nodes, at 257 int16
@@ -18,45 +20,60 @@ Phases, each of which fails the run on error:
    (K = 3, w shared and per class, at small shapes, at 1024 nodes on the
    global kernel and at the 11M x 28 multinomial level-0 shape), the
    plan's own kernel at every DRF level, and a K = 1 batch against the 2-D
-   call;
+   call; then the fixed-point kernel forced at 257 int16 bins with 1 and
+   2 nodes (small and 11M x 28), 1025 bins, 65 int8 bins at 11M x 28 in
+   the layouts of levels 0, 5 and 6, the last fixed level of each bin
+   count at 1.5M rows (where the plan raises qbits), K = 3 (w shared and
+   per class), rows not a multiple of four, offset views, every row in one
+   bin at the largest quantised value, w in [0, 1e3] and non-finite
+   stats: two launches bit for bit equal, equal bit for bit to its plain
+   emulation, within the tolerance of the plain version and of float64
+   sums, and within its stated bound of float64 sums;
 3. small models trained on the CPU (plain path) and on the card (kernels),
    which must agree on every split, on the training metric and on the
    margins: a 100k-row binomial GBM, multinomial GBM (K = 3) and XGBoost
-   (256 bins), sampling off; then a 200k-row GBM of depth 12, whose levels
-   of 32 to 1024 nodes run the global kernel, held to the metric and to
-   the first tree's leaves on the rows it routes through splits alike
-   (near-ties flip with the order of the sums; it prints how many heap
-   nodes and rows agree), and trained twice more on the card as witnesses
-   of what the order of the sums alone moves: the same plan again, and the
-   lane kernel at every level;
+   (256 bins), sampling off, and XGBoost at 4.5M rows (2 trees, depth 4),
+   whose levels run the fixed kernel at 15 bits a value; then a 200k-row
+   GBM of depth 12, whose levels of 32 to 1024 nodes run the global
+   kernel, held to the metric and to the first tree's leaves on the rows
+   it routes through splits alike (near-ties flip with the order of the
+   sums; it prints how many heap nodes and rows agree), and trained twice
+   more on the card as witnesses of what the order of the sums alone
+   moves: the same plan again, and the fixed kernel at every level;
 4. the main path at full width: binomial GBM on the 11M x 28 HIGGS-shaped
    frame (64 bins, depth 6, 20 trees, learn rate 0.1) trained once to warm
-   up and once timed, then scored — the kernel must launch exactly 120
-   times in the timed training — and once more under torch.profiler for
-   the device's busy share and its costliest kernels;
+   up and once timed, then scored — the kernels must launch exactly as the
+   plan says (120 launches, all of the fixed kernel) in the timed training
+   — and once more under torch.profiler for the device's busy share and
+   its costliest kernels;
 5. the kernel timed at each level's shape of the main path, beside the
    first kernel's time (from PERF.md), its plain version, one
-   ``index_add_`` call computing the same function, its memory bound, and
-   two measurement instances of the same kernel: with its slab updates
-   compiled out (staging, listing and decoding) and with only its tile
-   staging, with the launch plan of each level;
+   ``index_add_`` call computing the same function, its memory bound, the
+   global kernel forced, and two measurement instances of the fixed
+   kernel: with its atomic adds and flushes compiled out (staging,
+   quantising, listing and reading the bins) and with only its tile loads
+   and stores, with the launch plan of each level;
 6. the three further paths on phase 4's frame, each warmed up, timed
    (launches counted by kernel and held to the plan's), profiled and
    scored (the scored metric must equal the training one): XGBoost as
    bench.py's bench_xgboost (10 trees, depth 6, 256 bins, eta 0.3; 60
-   launches: the atomic kernel at levels 0-2, the global kernel at 3-5),
+   launches: the fixed kernel at levels 0-4, the global kernel at 5),
    multinomial GBM on a 3-class label drawn from the same X (K = 3, 64
-   bins, depth 6, 20 rounds; 120 launches, one per level for all three
-   classes) and DRF at its defaults (50 trees, depth 14, 64 bins,
-   sample_rate 0.632, mtries 5; 700 launches: the lane kernel at levels
-   0-5, the global kernel at 6-13); then the kernel timed at each path's
-   level shapes as in phase 5 (multinomial and XGBoost levels 0-5, every
-   DRF level from 1 to 4096 nodes), with, at the global kernel's levels,
-   its update bound and the other two kernels' times.
+   bins, depth 6, 20 rounds; 120 launches of the fixed kernel, one per
+   level for all three classes) and DRF at its defaults (50 trees, depth
+   14, 64 bins, sample_rate 0.632, mtries 5; 700 launches: the fixed
+   kernel at levels 0-6, the global kernel at 7-13); then the kernel
+   timed at each path's level shapes as in phase 5 (multinomial and
+   XGBoost levels 0-5, every DRF level from 1 to 4096 nodes), with the
+   other kernel's time at each level, the first kernel's times at
+   XGBoost's levels 0-2 (printed only), the global kernel's update bound,
+   and the fixed kernel's two launches (scale reduction, histogram) split
+   by torch.profiler.
 
 The line before the last is the ``kernels`` JSON object (the main path's
-object, one per further path with its ``path``, and one for the global
-kernel at the DRF levels it takes); the last line is
+object, one per further path with its ``path``, one for the global kernel
+at the DRF levels it takes and one for the fixed kernel at the XGBoost
+levels it takes); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
@@ -83,6 +100,8 @@ ROWS, NFEAT, NTREES, DEPTH, NBINS = 11_000_000, 28, 20, 6, 64
 XGB_TREES, XGB_BINS = 10, 256
 # the DRF path at DRF's defaults (50 trees, depth 14, mtries sqrt(28))
 DRF_TREES, DRF_DEPTH, DRF_MTRIES = 50, 14, 5
+#: phase 3's XGBoost at a size where the fixed kernel keeps 15 bits a value
+QBITS15_ROWS, QBITS15_DEPTH = 4_500_000, 4
 #: 16-byte float reductions into global memory per second at random
 #: addresses of a 3 MB array (bench/global_red_rates.cu on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W): what bounds the global kernel's updates
@@ -92,6 +111,9 @@ RED_V4_PER_S = 8.966e10
 #: feature per block, shared atomics; PERF.md section 6, NVIDIA H100 80GB
 #: HBM3 at 700.00 W), for comparison
 FIRST_KERNEL_MS = (3.570, 3.223, 3.221, 3.208, 3.207, 3.201)
+#: that kernel's ms per launch at XGBoost's levels 0-2 (257 int16 bins;
+#: PERF.md section 6, the same card), where the fixed kernel replaced it
+ATOMIC_KERNEL_MS = (2.6527, 2.4376, 2.4218)
 
 
 def higgs_arrays(rows: int) -> dict:
@@ -181,6 +203,45 @@ def phase_env() -> dict:
     return dict(card=smi.stdout.strip())
 
 
+def sass_check() -> dict:
+    """The fixed kernel's machine code (``cuobjdump -sass`` of the built
+    library), at both bin widths: its shared-memory updates must be native
+    integer atomics (ATOMS.ADD), with no compare-and-swap loop (ATOMS.CAS
+    or CAST), and its flushes 64-bit fire-and-forget global reductions
+    (REDG ... .64); prints the count of each and fails otherwise."""
+    from pathlib import Path
+
+    from h2o3_tpu_torch.ops import _build
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", _build.build_info["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        # the counting instances (mode 0, "Li0E" in the mangled name); the
+        # measurement instances add nothing
+        if "fixed_hist_kernel" not in name or "Li0E" not in name:
+            continue
+        ops = [line.split("*/", 1)[-1].strip() for line in fn.splitlines()
+               if "/*" in line and "*/" in line]
+        # the opcode: the first word that is not a predicate (@P0)
+        ops = [next((t for t in op.split() if not t.startswith("@")), "")
+               for op in ops]
+        c = dict(atoms_add=sum(o.startswith("ATOMS.ADD") for o in ops),
+                 atoms_cas=sum(o.startswith("ATOMS.CAS") or "CAST" in o
+                               for o in ops),
+                 red_64=sum(o.startswith("REDG") and ".64" in o
+                            for o in ops))
+        counts[name] = c
+        kinds = sorted({o for o in ops if "ATOM" in o or "RED" in o})
+        print(f"sass {name[-40:]}: {c} {kinds}")
+    if len(counts) != 2 or any(c["atoms_cas"] or not c["atoms_add"]
+                         or not c["red_64"] for c in counts.values()):
+        raise AssertionError(f"fixed kernel's updates are not native integer "
+                             f"atomics: {counts}")
+    return counts
+
+
 def batch_inputs(R: int, F: int, n_bins_tot: int, n_nodes: int, dtype,
                  gen: torch.Generator, K: int, w_per_class: bool) -> tuple:
     """:func:`hist_inputs` for a batch of K classes: node [K, R] in
@@ -232,6 +293,132 @@ def check_call(args: tuple, N: int, Bt: int, what: str,
     return used, err
 
 
+def check_fixed(args: tuple, N: int, Bt: int, what: str) -> dict:
+    """The fixed kernel forced at one shape: two launches bit for bit equal,
+    equal bit for bit to its plain-PyTorch emulation at the plan's qbits
+    (``level_histograms_fixed_plain``), within the tolerance of
+    :func:`check_hist` of the plain version and of float64 sums, and within
+    its stated bound of float64 sums: n x max|x_s| x 2^-qbits (n the
+    entry's rows) plus float32 rounding of the result. Returns the max abs
+    err against the plain version and the largest ratio of the error
+    against float64 sums to that bound."""
+    from h2o3_tpu_torch.ops import hist
+    binned_T, node, g, h, w = args
+    K = node.shape[0] if node.dim() == 2 else 1
+    p = hist.launch_plan(binned_T, N, Bt, "fixed", K)
+    got = hist._launch(*args, N, Bt, "fixed")
+    again = hist._launch(*args, N, Bt, "fixed")
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    del again
+    emu = hist.level_histograms_fixed_plain(*args, N, Bt, p["qbits"])
+    as_emu = torch.equal(got.view(torch.int32), emu.view(torch.int32))
+    del emu
+    err = check_hist(got, hist.level_histograms_plain(*args, N, Bt),
+                     f"{what} [fixed]")
+    exact = hist.level_histograms_plain(binned_T, node, g.double(),
+                                        h.double(), w.double(), N, Bt)
+    check_hist(got, exact, f"{what} [fixed] against float64 sums")
+    ones = torch.ones_like(w if w.dim() == 2 else g)
+    rows = hist.level_histograms_plain(binned_T, node, ones, ones, ones, N,
+                                       Bt).double()
+    exps, bad = hist.fixed_exponents(node, g, h, w, N, p["qbits"])
+    # half a step of each stat, 2^(E_s - qbits - 1) <= max|x_s| 2^-qbits
+    step = torch.tensor([2.0 ** (-e - 1) for e in exps],
+                        dtype=torch.float64, device="cuda")
+    quant = rows * step
+    bound = quant + 2.0 ** -24 * (exact.abs() + quant)
+    ratio = float(((got.double() - exact).abs() / bound.clamp_min(1e-300))
+                  .max())
+    print(f"  fixed {what}: qbits {p['qbits']} (rows between flushes "
+          f"{p['flush_rows']}, x 2^qbits = {p['flush_rows'] << p['qbits']} "
+          f"< 2^31), two launches bit-identical {same}, equal to the "
+          f"emulation {as_emu}, error against float64 sums at most "
+          f"{ratio:.3f} of the stated bound")
+    if not (same and as_emu and ratio <= 1.0):
+        raise AssertionError(f"fixed kernel at {what}")
+    return dict(err=err, bound_ratio=ratio)
+
+
+def phase_fixed_checks() -> dict:
+    """Phase 2's checks of the fixed-point kernel (forced through the plan):
+    257 int16 bins at 1 and 2 nodes, at 11M x 28 and small; 1025 bins; K =
+    3 with w shared and per class; rows not a multiple of four and offset
+    views; 65 int8 bins at 11M x 28 in the layouts of the main path's and
+    DRF's levels 0, 5 and 6 (1, 16 and 32 nodes); the last fixed level of
+    each bin count at 1.5M rows, where entries hold a few hundred rows and
+    the plan raises qbits; every row in one bin with g at its largest |q|
+    (the overflow bound's edge); w in [0, 1e3]; a NaN and an infinity in
+    the stats. Returns the largest max abs err and bound ratio."""
+    from h2o3_tpu_torch.ops import hist
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    B = XGB_BINS + 1
+    i16 = torch.int16
+    out = dict(err=0.0, bound_ratio=0.0)
+
+    def note(r):
+        for k in out:
+            out[k] = max(out[k], r[k])
+
+    for R, F, Bt, N, skew in ((4096, 7, B, 1, 0), (4096, 7, B, 2, 0),
+                              (4099, 5, B, 1, 1), (4099, 5, B, 2, 1),
+                              (ROWS, NFEAT, B, 1, 0), (ROWS, NFEAT, B, 2, 0),
+                              (ROWS + 3, NFEAT, B, 1, 0),
+                              (200_000, NFEAT, 1025, 2, 0),
+                              (ROWS, NFEAT, 1025, 1, 0)):
+        note(check_fixed(hist_inputs(R, F, Bt, N, i16, gen, skew=skew), N,
+                         Bt, f"R={R} F={F} Bt={Bt} N={N} int16"
+                         + (" offset views" if skew else "")))
+    # level layouts: level d >= 1 holds half the rows in 2^(d-1) nodes
+    for R, Bt, dt, level in ((ROWS, NBINS + 1, torch.int8, 0),
+                             (ROWS, NBINS + 1, torch.int8, 5),
+                             (ROWS, NBINS + 1, torch.int8, 6),
+                             (1_500_000, NBINS + 1, torch.int8, 6),
+                             (1_500_000, 129, i16, 5),
+                             (1_500_000, B, i16, 4),
+                             (1_500_000, 1025, i16, 2)):
+        N, node = level_nodes(R, level, gen)
+        note(check_fixed(hist_inputs(R, NFEAT, Bt, N, dt, gen, node=node), N,
+                         Bt, f"R={R} F={NFEAT} Bt={Bt} N={N} "
+                         f"{str(dt)[6:]}, level {level} layout"))
+        del node
+    for R, K, wk in ((4096, 3, False), (4099, 3, True), (ROWS, 3, True)):
+        note(check_fixed(batch_inputs(R, NFEAT, B, 2, i16, gen, K, wk), 2, B,
+                         f"R={R} F={NFEAT} Bt={B} N=2 K={K} w "
+                         f"{'per class' if wk else 'shared'}"))
+    # every row in bin 0 of node 0 with g just below 1: each value is
+    # quantised to 2^qbits, so each block's int32 entry reaches its bound
+    dev = torch.device("cuda")
+    binned_T = torch.zeros((NFEAT, ROWS), dtype=i16, device=dev)
+    node = torch.zeros(ROWS, dtype=torch.int32, device=dev)
+    g = torch.full((ROWS,), float(np.nextafter(np.float32(1), 0)),
+                   device=dev)
+    ones = torch.ones(ROWS, device=dev)
+    note(check_fixed((binned_T, node, g, ones, ones), 1, B,
+                     f"R={ROWS} F={NFEAT} Bt={B} N=1 every row in one bin, "
+                     "|q| = 2^qbits"))
+    del binned_T, node, g, ones
+    binned_T, node, g, h, _ = hist_inputs(ROWS, NFEAT, B, 1, i16, gen)
+    w = torch.rand(ROWS, generator=gen, device=dev) * 1e3
+    note(check_fixed((binned_T, node, g, h, w), 1, B,
+                     f"R={ROWS} F={NFEAT} Bt={B} N=1 w in [0, 1e3]"))
+    del binned_T, node, g, h, w
+    # non-finite stats: NaN in g, infinity in h
+    binned_T, node, g, h, w = hist_inputs(4096, 7, B, 2, i16, gen)
+    act = int((node >= 0).nonzero()[0])
+    g[act], h[act] = float("nan"), float("inf")
+    got = hist._launch(binned_T, node, g, h, w, 2, B, "fixed")
+    torch.cuda.synchronize()
+    nonfinite = (bool(torch.isnan(got[..., :2]).all())
+                 and bool(torch.isfinite(got[..., 2]).all()))
+    print(f"  fixed NaN in g, inf in h: g and h non-finite throughout, w "
+          f"finite: {nonfinite}")
+    if not nonfinite:
+        raise AssertionError("fixed kernel hides a non-finite stat")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernel_checks() -> dict:
     """Phase 2: kernel against the plain version, 2-D calls and class
     batches, every kernel of the plan (the global kernel also forced
@@ -254,7 +441,7 @@ def phase_kernel_checks() -> dict:
         (ROWS + 3, NFEAT, Bt, 1, torch.int8, "", "binomial", None),
         (ROWS, NFEAT, Bt, 2, torch.int8, "", "binomial", None),
         (ROWS, NFEAT, Bt, 16, torch.int8, "", "binomial", None),
-        # the XGBoost level-0 shape (atomic kernel) and a deep DRF level
+        # the XGBoost level-0 shape (fixed kernel) and a deep DRF level
         (ROWS, NFEAT, XGB_BINS + 1, 1, torch.int16, "", "xgboost_257", None),
         (ROWS, NFEAT, Bt, 1024, torch.int8, "", "drf_depth14", None),
         # the global kernel forced through the plan: DRF's deepest levels,
@@ -284,8 +471,8 @@ def phase_kernel_checks() -> dict:
         shape = f"R={R} F={F} Bt={Bt_} N={N} {str(dt)[6:]} {what}".strip()
         note(path, *check_call(args, N, Bt_, shape, kernel))
         del args
-    # class batches (K = 3): w shared and per class, the lane kernel with
-    # rows a multiple of four and not, the atomic kernel, the global kernel
+    # class batches (K = 3): w shared and per class, the fixed kernel with
+    # rows a multiple of four and not, the global kernel
     # (planned at 128 nodes of 257 bins, forced at 1024 nodes of 65), and
     # the multinomial level-0 shape at full width
     batches = [  # (R, F, bins incl. NA, N, dtype, K, w per class, kernel)
@@ -331,8 +518,8 @@ def phase_kernel_checks() -> dict:
         f"{what} against float64 sums"))
     del plain
     del binned_T, node, g, h, w, stats, exact
-    # a K = 1 batch against the 2-D call: both launch the same kernel and
-    # flush with float atomicAdd, so they are held to the same tolerance
+    # a K = 1 batch against the 2-D call: both launch the same kernel, held
+    # to the same tolerance
     binned_T, node, g, h, w = hist_inputs(ROWS, NFEAT, Bt, 2, torch.int8, gen)
     two_d = level_histograms(binned_T, node, g, h, w, 2, Bt)
     one = level_histograms(binned_T, node[None], g[None], h[None], w, 2, Bt)
@@ -350,8 +537,8 @@ def phase_kernel_checks() -> dict:
 
 def phase_kernel_times() -> dict:
     """Phase 5: the kernel at each main-path level's shape."""
-    from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops, launch_plan,
-                                         level_histograms,
+    from h2o3_tpu_torch.ops.hist import (_launch, hist_bytes, hist_flops,
+                                         launch_plan, level_histograms,
                                          level_histograms_loads_only,
                                          level_histograms_plain)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -367,6 +554,8 @@ def phase_kernel_times() -> dict:
                      reps=20)
         loads_ms = cuda_ms(lambda: level_histograms_loads_only(
             binned_T, node, g, h, w, N, Bt), reps=20)
+        global_ms = cuda_ms(lambda: _launch(binned_T, node, g, h, w, N, Bt,
+                                            "global"), reps=20)
         staging_ms = cuda_ms(lambda: level_histograms_loads_only(
             binned_T, node, g, h, w, N, Bt, scan=False), reps=20)
         plan = launch_plan(binned_T, N, Bt)
@@ -390,7 +579,8 @@ def phase_kernel_times() -> dict:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / F32_FLOPS_PER_S else "operations")
         row = dict(level=level, N=N, active_rows=active, ms=ms,
-                   loads_only_ms=loads_ms, staging_only_ms=staging_ms,
+                   global_ms=global_ms, updates_out_ms=loads_ms,
+                   staging_only_ms=staging_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms, gbps=nbytes / ms / 1e6,
@@ -399,14 +589,14 @@ def phase_kernel_times() -> dict:
               f"(first kernel {FIRST_KERNEL_MS[level]:.3f} ms), "
               f"{100 * bound_ms / ms:.1f}% of bound {bound_ms:.4f} ms "
               f"({bound_by}, {nbytes / 1e6:.1f} MB), "
-              f"{nbytes / ms / 1e6:.1f} GB/s; updates out {loads_ms:.4f} ms, "
-              f"staging only {staging_ms:.4f} ms; "
+              f"{nbytes / ms / 1e6:.1f} GB/s; its updates out "
+              f"{loads_ms:.4f} ms, staging only {staging_ms:.4f} ms; "
+              f"global kernel {global_ms:.4f} ms; "
               f"plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; plan "
               f"{plan['kernel']} Fb={plan['features_per_group']} "
               f"groups={plan['groups']} Nb={plan['nodes_per_block']} "
-              f"node_blocks={plan['node_blocks']} copies={plan['copies']} "
-              f"owners={plan['owners']} smem={plan['smem_bytes']} B "
-              f"blocks={plan['blocks']}")
+              f"node_blocks={plan['node_blocks']} smem={plan['smem_bytes']} B "
+              f"blocks={plan['blocks']} qbits={plan['qbits']}")
         rows.append(row)
         del node
     torch.cuda.empty_cache()
@@ -506,8 +696,7 @@ def _split_agreement(ma, mb) -> tuple:
 @contextlib.contextmanager
 def plan_taking(kernel: str):
     """The plan taking ``kernel`` at every level of every bin count, for a
-    witness run (the lane kernel holds any node count of up to 129
-    bins)."""
+    witness run."""
     from h2o3_tpu_torch.ops import hist
     saved = hist._KERNEL_SWITCH
     hist._KERNEL_SWITCH = {b: (kernel, hist._GLOBAL_MAX_NODES + 1)
@@ -537,17 +726,17 @@ def cross_device(what: str, cols: dict, make, metric: str,
     heap nodes and rows agree in each tree. It then trains two witnesses of
     what the order of the sums alone does, on the card: the same plan
     again (the global kernel's reductions land in another order from run
-    to run) and the lane kernel at every level (no atomics: one fixed order,
-    not the CPU's), and prints how many heap nodes and first-tree rows
-    agree between each pair of runs. Returns the kernels' launches on the
-    card."""
+    to run) and the fixed kernel at every level (integer sums: the same
+    bits every run, none of them the CPU's), and prints how many heap
+    nodes and first-tree rows agree between each pair of runs. Returns the
+    kernels' launches on the card."""
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models.tree import HEAP_FIELDS
     from h2o3_tpu_torch.ops.hist import level_histograms
     runs = [("cpu", "cpu", None), ("cuda", "cuda", None)]
     if not exact_splits:
         runs += [("cuda again", "cuda", None),
-                 ("cuda, lanes at every level", "cuda", "lanes")]
+                 ("cuda, fixed at every level", "cuda", "fixed")]
     models, margins = {}, {}
     for name, dev, kernel in runs:
         fr = Frame.from_arrays(cols, device=dev)
@@ -614,9 +803,10 @@ def cross_device(what: str, cols: dict, make, metric: str,
 
 def phase_cross_device() -> None:
     """Phase 3: small binomial GBM, multinomial GBM (K = 3) and XGBoost
-    (256 bins) on the CPU and on the card, sampling off; then a deep GBM
-    (depth 12, levels of up to 1024 nodes) whose deep levels run the
-    global kernel on the card."""
+    (256 bins) on the CPU and on the card, sampling off; XGBoost at 4.5M
+    rows, where the fixed kernel keeps 15 bits a value at levels 0-3; then
+    a deep GBM (depth 12, levels of up to 1024 nodes) whose deep levels run
+    the global kernel on the card."""
     from h2o3_tpu_torch.models.gbm import GBM
     from h2o3_tpu_torch.models.xgboost import XGBoost
     cols = higgs_arrays(100_000)
@@ -629,12 +819,75 @@ def phase_cross_device() -> None:
         ntrees=5, max_depth=6, nbins=64, learn_rate=0.1, seed=42), "logloss")
     cross_device("XGBoost 100k x 28, 256 bins", cols, lambda: XGBoost(
         ntrees=5, max_depth=6, max_bin=XGB_BINS, eta=0.3, seed=42), "auc")
+    # where the fixed kernel keeps 15 bits a value, as on the main paths: a
+    # block walks more than 128 tiles between two flushes (R > 132 x 128 x
+    # 256 at one node) and its entries hold over 2048 rows each
+    from h2o3_tpu_torch.ops.hist import launch_plan
+    shape = torch.empty((NFEAT, QBITS15_ROWS), dtype=torch.int16,
+                        device="meta")
+    qbits = [launch_plan(shape, max(1, 2 ** (d - 1)), XGB_BINS + 1)["qbits"]
+             for d in range(QBITS15_DEPTH)]
+    print(f"XGBoost {QBITS15_ROWS} x {NFEAT}: the fixed kernel's qbits by "
+          f"level {qbits}")
+    if min(qbits) != 15:
+        raise AssertionError(f"no level at 15 bits: {qbits}")
+    cross_device(f"XGBoost {QBITS15_ROWS} x 28, 256 bins, depth "
+                 f"{QBITS15_DEPTH}", higgs_arrays(QBITS15_ROWS),
+                 lambda: XGBoost(ntrees=2, max_depth=QBITS15_DEPTH,
+                                 max_bin=XGB_BINS, eta=0.3, seed=42), "auc")
     deep = cross_device("GBM 200k x 28, depth 12", higgs_arrays(200_000),
                         lambda: GBM(ntrees=3, max_depth=12, nbins=NBINS,
                                     learn_rate=0.1, seed=42), "auc",
                         exact_splits=False)
     if deep["global"] == 0:
         raise AssertionError("the deep GBM never launched the global kernel")
+
+
+def split_witness(runs: int = 30, rows: int = 100_000, ntrees: int = 5,
+                  depth: int = 6, kernels=(None, "fixed", "global")) -> dict:
+    """How often the card's XGBoost (phase 3's: 256 bins, eta 0.3, seed 42)
+    splits a heap node otherwise than the CPU's: one CPU training, then
+    ``runs`` card trainings for each of ``kernels`` (None: the plan; a
+    name: that kernel at every level), each held to the CPU's splits.
+    Prints and returns, for each, the runs that differ and the (tree, heap
+    node) pairs that did. Not part of :func:`main`; run it after
+    :func:`phase_env`, e.g. ``python3 -c "import chip_smoke as s;
+    s.phase_env(); s.split_witness()"``."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.xgboost import XGBoost
+    cols = higgs_arrays(rows)
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def train(dev):
+        return XGBoost(ntrees=ntrees, max_depth=depth, max_bin=XGB_BINS,
+                       eta=0.3, seed=42).train(
+            x=x, y="y", training_frame=Frame.from_arrays(cols, device=dev))
+
+    cpu = train("cpu")
+    out = {}
+    for kernel in kernels:
+        differ, nodes = 0, {}
+        for _ in range(runs):
+            with plan_taking(kernel) if kernel else contextlib.nullcontext():
+                card = train("cuda")
+            flips = []
+            for t, (a, b) in enumerate(zip(_tree_sets(cpu)[0],
+                                           _tree_sets(card)[0])):
+                alike = torch.stack([getattr(a, k).cpu() == getattr(b, k).cpu()
+                                     for k in SPLIT_KEYS]).all(0)
+                flips += [(t, int(i)) for i in (~alike).nonzero()[:, 0]]
+            differ += bool(flips)
+            for f in flips[:1]:   # the first node that differs, per run
+                nodes[f] = nodes.get(f, 0) + 1
+        name = kernel or "plan"
+        out[name] = dict(runs=runs, differ=differ,
+                         first_nodes={f"{t}:{i}": n
+                                      for (t, i), n in nodes.items()})
+        print(f"split witness, XGBoost {rows} x {NFEAT}, {ntrees} trees "
+              f"depth {depth}, {name}: {differ}/{runs} card runs split "
+              f"otherwise than the CPU; first differing (tree, heap node): "
+              f"{out[name]['first_nodes']}")
+    return out
 
 
 def build_frame():
@@ -744,7 +997,7 @@ def phase_new_paths(fr) -> dict:
         f"XGBoost {ROWS} x {NFEAT}, {XGB_TREES} trees depth {DEPTH} "
         f"{XGB_BINS} bins", xgb(XGB_TREES), xgb(2), fr, XGB_TREES,
         planned_launches(XGB_TREES, DEPTH, XGB_BINS + 1, 2), {"auc": 1e-4},
-        ("atomic", "global"))
+        ("fixed", "global"))
 
     t0 = time.perf_counter()
     codes = multi_codes(fr.vec("x0").data, fr.vec("x1").data,
@@ -766,7 +1019,7 @@ def phase_new_paths(fr) -> dict:
         f"multinomial GBM {ROWS} x {NFEAT}, K = 3, {NTREES} rounds depth "
         f"{DEPTH} {NBINS} bins", multi(NTREES), multi(2), frm, NTREES,
         planned_launches(NTREES, DEPTH, NBINS + 1, 1, 3),
-        {"logloss": 1e-4, "mean_per_class_error": 1e-4}, ("lanes",))
+        {"logloss": 1e-4, "mean_per_class_error": 1e-4}, ("fixed",))
     del frm, codes
 
     def drf(n):
@@ -779,7 +1032,7 @@ def phase_new_paths(fr) -> dict:
         f"bins, sample_rate 0.632, mtries {DRF_MTRIES}", drf(DRF_TREES),
         drf(1), fr, DRF_TREES,
         planned_launches(DRF_TREES, DRF_DEPTH, NBINS + 1, 1), {"auc": 1e-9},
-        ("lanes", "global"))
+        ("fixed", "global"))
     torch.cuda.empty_cache()
     return out
 
@@ -820,10 +1073,10 @@ def phase_main_path(fr) -> dict:
           f"{auc:.6f}, kernel launches {launches} {by_kernel}, peak device "
           f"memory {peak:.2f} GiB")
     print(f"scoring {ROWS} rows: {score_s:.3f} s, scored AUC {scored_auc:.6f}")
-    # one histogram per level of every tree, all on the lane kernel
+    # one histogram per level of every tree, each on the plan's kernel
     expected = planned_launches(NTREES, DEPTH, NBINS + 1, 1)
     if launches != NTREES * DEPTH or by_kernel != expected \
-            or expected["lanes"] != NTREES * DEPTH:
+            or not all(by_kernel[k] for k, n in expected.items() if n):
         raise AssertionError(f"kernels launched {launches} times "
                              f"{by_kernel}, expected {expected}")
     if not (np.isfinite(auc) and auc > 0.5):
@@ -833,9 +1086,9 @@ def phase_main_path(fr) -> dict:
         raise AssertionError("scores are not finite probabilities")
     if abs(scored_auc - auc) >= 1e-4:
         raise AssertionError(f"scored AUC {scored_auc} vs training {auc}")
-    return dict(seconds=seconds, launches=launches, auc=auc,
-                rows_trees_per_s=ROWS * NTREES / seconds, score_s=score_s,
-                peak_gib=peak, **prof)
+    return dict(seconds=seconds, launches=launches, by_kernel=by_kernel,
+                auc=auc, rows_trees_per_s=ROWS * NTREES / seconds,
+                score_s=score_s, peak_gib=peak, **prof)
 
 
 def cuda_ms_auto(fn, budget_ms: float = 300.0, max_reps: int = 20) -> float:
@@ -846,16 +1099,19 @@ def cuda_ms_auto(fn, budget_ms: float = 300.0, max_reps: int = 20) -> float:
                    warmup=0)
 
 
-def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts) -> list:
+def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts,
+                earlier: dict | None = None) -> list:
     """The kernel, its plain version and one ``index_add_`` computing the
     same function, timed at each ``(level, N, node)`` layout of a path,
-    beside the bound (each input once: the bins once for all classes) and,
-    where the plan takes the global kernel, the other two kernels' times in
-    the same run and, printed only, its update bound (one 16-byte reduction
-    per active (row, feature) at ``RED_V4_PER_S``, a rate this run does not
-    measure)."""
+    beside the bound (each input once: the bins once for all classes),
+    ``earlier`` ms by level (an earlier kernel's, from PERF.md, printed
+    only), the other kernel's time in the same run and, printed only at the
+    global kernel's levels, its update bound (one
+    16-byte reduction per active (row, feature) at ``RED_V4_PER_S``, a rate
+    this run does not measure)."""
     from h2o3_tpu_torch.ops.hist import (_launch, hist_bytes, hist_flops,
-                                         launch_plan, level_histograms,
+                                         launch_plan,
+                                         level_histograms,
                                          level_histograms_plain)
     F, R = binned_T.shape
     K = g.shape[0] if g.dim() == 2 else 1
@@ -893,31 +1149,33 @@ def time_levels(what: str, binned_T, g, h, w, Bt: int, layouts) -> list:
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / F32_FLOPS_PER_S else "operations")
         plan = launch_plan(binned_T, N, Bt, K=K)
-        update_ms = other_ms = None
+        update_ms = None
         if plan["kernel"] == "global":
             update_ms = active * F / RED_V4_PER_S * 1e3
-            other_ms = {k: cuda_ms_auto(lambda k=k: _launch(
-                binned_T, node, g, h, w, N, Bt, k)) for k in ("lanes",
-                                                               "atomic")}
-            level_histograms.kernel_launches = dict(calls)
+        # the other kernel, for the switch
+        other_ms = {k: cuda_ms_auto(lambda k=k: _launch(
+            binned_T, node, g, h, w, N, Bt, k))
+            for k in ("fixed", "global") if k != plan["kernel"]}
+        level_histograms.kernel_launches = dict(calls)
+        before = earlier.get(level) if earlier else None
         print(f"hist {what} level {level} N={N} K={K} active={active}: kernel "
-              f"{ms:.4f} ms, {100 * bound_ms / ms:.1f}% of bound "
+              f"{ms:.4f} ms"
+              + (f" (first kernel {before:.4f} ms)" if before else "")
+              + f", {100 * bound_ms / ms:.1f}% of bound "
               f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)"
-              + (f", update bound {update_ms:.4f} ms; lanes "
-                 f"{other_ms['lanes']:.4f} ms, atomic {other_ms['atomic']:.4f}"
-                 " ms" if update_ms is not None else "") +
+              + (f", update bound {update_ms:.4f} ms" if update_ms else "")
+              + "".join(f"; {k} {v:.4f} ms" for k, v in other_ms.items()) +
               f"; plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms; "
               f"plan {plan['kernel']} groups={plan['groups']} "
               f"Nb={plan['nodes_per_block']} "
-              f"node_blocks={plan['node_blocks']} copies={plan['copies']} "
-              f"owners={plan['owners']} smem={plan['smem_bytes']} B "
-              f"blocks={plan['blocks']}")
+              f"node_blocks={plan['node_blocks']} smem={plan['smem_bytes']} B "
+              f"blocks={plan['blocks']}"
+              + (f" qbits={plan['qbits']}" if "qbits" in plan else ""))
         rows.append(dict(level=level, N=N, active_rows=active,
                          kernel=plan["kernel"], ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by, bound_share=bound_ms / ms,
-                         lanes_ms=other_ms and other_ms["lanes"],
-                         atomic_ms=other_ms and other_ms["atomic"]))
+                         **{f"{k}_ms": v for k, v in other_ms.items()}))
     return rows
 
 
@@ -948,9 +1206,35 @@ def phase_new_path_times() -> dict:
                              device="cuda").to(torch.int16)
     out["xgboost_257"] = time_levels(
         "XGBoost", binned_T, g, h, w, XGB_BINS + 1,
-        [(level, *level_nodes(ROWS, level, gen)) for level in range(DEPTH)])
+        [(level, *level_nodes(ROWS, level, gen)) for level in range(DEPTH)],
+        dict(enumerate(ATOMIC_KERNEL_MS)))
+    out["fixed_split"] = fixed_split(binned_T, g, h, w, XGB_BINS + 1, gen)
     del binned_T, g, h, w
     torch.cuda.empty_cache()
+    return out
+
+
+def fixed_split(binned_T, g, h, w, Bt: int, gen) -> dict:
+    """Device ms of the fixed kernel's two launches at XGBoost's level 0,
+    the scale reduction and the histogram kernel, from torch.profiler over
+    five calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from h2o3_tpu_torch.ops.hist import _launch
+    N, node = level_nodes(binned_T.shape[1], 0, gen)
+    _launch(binned_T, node, g, h, w, N, Bt, "fixed")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            _launch(binned_T, node, g, h, w, N, Bt, "fixed")
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in ("fixed_scale_kernel", "fixed_hist_kernel"):
+            if name in e.key and e.device_type == DeviceType.CUDA:
+                out[name] = e.device_time_total / 1e3 / e.count
+    print(f"fixed kernel at XGBoost level 0, device ms a launch: {out}")
     return out
 
 
@@ -986,7 +1270,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_env()
+    sass = sass_check()
     max_err = phase_kernel_checks()
+    fixed = phase_fixed_checks()
     phase_cross_device()
     fr = build_frame()
     main_path = phase_main_path(fr)
@@ -1005,6 +1291,15 @@ def main() -> int:
     kernels.append(kernel_entry(
         new_paths["drf_depth14"]["by_kernel"]["global"], max_err["global"],
         deep, name="global_hist_kernel", path="drf_depth14"))
+    # the fixed kernel: its launches in the XGBoost training, its times at
+    # the XGBoost levels the plan gives it, beside the first kernel's
+    xgb = [r for r in new_times["xgboost_257"] if r["kernel"] == "fixed"]
+    kernels.append(kernel_entry(
+        new_paths["xgboost_257"]["by_kernel"]["fixed"], fixed["err"], xgb,
+        name="fixed_hist_kernel", path="xgboost_257",
+        bound_ratio=fixed["bound_ratio"],
+        split_ms=new_times["fixed_split"],
+        sass={k[-48:]: v for k, v in sass.items()}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 // Float reductions into global memory (L2) on Hopper: three scalar f32 adds
 // to neighbouring words of a [S, 3] array (a histogram entry's g, h and w, as
 // the level-histogram kernels flush them) against one 16-byte v4 add to an
-// entry of a [S, 4] array, and one scalar add alone, each at random entries
+// entry of a [S, 4] array, one scalar add alone, and one 64-bit integer
+// add (RED.E.ADD.64, as fixed_hist_kernel flushes its slab), each at random
+// entries
 // of arrays of about 0.02, 3, 30 and 90 MB (the 90 MB case is beyond the
 // card's 50 MB L2, as DRF's level of 4096 nodes is), with the result unused
 // so that each add compiles to a fire-and-forget RED. Prints entries per
@@ -13,7 +15,7 @@
 #include <cstdio>
 #include <cuda_runtime.h>
 
-enum { kScalar3, kVec4, kScalar1 };
+enum { kScalar3, kVec4, kScalar1, kInt64 };
 
 template <int MODE>
 __global__ void k(float* out, long long S, int iters) {
@@ -32,11 +34,16 @@ __global__ void k(float* out, long long S, int iters) {
       atomicAdd(reinterpret_cast<float4*>(out) + e,
                 make_float4(1.0f, 2.0f, 3.0f, 0.0f));
     if (MODE == kScalar1) atomicAdd(out + e, 1.0f);
+    if (MODE == kInt64)   // fire-and-forget: atomicAdd would wait (ATOMG)
+      asm volatile("red.global.add.u64 [%0], %1;" ::"l"(
+                       reinterpret_cast<unsigned long long*>(out) + e),
+                   "l"(1ull) : "memory");
   }
 }
 
 template <int MODE> void run(const char* name, double mb) {
-  const int per = MODE == kVec4 ? 4 : MODE == kScalar3 ? 3 : 1;
+  const int per = MODE == kVec4 ? 4 : MODE == kScalar3 ? 3
+                  : MODE == kInt64 ? 2 : 1;
   // the same entry count for every mode: the v4 array is `mb` MB
   const long long S = static_cast<long long>(mb * 1e6 / 16);
   float* out;
@@ -67,6 +74,7 @@ int main() {
     run<kScalar3>("f32 x3", mb);
     run<kVec4>("v4.f32", mb);
     run<kScalar1>("f32 x1", mb);
+    run<kInt64>("u64 x1", mb);
   }
   return 0;
 }

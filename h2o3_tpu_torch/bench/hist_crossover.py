@@ -1,28 +1,31 @@
-"""The three kernels of ``level_histograms`` over node counts, bins and
-classes: the measurement behind the plan's switch (``ops/hist.py``:
+"""The kernels of ``level_histograms`` over node counts, bins and classes:
+the measurement behind the plan's switch (``ops/hist.py``:
 ``_KERNEL_SWITCH``, the kernel each bin and node count takes, and
 ``_GLOBAL_L2_BYTES`` for the global kernel's passes).
 
     python3 -m h2o3_tpu_torch.bench.hist_crossover
 
 On one CUDA card, at 11M rows x 28 features: int8 bins (Bt = 65) at N = 1 to
-2^14 nodes, int16 bins (Bt = 129 and 257) at N = 1 to 1024, and a batch of
-K = 3 classes with one shared weight row at N = 16 to 256 and 1024 (Bt = 65).
-At each shape it launches the lane, the atomic and the global kernel, each
-on its own plan, checks that the lane and global results agree with the
-atomic one within rtol 1e-5 + 1e-5 x max|hist|, and times each with CUDA
-events: the mean of up to 5 launches after one (fewer where one launch
-takes over 100 ms), at four placements of the kernels' outputs in device
-memory, of which the median counts, with no other output held (where the
-output is small and every row adds into it, as at two nodes of 257 bins,
-the global kernel's time moves by up to 10% with where its output lands).
-Rows are laid out as at a level of tree growth: 2N children
+2^14 nodes, int16 bins (Bt = 129 and 257) at N = 1 to 1024 and (Bt = 1025,
+H2O's nbins_top_level) at N = 1 to 64, and a batch of K = 3 classes with one
+shared weight row at N = 16 to 256 and 1024 (Bt = 65). At each shape it
+launches every kernel of ``level_histograms.kernel_launches``, each on its
+own plan,
+checks each result against float64 sums (the plain version on float64
+stats) within rtol 1e-5 + 1e-5 x max|hist|, and times each with CUDA
+events: the mean of up to 5 launches after one (fewer
+where one launch takes over 100 ms), at four placements of the kernels'
+outputs in device memory, of which the median counts, with no other output
+held (where the output is small and every row adds into it, as at two nodes
+of 257 bins, the global kernel's time moves by up to 10% with where its
+output lands). Rows are laid out as at a level of tree growth: 2N children
 at random, the N even ones active (their siblings come by subtraction);
 N = 0 stands for level 0, one node that holds every row.
 Then it times the global kernel at its deep shapes with the features in
 more or fewer passes (``_GLOBAL_L2_BYTES`` from 4 MiB to all features in
-one pass). Prints the card's name and power limit, one line per shape, and
-the rows as one JSON object last; exits non-zero if the kernels disagree.
+one pass). Prints the card's name and power limit, one line per shape
+(with the kernels that disagree, which are never the fastest), and the rows
+as one JSON object last; exits non-zero if the planned kernel disagrees.
 """
 
 from __future__ import annotations
@@ -37,11 +40,12 @@ import torch
 from h2o3_tpu_torch.ops import hist
 
 ROWS, NFEAT = 11_000_000, 28
-KERNELS = ("lanes", "atomic", "global")
+KERNELS = tuple(hist.level_histograms.kernel_launches)
 #: (bin dtype, bins incl. NA, classes, node counts)
 CASES = ((torch.int8, 65, 1, (0,) + tuple(2 ** i for i in range(15))),
          (torch.int16, 129, 1, (0,) + tuple(2 ** i for i in range(11))),
          (torch.int16, 257, 1, (0,) + tuple(2 ** i for i in range(11))),
+         (torch.int16, 1025, 1, (0,) + tuple(2 ** i for i in range(7))),
          (torch.int8, 65, 3, (16, 32, 64, 128, 256, 1024)))
 #: the global kernel's passes: (bin dtype, bins, nodes) x L2 budgets (MiB)
 PASS_CASES = ((torch.int8, 65, 1024), (torch.int8, 65, 4096),
@@ -121,25 +125,30 @@ def main() -> int:
             planned = hist.launch_plan(binned_T, N, Bt, K=K)["kernel"]
             row = dict(bins=str(dtype)[6:], Bt=Bt, K=K, N=N,
                        all_rows=level0 == 0, planned=planned)
+            kernels = list(KERNELS)
             launch = {k: (lambda k=k: hist._launch(binned_T, node, g, h, w, N,
-                                                   Bt, k)) for k in KERNELS}
+                                                   Bt, k)) for k in kernels}
             # checked first, and freed before any timing: held outputs move
             # where the timed kernels' outputs land
-            want = launch["atomic"]()
-            agree = all(_agree(launch[k](), want) for k in KERNELS)
-            ok &= agree
+            want = hist.level_histograms_plain(binned_T, node, g.double(),
+                                               h.double(), w.double(), N, Bt)
+            agree = {k: _agree(launch[k](), want) for k in kernels}
+            ok &= agree[planned]
+            row["agree"] = agree
             del want
-            for kernel in KERNELS:
+            for kernel in kernels:
                 p = hist.launch_plan(binned_T, N, Bt, kernel, K)
                 row[f"{kernel}_ms"] = _median_ms(launch[kernel])
                 row[f"{kernel}_plan"] = {k: p[k] for k in (
                     "groups", "node_blocks", "warps", "blocks")}
-            row["fastest"] = min(KERNELS, key=lambda k: row[f"{k}_ms"])
+            row["fastest"] = min((k for k in kernels if agree[k]),
+                                 key=lambda k: row[f"{k}_ms"])
             print(f"{row['bins']} Bt={Bt} K={K} N={N}"
                   f"{' (all rows)' if level0 == 0 else ''}: " + ", ".join(
                 f"{k} {row[f'{k}_ms']:.4f} ms {row[f'{k}_plan']}"
-                for k in KERNELS) + f"; fastest {row['fastest']}, planned "
-                f"{row['planned']}; {'agree' if agree else 'DISAGREE'}")
+                for k in kernels) + f"; fastest {row['fastest']}, planned "
+                f"{row['planned']}; disagree: "
+                f"{[k for k in kernels if not agree[k]] or 'none'}")
             rows.append(row)
             del node, launch
         del binned_T, g, h, w

@@ -1,11 +1,12 @@
 // Tile staging on Hopper: how fast one block of 256 threads per SM stages
-// the level-histogram kernel's row tiles (csrc/hist.cu, lane_hist_kernel)
+// a level-histogram kernel's row tiles (csrc/hist.cu's kernel without
+// atomics, since removed; the fixed kernel stages in registers too)
 // into shared memory at the main path's shape: 11M rows of node (int32),
 // g, h, w (float32) and 28 int8 bin rows, T rows to a tile, each block
 // walking every gridDim-th tile. Two ways:
 //   regs  each thread loads its share of the next tile into registers while
 //         the block works on this one, then stores it to shared memory
-//         (what lane_hist_kernel does);
+//         (what the histogram kernels do);
 //   bulk  a ring of S stages, each filled by 1-D bulk asynchronous copies
 //         (cp.async.bulk, one per array row of the tile: node, g, h, w and
 //         28 bin rows) that complete on the stage's mbarrier; thread 0

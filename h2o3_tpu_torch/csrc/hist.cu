@@ -20,8 +20,9 @@
 // instead drops ids >= its padded stride. The two agree on every bin that
 // binning produces, which lies in [0, nbins]. Negative ids, which binning
 // never produces, are skipped so that they cannot write outside the slab.
-// Sums are float32, added in an order that varies from run to run, so their
-// last bits do too.
+// The global kernel's sums are float32, added in an order that varies from
+// run to run, so their last bits do too; the fixed kernel's are exact
+// integer sums of quantised values, the same bits every run.
 //
 // Bound at the main-path shape (R = 11,000,000 rows, F = 28, Bt = 65, int8
 // bins): memory. Each launch must read 11M x 28 B of bins plus 4 B of node
@@ -30,48 +31,31 @@
 // is far below the card's float32 rate. What the byte count does not show
 // is the shared memory the adds go through: up to 924M float adds a launch.
 //
-// The first version ran one feature per block and added with shared-memory
-// atomicAdd. On this card a float atomicAdd in shared memory is a
-// compare-and-swap loop (SASS ATOMS.CAST.SPIN): about 2 adds per clock per
-// SM at best, which holds any atomic design above 1.8 ms at level 0. So the
-// main path runs a kernel without atomics:
+// On this card a float atomicAdd in shared memory is a compare-and-swap
+// loop (SASS ATOMS.CAST.SPIN): about 2 adds per clock per SM at best,
+// which holds any float atomic design above 1.8 ms at level 0. An integer
+// atomicAdd is native (ATOMS.ADD, 10-14 adds per clock per SM with lanes
+// on features, bench/smem_update_rates.cu), and a kernel that adds
+// integers was measured faster at every level of few nodes than one
+// without atomics (bench/hist_crossover.py). Two kernels:
 //
-// lane_hist_kernel. A block owns a group of up to 32 features and a block of
-// Nb nodes; lane l of every warp owns feature l of the group, for all three
-// stats. A warp's 32 lanes thus never write the same address, and the slab
-// is laid out [stat][node][bin][lane] so that they never share a bank
-// either: each add is a plain shared load, add and store. Warps never share
-// an address because each owns either a copy of the slab (N = 1: 8 copies,
-// each warp taking its own rows) or a class of nodes (n mod owners), or a
-// mix (N = 2: 4 copies x 2 owners); the copies are summed before the flush.
-// A tile of rows is staged in shared memory by the whole block: node, g, h
-// and w read once with 16-byte vector loads of four rows, the group's bins
-// four rows to a word (32-bit for int8, 64-bit for int16). Feature row f
-// starts at element f*R, which is aligned only when R is a multiple of
-// four; otherwise the four bins straddle two aligned words, both of which
-// hold bins of this row, and a funnel shift joins them. Nothing is copied or
-// padded in device memory. The next tile's loads are in flight, in
-// registers, while a tile is counted. Each warp scans its part of the
-// tile's nodes 32 at a time, lists the rows it owns (a ballot and a prefix
-// count), and counts them four at a time: the four rows' slab entries are
-// all loaded before any is stored, a row that hits the bin of an earlier
-// row of the four adds onto that row's sum, and a zero row fills the last
-// four. The grid is persistent: as many blocks as the
-// SMs hold (one each), split over feature groups and node blocks, each
-// walking every row_splits-th tile and flushing its slab once, with global
-// atomics (native float adds in L2), at the end.
-// A lane's slab holds 3 x Nb x Bt floats, so Nb is at most 8 at Bt = 65;
-// N = 16 (level 5) takes two node blocks, each reading every row.
+// fixed_hist_kernel. Fixed-point sums in int32 shared atomics, each row read
+// once per block for all of the block's features, flushed into an int64
+// accumulator; the section above the kernel states its layout, its scale,
+// its overflow bound and its error bound. Node, g, h and w of a row are
+// read once, the group's bins four rows to a word (32-bit for int8, 64-bit
+// for int16). Feature row f starts at element f*R, which is aligned only
+// when R is a multiple of four; otherwise the four bins straddle two
+// aligned words, both of which hold bins of this row, and a funnel shift
+// joins them. Nothing is copied or padded in device memory. The grid is
+// persistent: as many blocks as the SMs hold (one each), split over
+// feature groups, node blocks and rows.
 //
-// atomic_hist_kernel. Where the lane and the global kernel were both
-// measured the slower (fewer than 4 nodes of 257 bins: XGBoost's levels
-// 0-2), the wrapper's plan takes the first design: one block per feature, a node block from a 96 KB budget,
-// one row per thread per tile, and shared-memory atomicAdd.
-//
-// global_hist_kernel. Both kernels above give each node block every row, so
-// at many nodes they read the rows node_blocks times (252 times for the
-// atomic kernel at 1024 nodes of 65 bins, 924 at 4096) and lost 13-26x to
-// one index_add_. The reference never ran its kernel there either: beyond
+// global_hist_kernel. A kernel with a slab per node block gives each node
+// block every row, so at many nodes it reads the rows node_blocks times
+// (252 times for the first kernel at 1024 nodes of 65 bins, 924 at 4096),
+// which lost 13-26x to one index_add_. The reference never ran its kernel
+// there either: beyond
 // 32 node blocks pallas_hist.py sends a level to the scatter path
 // (models/tree.py:_level_histograms, a segment_sum). This kernel is that
 // path's counterpart on the card. It reads each row once per pass whatever
@@ -96,7 +80,7 @@
 // were tried and changed nothing). The grid is persistent, one wave of the
 // SMs times CUDA's occupancy, over rows and classes. Where all rows add
 // into few entries the reductions contend, and below the plan's switch the
-// lane or the atomic kernel is faster. What bounds it is the reduction
+// fixed kernel is faster. What bounds it is the reduction
 // rate: one per active (row, feature), 1.72 ms at 5.5M rows x 28 at 8.97e10
 // a second, against its 1.93 ms at 1024 nodes.
 //
@@ -113,27 +97,35 @@
 // once for all K classes.
 //
 // The plan (hist.py:_KERNEL_SWITCH) takes each kernel where
-// bench/hist_crossover.py measured it the fastest: the lane kernel below 32
-// nodes at 65 bins and below 8 at 129, the atomic kernel below 4 at 257, and
-// the global kernel from there on.
+// bench/hist_crossover.py measured it the fastest at 11M rows: the fixed
+// kernel below 64 nodes at 65 bins, below 32 at 129, below 16 at 257 and
+// below 4 at 1025; the global kernel from there on. The fixed kernel's
+// precision is part of its plan (hist.py:fixed_needed_qbits): an entry of
+// n rows is off by about 2^-qbits x sqrt(n) x max|x|, while the check's
+// floor grows as n, so the plan keeps 2 x qbits + log2(n) >= 41 at the
+// level's mean n = R / (2 N Bt), flushing more often where entries hold
+// fewer rows (qbits up to 22). At 11M rows every planned level keeps 15
+// bits; at 1.5M rows and 32 nodes of 65 bins it keeps 17.
 //
-// What is left for later: bins read once for all classes; a deterministic
-// fixed-point mode (integer shared atomics are native and about 4x faster);
-// a ring of bulk asynchronous copies (cp.async.bulk) for the staging. Such
+// What is left for later: bins read once for all classes; fixed-point sums
+// for the global kernel; a ring of bulk asynchronous copies
+// (cp.async.bulk) for the staging. Such
 // a ring stages 512-row tiles faster than the registers' prefetch, but not
 // 256-row tiles (bench/tile_staging.cu), and only 256-row stages fit: the
 // slab takes 199,680 of the block's 232,448 bytes at every main-path level.
 // Bulk copies also land each array linearly at 16-byte aligned addresses,
-// which gives up the stats' float4 per row and the odd bin-row stride that
-// keep the counting loop, which holds the kernel, at one conflict-free
-// shared load per row and feature.
+// which gives up the list's int4 per row and the odd bin-row stride that
+// keep the adding loop, which holds the kernel, at one conflict-free shared
+// load per row and feature.
 //
-// Kinds 0 and 3 of h2o3_level_hist are the lane and the atomic kernel, 4 the
-// global kernel. Kinds 1 and 2 launch lane_hist_kernel with the slab
-// updates compiled out (it stages, lists and decodes the same rows and adds
-// nothing) and with only the tile staging left. chip_smoke.py times them
-// beside the real kernel to split its time into staging, listing and
-// decoding, and updates; nothing on the path launches them.
+// Entry points: h2o3_fixed_hist launches the fixed kernel after its scale
+// kernel, in one of three modes: counting, or one of two measurement
+// instances, with the atomic adds and flushes compiled out (it stages,
+// quantises and lists the same rows and reads their bins) or with only the
+// tile loads and stores left; chip_smoke.py times them beside the real
+// kernel to split its time into staging, listing and adding. Nothing on
+// the training path launches them. h2o3_global_hist launches the global
+// kernel; h2o3_level_hist_blocks_per_sm asks CUDA's occupancy of either.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -228,201 +220,295 @@ __device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
 }
 
 // ---------------------------------------------------------------------------
-// lane_hist_kernel
+// fixed_hist_kernel: fixed-point sums with native integer shared atomics. A
+// block of 16 warps owns a group of Fb features and a block of Nb nodes,
+// one block per SM. Its first eight warps stage tiles of kFixedRows rows,
+// each tile once for all the group's features: one row a thread (node, g,
+// h and w, quantised on the way in) and the bins four rows to a word, two
+// tiles' loads in flight in registers; they list the rows that add
+// something (ballot and prefix count) and store list and bins into one of
+// two stages of shared memory. Its other eight warps add the staged rows:
+// lanes own features, lane l adding feature l % P
+// (P, the feature stride, is Fb rounded up to a power of two) of the
+// warp's row l / P, each (row, feature) three int32 atomicAdds (ATOMS.ADD)
+// into the slab [3][Nb][Bt][P], four rows' loads issued before their adds.
+// At P = 32 the 32 lanes of a warp fall on 32 banks, so its atomics never
+// conflict, whatever the bins. Named barriers hand each stage from the
+// staging warps to the adding warps ("full") and back ("empty"), so that
+// loading a tile overlaps adding the one before. Every flush_tiles tiles,
+// and at the end, the adding warps add the slab into an int64 accumulator
+// [K, F, N*Bt, 3] with 64-bit fire-and-forget reductions (RED.E.ADD.64),
+// each block starting at its own offset so that the blocks' reductions
+// fall on different entries, and zero it; the last block of each (class,
+// feature group, node block) to finish converts its part of the
+// accumulator to the float32 output. The slab at 257 bins is 98,688 bytes
+// a node beside 36,992 bytes of stages; the plan picks feature groups and
+// nodes per block to read the fewest bytes per row.
+//
+// The scale. fixed_scale_kernel reduces max|g|, max|h| and max|w| over the
+// rows at a node of the call (all classes) to partial maxima, one per block
+// and stat, and zeroes the accumulator. Each histogram block reduces the
+// partials again, so the wrapper never reads them. The scale of stat s is a
+// power of two: with max|x_s| = m_s * 2^E_s (m_s in [0.5, 1)), a value x is
+// q = rint(x * 2^(qbits - E_s)), so |q| <= 2^qbits and the product is exact.
+// The plan takes qbits = floor(log2((2^31 - 1) / L)) (15 to 22), L the rows
+// a block adds between two flushes, so that no int32 entry can overflow:
+// L x 2^qbits <= 2^31 - 1 whatever the data. It picks L, as large as the
+// block's rows allow, so that qbits meets the precision rule below. The
+// int64 accumulator holds at
+// most R x 2^22 < 2^53, so its sums are exact too, and the conversion (acc x
+// 2^(E_s - qbits), in double, then rounded to float) is exact up to that
+// last rounding.
+//
+// Error bound. Each value is off by at most half a step, 2^(E_s - qbits -
+// 1) <= max|x_s| x 2^-qbits, so an entry summing n rows is within
+// n x max|x_s| x 2^-qbits of the exact sum, plus float32 rounding of the
+// result (2^-24 of it). At XGBoost's level 0 (11M rows over 132 blocks,
+// flushed every L = 65,280 rows, qbits 15) that is n x max|x| / 32768 at
+// worst; the rounding errors being independent, a bin of 43k rows of g
+// (max|g| about 5.5) is off by about 0.015 (one standard deviation). That
+// error grows as 2^-qbits x sqrt(n), an entry's sum and the float32
+// check's floor (1e-5 of the largest entry) as n, so at 15 bits the check
+// failed from about 670 rows an entry on (bench/hist_crossover.py). The
+// plan therefore keeps 2 x qbits + log2(n) >= 41 at the level's mean
+// n = R / (2 N Bt) (hist.py:fixed_needed_qbits), a factor of 1.7 below
+// those failures, by flushing more often where entries hold fewer rows.
+//
+// Non-finite stats: a NaN or an infinity among a stat's active values makes
+// its maximum non-finite; that stat is then NaN in every entry of the output
+// (the plain version's NaN or infinity lands in the rows' bins only). Sums
+// of integers do not depend on the order of the adds: two launches on the
+// same inputs give bit-identical output.
 
-constexpr int kLaneThreadsMax = 256;   // 8 warps: copies x owners
-// Modes of the lane kernel: count rows into the slab; the same with the
-// slab updates compiled out (stages, lists and decodes the same rows); only
-// stage the tiles. The last two are measurement instances.
+// Modes of the fixed kernel: count rows into the slab; the same with the
+// slab's atomic adds and flushes compiled out (it stages, quantises and lists
+// the same rows and reads their bins); only load and store the tiles. The
+// last two are measurement instances.
 enum { kCount, kUpdatesOut, kStagingOnly };
-// Tile rows per warp: 64 int8 or 32 int16, so that a tile's bins are the
-// same bytes either way (_LANE_ROWS_PER_WARP in hist.py).
-template <typename BinT> __host__ __device__ constexpr int rows_per_warp() {
-  return 64 / static_cast<int>(sizeof(BinT));
-}
-// Bin words one thread stages per tile: 32 features x T/4 quads over 32 x
-// warps threads. Word j of thread t is quad t % (T/4) of feature
-// j * feat_step() + t / (T/4).
-template <typename BinT> __host__ __device__ constexpr int words_per_thread() {
-  return rows_per_warp<BinT>() / 4;
-}
-template <typename BinT> __host__ __device__ constexpr int feat_step() {
-  return 32 / words_per_thread<BinT>();
+constexpr int kFixedThreads = 512;
+constexpr int kFixedWarps = kFixedThreads / 32;
+constexpr int kFixedRows = 256;                 // rows of a tile
+constexpr int kFixedRowBits = 8;
+constexpr int kFixedQuads = kFixedRows / 4;
+constexpr int kFixedStagers = kFixedRows / 32;  // warps that stage the rows
+constexpr int kFixedAdders = kFixedWarps - kFixedStagers;   // and add them
+constexpr int kFixedStages = 2;                 // tiles staged ahead
+// named barriers (0 is __syncthreads): the staging warps among themselves,
+// the adding warps among themselves, and per stage "full" (staged, may be
+// added) and "empty" (added, may be staged again)
+constexpr int kBarStagers = 1, kBarAdders = 2, kBarFull = 3,
+              kBarEmpty = kBarFull + kFixedStages;
+constexpr int kFixedUnroll = 4;                 // rows a lane adds at once
+constexpr int kFixedMaxFeatures = 32;           // most features of a group
+constexpr int kFixedWords = kFixedMaxFeatures * kFixedQuads / kFixedRows;
+constexpr int kFixedMaxQbits = 22;
+constexpr int kScaleThreads = 256;
+static_assert(kFixedRows == 1 << kFixedRowBits, "a list entry packs the row");
+static_assert(kFixedStagers >= 1 && kFixedStagers <= kFixedWarps, "stagers");
+static_assert(kFixedRows <= kFixedThreads, "a thread stages one row");
+static_assert(kFixedWords * kFixedRows == kFixedMaxFeatures * kFixedQuads,
+              "the staging threads stage every bin word of a tile");
+
+// the feature stride of the slab: Fb rounded up to a power of two
+__host__ __device__ constexpr int fixed_stride(int Fb) {
+  return Fb <= 1 ? 1 : Fb <= 2 ? 2 : Fb <= 4 ? 4 : Fb <= 8 ? 8
+         : Fb <= 16 ? 16 : 32;
 }
 
-constexpr int kList = 64;   // a warp's row list: a window and a batch's rest
-// Shared memory of the lane kernel in 32-bit words: the slab copies
-// [copies][3][Nb][Bt][32]; the staged tile's stats [T + 1][4] (g, h, w and
-// the row's node offset; row T is a zero row), node [T], each warp's row
-// list [kList], and bins [Fb][T*sizeof(BinT)/4 + 1] (the odd stride puts
-// each lane's feature row on its own bank; the last word holds row T's bin,
-// 0). hist.py's _lane_smem_bytes mirrors it.
+// Shared memory of the fixed kernel in bytes: the slab [3][Nb][Bt][P] int32
+// (padded to 16 bytes), then for each of kFixedStages staged tiles the list
+// of its rows [kFixedRows] int4 (q_g, q_h, q_w, slab offset of the row's
+// node << 8 | row) and its bins [Fb][kFixedRows * sizeof(BinT) / 4 + 1]
+// words (the odd stride puts consecutive features on consecutive banks).
+// hist.py's _fixed_smem_bytes mirrors it.
 template <typename BinT>
-long long lane_smem_words(int Nb, int Bt, int Fb, int copies, int warps) {
-  const long long T = static_cast<long long>(rows_per_warp<BinT>()) * warps;
-  const long long stride = T * static_cast<long long>(sizeof(BinT)) / 4 + 1;
-  return static_cast<long long>(copies) * 3 * Nb * Bt * 32 + 4 * (T + 1) + T
-         + kList * warps + Fb * stride;
+long long fixed_smem_bytes(int Fb, int Nb, int Bt) {
+  const long long stride = kFixedRows * static_cast<long long>(sizeof(BinT))
+                           / 4 + 1;
+  const long long slab = 3LL * Nb * Bt * fixed_stride(Fb);
+  return 4 * ((slab + 3) / 4 * 4)
+         + kFixedStages * (16LL * kFixedRows + 4LL * Fb * stride);
 }
 
-// The next tile's bytes, held in registers while the current tile is
-// counted: one quad of rows (threads below T/4) and the group's bin words.
+// max|x| as the bits of a non-negative float: unsigned order is float order,
+// and a NaN lies above the infinity
+__device__ __forceinline__ unsigned abs_bits(float x) {
+  return __float_as_uint(x) & 0x7fffffffu;
+}
+
+// Partial maxima of |g|, |h| and |w| over rows at a node in [0, N), one per
+// block and class: partial[(k * gridDim.x + block) * 3 + s]. Every block
+// also zeroes its share of `zero` (the accumulator and the done counters).
+template <bool kVec>
+__global__ void __launch_bounds__(kScaleThreads)
+fixed_scale_kernel(const int32_t* __restrict__ node,
+                   const float* __restrict__ g, const float* __restrict__ h,
+                   const float* __restrict__ w, long long R, int N,
+                   long long w_stride, unsigned* __restrict__ partial,
+                   unsigned long long* __restrict__ zero,
+                   long long zero_words) {
+  const long long k = blockIdx.y;
+  node += k * R;
+  g += k * R;
+  h += k * R;
+  w += k * w_stride;
+  unsigned m[3] = {0u, 0u, 0u};
+  const long long step = 4LL * gridDim.x * kScaleThreads;
+  for (long long r = 4LL * (blockIdx.x * kScaleThreads + threadIdx.x); r < R;
+       r += step) {
+    const Quad q = load_quad<kVec>(node, g, h, w, r, R);
+    const int n[4] = {q.n.x, q.n.y, q.n.z, q.n.w};
+    const float gg[4] = {q.g.x, q.g.y, q.g.z, q.g.w};
+    const float hh[4] = {q.h.x, q.h.y, q.h.z, q.h.w};
+    const float ww[4] = {q.w.x, q.w.y, q.w.z, q.w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (static_cast<unsigned>(n[j]) < static_cast<unsigned>(N)) {
+        m[0] = max(m[0], abs_bits(gg[j]));
+        m[1] = max(m[1], abs_bits(hh[j]));
+        m[2] = max(m[2], abs_bits(ww[j]));
+      }
+  }
+  __shared__ unsigned warp_m[kScaleThreads / 32][3];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const unsigned v = __reduce_max_sync(0xffffffffu, m[s]);
+    if (lane == 0) warp_m[warp][s] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    unsigned v = 0u;
+    for (int i = 0; i < kScaleThreads / 32; ++i)
+      v = max(v, warp_m[i][threadIdx.x]);
+    partial[(k * gridDim.x + blockIdx.x) * 3 + threadIdx.x] = v;
+  }
+  const long long blocks = static_cast<long long>(gridDim.x) * gridDim.y;
+  for (long long i = (k * gridDim.x + blockIdx.x) * kScaleThreads
+                     + threadIdx.x;
+       i < zero_words; i += blocks * kScaleThreads)
+    zero[i] = 0ull;
+}
+
+// A tile being staged, in a staging thread's registers: one row and bin
+// words of the group (word t + j * kFixedRows of the tile's [Fb][kFixedQuads]
+// words, feature-major).
 template <typename BinT>
-struct Staged {
-  Quad q;
-  typename Word<BinT>::T b[words_per_thread<BinT>()];
+struct FixedStaged {
+  int n;
+  float g, h, w;
+  typename Word<BinT>::T b[kFixedWords];
 };
 
-template <typename BinT, bool kVec>
-__device__ __forceinline__ void load_tile(
-    Staged<BinT>& st, const BinT* __restrict__ binned_T,
+template <typename BinT>
+__device__ __forceinline__ void fixed_load(
+    FixedStaged<BinT>& st, const BinT* __restrict__ binned_T,
     const typename Word<BinT>::T* __restrict__ wbase, long long bin_skew,
     const int32_t* __restrict__ node, const float* __restrict__ g,
     const float* __restrict__ h, const float* __restrict__ w, long long R,
-    long long r0, int quads, int f0, int fb) {
-  const int qd = threadIdx.x % quads;
-  const int fl = threadIdx.x / quads;
-  const long long r = r0 + 4 * qd;
-  if (static_cast<int>(threadIdx.x) < quads)
-    st.q = load_quad<kVec>(node, g, h, w, r, R);
-  if (r0 + 4 * quads <= R) {
-    // a whole tile: every load goes out at once, unconditionally (words of
-    // features past the group re-read its last feature and are not stored)
-#pragma unroll
-    for (int j = 0; j < words_per_thread<BinT>(); ++j) {
-      const int f = min(j * feat_step<BinT>() + fl, fb - 1);
-      st.b[j] = load_bins4<BinT>(
-          wbase, bin_skew + static_cast<long long>(f0 + f) * R + r);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < words_per_thread<BinT>(); ++j) {
-      const int f = j * feat_step<BinT>() + fl;
-      st.b[j] = f < fb ? load_bins<BinT>(binned_T, wbase, bin_skew,
-                                         static_cast<long long>(f0 + f) * R,
-                                         r, R)
-                       : 0;
-    }
-  }
-}
-
-template <typename BinT>
-__device__ __forceinline__ void store_tile(const Staged<BinT>& st,
-                                           float4* stats_s, int* node_s,
-                                           unsigned* bins_s, int quads,
-                                           int stride, int fb, int n0,
-                                           int Bt) {
-  const int qd = threadIdx.x % quads;
-  const int fl = threadIdx.x / quads;
-  if (static_cast<int>(threadIdx.x) < quads) {
-    const Quad& q = st.q;
-    const int k = 4 * qd;
-    reinterpret_cast<int4*>(node_s)[qd] = q.n;
-    // .w: the row's node offset in a slab copy, (node - n0) * Bt * 32
-    // (meaningless for rows of other blocks, which are never counted)
-    const int m = Bt * 32;
-    stats_s[k] = make_float4(q.g.x, q.h.x, q.w.x,
-                             __int_as_float((q.n.x - n0) * m));
-    stats_s[k + 1] = make_float4(q.g.y, q.h.y, q.w.y,
-                                 __int_as_float((q.n.y - n0) * m));
-    stats_s[k + 2] = make_float4(q.g.z, q.h.z, q.w.z,
-                                 __int_as_float((q.n.z - n0) * m));
-    stats_s[k + 3] = make_float4(q.g.w, q.h.w, q.w.w,
-                                 __int_as_float((q.n.w - n0) * m));
-  }
-  constexpr int kU32 = sizeof(BinT);   // 32-bit words per bin word
-#pragma unroll
-  for (int j = 0; j < words_per_thread<BinT>(); ++j) {
-    const int f = j * feat_step<BinT>() + fl;
-    if (f < fb) {
-      unsigned* dst = bins_s + f * stride + kU32 * qd;
-      dst[0] = static_cast<unsigned>(st.b[j]);
-      if (kU32 == 2)
-        dst[1] = static_cast<unsigned>(
-            static_cast<unsigned long long>(st.b[j]) >> 32);
-    }
-  }
-}
-
-// Four listed rows into the lane's slab column. A row with a negative bin
-// adds zeros to bin 0. The four rows' entries are all loaded before any is
-// stored; a row that hits the bin of an earlier row of the four adds onto
-// that row's sum, and the stores, in row order, leave the last sum in place.
-// kPad: rows listed as `pad` are the zero row, counted into the node at
-// slab offset pad_off (one the warp owns, so that no other warp writes it).
-template <typename BinT, bool kUpdate, bool kPad>
-__device__ __forceinline__ void count4(float* my, int stat_len,
-                                       const float4* stats_s,
-                                       const unsigned* frow, int4 k4, int Bt,
-                                       int pad, int pad_off, float& sink) {
-  const int k[4] = {k4.x, k4.y, k4.z, k4.w};
-  float v[4][3];
-  int a[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 sj = stats_s[k[j]];
-    const int b = static_cast<int>(reinterpret_cast<const BinT*>(frow)[k[j]]);
-    v[j][0] = b >= 0 ? sj.x : 0.0f;
-    v[j][1] = b >= 0 ? sj.y : 0.0f;
-    v[j][2] = b >= 0 ? sj.z : 0.0f;
-    const int off = kPad && k[j] == pad ? pad_off : __float_as_int(sj.w);
-    a[j] = off + min(max(b, 0), Bt - 1) * 32;
-  }
-  if (!kUpdate) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sink += v[j][0] + v[j][1] * v[j][2] + static_cast<float>(a[j] & 0xff);
-    return;
-  }
-  float o[4][3];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int s = 0; s < 3; ++s) o[j][s] = my[s * stat_len + a[j]];
-#pragma unroll
-  for (int j = 1; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < j; ++e)
-      if (a[j] == a[e])
-#pragma unroll
-        for (int s = 0; s < 3; ++s) o[j][s] = o[e][s] + v[e][s];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int s = 0; s < 3; ++s) my[s * stat_len + a[j]] = o[j][s] + v[j][s];
-}
-
-template <typename BinT, bool kVec, int kMode>
-__global__ void __launch_bounds__(kLaneThreadsMax, 1)
-lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
-                 const int32_t* __restrict__ node,
-                 const float* __restrict__ g, const float* __restrict__ h,
-                 const float* __restrict__ w, float* __restrict__ out,
-                 long long R, int F, int N, int Bt, int Fb, int Nb,
-                 int copies, int owners, int row_splits,
-                 long long w_stride) {
-  using W = typename Word<BinT>::T;
-  extern __shared__ float4 smem4[];
-  // class k = blockIdx.y: its own node/g/h rows, w (shared when w_stride
-  // is 0) and output; the bins are the same for every class
+    long long r0, int f0, int fb) {
+  const int t = threadIdx.x;   // a staging thread, below kFixedRows
   {
+    const long long r = r0 + t;
+    const bool in = r < R;
+    st.n = in ? __ldg(node + r) : -1;
+    st.g = in ? __ldg(g + r) : 0.0f;
+    st.h = in ? __ldg(h + r) : 0.0f;
+    st.w = in ? __ldg(w + r) : 0.0f;
+  }
+  const bool whole = r0 + kFixedRows <= R;
+#pragma unroll
+  for (int j = 0; j < kFixedWords; ++j) {
+    const int i = t + j * kFixedRows;
+    const int f = i / kFixedQuads;
+    const long long r = r0 + 4 * (i % kFixedQuads);
+    if (f < fb) {
+      const long long row0 = static_cast<long long>(f0 + f) * R;
+      if (whole) {
+        // as load_bins4, reading the second word only where the feature
+        // row starts off a word (s is the same for a warp's one feature)
+        const long long e = bin_skew + row0 + r;
+        const int s = static_cast<int>(e & 3);
+        const typename Word<BinT>::T lo = __ldg(wbase + (e >> 2));
+        st.b[j] = s ? join(lo, __ldg(wbase + (e >> 2) + 1), s) : lo;
+      } else {
+        st.b[j] = load_bins<BinT>(binned_T, wbase, bin_skew, row0, r, R);
+      }
+    }
+  }
+}
+
+// named barrier `id` over `count` threads: wait, or arrive without waiting
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// *p += v in global memory, fire and forget (RED.E.ADD.64): atomicAdd on
+// 64-bit words compiles to an ATOMG that waits for the old value
+__device__ __forceinline__ void red_add(unsigned long long* p, long long v) {
+  asm volatile("red.global.add.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// 2^k as a float, for k in [-126, 127]
+__device__ __forceinline__ float pow2f(int k) {
+  return __int_as_float((127 + k) << 23);
+}
+
+// v * 2^e rounded to the nearest integer, with 2^e = s1 * s2 split so that
+// each factor is a normal float (e lies in [-113, 170]): both products are
+// exact unless the first falls below 2^-126, and then the result is below
+// 2^-40 and rounds to 0 either way
+__device__ __forceinline__ int quantise(float v, float s1, float s2) {
+  return __float2int_rn((v * s1) * s2);
+}
+
+// One listed row's three values into the lane's feature column `my` (slab
+// + f) at bin b of the row's node; a negative bin adds nothing.
+__device__ __forceinline__ void fixed_add(int* my, int4 e, int b, int Bt,
+                                          int P, int stat_len) {
+  if (b < 0) return;
+  int* s = my + (e.w >> kFixedRowBits) + min(b, Bt - 1) * P;
+  atomicAdd(s, e.x);
+  atomicAdd(s + stat_len, e.y);
+  atomicAdd(s + 2 * stat_len, e.z);
+}
+
+template <typename BinT, int kMode>
+__global__ void __launch_bounds__(kFixedThreads, 1)
+fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
+                  const int32_t* __restrict__ node,
+                  const float* __restrict__ g, const float* __restrict__ h,
+                  const float* __restrict__ w, float* __restrict__ out,
+                  unsigned long long* __restrict__ acc,
+                  unsigned* __restrict__ done,
+                  const unsigned* __restrict__ partial, int partials,
+                  long long R, int F, int N, int Bt, int Fb, int Nb,
+                  int row_splits, int flush_tiles, int qbits,
+                  long long w_stride) {
+  using W = typename Word<BinT>::T;
+  extern __shared__ int4 smem_fixed[];
+  const int groups = (F + Fb - 1) / Fb;
+  const int node_blocks = (N + Nb - 1) / Nb;
+  const long long entries = static_cast<long long>(F) * N * Bt * 3;
+  {   // class k = blockIdx.y: its own node/g/h rows, w (shared when
+      // w_stride is 0) and output; the bins are the same for every class
     const long long k = blockIdx.y;
     node += k * R;
     g += k * R;
     h += k * R;
     w += k * w_stride;
-    out += k * F * static_cast<long long>(N) * Bt * 3;
+    out += k * entries;
+    acc += k * entries;
+    done += k * groups * node_blocks;
   }
-  const int warps = blockDim.x / 32;
-  const int T = rows_per_warp<BinT>() * warps;
-  const int quads = T / 4;
-  const int stride = T * static_cast<int>(sizeof(BinT)) / 4 + 1;
-
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
   // block -> (feature group, node block, row split), feature group fastest
-  // so that the groups of one tile are scheduled together
-  const int groups = (F + Fb - 1) / Fb;
-  const int node_blocks = (N + Nb - 1) / Nb;
   int bid = blockIdx.x;
+  const int combo = bid % (groups * node_blocks);
   const int f0 = (bid % groups) * Fb;
   bid /= groups;
   const int fb = min(Fb, F - f0);
@@ -430,156 +516,223 @@ lane_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
   const int nn = min(Nb, N - n0);
   const int split = bid / node_blocks;
 
-  const int stat_len = Nb * Bt * 32;   // floats of one stat of one copy
-  const int copy_len = 3 * stat_len;
-  float* slab = reinterpret_cast<float*>(smem4);
-  float4* stats_s = reinterpret_cast<float4*>(slab + copies * copy_len);
-  int* node_s = reinterpret_cast<int*>(stats_s + T + 1);
-  int* lists = node_s + T;
-  unsigned* bins_s = reinterpret_cast<unsigned*>(lists + kList * warps);
-  for (int i = threadIdx.x; i < copies * copy_len; i += blockDim.x)
-    slab[i] = 0.0f;
-  // the zero row T: no stats, and bin 0 in every feature row
-  if (threadIdx.x == 0) stats_s[T] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int f = threadIdx.x; f < Fb; f += blockDim.x)
-    bins_s[f * stride + stride - 1] = 0u;
+  const int P = fixed_stride(Fb);
+  const int node_len = Bt * P;               // slab words of one node, stat
+  const int stat_len = Nb * node_len;
+  const int stride = kFixedRows * static_cast<int>(sizeof(BinT)) / 4 + 1;
+  // the slab, then kFixedStages stages of a tile: its row list and bins
+  int* slab = reinterpret_cast<int*>(smem_fixed);
+  int4* lists = reinterpret_cast<int4*>(slab + (3 * stat_len + 3) / 4 * 4);
+  unsigned* bins_all = reinterpret_cast<unsigned*>(lists + kFixedStages
+                                                   * kFixedRows);
+  __shared__ int exps[3];       // the scale of each stat: q = x * 2^exps[s]
+  __shared__ int bad[3];        // the stat's maximum is not finite
+  // rows each staging warp lists, by stage
+  __shared__ int counts[kFixedStages][kFixedStagers];
+  __shared__ int last;
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int c = warp / owners;            // slab copy and part of the tile
-  const int p = warp % owners;            // class of nodes owned
-  float* my = slab + c * copy_len + lane;
-  // lanes past the group count feature 0's bins into their own slab
-  // column, which is never flushed
-  const unsigned* frow = bins_s + (lane < fb ? lane : 0) * stride;
-  int* list = lists + kList * warp;
-  const int part = T / copies;            // rows of the tile per copy
-  float sink = 0.0f;
+  // the launch's maxima from the scale kernel's partials (all classes)
+  {
+    unsigned m[3] = {0u, 0u, 0u};
+    for (int i = tid; i < partials; i += kFixedThreads)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) m[s] = max(m[s], partial[3 * i + s]);
+    __shared__ unsigned warp_m[kFixedWarps][3];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const unsigned v = __reduce_max_sync(0xffffffffu, m[s]);
+      if (lane == 0) warp_m[warp][s] = v;
+    }
+    for (int i = tid; i < 3 * stat_len; i += kFixedThreads) slab[i] = 0;
+    __syncthreads();
+    if (tid < 3) {
+      unsigned v = 0u;
+      for (int i = 0; i < kFixedWarps; ++i) v = max(v, warp_m[i][tid]);
+      int e = 0;
+      frexpf(__uint_as_float(v), &e);   // max = m * 2^e, m in [0.5, 1)
+      bad[tid] = v >= 0x7f800000u;
+      exps[tid] = qbits - e;
+    }
+    __syncthreads();
+  }
+  const int eg = bad[0] ? 0 : exps[0], eh = bad[1] ? 0 : exps[1],
+            ew = bad[2] ? 0 : exps[2];
+  const bool zg = bad[0], zh = bad[1], zw = bad[2];
+  const float g1 = pow2f(eg / 2), g2 = pow2f(eg - eg / 2);
+  const float h1 = pow2f(eh / 2), h2 = pow2f(eh - eh / 2);
+  const float w1 = pow2f(ew / 2), w2 = pow2f(ew - ew / 2);
 
   const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
-  const long long tiles = (R + T - 1) / T;
-  Staged<BinT> st;
-  if (split < tiles)
-    load_tile<BinT, kVec>(st, binned_T, wbase, bin_skew, node, g, h, w, R,
-                          static_cast<long long>(split) * T, quads, f0, fb);
-  for (long long t = split; t < tiles; t += row_splits) {
-    __syncthreads();   // the last tile is counted (and the slab zeroed)
-    store_tile<BinT>(st, stats_s, node_s, bins_s, quads, stride, fb, n0,
-                     Bt);
-    __syncthreads();
-    if (t + row_splits < tiles)   // in flight while this tile is counted
-      load_tile<BinT, kVec>(st, binned_T, wbase, bin_skew, node, g, h, w, R,
-                            (t + row_splits) * T, quads, f0, fb);
-    if (kMode == kStagingOnly) continue;
-    // the copy's rows, 32 at a time: each warp lists the rows it owns,
-    // counts them four at a time, and carries the rest to the next window
-    int listed = 0;
-    for (int k0 = c * part; k0 < (c + 1) * part; k0 += 32) {
-      const unsigned ln = static_cast<unsigned>(node_s[k0 + lane] - n0);
-      const bool own = ln < static_cast<unsigned>(nn)
-                       && static_cast<int>(ln & (owners - 1)) == p;
-      const unsigned mask = __ballot_sync(0xffffffffu, own);
-      if (own) list[listed + __popc(mask & ((1u << lane) - 1))] = k0 + lane;
-      listed += __popc(mask);
-      __syncwarp();
-      const int full = listed & ~3;
-      for (int i = 0; i < full; i += 4)
-        count4<BinT, kMode == kCount, false>(
-            my, stat_len, stats_s, frow,
-            *reinterpret_cast<const int4*>(list + i), Bt, 0, 0, sink);
-      const int rest = listed - full;
-      const int r = lane < rest ? list[full + lane] : 0;
-      __syncwarp();
-      if (lane < rest) list[lane] = r;
-      listed = rest;
-      __syncwarp();
+  const long long tiles = (R + kFixedRows - 1) / kFixedRows;
+  // the tiles this block walks: split, split + row_splits, ...
+  const int iters = split < tiles ? static_cast<int>(
+      (tiles - 1 - split) / row_splits + 1) : 0;
+
+  if (warp < kFixedStagers) {
+    // staging warps: two tiles' loads in flight in registers; each tile is
+    // quantised, listed and stored into its stage once the adding warps
+    // have released that stage
+    FixedStaged<BinT> st[2];
+    auto tile_r0 = [&](int k) {
+      return (split + static_cast<long long>(k) * row_splits) * kFixedRows;
+    };
+    auto stage = [&](FixedStaged<BinT>& x, int k) {
+      const int sg = k % kFixedStages;
+      if (k >= kFixedStages) bar_sync(kBarEmpty + sg, kFixedThreads);
+      const unsigned nl = static_cast<unsigned>(x.n - n0);
+      const bool at = kMode != kStagingOnly
+                      && nl < static_cast<unsigned>(nn);
+      const int a = at && !zg ? quantise(x.g, g1, g2) : 0;
+      const int b = at && !zh ? quantise(x.h, h1, h2) : 0;
+      const int c = at && !zw ? quantise(x.w, w1, w2) : 0;
+      const bool keep = (a | b | c) != 0;
+      const unsigned mk = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) counts[sg][warp] = __popc(mk);
+      unsigned* bins_w = bins_all + sg * Fb * stride;
+      const int words = fb * kFixedQuads;
+#pragma unroll
+      for (int j = 0; j < kFixedWords; ++j) {
+        const int i = tid + j * kFixedStagers * 32;
+        if (i < words) {
+          unsigned* dst = bins_w + (i / kFixedQuads) * stride
+                          + (i % kFixedQuads) * static_cast<int>(sizeof(BinT));
+          dst[0] = static_cast<unsigned>(x.b[j]);
+          if (sizeof(BinT) == 2)
+            dst[1] = static_cast<unsigned>(
+                static_cast<unsigned long long>(x.b[j]) >> 32);
+        }
+      }
+      bar_sync(kBarStagers, kFixedStagers * 32);   // every count is in
+      if (kMode == kStagingOnly)   // the row itself, never listed
+        lists[sg * kFixedRows + tid] = make_int4(
+            __float_as_int(x.g), __float_as_int(x.h), __float_as_int(x.w),
+            x.n);
+      if (keep) {
+        int base = __popc(mk & ((1u << lane) - 1));
+        for (int i = 0; i < warp; ++i) base += counts[sg][i];
+        lists[sg * kFixedRows + base] = make_int4(
+            a, b, c, (at ? static_cast<int>(nl) * node_len : 0)
+                         << kFixedRowBits | tid);
+      }
+      bar_arrive(kBarFull + sg, kFixedThreads);
+    };
+    if (iters > 0)
+      fixed_load<BinT>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
+                       tile_r0(0), f0, fb);
+    if (iters > 1)
+      fixed_load<BinT>(st[1], binned_T, wbase, bin_skew, node, g, h, w, R,
+                       tile_r0(1), f0, fb);
+    for (int k = 0; k < iters; k += 2) {
+      stage(st[0], k);
+      if (k + 2 < iters)
+        fixed_load<BinT>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
+                         tile_r0(k + 2), f0, fb);
+      if (k + 1 < iters) {
+        stage(st[1], k + 1);
+        if (k + 3 < iters)
+          fixed_load<BinT>(st[1], binned_T, wbase, bin_skew, node, g, h, w,
+                           R, tile_r0(k + 3), f0, fb);
+      }
     }
-    if (listed) {   // the last rows, with the zero row after them
-      if (lane >= listed && lane < 4) list[lane] = T;
-      __syncwarp();
-      count4<BinT, kMode == kCount, true>(
-          my, stat_len, stats_s, frow, *reinterpret_cast<const int4*>(list),
-          Bt, T, p * Bt * 32, sink);
-      __syncwarp();
+  } else {
+    // adding warps: lane -> (feature f, row sub of the warp's
+    // rows_per_step); lanes past the group's features stay idle
+    const int aw = warp - kFixedStagers;
+    const int f = lane & (P - 1);
+    const int rows_per_step = 32 / P;
+    const int sub = lane / P;
+    const int at = tid - kFixedStagers * 32;
+    const int wstep = kFixedAdders * rows_per_step;
+    int* my = slab + f;
+    int sink = 0;   // what the updates-out instance reads instead of adding
+    // flush: the slab's nonzero entries into the accumulator, then zeroed;
+    // slab word (s, nl, b, f) -> acc[f0 + f, (n0 + nl) * Bt + b, s]. Each
+    // block starts at its own offset, a multiple of 32, so that the blocks'
+    // reductions of one flush fall on different entries.
+    const int len = 3 * stat_len;
+    const int off = blockIdx.x % max(1, len / 32) * 32;
+    for (int k = 0; k < iters; ++k) {
+      const int sg = k % kFixedStages;
+      bar_sync(kBarFull + sg, kFixedThreads);
+      if (f < fb) {
+        int listed = 0;
+#pragma unroll
+        for (int i = 0; i < kFixedStagers; ++i) listed += counts[sg][i];
+        const int4* list = lists + sg * kFixedRows;
+        const BinT* fbins = reinterpret_cast<const BinT*>(
+            bins_all + (sg * Fb + f) * stride);
+        // kFixedUnroll rows of the warp at a time, their loads issued first
+        int r = aw * rows_per_step + sub;
+        for (; r + (kFixedUnroll - 1) * wstep < listed;
+             r += kFixedUnroll * wstep) {
+          int4 e[kFixedUnroll];
+          int b[kFixedUnroll];
+#pragma unroll
+          for (int u = 0; u < kFixedUnroll; ++u) e[u] = list[r + u * wstep];
+#pragma unroll
+          for (int u = 0; u < kFixedUnroll; ++u)
+            b[u] = static_cast<int>(fbins[e[u].w & (kFixedRows - 1)]);
+#pragma unroll
+          for (int u = 0; u < kFixedUnroll; ++u) {
+            if (kMode == kCount) fixed_add(my, e[u], b[u], Bt, P, stat_len);
+            else sink += (e[u].x ^ e[u].y ^ e[u].z ^ e[u].w) + b[u];
+          }
+        }
+        for (; r < listed; r += wstep) {
+          const int4 e = list[r];
+          const int b = static_cast<int>(fbins[e.w & (kFixedRows - 1)]);
+          if (kMode == kCount) fixed_add(my, e, b, Bt, P, stat_len);
+          else sink += (e.x ^ e.y ^ e.z ^ e.w) + b;
+        }
+      }
+      // the staging warps wait for this stage only from tile kFixedStages on
+      if (k + kFixedStages < iters)
+        bar_arrive(kBarEmpty + sg, kFixedThreads);
+      if (kMode == kCount && ((k + 1) % flush_tiles == 0 || k + 1 == iters)) {
+        bar_sync(kBarAdders, kFixedAdders * 32);   // every add is in
+        for (int j = at; j < len; j += kFixedAdders * 32) {
+          const int i = j + off < len ? j + off : j + off - len;
+          const int v = slab[i];
+          if (v == 0) continue;
+          slab[i] = 0;
+          const int s = i / stat_len;
+          const int rem = i - s * stat_len;
+          const int fl = rem & (P - 1);
+          const int nb = rem / P;                 // nl * Bt + b
+          red_add(acc + ((static_cast<long long>(f0 + fl) * N + n0) * Bt
+                         + nb) * 3 + s,
+                  static_cast<long long>(v));
+        }
+        bar_sync(kBarAdders, kFixedAdders * 32);   // the slab is zeroed
+      }
     }
+    // keeps the updates-out instance's reads alive; nothing reads its output
+    if (kMode == kUpdatesOut && sink == INT_MIN) out[0] = 1.0f;
   }
+
+  // the last block of this (class, feature group, node block) converts its
+  // part of the accumulator
+  __threadfence();
   __syncthreads();
-
-  // sum the copies and flush: slab index (stat, node, bin, lane) ->
-  // out[f0 + lane, (n0 + node)*Bt + bin, stat]
-  for (int i = threadIdx.x; i < copy_len; i += blockDim.x) {
-    float v = slab[i];
-    for (int cc = 1; cc < copies; ++cc) v += slab[cc * copy_len + i];
-    const int l = i % 32;
-    if (v != 0.0f && l < fb) {
-      const int nb = i / 32;          // (stat * Nb + node) * Bt + bin
-      const int b = nb % Bt;
-      const int sn = nb / Bt;
-      const int s = sn / Nb, n = sn % Nb;
-      atomicAdd(out + ((static_cast<long long>(f0 + l) * N + n0 + n) * Bt
-                       + b) * 3 + s, v);
-    }
-  }
-  // keeps the loads-only instance's loads alive; never true for real data
-  if (kMode == kUpdatesOut && sink == 1.0e38f) out[0] = sink;
-}
-
-// ---------------------------------------------------------------------------
-// atomic_hist_kernel: the first kernel, on the persistent grid. A block owns
-// one feature and a block of Nb nodes; each thread adds its rows (one row
-// of every tile of kThreads rows) with shared-memory atomicAdd.
-
-constexpr int kThreads = 256;   // also the rows of a tile (_ATOMIC_THREADS)
-
-template <typename BinT>
-__global__ void __launch_bounds__(kThreads)
-atomic_hist_kernel(const BinT* __restrict__ binned_T,
-                   const int32_t* __restrict__ node,
-                   const float* __restrict__ g, const float* __restrict__ h,
-                   const float* __restrict__ w, float* __restrict__ out,
-                   long long R, int F, int N, int Bt, int Nb,
-                   int row_splits, long long w_stride) {
-  extern __shared__ float slab[];
-  {   // class k = blockIdx.y, as in lane_hist_kernel
-    const long long k = blockIdx.y;
-    node += k * R;
-    g += k * R;
-    h += k * R;
-    w += k * w_stride;
-    out += k * F * static_cast<long long>(N) * Bt * 3;
-  }
-  // block -> (feature, node block, row split), feature fastest
-  const int node_blocks = (N + Nb - 1) / Nb;
-  const int f = blockIdx.x % F;
-  const int bid = blockIdx.x / F;
-  const int n0 = (bid % node_blocks) * Nb;
-  const int nn = min(Nb, N - n0);
-  const int split = bid / node_blocks;
-  const int len = nn * Bt * 3;
-  for (int i = threadIdx.x; i < len; i += kThreads) slab[i] = 0.0f;
+  if (tid == 0)
+    last = atomicAdd(done + combo, 1u)
+           == static_cast<unsigned>(row_splits - 1);
   __syncthreads();
-
-  const BinT* bins = binned_T + static_cast<long long>(f) * R;
-  const long long step = static_cast<long long>(row_splits) * kThreads;
-  for (long long r = static_cast<long long>(split) * kThreads + threadIdx.x;
-       r < R; r += step) {
-    // node -1 and nodes of other blocks both fail this unsigned test
-    const unsigned n = static_cast<unsigned>(node[r] - n0);
-    if (n >= static_cast<unsigned>(nn)) continue;
-    int b = static_cast<int>(bins[r]);
-    if (b < 0) continue;
-    b = min(b, Bt - 1);
-    float* s = slab + (static_cast<int>(n) * Bt + b) * 3;
-    atomicAdd(s, g[r]);
-    atomicAdd(s + 1, h[r]);
-    atomicAdd(s + 2, w[r]);
-  }
-  __syncthreads();
-
-  float* o = out + (static_cast<long long>(f) * N + n0) * Bt * 3;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    const float v = slab[i];
-    if (v != 0.0f) atomicAdd(o + i, v);
+  if (!last) return;
+  __threadfence();
+  const float nan = __int_as_float(0x7fffffff);
+  const int per_feature = nn * Bt * 3;
+#pragma unroll 4
+  for (int i = tid; i < fb * per_feature; i += kFixedThreads) {
+    const int fl = i / per_feature;
+    const int rem = i - fl * per_feature;
+    const long long a = (static_cast<long long>(f0 + fl) * N + n0) * Bt * 3
+                        + rem;
+    const int s = rem % 3;
+    const long long v = static_cast<long long>(__ldcg(acc + a));
+    const int e = s == 0 ? eg : s == 1 ? eh : ew;
+    const bool z = s == 0 ? zg : s == 1 ? zh : zw;
+    out[a] = z ? nan : static_cast<float>(ldexp(static_cast<double>(v), -e));
   }
 }
 
@@ -617,7 +770,8 @@ global_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                    long long w_stride) {
   using W = typename Word<BinT>::T;
   extern __shared__ float4 smem4[];
-  {   // class k = blockIdx.y, as in lane_hist_kernel
+  {   // class k = blockIdx.y: its own node/g/h rows, w (shared when
+      // w_stride is 0) and output; the bins are the same for every class
     const long long k = blockIdx.y;
     node += k * R;
     g += k * R;
@@ -725,7 +879,7 @@ struct Args {
   const void* w;
   void* out;
   long long R;
-  int F, N, Bt, Fb, Nb, copies, owners, row_splits, smem_bytes;
+  int F, N, Bt, Fb, Nb, row_splits, smem_bytes;
   int K;                // classes: the grid's y dimension
   long long w_stride;   // elements between two classes' w (0: shared)
   cudaStream_t stream;
@@ -763,49 +917,57 @@ long long skew_of(const void* binned_T) {
       / sizeof(BinT));
 }
 
-long long grid_of(const Args& a) {
-  return static_cast<long long>((a.F + a.Fb - 1) / a.Fb)
-         * ((a.N + a.Nb - 1) / a.Nb) * a.row_splits;
-}
-
+// fixed_hist_kernel's launch in mode kMode: the scale kernel, then the
+// histogram kernel, on one stream. `scratch` holds the int64 accumulator
+// [K, F, N*Bt, 3], the done counters [K, groups x node blocks] (uint32,
+// padded to 8 bytes) and the partial maxima [K, scale_blocks, 3] (uint32);
+// hist.py's _fixed_scratch_words mirrors it.
 template <typename BinT, int kMode>
-cudaError_t launch_lanes(const Args& a) {
-  const long long blocks = grid_of(a);
-  const int warps = a.copies * a.owners;
-  if (blocks < 1 || blocks > INT_MAX || !classes_ok(a) || a.Fb > 32
-      || warps < 1 || warps * 32 > kLaneThreadsMax
-      || 4 * lane_smem_words<BinT>(a.Nb, a.Bt, a.Fb, a.copies, warps)
-             != a.smem_bytes)
+cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
+                         int flush_tiles, int qbits) {
+  const long long combos = static_cast<long long>((a.F + a.Fb - 1) / a.Fb)
+                           * ((a.N + a.Nb - 1) / a.Nb);
+  const long long blocks = combos * a.row_splits;
+  // no int32 slab entry can overflow: the rows a block adds between two
+  // flushes times the largest |q|
+  const bool bounded = qbits >= 0 && qbits <= kFixedMaxQbits
+                       && flush_tiles >= 1
+                       && (static_cast<long long>(flush_tiles) * kFixedRows
+                           << qbits) <= INT_MAX;
+  if (blocks < 1 || blocks > INT_MAX || !classes_ok(a) || a.Fb < 1
+      || a.Fb > kFixedMaxFeatures || a.Fb > a.F || a.Nb < 1 || !bounded
+      || scale_blocks < 1
+      || a.K * static_cast<long long>(scale_blocks) > INT_MAX
+      || (reinterpret_cast<uintptr_t>(scratch) & 7) != 0
+      || fixed_smem_bytes<BinT>(a.Fb, a.Nb, a.Bt) != a.smem_bytes)
     return cudaErrorInvalidConfiguration;
-  auto kernel = vec_aligned(a) ? lane_hist_kernel<BinT, true, kMode>
-                               : lane_hist_kernel<BinT, false, kMode>;
-  cudaError_t e = prepare(kernel, a.smem_bytes);
+  const long long entries = static_cast<long long>(a.F) * a.N * a.Bt * 3;
+  auto* acc = static_cast<unsigned long long*>(scratch);
+  const long long done_words = (a.K * combos + 1) / 2;
+  auto* done = reinterpret_cast<unsigned*>(acc + a.K * entries);
+  auto* partial = reinterpret_cast<unsigned*>(acc + a.K * entries
+                                              + done_words);
+  const bool vec = vec_aligned(a);
+  const dim3 sgrid(static_cast<unsigned>(scale_blocks),
+                   static_cast<unsigned>(a.K));
+  auto scale = vec ? fixed_scale_kernel<true> : fixed_scale_kernel<false>;
+  scale<<<sgrid, kScaleThreads, 0, a.stream>>>(
+      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.h), static_cast<const float*>(a.w), a.R,
+      a.N, a.w_stride, partial, acc, a.K * entries + done_words);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  auto kernel = fixed_hist_kernel<BinT, kMode>;
+  e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.K));
-  kernel<<<grid, warps * 32, a.smem_bytes, a.stream>>>(
+  kernel<<<grid, kFixedThreads, a.smem_bytes, a.stream>>>(
       static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Fb, a.Nb, a.copies,
-      a.owners, a.row_splits, a.w_stride);
-  return cudaGetLastError();
-}
-
-template <typename BinT>
-cudaError_t launch_atomic(const Args& a) {
-  const long long blocks = grid_of(a);
-  if (blocks < 1 || blocks > INT_MAX || !classes_ok(a) || a.Fb != 1)
-    return cudaErrorInvalidConfiguration;
-  auto kernel = atomic_hist_kernel<BinT>;
-  cudaError_t e = prepare(kernel, a.smem_bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(a.K));
-  kernel<<<grid, kThreads, a.smem_bytes, a.stream>>>(
-      static_cast<const BinT*>(a.binned_T),
-      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
-      static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), a.R, a.F, a.N, a.Bt, a.Nb, a.row_splits,
-      a.w_stride);
+      static_cast<float*>(a.out), acc, done, partial,
+      static_cast<int>(a.K * static_cast<long long>(scale_blocks)), a.R, a.F,
+      a.N, a.Bt, a.Fb, a.Nb, a.row_splits, flush_tiles, qbits, a.w_stride);
   return cudaGetLastError();
 }
 
@@ -834,23 +996,18 @@ cudaError_t launch_global(const Args& a) {
   return cudaGetLastError();
 }
 
-// kinds 0-2: lane_hist_kernel in mode kCount, kUpdatesOut, kStagingOnly;
-// 3: atomic_hist_kernel; 4: global_hist_kernel
-int dispatch(int kind, int bin_bytes, const Args& a) {
-  if (bin_bytes == 1) {
-    if (kind == 0) return launch_lanes<int8_t, kCount>(a);
-    if (kind == 1) return launch_lanes<int8_t, kUpdatesOut>(a);
-    if (kind == 2) return launch_lanes<int8_t, kStagingOnly>(a);
-    if (kind == 3) return launch_atomic<int8_t>(a);
-    if (kind == 4) return launch_global<int8_t>(a);
-  }
-  if (bin_bytes == 2) {
-    if (kind == 0) return launch_lanes<int16_t, kCount>(a);
-    if (kind == 1) return launch_lanes<int16_t, kUpdatesOut>(a);
-    if (kind == 2) return launch_lanes<int16_t, kStagingOnly>(a);
-    if (kind == 3) return launch_atomic<int16_t>(a);
-    if (kind == 4) return launch_global<int16_t>(a);
-  }
+template <typename BinT>
+cudaError_t dispatch_fixed(int mode, const Args& a, void* scratch,
+                           int scale_blocks, int flush_tiles, int qbits) {
+  if (mode == kCount)
+    return launch_fixed<BinT, kCount>(a, scratch, scale_blocks, flush_tiles,
+                                      qbits);
+  if (mode == kUpdatesOut)
+    return launch_fixed<BinT, kUpdatesOut>(a, scratch, scale_blocks,
+                                           flush_tiles, qbits);
+  if (mode == kStagingOnly)
+    return launch_fixed<BinT, kStagingOnly>(a, scratch, scale_blocks,
+                                            flush_tiles, qbits);
   return cudaErrorInvalidValue;
 }
 
@@ -865,50 +1022,70 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 
 }  // namespace
 
-// Launches a histogram kernel on `stream`; returns the cudaError_t of the
-// launch. kind 0 is lane_hist_kernel, 1 and 2 its measurement instances
-// (updates out, staging only), 3 atomic_hist_kernel, 4 global_hist_kernel.
-// The Python wrapper (h2o3_tpu_torch/ops/hist.py) has checked every
-// argument and planned Fb (1 for the atomic kernel, the features of a pass
-// for the global one), Nb, copies, owners (lanes only), row_splits and
-// smem_bytes. K classes: node, g and h are [K, R], w is [K, R] (w_stride =
-// R) or one [R] row for all (w_stride = 0), out [K, F, N*Bt, 3] ([K, F,
-// N*Bt, 4], 16-byte aligned, for the global kernel).
-extern "C" int h2o3_level_hist(int kind, const void* binned_T, int bin_bytes,
+// Launches fixed_hist_kernel (after its scale kernel) on `stream` in `mode`
+// (0 counts; 1 and 2 are its measurement instances, updates out and staging
+// only); returns the cudaError_t of the launches. The Python wrapper
+// (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb,
+// Nb, row_splits, smem_bytes, the scale kernel's blocks per class, the
+// tiles a block walks between two flushes and the bits of the largest |q|.
+// K classes: node, g and h are [K, R], w is [K, R] (w_stride = R) or one
+// [R] row for all (w_stride = 0), out [K, F, N*Bt, 3]; `scratch` is the
+// int64 accumulator, done counters and partial maxima.
+extern "C" int h2o3_fixed_hist(int mode, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,
-                               long long R, int F, int N, int Bt, int Fb,
-                               int Nb, int copies, int owners,
-                               int row_splits, int smem_bytes, int K,
-                               long long w_stride, void* stream) {
-  const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, Nb, copies,
-               owners, row_splits, smem_bytes, K, w_stride,
+                               void* scratch, long long R, int F, int N,
+                               int Bt, int Fb, int Nb, int row_splits,
+                               int smem_bytes, int K, long long w_stride,
+                               int scale_blocks, int flush_tiles, int qbits,
+                               void* stream) {
+  const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, Nb,
+               row_splits, smem_bytes, K, w_stride,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(kind, bin_bytes, a);
+  if (bin_bytes == 1)
+    return dispatch_fixed<int8_t>(mode, a, scratch, scale_blocks,
+                                  flush_tiles, qbits);
+  if (bin_bytes == 2)
+    return dispatch_fixed<int16_t>(mode, a, scratch, scale_blocks,
+                                   flush_tiles, qbits);
+  return cudaErrorInvalidValue;
 }
 
-// Blocks of kernel `kind` (0, 3 or 4) one SM holds with `threads` threads and
-// `smem_bytes` of dynamic shared memory, into *blocks; returns the
-// cudaError_t of the query.
+// Launches global_hist_kernel on `stream`; returns the cudaError_t of the
+// launch. Arguments as h2o3_fixed_hist's, with Fb the features of a pass,
+// one block per row split and class, and out [K, F, N*Bt, 4] (16-byte
+// aligned, zeroed by the caller), whose first three floats of an entry are
+// the sums.
+extern "C" int h2o3_global_hist(const void* binned_T, int bin_bytes,
+                                const void* node, const void* g,
+                                const void* h, const void* w, void* out,
+                                long long R, int F, int N, int Bt, int Fb,
+                                int row_splits, int smem_bytes, int K,
+                                long long w_stride, void* stream) {
+  const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, N,
+               row_splits, smem_bytes, K, w_stride,
+               static_cast<cudaStream_t>(stream)};
+  if (bin_bytes == 1) return launch_global<int8_t>(a);
+  if (bin_bytes == 2) return launch_global<int16_t>(a);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of kernel `kind` (0 fixed, 1 global) one SM holds with `threads`
+// threads and `smem_bytes` of dynamic shared memory, into *blocks; returns
+// the cudaError_t of the query.
 extern "C" int h2o3_level_hist_blocks_per_sm(int kind, int bin_bytes,
                                              int threads, int smem_bytes,
                                              int* blocks) {
   if (kind == 0 && bin_bytes == 1)
-    return occupancy(lane_hist_kernel<int8_t, true, kCount>, threads,
-                     smem_bytes, blocks);
+    return occupancy(fixed_hist_kernel<int8_t, kCount>, threads, smem_bytes,
+                     blocks);
   if (kind == 0 && bin_bytes == 2)
-    return occupancy(lane_hist_kernel<int16_t, true, kCount>, threads,
-                     smem_bytes, blocks);
-  if (kind == 3 && bin_bytes == 1)
-    return occupancy(atomic_hist_kernel<int8_t>, threads, smem_bytes,
+    return occupancy(fixed_hist_kernel<int16_t, kCount>, threads, smem_bytes,
                      blocks);
-  if (kind == 3 && bin_bytes == 2)
-    return occupancy(atomic_hist_kernel<int16_t>, threads, smem_bytes,
-                     blocks);
-  if (kind == 4 && bin_bytes == 1)
+  if (kind == 1 && bin_bytes == 1)
     return occupancy(global_hist_kernel<int8_t, true>, threads, smem_bytes,
                      blocks);
-  if (kind == 4 && bin_bytes == 2)
+  if (kind == 1 && bin_bytes == 2)
     return occupancy(global_hist_kernel<int16_t, true>, threads, smem_bytes,
                      blocks);
   return cudaErrorInvalidValue;

@@ -14,10 +14,10 @@ function as the JAX reference's ``models/tree.py:_level_histograms``);
 :func:`level_histograms` launches the hand-written CUDA kernels of
 ``csrc/hist.cu`` on CUDA tensors, one launch for all K classes: each level
 takes the kernel that ``bench/hist_crossover.py`` measured the fastest at its
-node and bin count (the lane kernel, without atomics, where nodes are few;
-the global kernel, which reads each row once and adds into L2, where they
-are many; the atomic kernel below four nodes of 257 bins, where it still
-wins). It takes the plain version only for tensors on the CPU.
+node and bin count: the fixed-point kernel, with integer shared atomics,
+where nodes are few (below 64 at 65 bins, 32 at 129, 16 at 257, 4 at
+1025), the global kernel, which reads each row once and adds into L2, where
+they are many. It takes the plain version only for tensors on the CPU.
 ``level_histograms.kernel_launches`` counts each kernel's launches and
 :func:`launch_count` their sum.
 """
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -39,26 +40,40 @@ _MIN_TILES_PER_BLOCK = 2
 _GRID_X_MAX = 2 ** 31 - 1
 _GRID_Y_MAX = 65535
 
-# lane_hist_kernel: kinds 0-2 of h2o3_level_hist are its modes (the kernel,
-# then its updates-out and staging-only measurement instances)
+# fixed_hist_kernel: kind 0 of the occupancy query, entry h2o3_fixed_hist;
+# fixed-point sums with int32 shared atomics, flushed into an int64
+# accumulator. Its modes: the kernel, then its updates-out and
+# staging-only measurement instances
+_FIXED = 0
 _COUNT, _UPDATES_OUT, _STAGING_ONLY = 0, 1, 2
-#: most warps of a block, and most lanes (features) of a feature group
-_LANE_WARPS = 8
-_LANE_FEATURES = 32
-#: tile rows per warp for int8 bins; int16 takes half (rows_per_warp)
-_LANE_ROWS_PER_WARP = 64
+#: threads per block (one block per SM), rows of one tile, and the most
+#: features of a group (kFixedThreads, kFixedRows, kFixedMaxFeatures)
+_FIXED_THREADS = 512
+_FIXED_ROWS = 256
+_FIXED_MAX_FEATURES = 32
+#: tiles staged ahead of the adding warps (kFixedStages)
+_FIXED_STAGES = 2
+#: dynamic shared memory a fixed block may plan: the block's 227 KB less 1 KB
+#: for the kernel's static shared memory (288 bytes)
+_FIXED_SMEM_BUDGET = _SMEM_MAX - 1024
+_INT32_MAX = 2 ** 31 - 1
+#: bits of a quantised value: at most 22 (kFixedMaxQbits), and at least 15,
+#: so that a block flushes its slab at least every 255 tiles
+_FIXED_MAX_QBITS = 22
+_FIXED_MIN_QBITS = 15
+#: the precision the plan keeps: 2 x qbits + log2(n) >= 41, n = R / (2 N Bt)
+#: the rows an entry of a level holds on average (half the rows active, the
+#: siblings coming by subtraction). An entry's rounding error grows as
+#: 2^-qbits x sqrt(n) and the check's floor (1e-5 x max|hist|) as n, so the
+#: rule holds their ratio. bench/hist_crossover.py at 11M rows and 15 bits
+#: saw the kernel fail float64 sums at 2 x qbits + log2(n) = 38.4 (334 rows
+#: an entry), fail one of three shapes at 39.4 (670 rows) and pass all from
+#: 40.4 on; 41 keeps a factor of 1.7 in that ratio over 39.4.
+_FIXED_PRECISION = 41
 
-# atomic_hist_kernel: kind 3
-_ATOMIC = 3
-#: shared memory one block may hold for its slab: two such blocks fit on an
-#: SM
-_SMEM_BUDGET = 96 * 1024
-#: threads per block, which are also the rows of one tile (kThreads)
-_ATOMIC_THREADS = 256
-
-# global_hist_kernel: kind 4, one 16-byte reduction per (row, feature) into
-# a [K, F, N*Bt, 4] scratch
-_GLOBAL = 4
+# global_hist_kernel: kind 1 of the occupancy query, entry h2o3_global_hist;
+# one 16-byte reduction per (row, feature) into a [K, F, N*Bt, 4] scratch
+_GLOBAL = 1
 #: threads per block; a tile is four rows a thread (kGlobalRows)
 _GLOBAL_THREADS = 256
 _GLOBAL_ROWS = 4 * _GLOBAL_THREADS
@@ -78,10 +93,11 @@ _GLOBAL_L2_BYTES = 8 * 2 ** 20
 #: below a node count and the global kernel from it on. A bin count between
 #: or beyond the measured ones takes the entry of the least measured count
 #: at or above it, or else the largest.
-_KERNEL_SWITCH = {65: ("lanes", 32), 129: ("lanes", 8), 257: ("atomic", 4)}
+_KERNEL_SWITCH = {65: ("fixed", 64), 129: ("fixed", 32), 257: ("fixed", 16),
+                  1025: ("fixed", 4)}
 
-#: kind of h2o3_level_hist by planned kernel (the lane kernel's is its mode)
-_KINDS = {"atomic": _ATOMIC, "global": _GLOBAL}
+#: kind of the occupancy query by kernel
+_KINDS = {"fixed": _FIXED, "global": _GLOBAL}
 
 
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
@@ -91,7 +107,8 @@ def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
     [K, F, n_nodes*n_bins_tot, 3] for a batch of K classes, built feature by
     feature with one ``index_add_`` onto (k*N + node)*Bt + bin ids (the
     reference scans features with one ``segment_sum`` per stat). A 1-D call
-    is the K = 1 batch."""
+    is the K = 1 batch. Float64 stats give float64 sums (a yardstick for
+    the kernels' rounding)."""
     if node.dim() == 1:
         return level_histograms_plain(binned_T, node[None], g[None],
                                       h[None], w, n_nodes, n_bins_tot)[0]
@@ -103,8 +120,7 @@ def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
     base = torch.where(active, (cls + node.long()) * n_bins_tot, 0)
     stats = torch.stack([torch.where(active, v, 0.0)
                          for v in (g, h, w.expand(K, R))], -1).reshape(-1, 3)
-    out = torch.zeros((F, K * NB, 3), dtype=torch.float32,
-                      device=binned_T.device)
+    out = torch.zeros((F, K * NB, 3), dtype=g.dtype, device=binned_T.device)
     for f in range(F):
         b = binned_T[f].long()
         # the kernel skips negative bins too
@@ -114,59 +130,135 @@ def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
     return out.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
 
 
-def _lane_smem_bytes(Nb: int, Bt: int, Fb: int, copies: int, warps: int,
-                     bin_bytes: int) -> int:
-    """Shared memory of lane_hist_kernel (lane_smem_words in hist.cu): the
-    slab copies [copies, 3, Nb, Bt, 32] float32, the staged tile's stats
-    [T + 1, 4] (row T is a zero row) and node [T], each warp's row list of
-    64, and the tile's bins [Fb, T*bin_bytes/4 + 1] words."""
-    T = _LANE_ROWS_PER_WARP // bin_bytes * warps
-    return 4 * (copies * 3 * Nb * Bt * 32 + 4 * (T + 1) + T + 64 * warps
-                + Fb * (T * bin_bytes // 4 + 1))
+def fixed_exponents(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                    w: torch.Tensor, n_nodes: int, qbits: int) -> tuple:
+    """fixed_hist_kernel's scale rule: for each of g, h and w, the largest
+    |value| over the rows at a node in [0, n_nodes) of every class, max =
+    m * 2**E with m in [0.5, 1), and the exponent ``qbits - E`` that scales
+    a value to its integer (|q| <= 2**qbits); returns the three exponents
+    and whether each maximum is non-finite (then that stat is NaN
+    throughout)."""
+    node2 = node.reshape(-1, node.shape[-1])
+    active = (node2 >= 0) & (node2 < n_nodes)
+    exps, bad = [], []
+    for v in (g, h, w):
+        vals = v.reshape(-1, v.shape[-1]).expand(node2.shape)
+        top = float(torch.where(active, vals.abs(),
+                                torch.zeros((), dtype=vals.dtype)).amax()) \
+            if active.any() else 0.0
+        bad.append(not math.isfinite(top))
+        exps.append(0 if bad[-1] else qbits - math.frexp(top)[1])
+    return exps, bad
 
 
-def _pow2_floor(x: int) -> int:
-    return 1 << (x.bit_length() - 1)
+def level_histograms_fixed_plain(binned_T: torch.Tensor, node: torch.Tensor,
+                                 g: torch.Tensor, h: torch.Tensor,
+                                 w: torch.Tensor, n_nodes: int,
+                                 n_bins_tot: int, qbits: int) -> torch.Tensor:
+    """What fixed_hist_kernel computes, in plain PyTorch: each active value
+    rounded (half to even) to an integer at the scale of
+    :func:`fixed_exponents`, summed exactly in int64 by ``index_add_``, and
+    scaled back in float64 before one rounding to float32; a stat whose
+    maximum is not finite is NaN throughout. The kernel's output equals it
+    bit for bit at the plan's ``qbits``; it lies within n x max|x_s| x
+    2**-qbits (n the entry's rows) plus float32 rounding of the exact
+    sums."""
+    if node.dim() == 1:
+        return level_histograms_fixed_plain(binned_T, node[None], g[None],
+                                            h[None], w, n_nodes, n_bins_tot,
+                                            qbits)[0]
+    K, R = node.shape
+    F = binned_T.shape[0]
+    NB = n_nodes * n_bins_tot
+    exps, bad = fixed_exponents(node, g, h, w, n_nodes, qbits)
+    active = (node >= 0) & (node < n_nodes)
+    cls = torch.arange(K, device=node.device)[:, None] * n_nodes
+    base = torch.where(active, (cls + node.long()) * n_bins_tot, 0)
+    q = torch.stack([torch.where(active & ~torch.tensor(z),
+                                 torch.round(v.expand(K, R).double()
+                                             * 2.0 ** e), 0.0).long()
+                     for v, e, z in zip((g, h, w), exps, bad)],
+                    -1).reshape(-1, 3)
+    acc = torch.zeros((F, K * NB, 3), dtype=torch.int64,
+                      device=binned_T.device)
+    for f in range(F):
+        b = binned_T[f].long()
+        keep = (active & (b >= 0)).reshape(-1)
+        ids = (base + b.clamp_max(n_bins_tot - 1)).reshape(-1)
+        acc[f].index_add_(0, ids[keep], q[keep])
+    scale = torch.tensor([2.0 ** -e for e in exps], dtype=torch.float64,
+                         device=binned_T.device)
+    out = (acc.double() * scale).float()
+    out[..., torch.tensor(bad, device=out.device)] = float("nan")
+    return out.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
 
 
-def _lane_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int):
-    """lane_hist_kernel's shape, or None where a block cannot hold one
-    node's slab beside a tile: feature groups of at most 32 (one per lane),
-    Nb nodes per block (what shared memory holds beside a full tile), owners
-    (node classes, one warp each) and slab copies (one set of owners each),
-    with copies x owners warps."""
-    groups = -(-F // _LANE_FEATURES)
-    fb = -(-F // groups)
-    per_node = 3 * n_bins_tot * 32 * 4
-    avail = _SMEM_MAX - _lane_smem_bytes(0, n_bins_tot, fb, 0, _LANE_WARPS,
-                                         bin_bytes)
-    nb = min(n_nodes, avail // per_node)
-    if nb < 1:
-        return None
-    owners = _pow2_floor(min(nb, _LANE_WARPS))
-    copies = _pow2_floor(min(_LANE_WARPS // owners, avail // (nb * per_node)))
-    warps = copies * owners
-    return dict(kernel="lanes", features_per_group=fb, groups=groups,
+def _fixed_stride(Fb: int) -> int:
+    """The slab's feature stride (fixed_stride in hist.cu): Fb rounded up
+    to a power of two, so that lane l adds feature l % P."""
+    return 1 << (Fb - 1).bit_length()
+
+
+def _fixed_smem_bytes(Fb: int, Nb: int, Bt: int, bin_bytes: int) -> int:
+    """Shared memory of fixed_hist_kernel (fixed_smem_bytes in hist.cu): the
+    slab [3, Nb, Bt, P] int32 (padded to 16 bytes), and for each of the two
+    staged tiles its row list [256] int4 and its bins [Fb, 256*bin_bytes/4
+    + 1] words."""
+    return (16 * -(-3 * Nb * Bt * _fixed_stride(Fb) // 4)
+            + _FIXED_STAGES * (16 * _FIXED_ROWS
+                               + 4 * Fb * (_FIXED_ROWS * bin_bytes // 4 + 1)))
+
+
+def _fixed_plan(F: int, n_nodes: int, n_bins_tot: int,
+                bin_bytes: int) -> dict:
+    """fixed_hist_kernel's shape: of the feature groups (at most 32
+    features each) whose slab holds a node beside the tile in a block's
+    shared memory, the one that reads the fewest bytes per row (16 of node,
+    g, h and w per group, the bins once per node block), each block holding
+    as many nodes as fit."""
+    best = None
+    for groups in range(-(-F // _FIXED_MAX_FEATURES), F + 1):
+        fb = -(-F // groups)
+        if groups > 1 and fb == -(-F // (groups - 1)):
+            continue
+        per_node = 12 * n_bins_tot * _fixed_stride(fb)
+        nb = min(n_nodes, (_FIXED_SMEM_BUDGET - _fixed_smem_bytes(
+            fb, 0, n_bins_tot, bin_bytes)) // per_node)
+        if nb < 1:
+            continue
+        cost = -(-F // fb) * 16 + -(-n_nodes // nb) * F * bin_bytes
+        if best is None or cost < best[0]:
+            best = (cost, fb, nb)
+    if best is None:
+        need = _fixed_smem_bytes(1, 1, n_bins_tot, bin_bytes)
+        raise ValueError(f"{n_bins_tot} bins per node need {need} bytes of "
+                         f"shared memory; a block has {_FIXED_SMEM_BUDGET}")
+    _, fb, nb = best
+    return dict(kernel="fixed", features_per_group=fb, groups=-(-F // fb),
                 nodes_per_block=nb, node_blocks=-(-n_nodes // nb),
-                copies=copies, owners=owners, warps=warps,
-                slab_bytes=nb * per_node,
-                smem_bytes=_lane_smem_bytes(nb, n_bins_tot, fb, copies,
-                                            warps, bin_bytes),
-                tile_rows=_LANE_ROWS_PER_WARP // bin_bytes * warps)
+                warps=_FIXED_THREADS // 32,
+                slab_bytes=12 * nb * n_bins_tot * _fixed_stride(fb),
+                smem_bytes=_fixed_smem_bytes(fb, nb, n_bins_tot, bin_bytes),
+                tile_rows=_FIXED_ROWS)
 
 
-def _atomic_plan(F: int, n_nodes: int, n_bins_tot: int):
-    """atomic_hist_kernel's shape: one feature per block and as many nodes
-    as the slab [Nb, Bt, 3] float32 fits in the budget (at least one)."""
-    per = n_bins_tot * 3 * 4            # one node's bins
-    if per > _SMEM_MAX:
-        raise ValueError(f"{n_bins_tot} bins per node need {per} bytes "
-                         f"of shared memory; a block has {_SMEM_MAX}")
-    nb = min(n_nodes, max(1, _SMEM_BUDGET // per))
-    return dict(kernel="atomic", features_per_group=1, groups=F,
-                nodes_per_block=nb, node_blocks=-(-n_nodes // nb), copies=1,
-                owners=1, warps=_ATOMIC_THREADS // 32, slab_bytes=nb * per,
-                smem_bytes=nb * per, tile_rows=_ATOMIC_THREADS)
+def fixed_qbits(flush_rows: int) -> int:
+    """Bits of the largest quantised |value| when a block adds at most
+    ``flush_rows`` rows into an int32 entry between two flushes: the most
+    with ``flush_rows * 2**qbits <= 2**31 - 1``, at most 22."""
+    return min(_FIXED_MAX_QBITS, (_INT32_MAX // flush_rows).bit_length() - 1)
+
+
+def fixed_needed_qbits(R: int, n_nodes: int, n_bins_tot: int) -> int:
+    """The fewest bits a value may keep at a level of R rows over n_nodes x
+    n_bins_tot entries: the least qbits in [15, 22] with 2 x qbits +
+    log2(R / (2 N Bt)) >= ``_FIXED_PRECISION``, or 22 where none is enough
+    (an entry then holds a row or none, and 22 bits keep its error under
+    max|x| x 2^-22)."""
+    need = math.ceil((_FIXED_PRECISION
+                      - math.log2(max(R, 1) / (2 * n_nodes * n_bins_tot)))
+                     / 2)
+    return max(_FIXED_MIN_QBITS, min(_FIXED_MAX_QBITS, need))
 
 
 def _global_smem_bytes(Fb: int, bin_bytes: int) -> int:
@@ -192,7 +284,7 @@ def _global_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
                         -(-F * per_feature // _GLOBAL_L2_BYTES)))
     fb = -(-F // passes)
     return dict(kernel="global", features_per_group=fb, groups=-(-F // fb),
-                nodes_per_block=n_nodes, node_blocks=1, copies=1, owners=1,
+                nodes_per_block=n_nodes, node_blocks=1,
                 warps=_GLOBAL_THREADS // 32, slab_bytes=0,
                 smem_bytes=_global_smem_bytes(fb, bin_bytes),
                 tile_rows=_GLOBAL_ROWS)
@@ -201,10 +293,9 @@ def _global_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
 @functools.lru_cache(maxsize=256)
 def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
                  kernel: str | None = None, K: int = 1) -> dict:
-    """The kernel and its block shape: ``kernel`` ("lanes", "atomic" or
-    "global") where given, else the one ``_KERNEL_SWITCH`` takes at this
-    node and bin count. Only the global kernel's shape depends on the K
-    classes."""
+    """The kernel and its block shape: ``kernel`` ("fixed" or "global")
+    where given, else the one ``_KERNEL_SWITCH`` takes at this node and bin
+    count. Only the global kernel's shape depends on the K classes."""
     if kernel is None:
         key = min((b for b in _KERNEL_SWITCH if b >= n_bins_tot),
                   default=max(_KERNEL_SWITCH))
@@ -212,13 +303,9 @@ def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
         kernel = "global" if n_nodes >= min_nodes else below
     if kernel == "global":
         return _global_plan(F, n_nodes, n_bins_tot, bin_bytes, K)
-    if kernel == "atomic":
-        return _atomic_plan(F, n_nodes, n_bins_tot)
-    lanes = _lane_plan(F, n_nodes, n_bins_tot, bin_bytes)
-    if lanes is None:
-        raise ValueError(f"the lane kernel holds no node of {n_bins_tot} "
-                         "bins")
-    return lanes
+    if kernel == "fixed":
+        return _fixed_plan(F, n_nodes, n_bins_tot, bin_bytes)
+    raise ValueError(f"no histogram kernel {kernel!r}")
 
 
 @functools.lru_cache(maxsize=256)
@@ -245,8 +332,21 @@ def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
                          f"grid's {_GRID_X_MAX} blocks")
     if K > _GRID_Y_MAX:
         raise ValueError(f"{K} classes exceed the grid's {_GRID_Y_MAX}")
-    return dict(p, tiles=tiles, row_splits=splits, classes=K,
-                blocks=combos * splits * K)
+    p = dict(p, tiles=tiles, row_splits=splits, classes=K,
+             blocks=combos * splits * K)
+    if p["kernel"] == "fixed":
+        # a block flushes its slab every flush_tiles of its tiles, and its
+        # values have qbits bits, so that no int32 entry can overflow; it
+        # flushes as rarely as the level's precision rule allows
+        need = fixed_needed_qbits(R, n_nodes, n_bins_tot)
+        flush_tiles = max(1, min(-(-tiles // splits),
+                                 (_INT32_MAX >> need) // _FIXED_ROWS))
+        flush_rows = flush_tiles * _FIXED_ROWS
+        p.update(flush_tiles=flush_tiles, flush_rows=flush_rows,
+                 qbits=fixed_qbits(flush_rows),
+                 scale_blocks=max(1, min(-(-2 * sms // K),
+                                         -(-R // (4 * _FIXED_THREADS)))))
+    return p
 
 
 def _check(binned_T, node, g, h, w, n_nodes, n_bins_tot) -> None:
@@ -307,22 +407,55 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
     if dev is None:
         dev = torch.cuda.current_device()
     k = _kernel_plan(F, n_nodes, n_bins_tot, bb, kernel, K)
-    kind = _KINDS.get(k["kernel"], _COUNT)
+    kind = _KINDS[k["kernel"]]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
                  _blocks_per_sm(dev, kind, bb, 32 * k["warps"],
                                 k["smem_bytes"]), kernel, K)
 
 
+def _fixed_scratch_words(p: dict, F: int, n_nodes: int,
+                         n_bins_tot: int) -> int:
+    """int64 words of the fixed kernel's scratch: the accumulator [K, F,
+    N*Bt, 3], the done counters [K, groups x node blocks] and the partial
+    maxima [K, scale_blocks, 3], both uint32 (launch_fixed in hist.cu)."""
+    K = p["classes"]
+    return (K * F * n_nodes * n_bins_tot * 3
+            + -(-K * p["groups"] * p["node_blocks"] // 2)
+            + -(-3 * K * p["scale_blocks"] // 2))
+
+
+def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
+                  n_bins_tot: int, shape: tuple, mode: int) -> tuple:
+    """fixed_hist_kernel in ``mode`` (after its scale kernel) into a new
+    output, every entry of which it writes; returns the output and the
+    launch's error."""
+    if p["flush_rows"] << p["qbits"] > _INT32_MAX:
+        raise RuntimeError(f"fixed plan may overflow: {p['flush_rows']} rows "
+                           f"of up to 2^{p['qbits']} per int32 entry")
+    F, R = binned_T.shape
+    out = torch.empty(shape, dtype=torch.float32, device=binned_T.device)
+    scratch = torch.empty(_fixed_scratch_words(p, F, n_nodes, n_bins_tot),
+                          dtype=torch.int64, device=binned_T.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return out, lib.h2o3_fixed_hist(
+        mode, binned_T.data_ptr(), binned_T.element_size(), node.data_ptr(),
+        g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), R, F, n_nodes, n_bins_tot,
+        p["features_per_group"], p["nodes_per_block"], p["row_splits"],
+        p["smem_bytes"], p["classes"], R if w.dim() == 2 else 0,
+        p["scale_blocks"], p["flush_tiles"], p["qbits"], stream)
+
+
 def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             kernel: str | None = None, mode: int = _COUNT) -> torch.Tensor:
     """Check the inputs, plan, and launch on CUDA tensors the planned kernel
-    (or ``kernel``, "lanes", "atomic" or "global"), or the lane kernel in a
-    measurement ``mode``, once for all classes of a batch; returns the
-    zero-initialised output it added into (the global kernel adds into a
-    scratch of four floats an entry, whose first three are returned). Each
-    launch of a kernel in its counting mode adds one to its kernel's count
-    in ``level_histograms.kernel_launches``."""
+    (or ``kernel``, "fixed" or "global"), or the fixed kernel in a
+    measurement ``mode``, once for all classes of a batch; returns its
+    output (the global kernel adds into a zeroed scratch of four floats an
+    entry, whose first three are returned; the fixed kernel writes every
+    entry of its output). Each launch of a kernel in its counting mode adds
+    one to its kernel's count in ``level_histograms.kernel_launches``."""
     _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
     if binned_T.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {binned_T.device}")
@@ -336,24 +469,26 @@ def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
     from h2o3_tpu_torch.ops import _build
     lib = _build.library()
     p = launch_plan(binned_T, n_nodes, n_bins_tot,
-                    "lanes" if mode != _COUNT else kernel, K)
-    kind = _KINDS.get(p["kernel"], mode)
-    out = torch.zeros(shape[:-1] + (4 if kind == _GLOBAL else 3,),
-                      dtype=torch.float32, device=binned_T.device)
+                    "fixed" if mode != _COUNT else kernel, K)
     with torch.cuda.device(binned_T.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.h2o3_level_hist(
-            kind, binned_T.data_ptr(), binned_T.element_size(),
-            node.data_ptr(), g.data_ptr(), h.data_ptr(), w.data_ptr(),
-            out.data_ptr(), R, F, n_nodes, n_bins_tot,
-            p["features_per_group"], p["nodes_per_block"], p["copies"],
-            p["owners"], p["row_splits"], p["smem_bytes"], K,
-            R if w.dim() == 2 else 0, stream)
+        if p["kernel"] == "fixed":
+            out, err = _launch_fixed(lib, p, binned_T, node, g, h, w,
+                                     n_nodes, n_bins_tot, shape, mode)
+        else:
+            out = torch.zeros(shape[:-1] + (4,), dtype=torch.float32,
+                              device=binned_T.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.h2o3_global_hist(
+                binned_T.data_ptr(), binned_T.element_size(),
+                node.data_ptr(), g.data_ptr(), h.data_ptr(), w.data_ptr(),
+                out.data_ptr(), R, F, n_nodes, n_bins_tot,
+                p["features_per_group"], p["row_splits"], p["smem_bytes"], K,
+                R if w.dim() == 2 else 0, stream)
+            out = out[..., :3]
     _build.check(err, f"level histogram ({p['kernel']}) launch")
     if mode == _COUNT:
         level_histograms.kernel_launches[p["kernel"]] += 1
-    if kind == _GLOBAL:
-        out = out[..., :3].contiguous()
+    out = out.contiguous()
     return out if batched else out[0]
 
 
@@ -375,7 +510,7 @@ def level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
     return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot)
 
 
-level_histograms.kernel_launches = {"lanes": 0, "atomic": 0, "global": 0}
+level_histograms.kernel_launches = {"fixed": 0, "global": 0}
 
 
 def launch_count() -> int:
@@ -388,12 +523,13 @@ def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,
                                 w: torch.Tensor, n_nodes: int,
                                 n_bins_tot: int,
                                 scan: bool = True) -> torch.Tensor:
-    """The lane kernel of :func:`level_histograms` with its slab updates
-    compiled out, on the lane plan: it stages, lists and decodes the same
-    rows and returns zeros; with ``scan=False`` it only stages the tiles.
-    Measurement instances (chip_smoke.py times them to split load, scan and
-    update time); nothing on the training path calls them, and they add
-    nothing to ``level_histograms.kernel_launches``."""
+    """The fixed kernel of :func:`level_histograms` with its atomic adds and
+    flushes compiled out, on the fixed plan: it stages, quantises and lists
+    the same rows and reads their bins, and returns zeros; with
+    ``scan=False`` it only loads and stores the tiles. Measurement instances
+    (chip_smoke.py times them to split load, listing and update time);
+    nothing on the training path calls them, and they add nothing to
+    ``level_histograms.kernel_launches``."""
     return _launch(binned_T, node, g, h, w, n_nodes, n_bins_tot,
                    mode=_UPDATES_OUT if scan else _STAGING_ONLY)
 

@@ -217,7 +217,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
 def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
     """Every depth up to 16 (2^14 nodes) and 257 bins plan within the grid
     and shared-memory limits: feature groups cover every feature once, node
-    blocks every node, row tiles every row, and slab copies fit the
+    blocks every node, row tiles every row, and the slab fits the
     budget."""
     p = _plan(R, F, N, Bt)
     fb, nb = p["features_per_group"], p["nodes_per_block"]
@@ -227,15 +227,7 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
     assert p["tiles"] * p["tile_rows"] >= R
     assert (p["tiles"] - 1) * p["tile_rows"] < R
     assert 1 <= p["row_splits"] <= p["tiles"]   # no split without a tile
-    if p["kernel"] == "lanes":
-        # a lane per feature, a slab of [3, Nb, Bt, 32 lanes] per copy, and
-        # copies x owners warps, each owner a class of the block's nodes
-        assert fb <= 32 and p["slab_bytes"] == nb * Bt * 3 * 32 * 4
-        assert p["copies"] * p["owners"] == p["warps"] <= 8
-        assert p["owners"] <= nb
-        assert p["copies"] * p["slab_bytes"] < p["smem_bytes"]
-        assert p["tile_rows"] == 64 * p["warps"]
-    elif p["kernel"] == "global":
+    if p["kernel"] == "global":
         # every node in one block's reach; the feature groups are passes
         # of about one L2 budget of v4 entries each
         assert p["node_blocks"] == 1 and fb <= 32 and p["slab_bytes"] == 0
@@ -243,11 +235,18 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
         assert p["smem_bytes"] == hist._global_smem_bytes(fb, 1)
         assert p["tile_rows"] == 1024 and p["warps"] == 8
     else:
-        # one feature per block, a node block from the budget
-        assert fb == 1 and p["slab_bytes"] == nb * Bt * 12
-        assert p["smem_bytes"] == p["slab_bytes"]
-        assert p["smem_bytes"] <= hist._SMEM_BUDGET or nb == 1
-    assert p["copies"] in (1, 2, 4, 8)
+        # the fixed kernel: a slab [3, Nb, Bt, P] int32 (P = the group's
+        # features rounded up to a power of two) beside two staged 256-row
+        # tiles, no int32 entry can overflow between two flushes, and the
+        # values keep the bits the level's precision rule asks
+        P = hist._fixed_stride(fb)
+        assert p["kernel"] == "fixed" and fb <= 32 and P >= fb
+        assert p["slab_bytes"] == nb * Bt * 12 * P
+        assert p["smem_bytes"] == hist._fixed_smem_bytes(fb, nb, Bt, 1)
+        assert p["smem_bytes"] <= hist._FIXED_SMEM_BUDGET
+        assert p["tile_rows"] == 256 and p["warps"] == 16
+        assert p["flush_rows"] << p["qbits"] <= 2 ** 31 - 1
+        assert p["qbits"] >= hist.fixed_needed_qbits(R, N, Bt)
     assert p["smem_bytes"] <= hist._SMEM_MAX
     # the global kernel's blocks walk its feature groups in time
     groups = 1 if p["kernel"] == "global" else p["groups"]
@@ -255,59 +254,63 @@ def test_launch_plan_covers_rows_nodes_and_shared_memory(R, F, N, Bt):
     assert p["blocks"] <= hist._GRID_X_MAX
 
 
-@pytest.mark.parametrize("N,node_blocks,copies,owners", [
-    (1, 1, 8, 1), (2, 1, 4, 2), (4, 1, 2, 4), (8, 1, 1, 8), (16, 2, 1, 8),
+@pytest.mark.parametrize("N,groups,nodes_per_block", [
+    (1, 1, 1), (2, 1, 2), (4, 1, 4), (8, 1, 8), (16, 2, 16),
 ])
-def test_launch_plan_of_the_main_path_levels(N, node_blocks, copies, owners):
-    """At 11M x 28 int8 rows and 65 bins every level runs the lane kernel
-    with all 28 features in one group: slab copies where nodes are few,
-    node owners where they are many, two node blocks at N = 16, and one
-    block per SM of the H100's 132."""
+def test_launch_plan_of_the_main_path_levels(N, groups, nodes_per_block):
+    """At 11M x 28 int8 rows and 65 bins every level runs the fixed kernel
+    (measured the faster there): all 28 features in one group and every
+    node in one block up to 8 nodes, two groups of 14 at 16 nodes (the
+    slab of a narrower group holds more nodes), one block per SM of the
+    H100's 132, each flushing every 255 tiles at 15 bits a value."""
     p = _plan(11_000_000, 28, N, 65)
-    assert p["kernel"] == "lanes" and p["groups"] == 1
-    assert (p["node_blocks"], p["copies"], p["owners"]) == \
-        (node_blocks, copies, owners)
+    assert p["kernel"] == "fixed"
+    assert (p["groups"], p["nodes_per_block"], p["node_blocks"]) == \
+        (groups, nodes_per_block, 1)
     assert p["blocks"] == 132
+    assert (p["flush_tiles"], p["qbits"]) == (255, 15)
 
 
 @pytest.mark.parametrize("R,F,N,Bt", [
     (1 << 20, 4, 1, 600), (2048, 3, 1, 1000),
 ])
 def test_launch_plan_degrades_to_the_atomic_kernel(R, F, N, Bt):
-    """Where a block holds no node's slab for the lane kernel (over about
-    520 bins) and the node count is below the global kernel's switch, the
-    plan takes the atomic kernel."""
-    assert hist._lane_plan(F, N, Bt, 2) is None
-    assert _plan(R, F, N, Bt, 2)["kernel"] == "atomic"
+    """At 600 and 1000 bins, below the global kernel's switch, the plan
+    takes the kernel that replaced the atomic one there, the fixed kernel,
+    with a slab that fits a block's shared memory."""
+    p = _plan(R, F, N, Bt, 2)
+    assert p["kernel"] == "fixed"
+    assert p["smem_bytes"] <= hist._FIXED_SMEM_BUDGET
 
 
 @pytest.mark.parametrize("N,Bt,kernel", [
-    (16, 65, "lanes"), (32, 65, "global"), (512, 65, "global"),
-    (1024, 65, "global"), (1 << 14, 65, "global"), (4, 129, "lanes"),
-    (8, 129, "global"), (1, 257, "atomic"), (2, 257, "atomic"),
-    (4, 257, "global"), (16, 257, "global"), (1, 17, "lanes"),
-    (32, 17, "global"),
+    (16, 65, "fixed"), (32, 65, "fixed"), (512, 65, "global"),
+    (1024, 65, "global"), (1 << 14, 65, "global"), (4, 129, "fixed"),
+    (8, 129, "fixed"), (1, 257, "fixed"), (2, 257, "fixed"),
+    (4, 257, "fixed"), (16, 257, "global"), (1, 17, "fixed"),
+    (64, 17, "global"),
 ])
 def test_launch_plan_takes_the_kernel_measured_faster(N, Bt, kernel):
     """The switch between the kernels where bench/hist_crossover.py found
     it on the H100 at 11M rows x 28 features (``_KERNEL_SWITCH``): the
-    global kernel from 32 nodes at 65 bins, from 8 at 129 and from 4 at
-    257; below that the lane kernel at 65 and 129 bins and the atomic
-    kernel at 257. Fewer bins follow 65's entry."""
+    fixed kernel below 64 nodes at 65 bins, below 32 at 129, below 16 at
+    257 and below 4 at 1025; the global kernel from there on. Fewer bins
+    follow 65's entry."""
     assert _plan(11_000_000, 28, N, Bt, 1 if Bt < 128 else 2)["kernel"] == \
         kernel
 
 
 def test_kernel_switch_is_one_table_by_bins():
-    # the entries bench/hist_crossover.py measured: 65, 129, 257 bins
-    assert hist._KERNEL_SWITCH == {65: ("lanes", 32), 129: ("lanes", 8),
-                                   257: ("atomic", 4)}
+    # the entries bench/hist_crossover.py measured: 65, 129, 257 and 1025
+    # bins, each (kernel, below this node count)
+    assert hist._KERNEL_SWITCH == {65: ("fixed", 64), 129: ("fixed", 32),
+                                   257: ("fixed", 16), 1025: ("fixed", 4)}
 
 
 @pytest.mark.parametrize("N,Bt,kernel", [
-    (4, 100, "lanes"), (8, 100, "global"), (2, 200, "atomic"),
-    (4, 200, "global"), (1, 600, "atomic"), (2, 1000, "atomic"),
-    (4, 600, "global"), (16, 2, "lanes"),
+    (4, 100, "fixed"), (32, 100, "global"), (2, 200, "fixed"),
+    (16, 200, "global"), (1, 600, "fixed"), (2, 1000, "fixed"),
+    (4, 600, "global"), (16, 2, "fixed"),
 ])
 def test_unmeasured_bins_take_the_next_measured_entry(N, Bt, kernel):
     """A bin count between the measured ones takes the entry of the least
@@ -317,28 +320,30 @@ def test_unmeasured_bins_take_the_next_measured_entry(N, Bt, kernel):
 
 
 def test_lane_entries_hold_a_lane_plan_below_their_switch():
-    """Wherever the table takes the lane kernel (up to 129 bins, below its
-    node count), the lane kernel holds the level."""
+    """Wherever the table takes a kernel below its node count (the fixed
+    kernel at every entry), that kernel holds the level within a block's
+    shared memory."""
     prev = 1
-    for top, (kernel, min_nodes) in sorted(hist._KERNEL_SWITCH.items()):
-        if kernel == "lanes":
-            for Bt in range(prev, top + 1):
-                for N in range(1, min_nodes):
-                    assert hist._lane_plan(28, N, Bt, 2) is not None
+    for top, (kernel, below) in sorted(hist._KERNEL_SWITCH.items()):
+        for Bt in sorted({prev, (prev + top) // 2, top}):
+            for N in range(1, below):
+                p = hist._kernel_plan(28, N, Bt, 2, kernel)
+                assert p["kernel"] == kernel
+                assert p["smem_bytes"] <= hist._FIXED_SMEM_BUDGET
         prev = top + 1
 
 
 @pytest.mark.parametrize("Bt,bb,K,kernels", [
     # DRF at depth 14 (65 bins): levels 0-13
-    (65, 1, 1, ["lanes"] * 6 + ["global"] * 8),
+    (65, 1, 1, ["fixed"] * 7 + ["global"] * 7),
     # XGBoost at depth 6 (257 int16 bins) and multinomial GBM (K = 3)
-    (257, 2, 1, ["atomic"] * 3 + ["global"] * 3),
-    (65, 1, 3, ["lanes"] * 6),
+    (257, 2, 1, ["fixed"] * 5 + ["global"]),
+    (65, 1, 3, ["fixed"] * 6),
 ])
 def test_launch_plan_of_each_level_of_the_paths(Bt, bb, K, kernels):
     """The kernel each level takes on the measured switch: level 0 and 1
     histogram one node, level d >= 1 the smaller children of 2^(d-1)
-    parents. The binomial main path (depth 6) stays on the lane kernel."""
+    parents. The binomial main path (depth 6) takes the DRF's first six."""
     nodes = [max(1, 2 ** (d - 1)) for d in range(len(kernels))]
     assert [_plan(11_000_000, 28, N, Bt, bb, K=K)["kernel"]
             for N in nodes] == kernels
@@ -379,15 +384,20 @@ def test_global_plan_refuses_more_nodes_than_an_entry_packs():
         _plan(1000, 3, 2 ** 22, 65, 1, "global")
 
 
+def test_plan_refuses_a_kernel_it_does_not_have():
+    with pytest.raises(ValueError):
+        _plan(1000, 3, 4, 65, 1, "lanes")
+
+
 @pytest.mark.parametrize("kernel,N,Bt,node_blocks,groups", [
-    ("atomic", 16, 65, 1, 28), ("lanes", 1 << 14, 65, 2048, 1),
-    ("lanes", 128, 257, 64, 1), ("global", 1, 65, 1, 1),
+    ("fixed", 16, 65, 1, 2), ("fixed", 1 << 14, 65, 58, 28),
+    ("fixed", 128, 257, 4, 14), ("global", 1, 65, 1, 1),
     ("global", 1 << 14, 65, 1, 28),
 ])
 def test_launch_plan_takes_the_kernel_it_is_given(kernel, N, Bt, node_blocks,
                                                   groups):
-    """A forced kernel (the crossover bench times all three) gets its own
-    plan at any shape it can hold."""
+    """A forced kernel (the crossover bench times each) gets its own plan
+    at any shape it can hold."""
     p = _plan(1_000_000, 28, N, Bt, 2 if Bt > 126 else 1, kernel)
     assert p["kernel"] == kernel
     assert (p["node_blocks"], p["groups"]) == (node_blocks, groups)
@@ -403,22 +413,21 @@ def test_launch_plan_of_class_batches_and_the_new_paths(R, F, N, Bt, bb, K):
     """A batch of K classes keeps the kernel and block shape of one class
     (each class has its own slab) and splits the persistent grid over the
     classes: at most one block per SM of the H100's 132 in all. DRF's deep
-    levels and the XGBoost levels (257 int16 bins) of four nodes or more
-    run the global kernel, XGBoost's levels of one or two nodes the atomic
-    kernel."""
+    levels and the XGBoost levels (257 int16 bins) of 16 nodes or more run
+    the global kernel, XGBoost's levels of fewer nodes the fixed kernel."""
     one = _plan(R, F, N, Bt, bb)
     p = hist._plan(R, F, N, Bt, bb, 132, 1, None, K)
     for key in ("kernel", "features_per_group", "nodes_per_block",
-                "copies", "owners", "smem_bytes", "tiles"):
+                "smem_bytes", "tiles"):
         assert p[key] == one[key], key
     assert p["classes"] == K
     groups = 1 if p["kernel"] == "global" else p["groups"]
     assert p["blocks"] == groups * p["node_blocks"] * p["row_splits"] * K
     assert p["blocks"] <= max(132, groups * p["node_blocks"] * K)
-    if N >= 1024 or (Bt == 257 and N >= 4):
+    if N >= 1024 or (Bt == 257 and N >= 16):
         assert p["kernel"] == "global"
     elif Bt == 257:
-        assert p["kernel"] == "atomic"
+        assert p["kernel"] == "fixed"
 
 
 def test_bound_counts_the_bins_once_for_a_class_batch():
@@ -456,7 +465,7 @@ def test_loads_only_instance_needs_the_card(scan):
     (4096, 7, 16, 8, np.int16, False), (2048, 3, 256, 128, np.int16, False),
     (1 << 18, 4, 64, 1 << 14, np.int8, False),
     (4099, 5, 64, 4, np.int8, False),        # rows not a multiple of 4
-    (4099, 5, 64, 1, np.int8, True),         # one node: the slab copies
+    (4099, 5, 64, 1, np.int8, True),         # every row in one node
     (1 << 16, 28, 64, 16, np.int8, False),   # four feature groups
     (2048, 3, 256, 128, np.int16, True),
     # the global kernel: 1024 nodes, 257 bins at 64 nodes, rows not a
@@ -484,7 +493,7 @@ def test_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype, node0):
 @pytest.mark.parametrize("R,F,B,N,dtype,w_per_class", [
     (4096, 7, 16, 8, np.int16, False), (4096, 7, 16, 8, np.int16, True),
     (4099, 5, 64, 4, np.int8, True),     # rows not a multiple of 4
-    (2048, 3, 256, 1, np.int16, True),    # the atomic kernel
+    (2048, 3, 256, 1, np.int16, True),    # the fixed kernel
     (1 << 16, 28, 64, 16, np.int8, False),
     # the global kernel
     (2048, 3, 256, 128, np.int16, True), (4099, 5, 64, 1024, np.int8, True),
@@ -498,3 +507,31 @@ def test_batched_kernel_matches_plain_on_card(cuda_device, R, F, B, N, dtype,
     assert hist.launch_count() == before + 1   # one for all K
     _close(got, _port(hist.level_histograms_plain, *data, N, B + 1,
                       device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,F,B,N,K,w_per_class", [
+    (4096, 7, 256, 1, None, False), (4096, 7, 256, 2, None, False),
+    (4099, 5, 256, 1, None, False),      # rows not a multiple of 4
+    (200_000, 28, 1024, 2, None, False),
+    (4096, 7, 256, 2, 3, False), (4099, 7, 256, 2, 3, True),
+    (1 << 16, 28, 64, 16, None, False),
+])
+def test_fixed_kernel_matches_plain_and_is_bit_identical_on_card(
+        cuda_device, R, F, B, N, K, w_per_class):
+    """The fixed kernel forced through the plan: within the tolerance of
+    the plain version, bit for bit equal to its plain-PyTorch emulation at
+    the plan's qbits, and bit for bit equal across two launches."""
+    data = (_data(15, R, F, B, N) if K is None else
+            _batch(15, R, F, B, N, K=K, w_per_class=w_per_class))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    binned_T = t(data[0].T)
+    args = (binned_T, *map(t, data[1:]))
+    p = hist.launch_plan(binned_T, N, B + 1, "fixed", K or 1)
+    a = hist._launch(*args, N, B + 1, "fixed")
+    b = hist._launch(*args, N, B + 1, "fixed")
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    emu = hist.level_histograms_fixed_plain(*args, N, B + 1, p["qbits"])
+    assert torch.equal(a.view(torch.int32), emu.view(torch.int32))
+    _close(a.cpu().numpy(), hist.level_histograms_plain(
+        *args, N, B + 1).cpu().numpy())
