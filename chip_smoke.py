@@ -293,7 +293,8 @@ def check_call(args: tuple, N: int, Bt: int, what: str,
     return used, err
 
 
-def check_fixed(args: tuple, N: int, Bt: int, what: str) -> dict:
+def check_fixed(args: tuple, N: int, Bt: int, what: str,
+                against_plain: bool = True) -> dict:
     """The fixed kernel forced at one shape: two launches bit for bit equal,
     equal bit for bit to its plain-PyTorch emulation at the plan's qbits
     (``level_histograms_fixed_plain``), within the tolerance of
@@ -301,7 +302,10 @@ def check_fixed(args: tuple, N: int, Bt: int, what: str) -> dict:
     its stated bound of float64 sums: n x max|x_s| x 2^-qbits (n the
     entry's rows) plus float32 rounding of the result. Returns the max abs
     err against the plain version and the largest ratio of the error
-    against float64 sums to that bound."""
+    against float64 sums to that bound. Without ``against_plain`` (skewed
+    stats, whose float32 index_add_ drifts past the check by itself) the
+    plain version is left out and the max abs err is against float64
+    sums."""
     from h2o3_tpu_torch.ops import hist
     binned_T, node, g, h, w = args
     K = node.shape[0] if node.dim() == 2 else 1
@@ -314,11 +318,13 @@ def check_fixed(args: tuple, N: int, Bt: int, what: str) -> dict:
     emu = hist.level_histograms_fixed_plain(*args, N, Bt, p["qbits"])
     as_emu = torch.equal(got.view(torch.int32), emu.view(torch.int32))
     del emu
-    err = check_hist(got, hist.level_histograms_plain(*args, N, Bt),
-                     f"{what} [fixed]")
+    err = (check_hist(got, hist.level_histograms_plain(*args, N, Bt),
+                      f"{what} [fixed]") if against_plain else None)
     exact = hist.level_histograms_plain(binned_T, node, g.double(),
                                         h.double(), w.double(), N, Bt)
-    check_hist(got, exact, f"{what} [fixed] against float64 sums")
+    err64 = check_hist(got, exact, f"{what} [fixed] against float64 sums")
+    if err is None:
+        err = err64
     ones = torch.ones_like(w if w.dim() == 2 else g)
     rows = hist.level_histograms_plain(binned_T, node, ones, ones, ones, N,
                                        Bt).double()
@@ -931,19 +937,22 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
     ``expected`` (launches by kernel), each of ``kernels`` at least once;
     then score the frame and hold the scored metrics to the training ones.
     ``metrics`` names the metrics, each with its tolerance."""
-    from h2o3_tpu_torch.ops.hist import launch_count, level_histograms
+    from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
+                                         node_totals)
     t0 = time.perf_counter()
     warm()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    node_totals.launches = 0
     t0 = time.perf_counter()
     model = train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_count()
     by_kernel = dict(level_histograms.kernel_launches)
+    totals = node_totals.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -955,13 +964,14 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
                       f"{getattr(scored, m):.6f}" for m, v in trained.items())
     print(f"{what}: warm-up {warm_s:.2f} s, timed {seconds:.3f} s, "
           f"{ROWS * ntrees / seconds:.4g} rows*trees/s, kernel launches "
-          f"{launches} {by_kernel}, peak device memory {peak:.2f} GiB; "
-          f"{shown}; scoring {score_s:.3f} s")
+          f"{launches} {by_kernel}, node totals {totals}, peak device memory "
+          f"{peak:.2f} GiB; {shown}; scoring {score_s:.3f} s")
     prof = profile_training(train, seconds)
     if by_kernel != expected or launches != sum(expected.values()) \
-            or not all(by_kernel[k] for k in kernels):
+            or not all(by_kernel[k] for k in kernels) or totals != ntrees:
         raise AssertionError(f"{what}: kernels launched {by_kernel}, "
-                             f"expected {expected}, each of {kernels}")
+                             f"expected {expected}, each of {kernels}; "
+                             f"node totals {totals}, expected {ntrees}")
     for m, tol in metrics.items():
         if not np.isfinite(trained[m]) or \
                 abs(getattr(scored, m) - trained[m]) >= tol:
@@ -973,7 +983,8 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
                                   atol=1e-4):
         raise AssertionError(f"{what}: scores are not probabilities")
     return dict(seconds=seconds, launches=launches, by_kernel=by_kernel,
-                score_s=score_s, rows_trees_per_s=ROWS * ntrees / seconds,
+                node_totals=totals, score_s=score_s,
+                rows_trees_per_s=ROWS * ntrees / seconds,
                 peak_gib=peak, **trained, **prof)
 
 
@@ -1040,7 +1051,8 @@ def phase_new_paths(fr) -> dict:
 def phase_main_path(fr) -> dict:
     """Phase 4: bench_gbm's configuration on the full 11M x 28 frame."""
     from h2o3_tpu_torch.models.gbm import GBM
-    from h2o3_tpu_torch.ops.hist import launch_count, level_histograms
+    from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
+                                         node_totals)
 
     def train():
         return GBM(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS,
@@ -1052,12 +1064,14 @@ def phase_main_path(fr) -> dict:
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    node_totals.launches = 0
     t0 = time.perf_counter()
     model = train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_count()
     by_kernel = dict(level_histograms.kernel_launches)
+    totals = node_totals.launches
     auc = model.training_metrics.auc
     t0 = time.perf_counter()
     pred = model.predict(fr)
@@ -1070,15 +1084,17 @@ def phase_main_path(fr) -> dict:
     print(f"main path GBM {ROWS} x {NFEAT}, {NTREES} trees depth {DEPTH} "
           f"{NBINS} bins: warm-up {warm:.2f} s, timed {seconds:.3f} s, "
           f"{ROWS * NTREES / seconds:.4g} rows*trees/s, training AUC "
-          f"{auc:.6f}, kernel launches {launches} {by_kernel}, peak device "
-          f"memory {peak:.2f} GiB")
+          f"{auc:.6f}, kernel launches {launches} {by_kernel}, node totals "
+          f"{totals}, peak device memory {peak:.2f} GiB")
     print(f"scoring {ROWS} rows: {score_s:.3f} s, scored AUC {scored_auc:.6f}")
     # one histogram per level of every tree, each on the plan's kernel
     expected = planned_launches(NTREES, DEPTH, NBINS + 1, 1)
     if launches != NTREES * DEPTH or by_kernel != expected \
-            or not all(by_kernel[k] for k, n in expected.items() if n):
+            or not all(by_kernel[k] for k, n in expected.items() if n) \
+            or totals != NTREES:
         raise AssertionError(f"kernels launched {launches} times "
-                             f"{by_kernel}, expected {expected}")
+                             f"{by_kernel}, expected {expected}; node totals "
+                             f"{totals}, expected {NTREES}")
     if not (np.isfinite(auc) and auc > 0.5):
         raise AssertionError(f"training AUC {auc}")
     if ps.shape != (ROWS,) or not bool(torch.isfinite(ps).all()) \
@@ -1087,7 +1103,8 @@ def phase_main_path(fr) -> dict:
     if abs(scored_auc - auc) >= 1e-4:
         raise AssertionError(f"scored AUC {scored_auc} vs training {auc}")
     return dict(seconds=seconds, launches=launches, by_kernel=by_kernel,
-                auc=auc, rows_trees_per_s=ROWS * NTREES / seconds,
+                node_totals=totals, auc=auc,
+                rows_trees_per_s=ROWS * NTREES / seconds,
                 score_s=score_s, peak_gib=peak, **prof)
 
 
@@ -1239,14 +1256,16 @@ def fixed_split(binned_T, g, h, w, Bt: int, gen) -> dict:
 
 
 def kernel_entry(launches: int, max_err: float, times: list,
-                 name: str = "level_histograms", **extra) -> dict:
+                 name: str = "level_histograms",
+                 replaces: str = "h2o3_tpu/ops/pallas_hist.py:179",
+                 **extra) -> dict:
     """One object of the ``kernels`` line: per launch, averaged over the
     path's timed level shapes."""
     mean = lambda k: sum(r[k] for r in times) / len(times)
     return dict(
         name=name, route="cuda",
         source="h2o3_tpu_torch/csrc/hist.cu",
-        replaces="h2o3_tpu/ops/pallas_hist.py:179",
+        replaces=replaces,
         launches=launches, max_abs_err=max_err,
         ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in times)
@@ -1255,6 +1274,492 @@ def kernel_entry(launches: int, max_err: float, times: list,
         levels=[{k: r[k] for k in r
                  if k not in ("bound_by", "bytes", "flops", "gbps")
                  and r[k] is not None} for r in times])
+
+
+# -- the skewed-stats repair, node totals and the categorical path -------
+
+#: the node-totals instance's TPU-side counterpart: not a TPU kernel, the
+#: reference's segment_sum of the final level
+TOTALS_REPLACES = "h2o3_tpu/models/tree.py:151 (_node_totals, not a TPU kernel)"
+
+
+def skewed_stats(R: int, case: str, gen: torch.Generator) -> tuple:
+    """Fault C.1's stats on the card: (a) g normal with 5 rows at 1e4, h = w
+    = 1; (b) g, h of a bernoulli logit (normal, sd 1.5), w uniform in
+    [0.05, 1] with 5 rows at 1e3; (c) (a) without the outliers."""
+    dev = "cuda"
+    rows = torch.randperm(R, generator=gen, device=dev)[:5]
+    if case in "ac":
+        g = torch.randn(R, generator=gen, device=dev)
+        if case == "a":
+            g[rows] = 1e4
+        return g, torch.ones(R, device=dev), torch.ones(R, device=dev)
+    p = torch.sigmoid(1.5 * torch.randn(R, generator=gen, device=dev))
+    y = (torch.rand(R, generator=gen, device=dev) < p).float()
+    w = 0.05 + 0.95 * torch.rand(R, generator=gen, device=dev)
+    w[rows] = 1e3
+    return (w * (p - y)).contiguous(), (w * p * (1 - p)).contiguous(), w
+
+
+def check_totals(node, g, h, w, N: int, what: str,
+                 against_plain: bool = True) -> float:
+    """The node-totals instance at one shape: two launches bit for bit
+    equal, equal bit for bit to its emulation, within the check of the
+    plain version (unless ``against_plain`` is False, as for skewed stats)
+    and of float64 sums. Returns the max abs err against the plain
+    version, or else against float64 sums."""
+    from h2o3_tpu_torch.ops import hist
+    calls = hist.node_totals.launches
+    got = hist.node_totals(node, g, h, w, N)
+    again = hist.node_totals(node, g, h, w, N)
+    hist.node_totals.launches = calls      # checking launches do not count
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    as_emu = torch.equal(got.view(torch.int32), hist.node_totals_fixed_plain(
+        node, g, h, w, N).view(torch.int32))
+    err = (check_hist(got, hist.node_totals_plain(node, g, h, w, N),
+                      f"{what} [node totals]") if against_plain else None)
+    err64 = check_hist(got, hist.node_totals_plain(
+        node, g.double(), h.double(), w.double(), N),
+        f"{what} [node totals] against float64 sums")
+    if err is None:
+        err = err64
+    print(f"  node totals {what}: two launches bit-identical {same}, equal "
+          f"to the emulation {as_emu}")
+    if not (same and as_emu):
+        raise AssertionError(f"node totals at {what}")
+    return err
+
+
+def phase_skewed_checks() -> dict:
+    """Phase 2's checks of fault C.1's repair and of the node totals: the
+    fixed kernel on skewed stats (cases (a), (b), (c) of
+    :func:`skewed_stats`) at 2M rows (levels 0, 4 and 6) and 11M rows
+    (every level the plan gives it at 65 bins, 0-6), 28 int8 features,
+    through :func:`check_fixed` (bit for bit across two launches and
+    against its emulation, within the check of the plain version and of
+    float64 sums, within its stated bound); then the node-totals instance
+    at the main path's final level (64 nodes, 11M rows), at K = 3 and on
+    cases (a) and (b). Returns the largest errors and bound ratio."""
+    from h2o3_tpu_torch.ops import hist
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    Bt = NBINS + 1
+    out = dict(err=0.0, bound_ratio=0.0, totals_err=0.0)
+    for R, levels in ((2_000_000, (0, 4, 6)), (ROWS, range(7))):
+        binned_T = torch.randint(0, Bt, (NFEAT, R), generator=gen,
+                                 device="cuda").to(torch.int8)
+        for case in "abc":
+            g, h, w = skewed_stats(R, case, gen)
+            for level in levels:
+                N, node = level_nodes(R, level, gen)
+                if hist.launch_plan(binned_T, N, Bt)["kernel"] != "fixed":
+                    raise AssertionError(f"level {level}: not the fixed kernel")
+                r = check_fixed((binned_T, node, g, h, w), N, Bt,
+                                f"C.1 case ({case}) R={R} level {level} "
+                                f"N={N}", against_plain=False)
+                for k in ("err", "bound_ratio"):
+                    out[k] = max(out[k], r[k])
+                del node
+            del g, h, w
+        del binned_T
+    dev = "cuda"
+    N = 2 ** DEPTH
+    node = torch.randint(-1, N, (1, ROWS), generator=gen, device=dev,
+                         dtype=torch.int32)
+    for case in "abc":
+        g, h, w = skewed_stats(ROWS, case, gen)
+        out["totals_err"] = max(out["totals_err"], check_totals(
+            node, g[None], h[None], w, N,
+            f"R={ROWS} N={N} final level, case ({case})",
+            against_plain=case == "c"))
+    node3 = torch.randint(-1, N, (3, ROWS), generator=gen, device=dev,
+                          dtype=torch.int32)
+    g3 = torch.randn((3, ROWS), generator=gen, device=dev)
+    h3 = torch.rand((3, ROWS), generator=gen, device=dev) + 0.1
+    out["totals_err"] = max(out["totals_err"], check_totals(
+        node3, g3, h3, torch.ones(ROWS, device=dev), N,
+        f"R={ROWS} N={N} K=3 w shared"))
+    del node, node3, g3, h3
+    torch.cuda.empty_cache()
+    return out
+
+
+def skewed_cols(case: str, rows: int) -> dict:
+    """tests/test_torch_skewed_gbm.py's frame columns: 28 normal features
+    from default_rng(11) and (a) y = x0 + 0.5 x1^2 + 0.3 N(0, 1) with 5
+    rows at 1e4, (b) a bernoulli logit of the first four features with
+    weights in [0.05, 1] and 5 rows at 1e3, (c) (a) without the
+    outliers."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((NFEAT, rows), dtype=np.float32)
+    cols = {f"x{i}": X[i] for i in range(NFEAT)}
+    logit = np.array([1.2, -0.8, 0.5, 0.3], np.float32) @ X[:4]
+    out = rng.choice(rows, 5, replace=False)
+    if case in "ac":
+        y = (X[0] + 0.5 * X[1] ** 2
+             + 0.3 * rng.normal(size=rows)).astype(np.float32)
+        if case == "a":
+            y[out] = 1e4
+        cols["y"] = y
+    else:
+        cols["y"] = np.where(rng.random(rows) < 1 / (1 + np.exp(-logit)),
+                             "s", "b")
+        w = rng.uniform(0.05, 1, rows).astype(np.float32)
+        w[out] = 1e3
+        cols["w"] = w
+    return cols
+
+
+def tie_aware_differences(cpu, card, ties: list, depth: int) -> tuple:
+    """Heap nodes whose split differs between two models' trees, walking
+    each tree from its root: (differing nodes, differing nodes where the
+    CPU's split search tied two candidates exactly, whose subtrees are not
+    compared). ``ties`` holds :func:`tree.tied_splits` of each level of the
+    CPU run, in call order."""
+    differ, tied = [], []
+    for t, (a, b) in enumerate(zip(_tree_sets(cpu)[0], _tree_sets(card)[0])):
+        alike = torch.stack([getattr(a, k).cpu() == getattr(b, k).cpu()
+                             for k in SPLIT_KEYS]).all(0)
+        todo = [0]
+        while todo:
+            i = todo.pop()
+            d = int(np.log2(i + 1))
+            if d >= depth:
+                continue
+            if not alike[i]:
+                (tied if bool(ties[t * depth + d][i - (2 ** d - 1)])
+                 else differ).append((t, i))
+            elif bool(a.is_split[i]):
+                todo += [2 * i + 1, 2 * i + 2]
+    return differ, tied
+
+
+def cross_device_ties(what: str, make_frame, make, x, y: str, metric: str,
+                      depth: int) -> dict:
+    """A model trained on the CPU (plain path) and on the card (kernels):
+    alike at every split node, where the CPU's split search did not tie
+    two candidates exactly; the training ``metric`` within 1e-4 of it (of
+    1 or of the metric, whichever is larger: an outlier's squared error
+    makes the MSE large) and the margins within atol 1e-4 plus rtol 1e-5
+    (an outlier's leaf is large). Returns the card's launches."""
+    from h2o3_tpu_torch.models import tree
+    from h2o3_tpu_torch.ops.hist import level_histograms, node_totals
+    ties, find = [], tree._find_splits
+
+    def recording(hists, *a, **kw):
+        ties.append(tree.tied_splits(hists, *a, **kw).cpu())
+        return find(hists, *a, **kw)
+
+    models, margins = {}, {}
+    for dev in ("cpu", "cuda"):
+        fr = make_frame(dev)
+        reset_launches()
+        node_totals.launches = 0
+        tree._find_splits = recording if dev == "cpu" else find
+        t0 = time.perf_counter()
+        try:
+            models[dev] = make().train(x=x, y=y, training_frame=fr)
+        finally:
+            tree._find_splits = find
+        margins[dev] = _margins(models[dev], fr).cpu()
+        print(f"cross-device {what} on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s, {metric} "
+              f"{getattr(models[dev].training_metrics, metric):.6f}, "
+              f"launches {dict(level_histograms.kernel_launches)}, node "
+              f"totals {node_totals.launches}")
+        del fr
+    launches = dict(level_histograms.kernel_launches,
+                    node_totals=node_totals.launches)
+    differ, tied = tie_aware_differences(models["cpu"], models["cuda"], ties,
+                                         depth)
+    d_metric = abs(getattr(models["cpu"].training_metrics, metric)
+                   - getattr(models["cuda"].training_metrics, metric))
+    d_margin = float((margins["cpu"] - margins["cuda"]).abs().max())
+    close = torch.allclose(margins["cuda"], margins["cpu"], rtol=1e-5,
+                           atol=1e-4)
+    scale = max(1.0, abs(getattr(models["cpu"].training_metrics, metric)))
+    print(f"cross-device {what}: split nodes that differ {differ}, differing "
+          f"at the CPU's exact ties {tied}; |d{metric}| {d_metric:.2e}, max "
+          f"|dmargin| {d_margin:.2e}")
+    if differ or d_metric >= 1e-4 * scale or not close:
+        raise AssertionError(f"card and CPU {what} disagree")
+    return launches
+
+
+#: the airlines-shaped frame (szilard/benchm-ml's airlines GBM benchmark,
+#: train-10m / test): categorical columns and their levels
+AIRLINE_CATS = {"Month": 12, "DayofMonth": 31, "DayOfWeek": 7,
+                "UniqueCarrier": 22, "Origin": 300, "Dest": 300}
+AIRLINE_X = list(AIRLINE_CATS) + ["DepTime", "Distance"]
+AIRLINE_Y = "dep_delayed_15min"
+AIRLINE_ROWS, AIRLINE_VALID = 10_000_000, 100_000
+
+
+def _airline_domain(name: str, card: int) -> tuple:
+    """Sorted level names: c-1 ... for the calendar columns, two-letter
+    carrier codes, three-letter airport codes."""
+    if name in ("Origin", "Dest"):
+        letters = "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+        levels = [a + b + c for a in letters for b in letters
+                  for c in letters][5::58][:card]
+    elif name == "UniqueCarrier":
+        levels = [a + b for a in "ABCDEFGHIJ" for b in "AEIOU"][:card]
+    else:
+        levels = [f"c-{i + 1}" for i in range(card)]
+    return tuple(sorted(levels))
+
+
+def airlines_arrays(rows: int, seed: int) -> dict:
+    """An airlines-shaped frame's columns from ``seed``: categorical codes
+    of AIRLINE_CATS (Origin and Dest with Zipf-like frequencies, 1/rank^1.1
+    over a fixed shuffle of the airports), DepTime (hhmm, 5:00 to 23:59),
+    Distance (log-normal miles, 30 to 4983) and dep_delayed_15min (about
+    19% Y) from a logit with per-level effects, a term rising in DepTime
+    and one in Distance. The effects come from a fixed generator, so a
+    validation frame from another seed shares them."""
+    rng = np.random.default_rng(seed)
+    eff = np.random.default_rng(101)
+    cols = {}
+    logit = np.full(rows, -1.8, np.float32)
+    for name, card in AIRLINE_CATS.items():
+        if name in ("Origin", "Dest"):
+            p = 1.0 / np.arange(1, card + 1) ** 1.1
+            p = (p / p.sum())[eff.permutation(card)]
+            codes = rng.choice(card, rows, p=p).astype(np.int32)
+        else:
+            codes = rng.integers(0, card, rows, dtype=np.int32)
+        logit += eff.normal(scale=0.3, size=card).astype(np.float32)[codes]
+        cols[name] = codes
+    dep = (rng.integers(5, 24, rows) * 100
+           + rng.integers(0, 60, rows)).astype(np.float32)
+    dist = np.clip(np.round(np.exp(rng.normal(6.4, 0.6, rows))), 30,
+                   4983).astype(np.float32)
+    logit += 0.0008 * (dep - 1300) + 0.0001 * (dist - 700)
+    cols["DepTime"], cols["Distance"] = dep, dist
+    cols[AIRLINE_Y] = (rng.random(rows) < 1 / (1 + np.exp(-logit))).astype(
+        np.int32)
+    return cols
+
+
+def airlines_frame(cols: dict, device):
+    """The columns as a Frame: categorical codes with their domains (no
+    strings are factorised), numeric float32."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    vecs = []
+    for name, v in cols.items():
+        t = torch.from_numpy(v).to(device)
+        if name in AIRLINE_CATS:
+            vecs.append(Vec(t, VecType.CAT,
+                            domain=_airline_domain(name, AIRLINE_CATS[name])))
+        elif name == AIRLINE_Y:
+            vecs.append(Vec(t, VecType.CAT, domain=("N", "Y")))
+        else:
+            vecs.append(Vec(t, VecType.NUM))
+    return Frame(list(cols), vecs)
+
+
+def phase_cross_device_new() -> dict:
+    """Phase 3's new models, CPU (plain path) against the card: fault C.1's
+    GBMs (cases (a), (b), (c) at 2M rows, depth 6, 64 bins, 3 trees) and a
+    100k-row airlines-shaped GBM with group splits (Origin and Dest range-
+    grouped into 64 bins), a monotone DepTime and interaction sets
+    {Origin, Dest} and {DepTime, Distance}."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    out = {}
+    for case in "abc":
+        cols = skewed_cols(case, 2_000_000)
+        out[case] = cross_device_ties(
+            f"C.1 case ({case}) GBM 2M x 28", lambda dev: Frame.from_arrays(
+                cols, device=dev),
+            lambda: GBM(ntrees=3, max_depth=DEPTH, nbins=NBINS,
+                        learn_rate=0.1, seed=42,
+                        weights_column="w" if case == "b" else None),
+            [f"x{i}" for i in range(NFEAT)], "y",
+            "auc" if case == "b" else "mse", DEPTH)
+        del cols
+    cols = airlines_arrays(100_000, 41)
+    out["airlines"] = cross_device_ties(
+        "airlines-shaped GBM 100k, group splits and constraints",
+        lambda dev: airlines_frame(cols, dev),
+        lambda: GBM(ntrees=5, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                    seed=42, monotone_constraints={"DepTime": 1},
+                    interaction_constraints=[["Origin", "Dest"],
+                                             ["DepTime", "Distance"]]),
+        AIRLINE_X, AIRLINE_Y, "auc", DEPTH)
+    return out
+
+
+def _heaps_bitwise(a, b) -> bool:
+    """Every heap field and left mask of every tree equal bit for bit."""
+    from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+    for ta, tb in zip(_tree_sets(a), _tree_sets(b)):
+        if len(ta) != len(tb):
+            return False
+        for x, y in zip(ta, tb):
+            for f in HEAP_FIELDS + ("left_mask",):
+                u, v = getattr(x, f), getattr(y, f)
+                if (u is None) != (v is None) or (
+                        u is not None and not torch.equal(u, v)):
+                    return False
+    return True
+
+
+def phase_airlines() -> dict:
+    """Phase 7: the categorical path at full width. An airlines-shaped
+    training frame of 10M rows and a validation frame of 100k, built on the
+    host from seeds; GBM with 64 bins (Origin and Dest range-grouped into
+    64), depth 6, learn rate 0.1, up to 300 trees, stopping_rounds 5 on the
+    validation logloss (tolerance 1e-4) and a monotone DepTime. Warmed up,
+    timed (launches held to the plan's per level, one node-totals launch a
+    tree), profiled, scored; then the scored metric against the training
+    one, predictions along a DepTime grid, a straight 20-tree run against
+    a 10-tree run resumed to 20 (bit for bit), and the stopping point of a
+    second run."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
+                                         node_totals)
+    t0 = time.perf_counter()
+    fr = airlines_frame(airlines_arrays(AIRLINE_ROWS, 31), "cuda")
+    vf = airlines_frame(airlines_arrays(AIRLINE_VALID, 32), "cuda")
+    torch.cuda.synchronize()
+    share = float(fr.vec(AIRLINE_Y).data.float().mean())
+    print(f"airlines-shaped frames {AIRLINE_ROWS} + {AIRLINE_VALID} rows on "
+          f"the card: {time.perf_counter() - t0:.2f} s, {100 * share:.1f}% "
+          f"delayed")
+    params = dict(ntrees=300, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                  stopping_rounds=5, stopping_metric="logloss",
+                  stopping_tolerance=1e-4, monotone_constraints={"DepTime": 1},
+                  seed=42)
+    builders = []
+
+    def train(**over):
+        b = GBM(**dict(params, **over))
+        builders.append(b)
+        return b.train(x=AIRLINE_X, y=AIRLINE_Y, training_frame=fr,
+                       validation_frame=vf)
+
+    t0 = time.perf_counter()
+    train(ntrees=10, stopping_rounds=0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    node_totals.launches = 0
+    t0 = time.perf_counter()
+    model = train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    grown = builders[-1]._rounds_grown
+    kept = model.output["ntrees"]
+    by_kernel = dict(level_histograms.kernel_launches)
+    totals = node_totals.launches
+    expected = planned_launches(grown, DEPTH, NBINS + 1, 1)
+    tm, vm = model.training_metrics, model.validation_metrics
+    print(f"airlines GBM {AIRLINE_ROWS} x {len(AIRLINE_X)} ({', '.join(AIRLINE_X)}): "
+          f"warm-up {warm_s:.2f} s, timed {seconds:.3f} s, "
+          f"{AIRLINE_ROWS * grown / seconds:.4g} rows*trees/s, {grown} trees "
+          f"grown, {kept} kept; launches {launch_count()} {by_kernel} "
+          f"(plan {expected}), node totals {totals}; training AUC "
+          f"{tm.auc:.6f} logloss {tm.logloss:.6f}, validation AUC "
+          f"{vm.auc:.6f} logloss {vm.logloss:.6f}")
+    again = []
+    prof = profile_training(lambda: again.append(train()), seconds)
+    t0 = time.perf_counter()
+    scored = model.model_performance(fr)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    # predictions along DepTime, every other column held
+    k = 49
+    grid = {name: np.full(k, AIRLINE_CATS[name] // 3, np.int32)
+            for name in AIRLINE_CATS}
+    grid.update(DepTime=np.linspace(0, 2400, k).astype(np.float32),
+                Distance=np.full(k, 700.0, np.float32))
+    grid[AIRLINE_Y] = np.zeros(k, np.int32)
+    pgrid = model.predict(airlines_frame(grid, "cuda")).vec("pY").data.cpu()
+    rises = float(torch.diff(pgrid).min())
+    # checkpoint: 10 trees resumed to 20 against 20 straight
+    base = dict(ntrees=20, stopping_rounds=0)
+    straight = train(**base)
+    half = train(ntrees=10, stopping_rounds=0)
+    resumed = train(checkpoint=half, **base)
+    same_trees = _heaps_bitwise(straight, resumed)
+    same_margins = torch.equal(_margins(straight, fr), _margins(resumed, fr))
+    same_metrics = (straight.training_metrics.logloss
+                    == resumed.training_metrics.logloss)
+    print(f"airlines: scored logloss {scored.logloss:.6f} AUC "
+          f"{scored.auc:.6f} in {score_s:.3f} s; along DepTime the least "
+          f"step of p(Y) is {rises:.3e}; checkpoint 10 + 10 against 20: "
+          f"trees bit-identical {same_trees}, margins {same_margins}, "
+          f"training logloss {same_metrics}; a second run kept "
+          f"{again[0].output['ntrees']} trees")
+    if by_kernel != expected or totals != grown:
+        raise AssertionError(f"airlines: launches {by_kernel}, node totals "
+                             f"{totals}, expected {expected} and {grown}")
+    if not (abs(scored.logloss - tm.logloss) < 1e-4
+            and abs(scored.auc - tm.auc) < 1e-4):
+        raise AssertionError("airlines: scored metrics differ from training")
+    if rises < -1e-6:
+        raise AssertionError(f"airlines: p(Y) falls along DepTime: {pgrid}")
+    if not (same_trees and same_margins and same_metrics):
+        raise AssertionError("airlines: the resumed run differs")
+    if again[0].output["ntrees"] != kept:
+        raise AssertionError(f"airlines: stopping kept {kept} then "
+                             f"{again[0].output['ntrees']} trees")
+    if not (np.isfinite(vm.logloss) and vm.auc > 0.6):
+        raise AssertionError(f"airlines: validation metrics {vm}")
+    del fr, vf, model, again, straight, half, resumed, builders
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, trees_grown=grown, trees_kept=kept,
+                rows_trees_per_s=AIRLINE_ROWS * grown / seconds,
+                by_kernel=by_kernel, node_totals=totals,
+                train_auc=tm.auc, train_logloss=tm.logloss,
+                valid_auc=vm.auc, valid_logloss=vm.logloss, **prof)
+
+
+def totals_times() -> list:
+    """The node-totals instance timed at the final level of the main path
+    (11M rows, 64 nodes, K = 1) and of the multinomial path (K = 3, w
+    shared), beside its plain version (one index_add_ with its ids built),
+    one index_add_ of prepared ids (the library call) and its bound (node,
+    g, h per class and w once read, [K, 64, 3] written)."""
+    from h2o3_tpu_torch.ops import hist
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    N = 2 ** DEPTH
+    rows = []
+    for K in (1, 3):
+        node = torch.randint(-1, N, (K, ROWS), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        g = torch.randn((K, ROWS), generator=gen, device="cuda")
+        h = torch.rand((K, ROWS), generator=gen, device="cuda")
+        w = torch.ones(ROWS, device="cuda")
+        calls = hist.node_totals.launches
+        ms = cuda_ms_auto(lambda: hist.node_totals(node, g, h, w, N))
+        hist.node_totals.launches = calls
+        plain_ms = cuda_ms_auto(lambda: hist.node_totals_plain(node, g, h,
+                                                               w, N))
+        act = node >= 0
+        ids = torch.where(act, torch.arange(K, device="cuda")[:, None] * N
+                          + node, 0).long().reshape(-1)
+        src = torch.stack([torch.where(act, v, 0.0) for v in
+                           (g, h, w.expand(K, ROWS))], -1).reshape(-1, 3)
+        library_ms = cuda_ms_auto(lambda: torch.zeros(
+            (K * N, 3), device="cuda").index_add_(0, ids, src))
+        nbytes = K * ROWS * 12 + ROWS * 4 + K * N * 12
+        flops = 3 * int(act.sum())
+        bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                       flops / F32_FLOPS_PER_S) * 1e3
+        print(f"node totals K={K} R={ROWS} N={N}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB)")
+        rows.append(dict(level=DEPTH, N=N, K=K, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by="bytes", bound_share=bound_ms / ms))
+        del node, g, h, w, ids, src, act
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1273,13 +1778,31 @@ def main() -> int:
     sass = sass_check()
     max_err = phase_kernel_checks()
     fixed = phase_fixed_checks()
+    skewed = phase_skewed_checks()
     phase_cross_device()
+    phase_cross_device_new()
     fr = build_frame()
     main_path = phase_main_path(fr)
     times = phase_kernel_times()["levels"]
+    tot_times = totals_times()
     new_paths = phase_new_paths(fr)
     del fr
     new_times = phase_new_path_times()
+    airlines = phase_airlines()
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    binned_T, _, g, h, w = hist_inputs(AIRLINE_ROWS, len(AIRLINE_X),
+                                       NBINS + 1, 1, torch.int8, gen)
+    _, node = level_nodes(AIRLINE_ROWS, 3, gen)
+    air_err = check_call((binned_T, node, g, h, w), 4, NBINS + 1,
+                         f"airlines level 3 R={AIRLINE_ROWS} "
+                         f"F={len(AIRLINE_X)}")[1]
+    del node
+    air_times = time_levels(
+        "airlines", binned_T, g, h, w, NBINS + 1,
+        [(level, *level_nodes(AIRLINE_ROWS, level, gen))
+         for level in range(DEPTH)])
+    del binned_T, g, h, w
+    torch.cuda.empty_cache()
     kernels = [kernel_entry(main_path["launches"], max_err["binomial"],
                             times)]
     kernels += [kernel_entry(new_paths[path]["launches"], max_err[path],
@@ -1297,9 +1820,19 @@ def main() -> int:
     kernels.append(kernel_entry(
         new_paths["xgboost_257"]["by_kernel"]["fixed"], fixed["err"], xgb,
         name="fixed_hist_kernel", path="xgboost_257",
-        bound_ratio=fixed["bound_ratio"],
+        bound_ratio=max(fixed["bound_ratio"], skewed["bound_ratio"]),
+        skewed_err=skewed["err"],
         split_ms=new_times["fixed_split"],
         sass={k[-48:]: v for k, v in sass.items()}))
+    # the categorical path's histograms (8 features), and the node totals:
+    # the main path's launches, timed at its final level (K = 1 and 3)
+    kernels.append(kernel_entry(
+        sum(airlines["by_kernel"].values()), air_err, air_times,
+        path="airlines_gbm"))
+    kernels.append(kernel_entry(
+        main_path["node_totals"], skewed["totals_err"], tot_times[:1],
+        name="node_totals", path="binomial", replaces=TOTALS_REPLACES,
+        multinomial_k3=tot_times[1]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

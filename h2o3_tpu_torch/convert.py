@@ -2,11 +2,14 @@
 
 :func:`gbm_model`, :func:`drf_model` and :func:`xgboost_model` take a JAX
 model's ``output`` as plain numpy and dicts — each tree a dict of its heap
-arrays, ``trees`` a list of them and ``trees_multi`` (multinomial) a list
-per class — and return the port's model on the chosen device, so the port
-can score a model trained by the reference. They never import the
+arrays (and ``left_mask`` in a group-split model), ``trees`` a list of
+them and ``trees_multi`` (multinomial) a list per class, with ``cat_card``
+and ``cat_bins`` where the model has group splits — and return the port's
+model on the chosen device, so the port can score a model trained by the
+reference, and resume from it (``checkpoint=``). They never import the
 reference: the caller converts its tree objects to dicts
-(``{k: np.asarray(getattr(tree, k)) for k in HEAP_FIELDS}``).
+(``{k: np.asarray(getattr(tree, k)) for k in HEAP_FIELDS +
+("left_mask",)}``).
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ _HEAP_DTYPES = dict(feat=torch.int32, thresh_bin=torch.int32,
 def _trees(dicts, dev) -> list[Tree]:
     trees = []
     for t in dicts:
-        if t.get("left_mask") is not None:
-            raise NotImplementedError("categorical group splits are not "
-                                      "ported yet")
+        mask = t.get("left_mask")
         trees.append(Tree(**{
             k: torch.as_tensor(np.array(t[k])).to(dev, _HEAP_DTYPES[k])
-            for k in HEAP_FIELDS if t.get(k) is not None}))
+            for k in HEAP_FIELDS if t.get(k) is not None},
+            left_mask=None if mask is None else
+            torch.as_tensor(np.array(mask)).to(dev, torch.bool)))
     return trees
 
 
@@ -53,6 +56,10 @@ def _tree_output(output: Mapping, dev) -> dict:
         out["trees_multi"] = [_trees(ts, dev) for ts in output["trees_multi"]]
     else:
         out["trees"] = _trees(output["trees"], dev)
+    if output.get("cat_card") is not None:
+        out["cat_card"] = torch.as_tensor(
+            np.array(output["cat_card"], np.int32)).to(dev)
+        out["cat_bins"] = int(output["cat_bins"])
     return out
 
 

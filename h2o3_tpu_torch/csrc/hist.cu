@@ -119,12 +119,13 @@
 // load per row and feature.
 //
 // Entry points: h2o3_fixed_hist launches the fixed kernel after its scale
-// kernel, in one of three modes: counting, or one of two measurement
+// kernel, in one of four modes: counting; one of two measurement
 // instances, with the atomic adds and flushes compiled out (it stages,
 // quantises and lists the same rows and reads their bins) or with only the
-// tile loads and stores left; chip_smoke.py times them beside the real
-// kernel to split its time into staging, listing and adding. Nothing on
-// the training path launches them. h2o3_global_hist launches the global
+// tile loads and stores left, which chip_smoke.py times beside the real
+// kernel to split its time into staging, listing and adding (nothing on
+// the training path launches them); or the node totals of a tree's final
+// level, reading no bins. h2o3_global_hist launches the global
 // kernel; h2o3_level_hist_blocks_per_sm asks CUDA's occupancy of either.
 
 #include <cuda_runtime.h>
@@ -245,25 +246,52 @@ __device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
 // a node beside 36,992 bytes of stages; the plan picks feature groups and
 // nodes per block to read the fewest bytes per row.
 //
-// The scale. fixed_scale_kernel reduces max|g|, max|h| and max|w| over the
-// rows at a node of the call (all classes) to partial maxima, one per block
-// and stat, and zeroes the accumulator. Each histogram block reduces the
-// partials again, so the wrapper never reads them. The scale of stat s is a
-// power of two: with max|x_s| = m_s * 2^E_s (m_s in [0.5, 1)), a value x is
-// q = rint(x * 2^(qbits - E_s)), so |q| <= 2^qbits and the product is exact.
+// The scale: two tiers. One outlier must not coarsen every row's step (five
+// rows of g = 1e4 among normal g put the step of a single scale at 0.5 and
+// missed the check 45-fold), so the scale of stat s comes from the bulk of
+// its values and the few above it are added apart. fixed_scale_kernel counts
+// the active values of each stat (rows at a node of the call, all classes)
+// by their float exponent, 256 buckets per stat (the biased exponent field:
+// bucket b holds 2^(b-127) <= |x| < 2^(b-126), 255 the non-finite), in
+// shared memory with a copy of the buckets for each lane so that a warp's
+// adds never meet, adds its block's counts into one [3][256] array, and
+// zeroes the accumulator. Each histogram block reads the counts. The top
+// bucket T is the highest non-empty finite one; the bulk bucket B is the
+// highest one whose values, with those of every bucket above it, outnumber
+// kOutlierCap (64), or T where all values of the stat do not; B is raised
+// to T - (56 - qbits) at the lowest. With E_s = max(B, 1) - 126 (for B = T,
+// the exponent of max|x_s|, as in frexp), a value below 2^E_s is q =
+// rint(x * 2^(qbits - E_s)), |q| <= 2^qbits, added into the slab. A row
+// with a value at or above it, an outlier (fewer than kOutlierCap of them
+// in the launch), is listed apart, whole, from the end of its tile's list,
+// and the adding warps add its three values, each rounded at its stat's
+// scale to a 64-bit integer, straight into the int64 accumulator, one
+// 64-bit reduction per (row, feature, stat). Both products are exact. Where
+// no stat is skewed, B = T and nothing is an outlier: the single-scale rule
+// of before. The staging warps hold two tiles in flight in the kernel's
+// 128 registers, so what the rule adds to their loop holds no register:
+// the factors 2^(qbits - E_s) are read from shared memory for every tile,
+// the bound 2^qbits is a launch parameter in the constant bank, and
+// outlier rows take their list slots with a shared atomic (each register
+// more spilled the loop into local memory, which L1 holds poorly beside a
+// slab of 200 KB: the kernel ran 2x slower).
 // The plan takes qbits = floor(log2((2^31 - 1) / L)) (15 to 22), L the rows
 // a block adds between two flushes, so that no int32 entry can overflow:
 // L x 2^qbits <= 2^31 - 1 whatever the data. It picks L, as large as the
-// block's rows allow, so that qbits meets the precision rule below. The
-// int64 accumulator holds at
-// most R x 2^22 < 2^53, so its sums are exact too, and the conversion (acc x
-// 2^(E_s - qbits), in double, then rounded to float) is exact up to that
-// last rounding.
+// block's rows allow, so that qbits meets the precision rule below. An
+// int64 entry holds at most R x 2^22 < 2^53 from the slabs and at most
+// kOutlierCap x 2^(qbits + T - B) <= 2^62 from the outliers, so its sums
+// are exact too; the conversion (acc x 2^(E_s - qbits), in double, then
+// rounded to float) rounds once where an entry passes 2^53 and else only
+// in that last rounding. Every count, bucket and sum is an integer, so the
+// plan of the scale is decided on the card with no host sync, and repeats.
 //
-// Error bound. Each value is off by at most half a step, 2^(E_s - qbits -
-// 1) <= max|x_s| x 2^-qbits, so an entry summing n rows is within
-// n x max|x_s| x 2^-qbits of the exact sum, plus float32 rounding of the
-// result (2^-24 of it). At XGBoost's level 0 (11M rows over 132 blocks,
+// Error bound. Each value, bulk or outlier, is off by at most half a step,
+// 2^(E_s - qbits - 1), so an entry summing n rows is within n x 2^(E_s -
+// qbits - 1) of the exact sum, plus float32 rounding of the result (2^-24
+// of it). 2^E_s is the bulk bound: fewer than kOutlierCap active values of
+// the stat lie at or above it (unless the clamp raised B), and it is at
+// most 2 max|x_s|. At XGBoost's level 0 (11M rows over 132 blocks,
 // flushed every L = 65,280 rows, qbits 15) that is n x max|x| / 32768 at
 // worst; the rounding errors being independent, a bin of 43k rows of g
 // (max|g| about 5.5) is off by about 0.015 (one standard deviation). That
@@ -274,17 +302,24 @@ __device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
 // n = R / (2 N Bt) (hist.py:fixed_needed_qbits), a factor of 1.7 below
 // those failures, by flushing more often where entries hold fewer rows.
 //
-// Non-finite stats: a NaN or an infinity among a stat's active values makes
-// its maximum non-finite; that stat is then NaN in every entry of the output
+// Non-finite stats: a NaN or an infinity among a stat's active values (a
+// count in bucket 255) makes that stat NaN in every entry of the output
 // (the plain version's NaN or infinity lands in the rows' bins only). Sums
 // of integers do not depend on the order of the adds: two launches on the
 // same inputs give bit-identical output.
+//
+// Node totals. The final level of a tree needs only each node's (G, H, W):
+// the kTotals instance is the kernel at F = 1 and Bt = 1 that reads no
+// bins (every row's bin is 0), [K, N, 3] from node, g, h and w alone, with
+// the same scale and sums, so its bits repeat from run to run as the float
+// index_add_ it replaces did not.
 
 // Modes of the fixed kernel: count rows into the slab; the same with the
 // slab's atomic adds and flushes compiled out (it stages, quantises and lists
-// the same rows and reads their bins); only load and store the tiles. The
-// last two are measurement instances.
-enum { kCount, kUpdatesOut, kStagingOnly };
+// the same rows and reads their bins); only load and store the tiles; count
+// rows into node totals, reading no bins. The second and third are
+// measurement instances.
+enum { kCount, kUpdatesOut, kStagingOnly, kTotals };
 constexpr int kFixedThreads = 512;
 constexpr int kFixedWarps = kFixedThreads / 32;
 constexpr int kFixedRows = 256;                 // rows of a tile
@@ -303,6 +338,11 @@ constexpr int kFixedMaxFeatures = 32;           // most features of a group
 constexpr int kFixedWords = kFixedMaxFeatures * kFixedQuads / kFixedRows;
 constexpr int kFixedMaxQbits = 22;
 constexpr int kScaleThreads = 256;
+constexpr int kExpBuckets = 256;      // float exponents, biased: 255 non-finite
+constexpr unsigned kOutlierCap = 64;  // most outliers of a stat in a launch
+constexpr int kOutlierBits = 62 - 6;  // qbits + T - B at most, 2^6 = the cap
+// the scale kernel's shared memory: a copy of the [3][256] counts per lane
+constexpr int kScaleSmem = 3 * kExpBuckets * 32 * 4;
 static_assert(kFixedRows == 1 << kFixedRowBits, "a list entry packs the row");
 static_assert(kFixedStagers >= 1 && kFixedStagers <= kFixedWarps, "stagers");
 static_assert(kFixedRows <= kFixedThreads, "a thread stages one row");
@@ -336,23 +376,32 @@ __device__ __forceinline__ unsigned abs_bits(float x) {
   return __float_as_uint(x) & 0x7fffffffu;
 }
 
-// Partial maxima of |g|, |h| and |w| over rows at a node in [0, N), one per
-// block and class: partial[(k * gridDim.x + block) * 3 + s]. Every block
+// Counts of the active values of g, h and w by float exponent, added into
+// counts[s * 256 + bucket] (zeroed by the launch), the same array for every
+// block and class: each block counts its rows in shared memory, one copy of
+// the [3][256] buckets per lane (bucket-major, lane-minor, so that a warp's
+// 32 adds fall on 32 banks), then adds the non-empty totals. Every block
 // also zeroes its share of `zero` (the accumulator and the done counters).
 template <bool kVec>
 __global__ void __launch_bounds__(kScaleThreads)
 fixed_scale_kernel(const int32_t* __restrict__ node,
                    const float* __restrict__ g, const float* __restrict__ h,
                    const float* __restrict__ w, long long R, int N,
-                   long long w_stride, unsigned* __restrict__ partial,
+                   long long w_stride,
+                   unsigned long long* __restrict__ counts,
                    unsigned long long* __restrict__ zero,
                    long long zero_words) {
+  extern __shared__ unsigned hist_s[];   // [3][kExpBuckets][32]
   const long long k = blockIdx.y;
   node += k * R;
   g += k * R;
   h += k * R;
   w += k * w_stride;
-  unsigned m[3] = {0u, 0u, 0u};
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < 3 * kExpBuckets * 32; i += kScaleThreads)
+    hist_s[i] = 0u;
+  __syncthreads();
+  unsigned* mine = hist_s + lane;
   const long long step = 4LL * gridDim.x * kScaleThreads;
   for (long long r = 4LL * (blockIdx.x * kScaleThreads + threadIdx.x); r < R;
        r += step) {
@@ -364,24 +413,18 @@ fixed_scale_kernel(const int32_t* __restrict__ node,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (static_cast<unsigned>(n[j]) < static_cast<unsigned>(N)) {
-        m[0] = max(m[0], abs_bits(gg[j]));
-        m[1] = max(m[1], abs_bits(hh[j]));
-        m[2] = max(m[2], abs_bits(ww[j]));
+        atomicAdd(mine + 32 * (abs_bits(gg[j]) >> 23), 1u);
+        atomicAdd(mine + 32 * (kExpBuckets + (abs_bits(hh[j]) >> 23)), 1u);
+        atomicAdd(mine + 32 * (2 * kExpBuckets + (abs_bits(ww[j]) >> 23)),
+                  1u);
       }
   }
-  __shared__ unsigned warp_m[kScaleThreads / 32][3];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const unsigned v = __reduce_max_sync(0xffffffffu, m[s]);
-    if (lane == 0) warp_m[warp][s] = v;
-  }
   __syncthreads();
-  if (threadIdx.x < 3) {
-    unsigned v = 0u;
-    for (int i = 0; i < kScaleThreads / 32; ++i)
-      v = max(v, warp_m[i][threadIdx.x]);
-    partial[(k * gridDim.x + blockIdx.x) * 3 + threadIdx.x] = v;
+  for (int i = threadIdx.x; i < 3 * kExpBuckets; i += kScaleThreads) {
+    unsigned long long c = 0;
+    // lanes in rotation: the threads of a warp read 32 banks at once
+    for (int l = 0; l < 32; ++l) c += hist_s[32 * i + ((l + i) & 31)];
+    if (c) atomicAdd(counts + i, c);
   }
   const long long blocks = static_cast<long long>(gridDim.x) * gridDim.y;
   for (long long i = (k * gridDim.x + blockIdx.x) * kScaleThreads
@@ -400,7 +443,7 @@ struct FixedStaged {
   typename Word<BinT>::T b[kFixedWords];
 };
 
-template <typename BinT>
+template <typename BinT, bool kBins>
 __device__ __forceinline__ void fixed_load(
     FixedStaged<BinT>& st, const BinT* __restrict__ binned_T,
     const typename Word<BinT>::T* __restrict__ wbase, long long bin_skew,
@@ -422,7 +465,7 @@ __device__ __forceinline__ void fixed_load(
     const int i = t + j * kFixedRows;
     const int f = i / kFixedQuads;
     const long long r = r0 + 4 * (i % kFixedQuads);
-    if (f < fb) {
+    if (kBins && f < fb) {
       const long long row0 = static_cast<long long>(f0 + f) * R;
       if (whole) {
         // as load_bins4, reading the second word only where the feature
@@ -457,12 +500,12 @@ __device__ __forceinline__ float pow2f(int k) {
   return __int_as_float((127 + k) << 23);
 }
 
-// v * 2^e rounded to the nearest integer, with 2^e = s1 * s2 split so that
-// each factor is a normal float (e lies in [-113, 170]): both products are
-// exact unless the first falls below 2^-126, and then the result is below
-// 2^-40 and rounds to 0 either way
-__device__ __forceinline__ int quantise(float v, float s1, float s2) {
-  return __float2int_rn((v * s1) * s2);
+// v * 2^e, with 2^e = s1 * s2 split so that each factor is a normal float
+// (e lies in [-113, 147]): both products are exact unless the first falls
+// below 2^-126 (then the result is below 2^-40 and rounds to 0 either way)
+// or the second passes the float range (then v is an outlier)
+__device__ __forceinline__ float scaled(float v, float s1, float s2) {
+  return (v * s1) * s2;
 }
 
 // One listed row's three values into the lane's feature column `my` (slab
@@ -476,6 +519,20 @@ __device__ __forceinline__ void fixed_add(int* my, int4 e, int b, int Bt,
   atomicAdd(s + 2 * stat_len, e.z);
 }
 
+// One outlier row's (g, h, w), each rounded at its stat's scale 2^exps[s]
+// to a 64-bit integer, added straight into the int64 accumulator entry `e`
+// of one feature, one 64-bit reduction a stat; a bad stat adds nothing.
+__device__ __forceinline__ void fixed_outlier_add(unsigned long long* e,
+                                                  int4 raw, const int* exps,
+                                                  const int* bad) {
+  const int v[3] = {raw.x, raw.y, raw.z};
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    if (!bad[s])
+      red_add(e + s, __double2ll_rn(ldexp(
+          static_cast<double>(__int_as_float(v[s])), exps[s])));
+}
+
 template <typename BinT, int kMode>
 __global__ void __launch_bounds__(kFixedThreads, 1)
 fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
@@ -484,11 +541,13 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                   const float* __restrict__ w, float* __restrict__ out,
                   unsigned long long* __restrict__ acc,
                   unsigned* __restrict__ done,
-                  const unsigned* __restrict__ partial, int partials,
+                  const unsigned long long* __restrict__ exp_counts,
                   long long R, int F, int N, int Bt, int Fb, int Nb,
-                  int row_splits, int flush_tiles, int qbits,
+                  int row_splits, int flush_tiles, int qbits, float qlimit,
                   long long w_stride) {
   using W = typename Word<BinT>::T;
+  constexpr bool kBins = kMode != kTotals;
+  constexpr bool kAdds = kMode == kCount || kMode == kTotals;
   extern __shared__ int4 smem_fixed[];
   const int groups = (F + Fb - 1) / Fb;
   const int node_blocks = (N + Nb - 1) / Nb;
@@ -526,41 +585,74 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
   unsigned* bins_all = reinterpret_cast<unsigned*>(lists + kFixedStages
                                                    * kFixedRows);
   __shared__ int exps[3];       // the scale of each stat: q = x * 2^exps[s]
-  __shared__ int bad[3];        // the stat's maximum is not finite
-  // rows each staging warp lists, by stage
+  __shared__ int bad[3];        // the stat holds a non-finite value
+  // 2^exps[s] as two normal floats a stat (0 for a bad stat, which adds
+  // nothing): g1, g2, h1, h2, then w1, w2
+  __shared__ float4 factors_gh;
+  __shared__ float2 factors_w;
+  // rows each staging warp lists, by stage: into the slab, and outlier
+  // rows (listed from the list's end) added apart
   __shared__ int counts[kFixedStages][kFixedStagers];
+  __shared__ int ocounts[kFixedStages];
   __shared__ int last;
 
-  // the launch's maxima from the scale kernel's partials (all classes)
+  // the scale of each stat from the scale kernel's counts (all classes):
+  // warp s < 3 finds stat s's top bucket T and bulk bucket B, each lane
+  // holding eight buckets, with a suffix sum of the counts over the lanes
   {
-    unsigned m[3] = {0u, 0u, 0u};
-    for (int i = tid; i < partials; i += kFixedThreads)
-#pragma unroll
-      for (int s = 0; s < 3; ++s) m[s] = max(m[s], partial[3 * i + s]);
-    __shared__ unsigned warp_m[kFixedWarps][3];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const unsigned v = __reduce_max_sync(0xffffffffu, m[s]);
-      if (lane == 0) warp_m[warp][s] = v;
-    }
     for (int i = tid; i < 3 * stat_len; i += kFixedThreads) slab[i] = 0;
-    __syncthreads();
-    if (tid < 3) {
-      unsigned v = 0u;
-      for (int i = 0; i < kFixedWarps; ++i) v = max(v, warp_m[i][tid]);
-      int e = 0;
-      frexpf(__uint_as_float(v), &e);   // max = m * 2^e, m in [0.5, 1)
-      bad[tid] = v >= 0x7f800000u;
-      exps[tid] = qbits - e;
+    if (warp < 3) {
+      const unsigned full = 0xffffffffu;
+      unsigned long long c[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        c[j] = exp_counts[warp * kExpBuckets + 8 * lane + j];
+      const bool nonfinite = __shfl_sync(full, c[7], 31) != 0;  // bucket 255
+      if (lane == 31) c[7] = 0;
+      int top = -1;
+      unsigned long long mine = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mine += c[j];
+        if (c[j]) top = 8 * lane + j;
+      }
+      top = __reduce_max_sync(full, top);
+      unsigned long long incl = mine;   // this lane's buckets and all above
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const unsigned long long v = __shfl_down_sync(full, incl, d);
+        if (lane + d < 32) incl += v;
+      }
+      unsigned long long above = incl - mine;
+      int brk = -1;   // the bucket whose values pass the cap with those above
+#pragma unroll
+      for (int j = 7; j >= 0; --j) {
+        if (above <= kOutlierCap && above + c[j] > kOutlierCap)
+          brk = 8 * lane + j;
+        above += c[j];
+      }
+      brk = __reduce_max_sync(full, brk);
+      const int bulk = brk < 0 ? top : max(brk, top - (kOutlierBits - qbits));
+      if (lane == 0) {
+        const int e = qbits - (top < 0 ? 0 : max(bulk, 1) - 126);
+        const float f1 = nonfinite ? 0.0f : pow2f(e / 2);
+        const float f2 = nonfinite ? 0.0f : pow2f(e - e / 2);
+        bad[warp] = nonfinite;
+        exps[warp] = e;
+        if (warp == 0) factors_gh.x = f1, factors_gh.y = f2;
+        if (warp == 1) factors_gh.z = f1, factors_gh.w = f2;
+        if (warp == 2) factors_w = make_float2(f1, f2);
+      }
     }
     __syncthreads();
   }
-  const int eg = bad[0] ? 0 : exps[0], eh = bad[1] ? 0 : exps[1],
-            ew = bad[2] ? 0 : exps[2];
-  const bool zg = bad[0], zh = bad[1], zw = bad[2];
-  const float g1 = pow2f(eg / 2), g2 = pow2f(eg - eg / 2);
-  const float h1 = pow2f(eh / 2), h2 = pow2f(eh - eh / 2);
-  const float w1 = pow2f(ew / 2), w2 = pow2f(ew - ew / 2);
+  // the staging warps load the factors from shared memory for every tile
+  // (asm volatile: never held in registers across the loop, which the
+  // tiles in flight fill to the kernel's 128)
+  const unsigned factors_at = static_cast<unsigned>(
+      __cvta_generic_to_shared(&factors_gh));
+  const unsigned factors_w_at = static_cast<unsigned>(
+      __cvta_generic_to_shared(&factors_w));
 
   const W* wbase = reinterpret_cast<const W*>(binned_T - bin_skew);
   const long long tiles = (R + kFixedRows - 1) / kFixedRows;
@@ -578,22 +670,41 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
     };
     auto stage = [&](FixedStaged<BinT>& x, int k) {
       const int sg = k % kFixedStages;
-      if (k >= kFixedStages) bar_sync(kBarEmpty + sg, kFixedThreads);
       const unsigned nl = static_cast<unsigned>(x.n - n0);
       const bool at = kMode != kStagingOnly
                       && nl < static_cast<unsigned>(nn);
-      const int a = at && !zg ? quantise(x.g, g1, g2) : 0;
-      const int b = at && !zh ? quantise(x.h, h1, h2) : 0;
-      const int c = at && !zw ? quantise(x.w, w1, w2) : 0;
+      // quantised before the stage is free, overlapping the wait for it.
+      // A row with an outlier, a stat at or above its bulk bound (a scaled
+      // value of at least 2^qbits, `qlimit`: |x| >= 2^E_s), is listed
+      // apart, whole, and the adding warps add it straight into the
+      // accumulator; a bad stat scales to 0 or NaN and adds nothing
+      float4 fgh;
+      float2 fw;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(fgh.x), "=f"(fgh.y), "=f"(fgh.z), "=f"(fgh.w)
+                   : "r"(factors_at));
+      asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                   : "=f"(fw.x), "=f"(fw.y) : "r"(factors_w_at));
+      const float pg = scaled(x.g, fgh.x, fgh.y),
+                  ph = scaled(x.h, fgh.z, fgh.w), pw = scaled(x.w, fw.x, fw.y);
+      const bool out = at && (fabsf(pg) >= qlimit || fabsf(ph) >= qlimit
+                              || fabsf(pw) >= qlimit);
+      const int a = at && !out ? __float2int_rn(pg) : 0;
+      const int b = at && !out ? __float2int_rn(ph) : 0;
+      const int c = at && !out ? __float2int_rn(pw) : 0;
       const bool keep = (a | b | c) != 0;
       const unsigned mk = __ballot_sync(0xffffffffu, keep);
+      if (k >= kFixedStages) bar_sync(kBarEmpty + sg, kFixedThreads);
       if (lane == 0) counts[sg][warp] = __popc(mk);
+      // outlier rows are rare: counted with a shared atomic once every
+      // staging warp has passed the barrier below
+      if (tid == 0) ocounts[sg] = 0;
       unsigned* bins_w = bins_all + sg * Fb * stride;
       const int words = fb * kFixedQuads;
 #pragma unroll
       for (int j = 0; j < kFixedWords; ++j) {
         const int i = tid + j * kFixedStagers * 32;
-        if (i < words) {
+        if (kBins && i < words) {
           unsigned* dst = bins_w + (i / kFixedQuads) * stride
                           + (i % kFixedQuads) * static_cast<int>(sizeof(BinT));
           dst[0] = static_cast<unsigned>(x.b[j]);
@@ -614,23 +725,29 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
             a, b, c, (at ? static_cast<int>(nl) * node_len : 0)
                          << kFixedRowBits | tid);
       }
+      if (out) {   // the row's raw stats and its node, from the list's end
+        const int base = atomicAdd(&ocounts[sg], 1);
+        lists[sg * kFixedRows + kFixedRows - 1 - base] = make_int4(
+            __float_as_int(x.g), __float_as_int(x.h), __float_as_int(x.w),
+            static_cast<int>(nl) << kFixedRowBits | tid);
+      }
       bar_arrive(kBarFull + sg, kFixedThreads);
     };
     if (iters > 0)
-      fixed_load<BinT>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
+      fixed_load<BinT, kBins>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
                        tile_r0(0), f0, fb);
     if (iters > 1)
-      fixed_load<BinT>(st[1], binned_T, wbase, bin_skew, node, g, h, w, R,
+      fixed_load<BinT, kBins>(st[1], binned_T, wbase, bin_skew, node, g, h, w, R,
                        tile_r0(1), f0, fb);
     for (int k = 0; k < iters; k += 2) {
       stage(st[0], k);
       if (k + 2 < iters)
-        fixed_load<BinT>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
+        fixed_load<BinT, kBins>(st[0], binned_T, wbase, bin_skew, node, g, h, w, R,
                          tile_r0(k + 2), f0, fb);
       if (k + 1 < iters) {
         stage(st[1], k + 1);
         if (k + 3 < iters)
-          fixed_load<BinT>(st[1], binned_T, wbase, bin_skew, node, g, h, w,
+          fixed_load<BinT, kBins>(st[1], binned_T, wbase, bin_skew, node, g, h, w,
                            R, tile_r0(k + 3), f0, fb);
       }
     }
@@ -671,24 +788,40 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
           for (int u = 0; u < kFixedUnroll; ++u) e[u] = list[r + u * wstep];
 #pragma unroll
           for (int u = 0; u < kFixedUnroll; ++u)
-            b[u] = static_cast<int>(fbins[e[u].w & (kFixedRows - 1)]);
+            b[u] = kBins ? static_cast<int>(fbins[e[u].w & (kFixedRows - 1)])
+                         : 0;
 #pragma unroll
           for (int u = 0; u < kFixedUnroll; ++u) {
-            if (kMode == kCount) fixed_add(my, e[u], b[u], Bt, P, stat_len);
+            if (kAdds) fixed_add(my, e[u], b[u], Bt, P, stat_len);
             else sink += (e[u].x ^ e[u].y ^ e[u].z ^ e[u].w) + b[u];
           }
         }
         for (; r < listed; r += wstep) {
           const int4 e = list[r];
-          const int b = static_cast<int>(fbins[e.w & (kFixedRows - 1)]);
-          if (kMode == kCount) fixed_add(my, e, b, Bt, P, stat_len);
+          const int b = kBins ? static_cast<int>(fbins[e.w & (kFixedRows - 1)])
+                              : 0;
+          if (kAdds) fixed_add(my, e, b, Bt, P, stat_len);
           else sink += (e.x ^ e.y ^ e.z ^ e.w) + b;
+        }
+        // outlier rows (rare): each lane adds its feature's three values
+        const int outs = ocounts[sg];
+        if (kAdds && outs) {
+          for (int o = aw * rows_per_step + sub; o < outs; o += wstep) {
+            const int4 e = list[kFixedRows - 1 - o];
+            const int t = e.w & (kFixedRows - 1);
+            const int bo = kBins ? static_cast<int>(fbins[t]) : 0;
+            if (bo < 0) continue;
+            fixed_outlier_add(
+                acc + ((static_cast<long long>(f0 + f) * N + n0
+                        + (e.w >> kFixedRowBits)) * Bt + min(bo, Bt - 1)) * 3,
+                e, exps, bad);
+          }
         }
       }
       // the staging warps wait for this stage only from tile kFixedStages on
       if (k + kFixedStages < iters)
         bar_arrive(kBarEmpty + sg, kFixedThreads);
-      if (kMode == kCount && ((k + 1) % flush_tiles == 0 || k + 1 == iters)) {
+      if (kAdds && ((k + 1) % flush_tiles == 0 || k + 1 == iters)) {
         bar_sync(kBarAdders, kFixedAdders * 32);   // every add is in
         for (int j = at; j < len; j += kFixedAdders * 32) {
           const int i = j + off < len ? j + off : j + off - len;
@@ -730,9 +863,9 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                         + rem;
     const int s = rem % 3;
     const long long v = static_cast<long long>(__ldcg(acc + a));
-    const int e = s == 0 ? eg : s == 1 ? eh : ew;
-    const bool z = s == 0 ? zg : s == 1 ? zh : zw;
-    out[a] = z ? nan : static_cast<float>(ldexp(static_cast<double>(v), -e));
+    out[a] = bad[s] ? nan
+                    : static_cast<float>(ldexp(static_cast<double>(v),
+                                               -exps[s]));
   }
 }
 
@@ -920,8 +1053,9 @@ long long skew_of(const void* binned_T) {
 // fixed_hist_kernel's launch in mode kMode: the scale kernel, then the
 // histogram kernel, on one stream. `scratch` holds the int64 accumulator
 // [K, F, N*Bt, 3], the done counters [K, groups x node blocks] (uint32,
-// padded to 8 bytes) and the partial maxima [K, scale_blocks, 3] (uint32);
-// hist.py's _fixed_scratch_words mirrors it.
+// padded to 8 bytes) and the exponent counts [3][256] (uint64), zeroed here
+// before the scale kernel adds into them; hist.py's _fixed_scratch_words
+// mirrors it.
 template <typename BinT, int kMode>
 cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
                          int flush_tiles, int qbits) {
@@ -945,17 +1079,21 @@ cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
   auto* acc = static_cast<unsigned long long*>(scratch);
   const long long done_words = (a.K * combos + 1) / 2;
   auto* done = reinterpret_cast<unsigned*>(acc + a.K * entries);
-  auto* partial = reinterpret_cast<unsigned*>(acc + a.K * entries
-                                              + done_words);
+  auto* counts = acc + a.K * entries + done_words;
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(unsigned long long)
+                                  * 3 * kExpBuckets, a.stream);
+  if (e != cudaSuccess) return e;
   const bool vec = vec_aligned(a);
   const dim3 sgrid(static_cast<unsigned>(scale_blocks),
                    static_cast<unsigned>(a.K));
   auto scale = vec ? fixed_scale_kernel<true> : fixed_scale_kernel<false>;
-  scale<<<sgrid, kScaleThreads, 0, a.stream>>>(
+  e = prepare(scale, kScaleSmem);
+  if (e != cudaSuccess) return e;
+  scale<<<sgrid, kScaleThreads, kScaleSmem, a.stream>>>(
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w), a.R,
-      a.N, a.w_stride, partial, acc, a.K * entries + done_words);
-  cudaError_t e = cudaGetLastError();
+      a.N, a.w_stride, counts, acc, a.K * entries + done_words);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   auto kernel = fixed_hist_kernel<BinT, kMode>;
   e = prepare(kernel, a.smem_bytes);
@@ -965,9 +1103,9 @@ cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
       static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), acc, done, partial,
-      static_cast<int>(a.K * static_cast<long long>(scale_blocks)), a.R, a.F,
-      a.N, a.Bt, a.Fb, a.Nb, a.row_splits, flush_tiles, qbits, a.w_stride);
+      static_cast<float*>(a.out), acc, done, counts, a.R, a.F, a.N, a.Bt,
+      a.Fb, a.Nb, a.row_splits, flush_tiles, qbits,
+      ldexpf(1.0f, qbits), a.w_stride);
   return cudaGetLastError();
 }
 
@@ -1008,6 +1146,11 @@ cudaError_t dispatch_fixed(int mode, const Args& a, void* scratch,
   if (mode == kStagingOnly)
     return launch_fixed<BinT, kStagingOnly>(a, scratch, scale_blocks,
                                             flush_tiles, qbits);
+  // node totals read no bins: one instance, at the int8 width
+  if constexpr (sizeof(BinT) == 1)
+    if (mode == kTotals && a.F == 1 && a.Bt == 1)
+      return launch_fixed<BinT, kTotals>(a, scratch, scale_blocks,
+                                         flush_tiles, qbits);
   return cudaErrorInvalidValue;
 }
 
@@ -1024,13 +1167,14 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 
 // Launches fixed_hist_kernel (after its scale kernel) on `stream` in `mode`
 // (0 counts; 1 and 2 are its measurement instances, updates out and staging
-// only); returns the cudaError_t of the launches. The Python wrapper
+// only; 3 counts node totals, F = 1 and Bt = 1 with bin_bytes 1 and
+// binned_T unread); returns the cudaError_t of the launches. The Python wrapper
 // (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb,
 // Nb, row_splits, smem_bytes, the scale kernel's blocks per class, the
 // tiles a block walks between two flushes and the bits of the largest |q|.
 // K classes: node, g and h are [K, R], w is [K, R] (w_stride = R) or one
 // [R] row for all (w_stride = 0), out [K, F, N*Bt, 3]; `scratch` is the
-// int64 accumulator, done counters and partial maxima.
+// int64 accumulator, done counters and exponent counts.
 extern "C" int h2o3_fixed_hist(int mode, const void* binned_T, int bin_bytes,
                                const void* node, const void* g,
                                const void* h, const void* w, void* out,

@@ -10,15 +10,27 @@ tree-for-tree order ``Fcur + lr * row_leaf``. DRF grows each round's tree
 averages the trees at scoring. The reference runs the rounds as one
 compiled ``lax.scan`` cut into chunks that keep a TPU watchdog happy; here
 they are a Python loop whose device work is enqueued without a host sync.
-Row and column sampling draw from one ``torch.Generator`` made from the
-builder's ``seed`` and passed down explicitly: the port's random numbers
-are its own, not JAX's.
+Row and column sampling draw from a ``torch.Generator`` per tree, seeded
+from the builder's ``seed`` and the tree's index, so that a checkpoint
+resume draws what the uninterrupted run drew (the reference splits its
+keys for all ``ntrees`` and slices them at the resumed tree): the port's
+random numbers are its own, not JAX's.
+
+Every GBM tree's metric (``stopping_metric``) is computed on the card, on
+the training margins and, with a ``validation_frame``, on margins carried
+over the validation rows; ``stopping_rounds`` fetches the series in chunks
+of trees (one host sync a chunk) and trims the trees grown past the stop,
+so the kept trees are those of per-tree scoring. Without stopping the
+series is fetched once, at the end, for the scoring history.
+Categorical features take group splits (``categorical_encoding`` AUTO or
+enum; ordinal or label_encoder keep thresholds), with more levels than
+``min(nbins, nbins_cats)`` grouped into ranges; ``monotone_constraints``
+and ``interaction_constraints`` constrain GBM and XGBoost trees.
 
 Distributions: bernoulli, multinomial, gaussian, poisson, gamma, tweedie,
-laplace, quantile and huber, with ``offset_column``. Left for later slices:
-the custom distribution (it needs ``utils/udf.py``), early stopping and
-scoring history, checkpoint resume, calibration, categorical group splits,
-monotone and interaction constraints, varimp and TreeSHAP.
+laplace, quantile and huber, with ``offset_column``. Left for later slices,
+and refused: the custom distribution (it needs ``utils/udf.py``),
+calibration, DART, varimp and TreeSHAP.
 """
 
 from __future__ import annotations
@@ -27,12 +39,17 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.models.data_info import response_as_float
+from h2o3_tpu_torch.models.data_info import (remap_codes, response_adapted,
+                                             response_as_float)
 from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
-from h2o3_tpu_torch.models.tree import (Tree, TreeParams, grow_tree,
-                                        grow_trees_batched, predict_raw)
-from h2o3_tpu_torch.ops.quantile import bin_column, bin_dtype, compute_bin_edges
+from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
+                                        cat_bins_for_codes,
+                                        fold_binned, grow_tree,
+                                        grow_trees_batched, predict_binned,
+                                        predict_raw)
+from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
+                                         compute_bin_edges)
 
 #: the GBM distributions the port trains
 DISTRIBUTIONS = ("bernoulli", "multinomial", "gaussian", "poisson", "gamma",
@@ -50,10 +67,7 @@ def tree_matrix(frame: Frame, cols: list[str],
         v = frame.vec(c)
         dom = domains.get(c)
         if v.is_categorical and dom and v.domain != dom:
-            pos = {s: i for i, s in enumerate(dom)}
-            lut = torch.tensor([pos.get(s, -1) for s in v.domain] + [-1],
-                               dtype=torch.int32, device=v.device)
-            codes = lut[torch.where(v.data < 0, len(v.domain), v.data).long()]
+            codes = remap_codes(v.data, v.domain or (), dom)
             arrs.append(torch.where(codes < 0, torch.nan, codes.float()))
         else:
             arrs.append(v.as_float())
@@ -136,6 +150,68 @@ def _grad_hess_multinomial(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
             w[:, None] * torch.clamp(p * (1 - p), min=1e-10))
 
 
+def _metric_device(metric: str, dist: str, F: torch.Tensor, y: torch.Tensor,
+                   w: torch.Tensor, nclass: int) -> torch.Tensor:
+    """A stopping/score metric as device code, less is better (AUC is
+    negated), so that every tree's value stays on the card until the
+    stopping rule fetches a chunk of them (reference: ``ScoreKeeper``).
+    ``F``: margins ([rows, K] for multinomial); ``dist="drf_prob"`` means
+    ``F`` already is the prediction (DRF's averaged probability or mean).
+    AUC credits tied predictions at half, exactly."""
+    n = torch.clamp(w.sum(), min=1e-30)
+    if nclass > 1:
+        prob = F if dist == "drf_prob" else torch.softmax(F, dim=1)
+        prob = torch.clamp(prob, 1e-15, 1.0)
+        yi = y.long()[:, None]
+        if metric in ("AUTO", "deviance", "logloss"):
+            return -(w * torch.log(prob).gather(1, yi)[:, 0]).sum() / n
+        if metric in ("MSE", "RMSE"):
+            mse = (w * (1.0 - prob.gather(1, yi)[:, 0]) ** 2).sum() / n
+            return torch.sqrt(mse) if metric == "RMSE" else mse
+        if metric == "misclassification":
+            pred = torch.argmax(prob, dim=1).float()
+            return (w * (pred != y)).sum() / n
+        raise ValueError(f"unsupported multinomial stopping_metric {metric!r}")
+    prob = mu = None
+    if dist == "bernoulli":
+        prob = torch.sigmoid(F)
+    elif dist == "drf_prob":
+        prob = torch.clamp(F, 0.0, 1.0)
+    elif dist in LOG_LINK:
+        mu = torch.exp(torch.clamp(F, -30, 30))
+    else:
+        mu = F
+    if metric in ("AUTO", "deviance", "logloss"):
+        if prob is not None:
+            pc = torch.clamp(prob, 1e-7, 1 - 1e-7)
+            return -(w * (y * torch.log(pc)
+                          + (1 - y) * torch.log1p(-pc))).sum() / n
+        if dist in LOG_LINK:
+            return (w * (mu - y * torch.clamp(F, -30, 30))).sum() / n
+        return (w * (mu - y) ** 2).sum() / n
+    if metric in ("MSE", "RMSE"):
+        err = (prob - y) ** 2 if prob is not None else (mu - y) ** 2
+        mse = (w * err).sum() / n
+        return torch.sqrt(mse) if metric == "RMSE" else mse
+    if metric == "misclassification":
+        return (w * ((prob > 0.5).float() != y)).sum() / n
+    if metric == "AUC":
+        # weighted Mann-Whitney: a positive earns the negative weight below
+        # its score plus half of its tie group's
+        order = torch.argsort(prob, stable=True)
+        sc, ys, ws = prob[order], y[order], w[order]
+        negw = ws * (1.0 - ys)
+        cumneg = torch.cumsum(negw, 0)
+        lo = torch.searchsorted(sc, sc)
+        hi = torch.searchsorted(sc, sc, right=True) - 1
+        before = torch.where(lo > 0, cumneg[(lo - 1).clamp_min(0)], 0.0)
+        credit = before + 0.5 * (cumneg[hi] - before)
+        posw = ws * ys
+        tot = torch.clamp(posw.sum() * negw.sum(), min=1e-30)
+        return -(posw * credit).sum() / tot
+    raise ValueError(f"unsupported stopping_metric {metric!r}")
+
+
 def _offset(frame: Frame, col: str) -> torch.Tensor:
     """The per-row margin offset (NaN reads as 0)."""
     if col not in frame:
@@ -145,14 +221,28 @@ def _offset(frame: Frame, col: str) -> torch.Tensor:
 
 class SharedTreeModel(Model):
     """Scoring common to the tree models: sums of the trees' leaves on the
-    raw feature matrix, for one tree set or one per class."""
+    raw feature matrix, for one tree set or one per class; a group-split
+    model routes categorical codes (remapped to the training domain) by
+    its trees' left masks."""
+
+    def _predict_trees(self, X, trees):
+        out = self.output
+        return predict_raw(X, trees, cat_card=out.get("cat_card"),
+                           n_bins=int(out.get("cat_bins") or 0))
+
+    def varimp(self, use_pandas: bool = False):
+        raise NotImplementedError("varimp is not ported yet")
+
+    def predict_contributions(self, frame: Frame):
+        raise NotImplementedError("predict_contributions (TreeSHAP) is not "
+                                  "ported yet")
 
     def _tree_raw_sum(self, frame: Frame) -> torch.Tensor:
         if not self.output["trees"]:
             return torch.zeros(frame.nrows, dtype=torch.float32,
                                device=frame.device)
         X = tree_matrix(frame, self.output["x_cols"], self.output["feat_domains"])
-        return predict_raw(X, self.output["trees"])
+        return self._predict_trees(X, self.output["trees"])
 
     def _tree_raw_sum_per_class(self, frame: Frame) -> torch.Tensor:
         """[rows, K] per-class sums (``trees_multi[k]`` is class k)."""
@@ -161,7 +251,8 @@ class SharedTreeModel(Model):
             return torch.zeros((frame.nrows, len(per_class)),
                                dtype=torch.float32, device=frame.device)
         X = tree_matrix(frame, self.output["x_cols"], self.output["feat_domains"])
-        return torch.stack([predict_raw(X, ts) for ts in per_class], dim=1)
+        return torch.stack([self._predict_trees(X, ts) for ts in per_class],
+                           dim=1)
 
 
 class GBMModel(SharedTreeModel):
@@ -185,6 +276,14 @@ class GBMModel(SharedTreeModel):
         return f
 
 
+def _tree_seed(seed: int, m: int) -> int:
+    """The seed of tree (round) m's generator: a mix of the training seed
+    and m, so that every tree draws the same numbers whether the run went
+    straight through or resumed from a checkpoint before it."""
+    return int(np.random.SeedSequence([seed, m]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
 class SharedTreeBuilder(ModelBuilder):
     """Training code common to the tree models (reference:
     hex/tree/SharedTree.java)."""
@@ -193,23 +292,68 @@ class SharedTreeBuilder(ModelBuilder):
     def defaults(cls) -> dict:
         return dict(super().defaults(), ntrees=50, max_depth=5, min_rows=10.0,
                     nbins=64, sample_rate=1.0, col_sample_rate_per_tree=1.0,
-                    min_split_improvement=1e-5, offset_column=None)
+                    min_split_improvement=1e-5, stopping_rounds=0,
+                    stopping_metric="AUTO", stopping_tolerance=1e-3,
+                    # the per-tree tracker scores every tree; these two only
+                    # thin the reported history
+                    score_tree_interval=0, score_each_iteration=False,
+                    monotone_constraints=None,      # {col: +-1}
+                    interaction_constraints=None,   # [[cols...], ...]
+                    calibrate_model=False, calibration_frame=None,
+                    calibration_method="PlattScaling",
+                    nbins_cats=1024,                # capped at nbins here
+                    categorical_encoding="AUTO",    # AUTO/enum: group splits
+                    offset_column=None)
 
     # dense-heap trees cap depth at 16 (2^17 nodes)
     MAX_TREE_DEPTH = 16
+    #: the group-split state of the last _prepare (None: no group splits)
+    _cat_info = None
+
+    #: scoring-history column name per stopping metric (AUC is tracked
+    #: negated for less-is-better stopping; the table shows the true value)
+    _HIST_NAMES = {"AUTO": "deviance", "deviance": "deviance",
+                   "logloss": "logloss", "MSE": "mse", "RMSE": "rmse",
+                   "AUC": "auc", "misclassification": "classification_error"}
+
+    def _scoring_history(self, model):
+        """Per-tree metric rows from the tracked series (reference:
+        ``SharedTree.doScoringAndSaveModel`` → ``createScoringHistoryTable``);
+        ``score_tree_interval`` thins the rows, the last tree always
+        reports."""
+        series = getattr(self, "_score_series", None)
+        if not series:
+            return None
+        metric, tser, vser = series
+        name = self._HIST_NAMES.get(metric, "deviance")
+        sign = -1.0 if metric == "AUC" else 1.0
+        cols = [("number_of_trees", "long", "%d"),
+                (f"training_{name}", "double", "%.5f")]
+        if vser is not None:
+            cols.append((f"validation_{name}", "double", "%.5f"))
+        sti = int(self.params.get("score_tree_interval") or 0)
+        if self.params.get("score_each_iteration"):
+            sti = 1
+        values = [[i + 1, sign * float(tv)]
+                  + ([sign * float(vser[i])] if vser is not None else [])
+                  for i, tv in enumerate(tser)
+                  if sti <= 1 or (i + 1) % sti == 0 or i == len(tser) - 1]
+        return self._history_table(model, cols, values)
+
+    def _refuse_outside_slice(self) -> None:
+        """Parameters of features the port does not have yet raise."""
+        if self.params.get("calibrate_model"):
+            raise NotImplementedError("calibrate_model is not ported yet")
 
     def _prepare(self, frame: Frame, x: list[str], y: str, weights):
-        """Bin edges from a strided sample of at most ~100k rows, the binned
-        training matrix, and the response with its validity mask."""
+        """Bin edges from a strided sample of at most ~100k rows, the
+        categorical binning state, the binned training matrix, and the
+        response with its validity mask."""
+        self._refuse_outside_slice()
         depth = int(self.params["max_depth"])
         if depth > self.MAX_TREE_DEPTH:
             raise ValueError(f"max_depth={depth} exceeds the dense-heap limit "
                              f"{self.MAX_TREE_DEPTH}")
-        cats = [c for c in x if frame.vec(c).is_categorical]
-        if cats:
-            raise NotImplementedError(
-                f"categorical predictors {cats} need group splits, which the "
-                "port does not have yet")
         nrows = frame.nrows
         stride = max(1, nrows // 100_000)
         idx = torch.arange(0, nrows, stride, device=frame.device)
@@ -219,26 +363,172 @@ class SharedTreeBuilder(ModelBuilder):
         w_sample = weights[idx].cpu().numpy().astype(np.float64)
         edges = torch.as_tensor(compute_bin_edges(
             sample, int(self.params["nbins"]), w_sample)).to(frame.device)
+        self._setup_cat_info(frame, x)
         binned = self._bin_frame(frame, x, edges)
         yvec = frame.vec(y)
         yy, valid = response_as_float(yvec)
         return edges, binned, yy, valid, yvec
 
+    def _setup_cat_info(self, frame: Frame, x: list[str]) -> None:
+        """Group-split binning state (reference: DHistogram gives an enum a
+        bin per level up to ``nbins_cats``, then range-groups;
+        ``categorical_encoding`` ordinal / label_encoder keeps threshold
+        splits on the codes): (cardinality per feature [F], 0 for numeric,
+        and the categories' bin count), or None."""
+        enc = str(self.params.get("categorical_encoding") or "AUTO").lower()
+        card = [0] * len(x)
+        if enc in ("auto", "enum"):
+            card = [frame.vec(c).cardinality() if frame.vec(c).is_categorical
+                    else 0 for c in x]
+        elif enc not in ("ordinal", "label_encoder", "labelencoder"):
+            raise ValueError(f"unsupported categorical_encoding {enc!r}; "
+                             "have AUTO, enum, ordinal/label_encoder")
+        self._cat_info = None
+        if any(card):
+            nbins = int(self.params["nbins"])
+            cat_bins = min(nbins, int(self.params.get("nbins_cats") or nbins))
+            self._cat_info = (torch.tensor(card, dtype=torch.int32,
+                                           device=frame.device), cat_bins)
+
+    @property
+    def _cat_feats(self):
+        return None if self._cat_info is None else self._cat_info[0] > 0
+
+    def _cat_output(self) -> dict:
+        """The model-output entries of a group-split model."""
+        if self._cat_info is None:
+            return {}
+        cc, cat_bins = self._cat_info
+        return dict(cat_card=cc, cat_bins=cat_bins)
+
     def _bin_frame(self, frame: Frame, x: list[str], edges) -> torch.Tensor:
         """Per-column binning → [rows, F] int8/int16 bins (int8 up to 125
-        bins halves the histogram kernel's dominant input)."""
+        bins halves the histogram kernel's dominant input); a categorical
+        feature's bin is its (range-grouped) code, missing the NA bin."""
         nbins = int(self.params["nbins"])
         dtype = bin_dtype(nbins)
-        return torch.stack([bin_column(frame.vec(c).as_float(), edges[j],
-                                       nbins, dtype)
-                            for j, c in enumerate(x)], dim=1)
+        cc, cat_bins = self._cat_info or (None, 0)
+        cols = []
+        for j, c in enumerate(x):
+            v = frame.vec(c).as_float()
+            if cc is not None and frame.vec(c).is_categorical and \
+                    int(cc[j]) > 0:
+                b = cat_bins_for_codes(v[:, None], cc[j:j + 1], cat_bins)[:, 0]
+                cols.append(torch.where(torch.isnan(v), nbins, b).to(dtype))
+            else:
+                cols.append(bin_column(v, edges[j], nbins, dtype))
+        return torch.stack(cols, dim=1)
 
-    def _generator(self, device: torch.device) -> torch.Generator:
-        """The training's one source of randomness, on its device, seeded
-        from ``seed`` (42 when unset, as in the reference)."""
+    def _apply_cat_bins(self, X: torch.Tensor,
+                        binned: torch.Tensor) -> torch.Tensor:
+        """Re-bin the categorical columns of a raw matrix's bins: the
+        (range-grouped) code, missing in the NA bin."""
+        if self._cat_info is None:
+            return binned
+        cc, cat_bins = self._cat_info
+        nbins = int(self.params["nbins"])
+        is_cat = cc[None, :] > 0
+        nan = torch.isnan(X)
+        out = torch.where(is_cat & ~nan,
+                          cat_bins_for_codes(X, cc, cat_bins).to(binned.dtype),
+                          binned)
+        return torch.where(is_cat & nan, nbins, out).to(binned.dtype)
+
+    def _constraint_arrays(self, x: list[str], frame: Frame) -> tuple:
+        """(mono [F] int32, reach [F, F] bool) on the frame's device from
+        the constraint parameters, each None when unset (reference:
+        ``Constraints.java:7``, ``BranchInteractionConstraints.java``).
+        Features no interaction set lists are singletons: they may split
+        anywhere, and nothing else below them."""
+        mc = self.params.get("monotone_constraints") or {}
+        ic = self.params.get("interaction_constraints")
+        mono = reach = None
+        if mc:
+            bad = set(mc) - set(x)
+            if bad:
+                raise ValueError(f"monotone_constraints name non-feature "
+                                 f"columns: {sorted(bad)}")
+            for c in mc:
+                if frame.vec(c).is_categorical:
+                    raise ValueError(f"monotone constraint on categorical "
+                                     f"column {c!r} (reference: numeric only)")
+                if int(mc[c]) not in (-1, 0, 1):
+                    raise ValueError(f"monotone_constraints[{c!r}] must be "
+                                     "-1, 0 or 1")
+            mono = torch.tensor([int(mc.get(c, 0)) for c in x],
+                                dtype=torch.int32, device=frame.device)
+        if ic:
+            F = len(x)
+            reach_np = np.zeros((F, F), bool)
+            listed: set[int] = set()
+            for group in ic:
+                bad = set(group) - set(x)
+                if bad:
+                    raise ValueError(f"interaction_constraints name "
+                                     f"non-feature columns: {sorted(bad)}")
+                idxs = [x.index(c) for c in group]
+                for i in idxs:
+                    reach_np[i, idxs] = True
+                listed.update(idxs)
+            for f in range(F):
+                if f not in listed:
+                    reach_np[f, f] = True
+            reach = torch.as_tensor(reach_np).to(frame.device)
+        return mono, reach
+
+    def _check_checkpoint(self, cp, x, dist: str | None) -> None:
+        """A checkpoint must have been trained as this run trains
+        (reference: SharedTree.java:241 checks the immutable parameters)."""
+        if cp is None:
+            return
+        if list(cp.output["x_cols"]) != list(x):
+            raise ValueError("checkpoint feature columns differ from this train")
+        if dist is not None and cp.output["distribution"] != dist:
+            raise ValueError(f"checkpoint distribution "
+                             f"{cp.output['distribution']!r} != {dist!r}")
+        for immut in ("max_depth", "nbins"):
+            if int(cp.params.get(immut, self.params[immut])) != \
+                    int(self.params[immut]):
+                raise ValueError(f"checkpoint {immut} differs; tree structure "
+                                 "params are immutable across resume")
+        # masked and threshold trees cannot share an ensemble
+        cp_grouped = cp.output.get("cat_card") is not None
+        if cp_grouped != (self._cat_info is not None):
+            raise ValueError(
+                "checkpoint categorical encoding differs (group splits vs "
+                "ordinal); set categorical_encoding to match the checkpoint")
+        if cp_grouped and int(cp.output.get("cat_bins") or 0) != \
+                int(self._cat_info[1]):
+            raise ValueError("checkpoint nbins_cats differs; immutable "
+                             "across resume")
+        # learn_rate scales every tree at scoring: it cannot change
+        if "learn_rate" in self.params and "learn_rate" in cp.params:
+            if float(cp.params["learn_rate"]) != \
+                    float(self.params["learn_rate"]):
+                raise ValueError("checkpoint learn_rate differs; it is "
+                                 "immutable across resume (it rescales "
+                                 "prior trees)")
+        prior = int(cp.output["ntrees"])
+        if int(self.params["ntrees"]) <= prior:
+            raise ValueError(f"ntrees must exceed the checkpoint's {prior} "
+                             "to continue training")
+
+    def _resume_binning(self, cp, frame: Frame, x: list[str], edges, binned):
+        """The checkpoint's edges and the frame binned by them (its trees'
+        thresholds hold only on its bins), after the checks that do not
+        need the distribution."""
+        if cp is None:
+            return edges, binned
+        self._check_checkpoint(cp, x, None)
+        edges = cp.output["edges"].to(frame.device)
+        return edges, self._bin_frame(frame, x, edges)
+
+    def _tree_generator(self, device: torch.device, m: int) -> torch.Generator:
+        """Tree (round) m's source of randomness, on its device, from
+        ``seed`` (42 when unset, as in the reference) and m."""
         seed = int(self.params["seed"])
         return torch.Generator(device=device).manual_seed(
-            seed if seed >= 0 else 42)
+            _tree_seed(seed if seed >= 0 else 42, m))
 
     def _effective_col_rate(self) -> float:
         """Per-level feature-sampling rate (XGBoost folds its by-node rate
@@ -297,6 +587,10 @@ class GBM(SharedTreeBuilder):
 
     algo = "gbm"
 
+    #: early-stopping metrics honoured (reference: ScoreKeeper.StoppingMetric)
+    STOPPING_METRICS = ("AUTO", "deviance", "logloss", "MSE", "RMSE", "AUC",
+                        "misclassification")
+
     @classmethod
     def defaults(cls) -> dict:
         return dict(super().defaults(), learn_rate=0.1, distribution="AUTO",
@@ -342,9 +636,176 @@ class GBM(SharedTreeBuilder):
             return _weighted_quantile_host(yy, w, float(p["quantile_alpha"]))
         return ybar
 
+    def _stopping_metric(self, sdist: str, metric: str | None = None) -> str:
+        """``metric`` (default ``stopping_metric``) in its canonical
+        spelling, checked against the distribution (h2o-py sends enum values
+        lowercase)."""
+        metric = str(metric or self.params.get("stopping_metric") or "AUTO")
+        metric = {m.lower(): m for m in self.STOPPING_METRICS}.get(
+            metric.lower(), metric)
+        if metric not in self.STOPPING_METRICS:
+            raise ValueError(f"unsupported stopping_metric {metric!r}; have "
+                             f"{self.STOPPING_METRICS}")
+        if metric in ("logloss", "misclassification", "AUC") and sdist not in (
+                "bernoulli", "multinomial"):
+            raise ValueError(f"stopping_metric={metric!r} requires a "
+                             "classification distribution")
+        if metric == "AUC" and sdist != "bernoulli":
+            raise ValueError("stopping_metric='AUC' requires a binomial "
+                             "response")
+        return metric
+
+    def _stop_score(self, metric: str, dist: str, F, y, w,
+                    nclass: int) -> float:
+        """Less-is-better score for ``stopping_metric`` on the host: the same
+        math as the per-tree tracker (:func:`_metric_device`)."""
+        sdist = "multinomial" if nclass > 1 else dist
+        metric = self._stopping_metric(sdist, metric)
+        return float(_metric_device(metric, sdist, F, y, w, nclass))
+
+    def _valid_stop_data(self, edges, nclass: int, f0, lr: float, domains,
+                         y_domain, prior_trees=None):
+        """The validation frame binned with the training edges (categorical
+        features and response remapped to the training domains) and its
+        margins seeded (f0, plus a checkpoint's trees), so each tree can be
+        scored on it as it grows; None without a validation frame."""
+        vf = getattr(self, "_validation_frame", None)
+        if vf is None:
+            return None
+        x = self._x_cols
+        Xv = tree_matrix(vf, x, domains)
+        binned_v = self._apply_cat_bins(Xv, bin_features(Xv, edges))
+        yv, validv = response_adapted(vf.vec(self._y_col), y_domain)
+        wv = vf.row_mask().float() * validv
+        wcol = self.params.get("weights_column")
+        if wcol and wcol in vf:
+            wv = wv * vf.vec(wcol).data
+        yv = torch.where(wv > 0, yv, 0.0)
+        nbins = int(self.params["nbins"])
+        if nclass > 1:
+            Fval = torch.as_tensor(f0, dtype=torch.float32).to(
+                vf.device)[None, :].expand(Xv.shape[0], nclass).contiguous()
+            if prior_trees:
+                Fval = Fval + lr * torch.stack(
+                    [predict_binned(binned_v, ts, nbins)
+                     for ts in prior_trees], dim=1)
+        else:
+            Fval = torch.full((Xv.shape[0],), float(f0), dtype=torch.float32,
+                              device=vf.device)
+            if prior_trees:
+                Fval = Fval + lr * predict_binned(binned_v, prior_trees, nbins)
+        return binned_v, yv, wv, Fval
+
+    def _grow_with_stopping(self, job: Job, grow_round, binned, yc, w, Fcur,
+                            done: int, ntrees: int, dist: str, nclass: int,
+                            lr: float, valid=None):
+        """Grow rounds ``done`` .. ``ntrees`` - 1, ``grow_round(m, Fcur) ->
+        (trees, row_leaf)`` each (one tree, or K class trees and their
+        [K, rows] leaves), scoring every round on the card: the training
+        margins always, the validation margins with ``valid``. With
+        ``stopping_rounds`` the series is fetched in chunks of rounds (one
+        host sync a chunk) and the rule (reference ``_grow_with_stopping``:
+        a sign-safe relative tolerance, stop once ``since >=
+        stopping_rounds``) runs over it; rounds grown past the stop are
+        dropped and the margins refolded over the kept ones. Returns the
+        kept rounds and the final margins, and leaves the series for the
+        scoring history and the count of rounds grown (kept or not) in
+        ``_rounds_grown``."""
+        p = self.params
+        sr = int(p.get("stopping_rounds") or 0)
+        sdist = "multinomial" if nclass > 1 else dist
+        metric = self._stopping_metric(sdist)
+        tol = float(p.get("stopping_tolerance") or 1e-3)
+        nbins = int(p["nbins"])
+        M = ntrees - done
+        # rounds a chunk: a few times stopping_rounds bounds the overshoot;
+        # balanced, so that no chunk is much shorter than the others
+        per = min(25, max(4 * sr, 16)) if sr > 0 else max(M, 1)
+        per = -(-M // max(1, -(-M // per))) if M else 1
+        depth = int(p["max_depth"])
+        best, since = np.inf, 0
+        kept: list = []
+        tser: list[float] = []
+        vser: list[float] = []
+        pending_t: list = []
+        pending_v: list = []
+        Fval = None if valid is None else valid[3]
+
+        def step_valid(Fv, trees):
+            leaves = [tr.leaf[_walk_binned(valid[0], tr, nbins, depth)]
+                      for tr in trees]
+            return Fv + lr * (leaves[0] if nclass <= 1
+                              else torch.stack(leaves, dim=1))
+
+        self._rounds_grown = 0
+        for s0 in range(done, ntrees, per):
+            F_start = Fcur
+            chunk = []
+            for m in range(s0, min(s0 + per, ntrees)):
+                trees, row_leaf = grow_round(m, Fcur)
+                chunk.append(trees)
+                self._rounds_grown += 1
+                Fcur = Fcur + lr * (row_leaf if nclass <= 1 else row_leaf.T)
+                pending_t.append(_metric_device(metric, sdist, Fcur, yc, w,
+                                                nclass))
+                if valid is not None:
+                    Fval = step_valid(Fval, trees)
+                    pending_v.append(_metric_device(metric, sdist, Fval,
+                                                    valid[1], valid[2],
+                                                    nclass))
+                job.update(0.1 + 0.8 * (m + 1 - done) / max(M, 1),
+                           f"{m + 1}/{ntrees} trees")
+            stop_at = None
+            if sr > 0:
+                fetched = torch.stack(pending_t + pending_v).double().cpu()
+                ts = fetched[:len(pending_t)].tolist()
+                vs = fetched[len(pending_t):].tolist() if pending_v else None
+                pending_t, pending_v = [], []
+                for j, dev in enumerate(vs if vs is not None else ts):
+                    # sign-safe relative improvement: deviances can be < 0
+                    if dev < best - tol * abs(best) or not np.isfinite(best):
+                        best, since = dev, 0
+                    else:
+                        since += 1
+                        if since >= sr:
+                            stop_at = j
+                            break
+                keep = len(chunk) if stop_at is None else stop_at + 1
+                tser += ts[:keep]
+                if vs is not None:
+                    vser += vs[:keep]
+                if keep < len(chunk):
+                    chunk = chunk[:keep]
+                    Fcur = self._refold(binned, chunk, nbins, lr, F_start,
+                                        nclass)
+            kept += chunk
+            if stop_at is not None:
+                break
+        if pending_t:
+            # without stopping: the whole series in one fetch, at the end
+            fetched = torch.stack(pending_t + pending_v).double().cpu()
+            tser = fetched[:len(pending_t)].tolist()
+            vser = fetched[len(pending_t):].tolist()
+        self._score_series = (metric, tser, vser or None)
+        return kept, Fcur
+
+    @staticmethod
+    def _refold(binned, rounds: list, nbins: int, lr: float, F_start,
+                nclass: int):
+        """Margins after ``rounds`` from ``F_start``, folded tree by tree in
+        the boosting loop's order (the same bits as growing them)."""
+        if nclass <= 1:
+            return fold_binned(binned, [r[0] for r in rounds], nbins, lr,
+                               F_start)
+        return torch.stack([fold_binned(binned, [r[k] for r in rounds], nbins,
+                                        lr, F_start[:, k].contiguous())
+                            for k in range(nclass)], dim=1)
+
     def _fit(self, job: Job, frame: Frame, x, y, weights) -> GBMModel:
         p = self.params
         edges, binned, yy, valid, yvec = self._prepare(frame, x, y, weights)
+        cp = self._resolve_checkpoint()
+        edges, binned = self._resume_binning(cp, frame, x, edges, binned)
         dist = self._distribution(yvec)
         dev = frame.device
         w = weights * valid
@@ -355,38 +816,59 @@ class GBM(SharedTreeBuilder):
             if p.get("offset_column"):
                 raise ValueError("offset_column is not supported for "
                                  "multinomial distributions")
-            return self._fit_multinomial(job, x, y, w, yc, yvec, edges,
-                                         binned, domains)
-        f0 = self._f0(dist, yy, yc, w, p)
+            return self._fit_multinomial(job, frame, x, y, w, yc, yvec, edges,
+                                         binned, domains, cp)
+        self._check_checkpoint(cp, x, dist)
+        f0 = (float(cp.output["f0"]) if cp is not None
+              else self._f0(dist, yy, yc, w, p))
         lr = float(p["learn_rate"])
         params = self._tree_params()
         binned_T = binned.T.contiguous()   # the histogram kernel reads [F, rows]
         fmask_base = torch.ones(binned.shape[1], dtype=torch.bool, device=dev)
-        gen = self._generator(dev)
         sample_rate = float(p["sample_rate"])
         col_tree_rate = float(p["col_sample_rate_per_tree"])
         col_rate = self._effective_col_rate()
         hp = (float(p["quantile_alpha"]), float(p["huber_alpha"]),
               float(p["tweedie_power"]))
+        mono, reach = self._constraint_arrays(x, frame)
+        cat_feats = self._cat_feats
         Fcur = torch.full((binned.shape[0],), f0, dtype=torch.float32,
                           device=dev)
         oc = p.get("offset_column")
         if oc:
             # the offset adds to the margins in training and in scoring
             Fcur = Fcur + _offset(frame, oc)
-        ntrees = int(p["ntrees"])
         trees: list[Tree] = []
-        job.update(0.1, f"growing {ntrees} trees")
-        for m in range(ntrees):
+        if cp is not None:
+            trees = list(cp.output["trees"])
+            # folded as the loop adds, so the remaining trees repeat
+            Fcur = fold_binned(binned, trees, int(p["nbins"]), lr, Fcur)
+        ntrees = int(p["ntrees"])
+        done = len(trees)
+        valid = None
+        if getattr(self, "_validation_frame", None) is not None or \
+                int(p.get("stopping_rounds") or 0) > 0:
+            valid = self._valid_stop_data(
+                edges, 0, f0, lr, domains,
+                yvec.domain if yvec.is_categorical else None,
+                prior_trees=trees or None)
+
+        def grow_round(m, F):
+            gen = self._tree_generator(dev, m)
             wt = self._row_weights(gen, w, sample_rate, bootstrap=False)
-            g, h = _grad_hess(dist, Fcur, yc, wt, *hp)
+            g, h = _grad_hess(dist, F, yc, wt, *hp)
             fmask = self._sample_fmask(gen, fmask_base, col_tree_rate)
             tree, row_leaf = grow_tree(binned, binned_T, edges, g, h, wt,
-                                       params, fmask, col_rate, gen)
-            trees.append(tree)
-            Fcur = Fcur + lr * row_leaf
-            job.update(0.1 + 0.8 * (m + 1) / max(ntrees, 1),
-                       f"{m + 1}/{ntrees} trees")
+                                       params, fmask, col_rate, gen,
+                                       mono=mono, reach=reach,
+                                       cat_feats=cat_feats)
+            return [tree], row_leaf
+
+        job.update(0.1, f"growing {ntrees - done} trees")
+        rounds, Fcur = self._grow_with_stopping(
+            job, grow_round, binned, yc, w, Fcur, done, ntrees, dist, 0, lr,
+            valid)
+        trees += [r[0] for r in rounds]
         # final margins double as training predictions (skips the re-score)
         if dist == "bernoulli":
             pe = torch.sigmoid(Fcur)
@@ -401,52 +883,80 @@ class GBM(SharedTreeBuilder):
             response_domain=yvec.domain if yvec.is_categorical else None,
             output=dict(trees=trees, edges=edges, f0=f0, learn_rate=lr,
                         distribution=dist, x_cols=list(x),
-                        feat_domains=domains, ntrees=len(trees)))
+                        feat_domains=domains, ntrees=len(trees),
+                        **self._cat_output()))
 
-    def _fit_multinomial(self, job: Job, x, y, w, yc, yvec, edges, binned,
-                         domains) -> GBMModel:
+    def _fit_multinomial(self, job: Job, frame, x, y, w, yc, yvec, edges,
+                         binned, domains, cp=None) -> GBMModel:
         """K trees per round on softmax gradients, grown together
         (reference: GBM.java multinomial, one DTree per class per
         iteration)."""
         p = self.params
+        self._check_checkpoint(cp, x, "multinomial")
+        if p.get("monotone_constraints"):
+            raise ValueError("monotone_constraints are not supported for "
+                             "multinomial distributions (reference: GBM.java)")
         dev = binned.device
         K = yvec.cardinality()
-        yoh = torch.nn.functional.one_hot(yc.long(), K).float() * w[:, None]
-        prior = yoh.sum(0).cpu().numpy().astype(np.float64)
-        del yoh
-        prior = np.maximum(prior / max(prior.sum(), 1e-30), 1e-10)
-        f0 = torch.as_tensor(np.log(prior).astype(np.float32)).to(dev)
+        if cp is not None:
+            f0 = cp.output["f0_multi"].to(dev)
+        else:
+            yoh = torch.nn.functional.one_hot(yc.long(), K).float() * w[:, None]
+            prior = yoh.sum(0).cpu().numpy().astype(np.float64)
+            del yoh
+            prior = np.maximum(prior / max(prior.sum(), 1e-30), 1e-10)
+            f0 = torch.as_tensor(np.log(prior).astype(np.float32)).to(dev)
         lr = float(p["learn_rate"])
         params = self._tree_params()
         binned_T = binned.T.contiguous()
         fmask_base = torch.ones(binned.shape[1], dtype=torch.bool, device=dev)
-        gen = self._generator(dev)
         sample_rate = float(p["sample_rate"])
         col_tree_rate = float(p["col_sample_rate_per_tree"])
         col_rate = self._effective_col_rate()
+        _, reach = self._constraint_arrays(x, frame)
+        cat_feats = self._cat_feats
         Fcur = f0[None, :].expand(binned.shape[0], K).contiguous()
-        ntrees = int(p["ntrees"])
         trees_multi: list[list[Tree]] = [[] for _ in range(K)]
-        job.update(0.1, f"growing {ntrees * K} trees")
-        for m in range(ntrees):
+        if cp is not None:
+            trees_multi = [list(ts) for ts in cp.output["trees_multi"]]
+            # each class's margins folded as the loop adds them
+            Fcur = torch.stack([fold_binned(binned, ts, int(p["nbins"]), lr,
+                                            Fcur[:, k].contiguous())
+                                for k, ts in enumerate(trees_multi)], dim=1)
+        ntrees = int(p["ntrees"])
+        done = len(trees_multi[0])
+        valid = None
+        if getattr(self, "_validation_frame", None) is not None or \
+                int(p.get("stopping_rounds") or 0) > 0:
+            valid = self._valid_stop_data(
+                edges, K, f0, lr, domains, yvec.domain,
+                prior_trees=trees_multi if done else None)
+
+        def grow_round(m, F):
+            gen = self._tree_generator(dev, m)
             wt = self._row_weights(gen, w, sample_rate, bootstrap=False)
-            G, H = _grad_hess_multinomial(Fcur, yc, wt)
+            G, H = _grad_hess_multinomial(F, yc, wt)
             fmask = self._sample_fmask(gen, fmask_base, col_tree_rate)
-            trees, row_leaf = grow_trees_batched(
+            return grow_trees_batched(
                 binned, binned_T, edges, G.T.contiguous(), H.T.contiguous(),
-                wt, params, fmask, col_rate, gen)
+                wt, params, fmask, col_rate, gen, reach=reach,
+                cat_feats=cat_feats)
+
+        job.update(0.1, f"growing {(ntrees - done) * K} trees")
+        rounds, Fcur = self._grow_with_stopping(
+            job, grow_round, binned, yc, w, Fcur, done, ntrees,
+            "multinomial", K, lr, valid)
+        for r in rounds:
             for k in range(K):
-                trees_multi[k].append(trees[k])
-            Fcur = Fcur + lr * row_leaf.T
-            job.update(0.1 + 0.8 * (m + 1) / max(ntrees, 1),
-                       f"{m + 1}/{ntrees} rounds of {K} trees")
+                trees_multi[k].append(r[k])
         self._last_train_raw = torch.softmax(Fcur, dim=1)
         return GBMModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y, response_domain=yvec.domain,
             output=dict(trees_multi=trees_multi, edges=edges, f0_multi=f0,
                         learn_rate=lr, distribution="multinomial",
-                        x_cols=list(x), feat_domains=domains, ntrees=ntrees))
+                        x_cols=list(x), feat_domains=domains,
+                        ntrees=len(trees_multi[0]), **self._cat_output()))
 
 
 class DRFModel(SharedTreeModel):
@@ -473,7 +983,9 @@ class DRF(SharedTreeBuilder):
     sampling per level, predictions averaged. Each tree fits the response
     directly (g = -y*wt, h = wt: the leaf is the in-node weighted mean);
     multinomial (and ``binomial_double_trees``) grows one class-indicator
-    tree per class per round, all K in one batched growth."""
+    tree per class per round, all K in one batched growth. Like the
+    reference's, it does not stop early or keep a scoring history; it
+    refuses the tree constraints, which the reference's DRF ignores."""
 
     algo = "drf"
 
@@ -482,9 +994,18 @@ class DRF(SharedTreeBuilder):
         return dict(super().defaults(), mtries=-1, max_depth=14, min_rows=1.0,
                     sample_rate=0.632, binomial_double_trees=False)
 
+    def _refuse_outside_slice(self) -> None:
+        super()._refuse_outside_slice()
+        for c in ("monotone_constraints", "interaction_constraints"):
+            if self.params.get(c):
+                raise ValueError(f"DRF does not take {c} (the reference's "
+                                 "DRF leaves them unapplied)")
+
     def _fit(self, job: Job, frame: Frame, x, y, weights) -> DRFModel:
         p = self.params
         edges, binned, yy, valid, yvec = self._prepare(frame, x, y, weights)
+        cp = self._resolve_checkpoint()
+        edges, binned = self._resume_binning(cp, frame, x, edges, binned)
         dev = frame.device
         classifier = yvec.is_categorical
         nclass = yvec.cardinality() if classifier else 0
@@ -498,45 +1019,63 @@ class DRF(SharedTreeBuilder):
         params = self._tree_params(reg_lambda=0.0, reg_alpha=0.0, gamma=0.0)
         binned_T = binned.T.contiguous()
         fmask = torch.ones(F, dtype=torch.bool, device=dev)
-        gen = self._generator(dev)
         sample_rate = float(p["sample_rate"])
+        cat_feats = self._cat_feats
         domains = {c: frame.vec(c).domain for c in x
                    if frame.vec(c).is_categorical}
-        output = dict(edges=edges, ntrees=ntrees, x_cols=list(x),
-                      feat_domains=domains, f0=0.0, learn_rate=1.0)
-        job.update(0.1, f"growing {ntrees} rounds")
+        output = dict(edges=edges, x_cols=list(x), feat_domains=domains,
+                      f0=0.0, learn_rate=1.0, **self._cat_output())
         if nclass > 2 or (nclass == 2 and p.get("binomial_double_trees")):
             # one class-indicator tree per class per round; leaf = in-node
             # class fraction (reference DRF.java multinomial ktrees)
+            trees_multi: list[list[Tree]] = [[] for _ in range(nclass)]
+            if cp is not None:
+                if cp.output.get("trees_multi") is None:
+                    raise ValueError(
+                        "checkpoint was trained without binomial_double_"
+                        "trees; the tree layouts are incompatible")
+                trees_multi = [list(ts) for ts in cp.output["trees_multi"]]
+            done = len(trees_multi[0])
+            job.update(0.1, f"growing {(ntrees - done) * nclass} trees")
             yoh = torch.nn.functional.one_hot(yc.long(), nclass).T
             yoh = yoh.float().contiguous()                 # [K, rows]
-            trees_multi: list[list[Tree]] = [[] for _ in range(nclass)]
-            for m in range(ntrees):
+            for m in range(done, ntrees):
+                gen = self._tree_generator(dev, m)
                 wt = self._row_weights(gen, w, sample_rate, bootstrap=True)
                 G = -(yoh * wt)
                 H = wt.expand(nclass, -1).contiguous()
                 trees, _ = grow_trees_batched(binned, binned_T, edges, G, H,
                                               wt, params, fmask, mtries / F,
-                                              gen)
+                                              gen, cat_feats=cat_feats)
                 for k in range(nclass):
                     trees_multi[k].append(trees[k])
-                job.update(0.1 + 0.8 * (m + 1) / ntrees)
+                job.update(0.1 + 0.8 * (m + 1 - done) / (ntrees - done))
             return DRFModel(
                 key=make_model_key(self.algo, self.model_id),
                 params=self.params, response_column=y,
                 response_domain=yvec.domain,
-                output=dict(output, trees_multi=trees_multi, binomial=False,
-                            distribution="multinomial"))
+                output=dict(output, trees_multi=trees_multi, ntrees=ntrees,
+                            binomial=False, distribution="multinomial"))
         trees: list[Tree] = []
-        for m in range(ntrees):
+        if cp is not None:
+            if cp.output.get("trees") is None:
+                raise ValueError(
+                    "checkpoint was trained with binomial_double_trees; "
+                    "the tree layouts are incompatible")
+            trees = list(cp.output["trees"])
+        done = len(trees)
+        job.update(0.1, f"growing {ntrees - done} trees")
+        for m in range(done, ntrees):
+            gen = self._tree_generator(dev, m)
             wt = self._row_weights(gen, w, sample_rate, bootstrap=True)
             tree, _ = grow_tree(binned, binned_T, edges, -yc * wt, wt, wt,
-                                params, fmask, mtries / F, gen)
+                                params, fmask, mtries / F, gen,
+                                cat_feats=cat_feats)
             trees.append(tree)
-            job.update(0.1 + 0.8 * (m + 1) / ntrees)
+            job.update(0.1 + 0.8 * (m + 1 - done) / (ntrees - done))
         return DRFModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y,
             response_domain=yvec.domain if classifier else None,
-            output=dict(output, trees=trees, binomial=classifier,
-                        distribution="gaussian"))
+            output=dict(output, trees=trees, ntrees=len(trees),
+                        binomial=classifier, distribution="gaussian"))

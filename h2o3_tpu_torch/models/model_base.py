@@ -3,9 +3,12 @@
 Every algorithm trains against a per-row weight vector (0 = excluded) and
 scores through ``Model._score_raw``, which maps a frame to predictions on
 its device. Training metrics come from the predictions the fit already made
-(``ModelBuilder._last_train_raw``), not from re-scoring the frame. The
-reference's cross-validation, checkpoints, DKV, locks, telemetry and mesh
-slices are left out of this slice.
+(``ModelBuilder._last_train_raw``), not from re-scoring the frame; a
+``validation_frame`` is scored into ``validation_metrics`` and handed to
+builders that score it while they train (early stopping). ``checkpoint=``
+takes a trained Model of the port to resume from. The reference's
+cross-validation, DKV (checkpoints by key), locks, auto-recovery,
+telemetry and mesh slices are left out of this slice.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec
-from h2o3_tpu_torch.models.data_info import response_as_float
+from h2o3_tpu_torch.models.data_info import (response_adapted,
+                                             response_as_float)
 from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.metrics import (binomial_metrics,
                                            multinomial_metrics,
@@ -40,6 +44,9 @@ class Model:
         self.response_domain = response_domain  # None for regression
         self.output = output
         self.training_metrics = None
+        self.validation_metrics = None
+        # (columns, rows) of the per-tree scoring history, or None
+        self.scoring_history = None
         self.run_time_ms: int = 0
 
     @property
@@ -68,16 +75,22 @@ class Model:
         return Frame(names, vecs)
 
     def model_performance(self, frame: Frame):
-        """Metrics of this model on a frame that holds the response."""
+        """Metrics of this model on a frame that holds the response (a
+        categorical response remapped to the training domain; unseen levels
+        are left out)."""
         if self.response_column not in frame:
             raise ValueError(f"frame lacks response column {self.response_column!r}")
-        y, valid = response_as_float(frame.vec(self.response_column))
+        y, valid = response_adapted(
+            frame.vec(self.response_column),
+            self.response_domain if self.is_classifier else None)
         return compute_metrics(self._score_raw(frame), y, valid, self.nclasses)
 
     def __repr__(self) -> str:
         lines = [f"{type(self).__name__}(key={self.key!r})"]
         if self.training_metrics:
             lines.append(f"  train: {self.training_metrics!r}")
+        if self.validation_metrics:
+            lines.append(f"  valid: {self.validation_metrics!r}")
         return "\n".join(lines)
 
 
@@ -116,7 +129,31 @@ class ModelBuilder:
 
     @classmethod
     def defaults(cls) -> dict:
-        return dict(seed=-1, weights_column=None, ignored_columns=None)
+        return dict(seed=-1, weights_column=None, ignored_columns=None,
+                    checkpoint=None)   # a trained Model to resume from
+
+    def _resolve_checkpoint(self) -> Model | None:
+        """The ``checkpoint`` parameter as a Model of the port (reference:
+        ``Model.Parameters._checkpoint``); a model key needs the DKV, which
+        the port does not have yet."""
+        cp = self.params.get("checkpoint")
+        if cp is None:
+            return None
+        held = getattr(self, "_checkpoint_model", None)
+        if held is not None and cp == held.key:
+            cp = held
+        if not isinstance(cp, Model):
+            raise NotImplementedError(
+                f"checkpoint={cp!r}: resuming from a model key needs the "
+                "DKV, which the port does not have yet; pass the Model")
+        if cp.algo != self.algo:
+            raise ValueError(f"checkpoint is a {cp.algo!r} model; "
+                             f"this builder is {self.algo!r}")
+        # the parameters (and the models' snapshots of them) keep the key,
+        # not the prior model's trees
+        self._checkpoint_model = cp
+        self.params["checkpoint"] = cp.key
+        return cp
 
     def _fit(self, job: Job, frame: Frame, x: list[str], y: str,
              weights: torch.Tensor) -> Model:
@@ -124,9 +161,12 @@ class ModelBuilder:
         raise NotImplementedError
 
     def train(self, x: Sequence[str] | None = None, y: str | None = None,
-              training_frame: Frame | None = None) -> Model:
+              training_frame: Frame | None = None,
+              validation_frame: Frame | None = None) -> Model:
         """Train on ``training_frame``, on the frame's device (reference:
-        h2o-py ``estimator.train``)."""
+        h2o-py ``estimator.train``); with a ``validation_frame``, score it
+        into ``model.validation_metrics`` (builders that stop early score
+        it per tree too)."""
         frame = training_frame
         if frame is None:
             raise ValueError("training_frame is required")
@@ -140,9 +180,18 @@ class ModelBuilder:
              if c != y and c not in ignored and frame.vec(c).type.on_device]
         if not x:
             raise ValueError("no usable feature columns")
+        if validation_frame is not None and \
+                validation_frame.device != frame.device:
+            raise ValueError(f"validation_frame is on "
+                             f"{validation_frame.device}, training_frame on "
+                             f"{frame.device}")
         base_w = frame.row_mask().float()
         if self.params.get("weights_column"):
             base_w = base_w * frame.vec(self.params["weights_column"]).data
+        # for builders that score held-out data while they train
+        self._validation_frame = validation_frame
+        self._x_cols, self._y_col = x, y
+        self._score_series = None
         self.job = Job(f"{self.algo} on {frame.key or 'frame'}")
         t0 = time.time()
 
@@ -151,12 +200,37 @@ class ModelBuilder:
             model.run_time_ms = int((time.time() - t0) * 1000)
             model.training_metrics = self._holdout_metrics(model, frame, y,
                                                            base_w)
+            if validation_frame is not None:
+                model.validation_metrics = model.model_performance(
+                    validation_frame)
+            model.scoring_history = self._scoring_history(model)
             return model
 
         self.model = self.job.run(fit).result
         if self.job.status == Job.FAILED:
             raise self.job.exception
         return self.model
+
+    def _scoring_history(self, model: Model):
+        """The per-tree scoring table of iterative builders (reference
+        ``SharedTree.java:798`` ``doScoringAndSaveModel``), or None."""
+        return None
+
+    def _history_table(self, model: Model, value_cols, values):
+        """Scoring-history rows with their timestamp and duration columns:
+        ``value_cols`` [(name, type, format), ...], ``values`` one list per
+        scoring event; the duration is interpolated over the training's
+        wall time. Returns (columns, rows), or None without events."""
+        if not values:
+            return None
+        stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+        total_s = model.run_time_ms / 1000.0
+        n = len(values)
+        cols = [("timestamp", "string", "%s"),
+                ("duration", "string", "%s")] + list(value_cols)
+        rows = [[stamp, f"{total_s * (i + 1) / n:.3f} sec", *vals]
+                for i, vals in enumerate(values)]
+        return cols, rows
 
     def _holdout_metrics(self, model: Model, frame: Frame, y: str,
                          w: torch.Tensor):

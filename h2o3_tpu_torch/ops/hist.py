@@ -45,7 +45,7 @@ _GRID_Y_MAX = 65535
 # accumulator. Its modes: the kernel, then its updates-out and
 # staging-only measurement instances
 _FIXED = 0
-_COUNT, _UPDATES_OUT, _STAGING_ONLY = 0, 1, 2
+_COUNT, _UPDATES_OUT, _STAGING_ONLY, _TOTALS = 0, 1, 2, 3
 #: threads per block (one block per SM), rows of one tile, and the most
 #: features of a group (kFixedThreads, kFixedRows, kFixedMaxFeatures)
 _FIXED_THREADS = 512
@@ -70,6 +70,18 @@ _FIXED_MIN_QBITS = 15
 #: an entry), fail one of three shapes at 39.4 (670 rows) and pass all from
 #: 40.4 on; 41 keeps a factor of 1.7 in that ratio over 39.4.
 _FIXED_PRECISION = 41
+#: the two-tier scale (kExpBuckets, kOutlierCap, kOutlierBits in hist.cu):
+#: values are counted by float exponent in 256 buckets per stat; the bulk
+#: bucket is the highest whose values, with every higher bucket's, outnumber
+#: 64, and lies at most 56 - qbits below the top bucket; values above it are
+#: outliers, added apart at the bulk's scale
+_EXP_BUCKETS = 256
+_OUTLIER_CAP = 64
+_OUTLIER_BITS = 56
+#: bits of a value in the node-totals instance: its slab is a few hundred
+#: words, so it flushes every 15 tiles at little cost and keeps 4 bits more
+#: than the plan's least
+_TOTALS_QBITS = 19
 
 # global_hist_kernel: kind 1 of the occupancy query, entry h2o3_global_hist;
 # one 16-byte reduction per (row, feature) into a [K, F, N*Bt, 4] scratch
@@ -130,24 +142,45 @@ def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
     return out.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
 
 
+def _scale_buckets(vals: torch.Tensor, qbits: int) -> tuple:
+    """The two-tier scale of one stat from its active values (float32, all
+    classes): (top, bulk, non-finite), the top non-empty finite exponent
+    bucket, the bulk bucket and whether a value is NaN or infinite;
+    bucket b holds 2^(b-127) <= |x| < 2^(b-126), top -1 where there is no
+    finite value (fixed_hist_kernel's selection)."""
+    bits = vals.contiguous().view(torch.int32) & 0x7fffffff
+    c = torch.bincount((bits >> 23).long(), minlength=_EXP_BUCKETS).tolist()
+    nonfinite = c[_EXP_BUCKETS - 1] > 0
+    top = max((b for b in range(_EXP_BUCKETS - 1) if c[b]), default=-1)
+    above, bulk = 0, top
+    for b in range(top, -1, -1):
+        if above + c[b] > _OUTLIER_CAP:
+            bulk = max(b, top - (_OUTLIER_BITS - qbits))
+            break
+        above += c[b]
+    return top, bulk, nonfinite
+
+
 def fixed_exponents(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                     w: torch.Tensor, n_nodes: int, qbits: int) -> tuple:
-    """fixed_hist_kernel's scale rule: for each of g, h and w, the largest
-    |value| over the rows at a node in [0, n_nodes) of every class, max =
-    m * 2**E with m in [0.5, 1), and the exponent ``qbits - E`` that scales
-    a value to its integer (|q| <= 2**qbits); returns the three exponents
-    and whether each maximum is non-finite (then that stat is NaN
+    """fixed_hist_kernel's scale rule: for each of g, h and w, over the
+    values at a node in [0, n_nodes) of every class, the bulk bucket B of
+    :func:`_scale_buckets` (the top bucket where at most 64 values lie above
+    the one below it) and E = max(B, 1) - 126 (for the top bucket, the
+    exponent of max|x|: max = m * 2**E with m in [0.5, 1)), 0 with no
+    value; returns the exponents ``qbits - E`` that scale a value to its
+    integer (|q| <= 2**qbits below 2**E, larger for the outliers above it)
+    and whether each stat holds a non-finite value (then it is NaN
     throughout)."""
     node2 = node.reshape(-1, node.shape[-1])
     active = (node2 >= 0) & (node2 < n_nodes)
     exps, bad = [], []
     for v in (g, h, w):
-        vals = v.reshape(-1, v.shape[-1]).expand(node2.shape)
-        top = float(torch.where(active, vals.abs(),
-                                torch.zeros((), dtype=vals.dtype)).amax()) \
-            if active.any() else 0.0
-        bad.append(not math.isfinite(top))
-        exps.append(0 if bad[-1] else qbits - math.frexp(top)[1])
+        vals = v.reshape(-1, v.shape[-1]).expand(node2.shape)[active]
+        top, bulk, nonfinite = _scale_buckets(vals.float(), qbits)
+        bad.append(nonfinite)
+        e = 0 if top < 0 else max(bulk, 1) - 126
+        exps.append(0 if nonfinite else qbits - e)
     return exps, bad
 
 
@@ -157,11 +190,13 @@ def level_histograms_fixed_plain(binned_T: torch.Tensor, node: torch.Tensor,
                                  n_bins_tot: int, qbits: int) -> torch.Tensor:
     """What fixed_hist_kernel computes, in plain PyTorch: each active value
     rounded (half to even) to an integer at the scale of
-    :func:`fixed_exponents`, summed exactly in int64 by ``index_add_``, and
-    scaled back in float64 before one rounding to float32; a stat whose
-    maximum is not finite is NaN throughout. The kernel's output equals it
-    bit for bit at the plan's ``qbits``; it lies within n x max|x_s| x
-    2**-qbits (n the entry's rows) plus float32 rounding of the exact
+    :func:`fixed_exponents` (the bulk in int32 slabs, the outliers above it
+    in int64 straight into the accumulator, both at that one scale),
+    summed exactly in int64 by ``index_add_``, and scaled back in float64
+    before one rounding to float32; a stat holding a non-finite value is
+    NaN throughout. The kernel's output equals it bit for bit at the plan's
+    ``qbits``; it lies within n x 2**(E_s - qbits - 1) (n the entry's rows,
+    2**E_s the stat's bulk bound) plus float32 rounding of the exact
     sums."""
     if node.dim() == 1:
         return level_histograms_fixed_plain(binned_T, node[None], g[None],
@@ -174,18 +209,31 @@ def level_histograms_fixed_plain(binned_T: torch.Tensor, node: torch.Tensor,
     active = (node >= 0) & (node < n_nodes)
     cls = torch.arange(K, device=node.device)[:, None] * n_nodes
     base = torch.where(active, (cls + node.long()) * n_bins_tot, 0)
-    q = torch.stack([torch.where(active & ~torch.tensor(z),
-                                 torch.round(v.expand(K, R).double()
-                                             * 2.0 ** e), 0.0).long()
-                     for v, e, z in zip((g, h, w), exps, bad)],
-                    -1).reshape(-1, 3)
+    q = [torch.where(active & ~torch.tensor(z),
+                     torch.round(v.expand(K, R).double() * 2.0 ** e),
+                     0.0).long().reshape(-1)
+         for v, e, z in zip((g, h, w), exps, bad)]
+    # values of at most 2^22 (the bulk) are summed by float64 bincounts,
+    # exactly: an entry's sum stays below K R 2^22 < 2^53; the few larger
+    # ones (outliers) by int64 index_add_
+    lim = 2 ** _FIXED_MAX_QBITS
+    small = [torch.where(v.abs() <= lim, v, 0).double() for v in q]
+    large = [(v.abs() > lim).nonzero()[:, 0] for v in q]
     acc = torch.zeros((F, K * NB, 3), dtype=torch.int64,
                       device=binned_T.device)
     for f in range(F):
         b = binned_T[f].long()
-        keep = (active & (b >= 0)).reshape(-1)
-        ids = (base + b.clamp_max(n_bins_tot - 1)).reshape(-1)
-        acc[f].index_add_(0, ids[keep], q[keep])
+        ids = (base + b.clamp(0, n_bins_tot - 1)).reshape(-1)
+        # the kernel skips negative bins
+        skip = (b < 0).expand(K, R).reshape(-1)
+        has_skip = bool(skip.any())
+        for st in range(3):
+            wts = torch.where(skip, 0.0, small[st]) if has_skip else small[st]
+            acc[f, :, st] = torch.bincount(ids, weights=wts,
+                                           minlength=K * NB).long()
+            rows = large[st][~skip[large[st]]]
+            if rows.numel():
+                acc[f, :, st].index_add_(0, ids[rows], q[st][rows])
     scale = torch.tensor([2.0 ** -e for e in exps], dtype=torch.float64,
                          device=binned_T.device)
     out = (acc.double() * scale).float()
@@ -311,14 +359,15 @@ def _kernel_plan(F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int = 1,
 @functools.lru_cache(maxsize=256)
 def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
           sms: int, blocks_per_sm: int, kernel: str | None = None,
-          K: int = 1) -> dict:
+          K: int = 1, min_qbits: int = 0) -> dict:
     """Launch shape: :func:`_kernel_plan`'s fields, plus the row tiles and
     the persistent grid: about ``sms`` x ``blocks_per_sm`` blocks (the
     card's SMs and the kernel's occupancy at this shape), split over the K
     classes (the grid's y dimension), feature groups and node blocks, each
     block walking every ``row_splits``-th tile. Each class has a slab of
     its own, so the kernel and its block shape do not depend on K, except
-    for the global kernel's passes."""
+    for the global kernel's passes. The fixed kernel keeps at least
+    ``min_qbits`` bits a value where given."""
     p = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel, K)
     # the global kernel's feature groups are passes that every block walks
     combos = p["node_blocks"] * (1 if p["kernel"] == "global"
@@ -338,7 +387,7 @@ def _plan(R: int, F: int, n_nodes: int, n_bins_tot: int, bin_bytes: int,
         # a block flushes its slab every flush_tiles of its tiles, and its
         # values have qbits bits, so that no int32 entry can overflow; it
         # flushes as rarely as the level's precision rule allows
-        need = fixed_needed_qbits(R, n_nodes, n_bins_tot)
+        need = max(min_qbits, fixed_needed_qbits(R, n_nodes, n_bins_tot))
         flush_tiles = max(1, min(-(-tiles // splits),
                                  (_INT32_MAX >> need) // _FIXED_ROWS))
         flush_rows = flush_tiles * _FIXED_ROWS
@@ -417,29 +466,33 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
 def _fixed_scratch_words(p: dict, F: int, n_nodes: int,
                          n_bins_tot: int) -> int:
     """int64 words of the fixed kernel's scratch: the accumulator [K, F,
-    N*Bt, 3], the done counters [K, groups x node blocks] and the partial
-    maxima [K, scale_blocks, 3], both uint32 (launch_fixed in hist.cu)."""
+    N*Bt, 3], the done counters [K, groups x node blocks] (uint32) and the
+    exponent counts [3, 256] (uint64) (launch_fixed in hist.cu)."""
     K = p["classes"]
     return (K * F * n_nodes * n_bins_tot * 3
             + -(-K * p["groups"] * p["node_blocks"] // 2)
-            + -(-3 * K * p["scale_blocks"] // 2))
+            + 3 * _EXP_BUCKETS)
 
 
 def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
                   n_bins_tot: int, shape: tuple, mode: int) -> tuple:
     """fixed_hist_kernel in ``mode`` (after its scale kernel) into a new
     output, every entry of which it writes; returns the output and the
-    launch's error."""
+    launch's error. ``binned_T`` is None for the node-totals instance,
+    which reads no bins (F = 1)."""
     if p["flush_rows"] << p["qbits"] > _INT32_MAX:
         raise RuntimeError(f"fixed plan may overflow: {p['flush_rows']} rows "
                            f"of up to 2^{p['qbits']} per int32 entry")
-    F, R = binned_T.shape
-    out = torch.empty(shape, dtype=torch.float32, device=binned_T.device)
+    R = node.shape[-1]
+    F, bins, bin_bytes = ((1, 0, 1) if binned_T is None else
+                          (binned_T.shape[0], binned_T.data_ptr(),
+                           binned_T.element_size()))
+    out = torch.empty(shape, dtype=torch.float32, device=node.device)
     scratch = torch.empty(_fixed_scratch_words(p, F, n_nodes, n_bins_tot),
-                          dtype=torch.int64, device=binned_T.device)
+                          dtype=torch.int64, device=node.device)
     stream = torch.cuda.current_stream().cuda_stream
     return out, lib.h2o3_fixed_hist(
-        mode, binned_T.data_ptr(), binned_T.element_size(), node.data_ptr(),
+        mode, ctypes.c_void_p(bins), bin_bytes, node.data_ptr(),
         g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), R, F, n_nodes, n_bins_tot,
         p["features_per_group"], p["nodes_per_block"], p["row_splits"],
@@ -516,6 +569,88 @@ level_histograms.kernel_launches = {"fixed": 0, "global": 0}
 def launch_count() -> int:
     """Kernel launches of :func:`level_histograms`, all kernels together."""
     return sum(level_histograms.kernel_launches.values())
+
+
+def node_totals_plain(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                      w: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-node (G, H, W) sums [K, n_nodes, 3] of K trees (node/g/h [K, R],
+    w [K, R] or shared [R]): one ``index_add_`` onto k*n_nodes + node (the
+    reference's ``_node_totals``, a ``segment_sum`` per stat), accumulated
+    in float64 and rounded once to the stats' dtype, so that its sums lie as
+    near the exact ones as the kernel's integer sums do (a float32
+    accumulation over a node of 100k rows drifts by 1e-3 of a leaf value);
+    rows at node -1 add nothing."""
+    K, R = node.shape
+    active = node >= 0
+    cls = torch.arange(K, device=node.device)[:, None] * n_nodes
+    ids = torch.where(active, cls + node, 0).long().reshape(-1)
+    stats = torch.stack([torch.where(active, v, 0.0).double()
+                         for v in (g, h, w.expand(K, R))], -1).reshape(-1, 3)
+    out = torch.zeros((K * n_nodes, 3), dtype=torch.float64,
+                      device=node.device)
+    return out.index_add_(0, ids, stats).reshape(K, n_nodes, 3).to(g.dtype)
+
+
+def node_totals_fixed_plain(node: torch.Tensor, g: torch.Tensor,
+                            h: torch.Tensor, w: torch.Tensor, n_nodes: int,
+                            qbits: int = _TOTALS_QBITS) -> torch.Tensor:
+    """What the node-totals instance of fixed_hist_kernel computes, bit for
+    bit: :func:`level_histograms_fixed_plain` at one feature whose every
+    bin is 0 (Bt = 1), [K, n_nodes, 3]."""
+    zeros = torch.zeros((1, node.shape[-1]), dtype=torch.int8,
+                        device=node.device)
+    return level_histograms_fixed_plain(zeros, node, g, h, w, n_nodes, 1,
+                                        qbits)[:, 0]
+
+
+def _totals_plan(node: torch.Tensor, n_nodes: int) -> dict:
+    """The node-totals instance's plan on the card: the fixed kernel's at
+    F = 1 and Bt = 1, keeping ``_TOTALS_QBITS`` bits a value."""
+    K, R = node.shape
+    dev = node.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    k = _kernel_plan(1, n_nodes, 1, 1, "fixed", K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _plan(R, 1, n_nodes, 1, 1, sms,
+                 _blocks_per_sm(dev, _FIXED, 1, _FIXED_THREADS,
+                                k["smem_bytes"]), "fixed", K, _TOTALS_QBITS)
+
+
+def node_totals(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                w: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Per-node (G, H, W) sums [K, n_nodes, 3] of K trees: ``node``, ``g``,
+    ``h`` float32 [K, R] (int32 node, -1 = inactive), ``w`` [K, R] or
+    shared [R], contiguous on one device. On a CUDA device one launch of the
+    node-totals instance of ``csrc/hist.cu``'s fixed kernel (integer sums at
+    a power-of-two scale: the same bits every run), counted in
+    ``node_totals.launches``, or an error; on the CPU
+    :func:`node_totals_plain`."""
+    if node.dim() != 2:
+        raise ValueError(f"node must be [K, R], got {tuple(node.shape)}")
+    zeros = torch.empty((1, node.shape[1]), dtype=torch.int8,
+                        device=node.device)
+    _check(zeros, node, g, h, w, n_nodes, 1)
+    if node.device.type == "cpu":
+        return node_totals_plain(node, g, h, w, n_nodes)
+    if node.device.type != "cuda":
+        raise ValueError(f"no node-totals kernel for device {node.device}")
+    K, R = node.shape
+    if R == 0:
+        return torch.zeros((K, n_nodes, 3), dtype=torch.float32,
+                           device=node.device)
+    from h2o3_tpu_torch.ops import _build
+    lib = _build.library()
+    p = _totals_plan(node, n_nodes)
+    with torch.cuda.device(node.device):
+        out, err = _launch_fixed(lib, p, None, node, g, h, w, n_nodes, 1,
+                                 (K, 1, n_nodes, 3), _TOTALS)
+    _build.check(err, "node totals launch")
+    node_totals.launches += 1
+    return out[:, 0]
+
+
+node_totals.launches = 0
 
 
 def level_histograms_loads_only(binned_T: torch.Tensor, node: torch.Tensor,

@@ -199,10 +199,15 @@ def test_scale_rule_of_a_class_batch_is_one_scale_for_all_classes(
     assert got.shape == (3, 5, 2 * 257, 3)
     assert bool(((got.double() - exact).abs()
                  <= _bound(args, 2, 257, 15, exact)).all())
-    # the batch's exponent comes from the largest active value of all
-    # classes
+    # the batch's exponent comes from the active values of all classes
+    # together: the bulk bound 2^E lies at most at twice the largest, and
+    # at most 64 of them lie at or above it
     exps, _ = hist.fixed_exponents(node, g, h, w, 2, 15)
-    assert exps[0] == 15 - math.frexp(float(g[node >= 0].abs().max()))[1]
+    act = g[node >= 0].abs()
+    E = 15 - exps[0]
+    assert E <= math.frexp(float(act.max()))[1]
+    assert int((act >= 2.0 ** E).sum()) <= 64 < int((act >= 2.0 ** (E - 1))
+                                                    .sum())
 
 
 def test_every_row_in_one_bin_at_the_largest_value_is_exact_in_int32():
@@ -284,3 +289,139 @@ def test_scale_rule_matches_the_reference_segment_sum(R, F, Bt, N):
                                             22).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
+
+
+# -- skewed stats: a few outliers must not coarsen every row's step -------
+
+
+def _skewed(R, case, F=28):
+    """28 normal features from default_rng(11) in 64 quantile bins (int8,
+    65 with the NA bin) and the stats of a case: (a) g normal with 5 rows
+    at 1e4, h = w = 1; (b) g, h of a bernoulli logit of the first four
+    features, weights uniform in [0.05, 1] with 5 rows at 1e3; (c) (a)
+    without the outliers. Returns the bins, g, h, w and the generator."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((F, R), dtype=np.float32)   # feature-major
+    edges = torch.from_numpy(np.quantile(X[:, :20_000], np.linspace(
+        0, 1, 65)[1:-1], axis=1).T.astype(np.float32).copy())
+    binned_T = torch.stack([torch.bucketize(torch.from_numpy(X[f]),
+                                            edges[f], right=True)
+                            for f in range(F)]).to(torch.int8)
+    out = rng.choice(R, 5, replace=False)
+    if case in "ac":
+        g = rng.normal(size=R).astype(np.float32)
+        if case == "a":
+            g[out] = 1e4
+        h = w = np.ones(R, np.float32)
+    else:
+        logit = np.array([1.2, -0.8, 0.5, 0.3], np.float32) @ X[:4]
+        p = 1 / (1 + np.exp(-logit))
+        y = (rng.random(R) < p).astype(np.float32)
+        w = rng.uniform(0.05, 1, R).astype(np.float32)
+        w[out] = 1e3
+        g = (w * (p - y)).astype(np.float32)
+        h = (w * p * (1 - p)).astype(np.float32)
+    t = torch.from_numpy
+    return binned_T, t(g), t(h), t(w), rng
+
+
+def _layout(R, N, rng):
+    """Node ids of a level of N histogrammed nodes: every row at node 0
+    for N = 1; else rows spread over 2N children, those of the even child
+    active at node child // 2 (the odd one comes by subtraction)."""
+    if N == 1:
+        return torch.zeros(R, dtype=torch.int32)
+    child = torch.from_numpy(rng.integers(0, 2 * N, R))
+    return torch.where(child % 2 == 0, child // 2, -1).to(torch.int32)
+
+
+def _exact_fast(binned_T, node, g, h, w, N, Bt):
+    """Float64 sums [F, N*Bt, 3] by bincount (the yardstick of
+    ``_exact``, faster at millions of rows)."""
+    act = node >= 0
+    base = torch.where(act, node.long() * Bt, 0)
+    stats = [torch.where(act, v.double(), 0.0) for v in (g, h, w)]
+    return torch.stack([torch.stack(
+        [torch.bincount(base + binned_T[f].long(), weights=s,
+                        minlength=N * Bt) for s in stats], -1)
+        for f in range(binned_T.shape[0])])
+
+
+def _within_check(got, exact):
+    """The kernels' check (chip_smoke.py:check_hist): rtol 1e-5 plus 1e-5 x
+    max|hist| against float64 sums."""
+    tol = 1e-5 * exact.abs().max() + 1e-5 * exact.abs()
+    return bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("R", [200_000, 2_000_000])
+@pytest.mark.parametrize("case", ["a", "b", "c"])
+def test_skewed_stats_stay_within_the_check(R, case):
+    """Five outlier rows (g = 1e4, or weights of 1e3) among R: at 1, 8 and
+    32 nodes of 65 int8 bins, at the plan's qbits, the fixed rule's sums
+    are within the check of float64 sums. A single scale from max|x|
+    missed it by up to 60-fold here; the bulk scale with the outliers
+    added apart meets it, as the control (c) without outliers does."""
+    binned_T, g, h, w, rng = _skewed(R, case)
+    for N in (1, 8, 32):
+        node = _layout(R, N, rng)
+        qbits = hist._plan(R, 28, N, 65, 1, 132, 1)["qbits"]
+        got = hist.level_histograms_fixed_plain(binned_T, node, g, h, w, N,
+                                                65, qbits)
+        exact = _exact_fast(binned_T, node, g, h, w, N, 65)
+        assert _within_check(got, exact), (case, N, qbits)
+        if case != "c":
+            # the outliers are out of the bulk: its bound is far below them
+            exps, _ = hist.fixed_exponents(node, g, h, w, N, qbits)
+            s = 0 if case == "a" else 2
+            assert qbits - exps[s] <= 3
+
+
+def test_outliers_beyond_the_cap_leave_the_single_scale():
+    """Where more than 64 values lie far above the rest, the bulk bucket is
+    the top one again: the single scale of max|x|."""
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=5000)
+                         .astype(np.float32))
+    node = torch.zeros(5000, dtype=torch.int32)
+    ones = torch.ones(5000)
+    for n_out, top in ((64, False), (65, True)):
+        gg = g.clone()
+        gg[:n_out] = 1e4
+        exps, _ = hist.fixed_exponents(node, gg, ones, ones, 1, 15)
+        assert (15 - exps[0] == math.frexp(1e4)[1]) == top
+
+
+def test_the_bulk_bound_is_clamped_so_no_int64_entry_can_overflow():
+    """At most 2^56 a quantised outlier: the bulk lies at most 56 - qbits
+    exponents below the top (64 outliers x 2^56 = 2^62)."""
+    g = torch.full((1000,), 1e-6)
+    g[:3] = 1e30
+    node = torch.zeros(1000, dtype=torch.int32)
+    ones = torch.ones(1000)
+    for qbits in (15, 22):
+        exps, _ = hist.fixed_exponents(node, g, ones, ones, 1, qbits)
+        q = torch.round(g.double() * 2.0 ** exps[0]).abs().max()
+        assert 2 ** 55 <= float(q) <= 2 ** 56
+
+
+def test_node_totals_emulation_is_within_the_check_of_float64_sums():
+    """The node-totals instance (F = 1, Bt = 1, 19 bits) against float64
+    sums, for K = 3 class trees with shared and per-class weights and with
+    the skewed stats of case (a)."""
+    rng = np.random.default_rng(21)
+    R, N = 50_000, 64
+    node = torch.from_numpy(rng.integers(-1, N, size=(3, R)).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(3, R)).astype(np.float32))
+    g[1, :5] = 1e4
+    h = torch.from_numpy((rng.random((3, R)) + 0.1).astype(np.float32))
+    for w in (torch.ones(R),
+              torch.from_numpy(rng.uniform(0.05, 1, (3, R))
+                               .astype(np.float32))):
+        got = hist.node_totals_fixed_plain(node, g, h, w, N)
+        exact = hist.node_totals_plain(node, g.double(), h.double(),
+                                       w.double(), N)
+        assert got.shape == (3, N, 3)
+        assert _within_check(got, exact)
+        # the CPU path is the plain float version
+        plain = hist.node_totals(node, g, h, w, N)
+        assert _within_check(plain, exact)
