@@ -68,13 +68,32 @@ Phases, each of which fails the run on error:
    other kernel's time at each level, the first kernel's times at
    XGBoost's levels 0-2 (printed only), the global kernel's update bound,
    and the fixed kernel's two launches (scale reduction, histogram) split
-   by torch.profiler.
+   by torch.profiler;
+7. the categorical path: a 10M-row airlines-shaped GBM (see
+   :func:`phase_airlines`);
+8. GLM (no kernel of its own: the Gram is ``torch.matmul`` at full
+   float32, the solve ``torch.linalg``): (a) bench.py's bench_glm (1M x 12
+   binomial, lambda 1e-4) on the CPU and on the card (iterations equal,
+   coefficients within the CPU tests' tolerances, AUC within 1e-4), timed
+   warm, repeated bit for bit, bit for bit with TF32 allowed, its host
+   syncs counted by source line (torch's sync debug mode) and profiled;
+   (b) the airlines logistic GLM at full width on phase 7's frames (P =
+   668 one-hot and standardised columns, alpha 0.5, lambda 1e-5), with
+   the scored metric equal to the training one, and the Gram, the
+   expansion and the Cholesky timed apart, the Gram beside its 2RP^2
+   bound at the card's float32 peak; (c) multinomial GLM (K = 3) on phase
+   4's frame with phase 6's label, and the CPU against the card on its
+   first 200k rows; (d) lambda search on (a)'s frame (alpha 0.5, 30
+   lambdas) with its host syncs per lambda; (e) the CPU against the card
+   at 200k rows for the other families, non_negative, beta_constraints,
+   an offset, interactions, p-values, ordinal and the sparse path.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
 at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
+``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
+line before the ``kernels`` line. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
 
@@ -1607,21 +1626,10 @@ def _heaps_bitwise(a, b) -> bool:
     return True
 
 
-def phase_airlines() -> dict:
-    """Phase 7: the categorical path at full width. An airlines-shaped
-    training frame of 10M rows and a validation frame of 100k, built on the
-    host from seeds; GBM with 64 bins (Origin and Dest range-grouped into
-    64), depth 6, learn rate 0.1, up to 300 trees, stopping_rounds 5 on the
-    validation logloss (tolerance 1e-4) and a monotone DepTime. Warmed up,
-    timed (launches held to the plan's per level, one node-totals launch a
-    tree), profiled, scored; then the scored metric against the training
-    one, predictions along a DepTime grid, a straight 20-tree run against
-    a 10-tree run resumed to 20 (bit for bit), and the stopping point of a
-    second run."""
-    from h2o3_tpu_torch.frame.frame import Frame
-    from h2o3_tpu_torch.models.gbm import GBM
-    from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
-                                         node_totals)
+def airlines_frames() -> tuple:
+    """Phase 7's frames (phase 8b's too): an airlines-shaped training frame
+    of 10M rows and a validation frame of 100k, built on the host from
+    seeds."""
     t0 = time.perf_counter()
     fr = airlines_frame(airlines_arrays(AIRLINE_ROWS, 31), "cuda")
     vf = airlines_frame(airlines_arrays(AIRLINE_VALID, 32), "cuda")
@@ -1630,6 +1638,22 @@ def phase_airlines() -> dict:
     print(f"airlines-shaped frames {AIRLINE_ROWS} + {AIRLINE_VALID} rows on "
           f"the card: {time.perf_counter() - t0:.2f} s, {100 * share:.1f}% "
           f"delayed")
+    return fr, vf
+
+
+def phase_airlines(fr, vf) -> dict:
+    """Phase 7: the categorical path at full width on
+    :func:`airlines_frames`; GBM with 64 bins (Origin and Dest
+    range-grouped into 64), depth 6, learn rate 0.1, up to 300 trees, stopping_rounds 5 on the
+    validation logloss (tolerance 1e-4) and a monotone DepTime. Warmed up,
+    timed (launches held to the plan's per level, one node-totals launch a
+    tree), profiled, scored; then the scored metric against the training
+    one, predictions along a DepTime grid, a straight 20-tree run against
+    a 10-tree run resumed to 20 (bit for bit), and the stopping point of a
+    second run."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
+                                         node_totals)
     params = dict(ntrees=300, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
                   stopping_rounds=5, stopping_metric="logloss",
                   stopping_tolerance=1e-4, monotone_constraints={"DepTime": 1},
@@ -1710,13 +1734,470 @@ def phase_airlines() -> dict:
                              f"{again[0].output['ntrees']} trees")
     if not (np.isfinite(vm.logloss) and vm.auc > 0.6):
         raise AssertionError(f"airlines: validation metrics {vm}")
-    del fr, vf, model, again, straight, half, resumed, builders
+    del model, again, straight, half, resumed, builders
     torch.cuda.empty_cache()
     return dict(seconds=seconds, trees_grown=grown, trees_kept=kept,
                 rows_trees_per_s=AIRLINE_ROWS * grown / seconds,
                 by_kernel=by_kernel, node_totals=totals,
                 train_auc=tm.auc, train_logloss=tm.logloss,
                 valid_auc=vm.auc, valid_logloss=vm.logloss, **prof)
+
+
+# -- phase 8: GLM on the card ------------------------------------------------
+
+#: bench.py:146 bench_glm: 1M x 12 normal features from seed 13, binomial
+GLM_ROWS, GLM_FEAT, GLM_Y = 1_000_000, 12, "dep_delayed"
+#: rows of the CPU-against-card checks of 8c and 8e
+GLM_CHECK_ROWS = 200_000
+
+
+def glm_bench_cols(rows: int) -> dict:
+    """bench.py:146-161's data: 12 normal features from default_rng(13),
+    y from a logit of the first five."""
+    rng = np.random.default_rng(13)
+    X = rng.normal(size=(rows, GLM_FEAT)).astype(np.float32)
+    logit = X[:, :5] @ np.array([0.8, -0.5, 0.3, -0.2, 0.4], np.float32)
+    y = rng.random(rows) < 1.0 / (1.0 + np.exp(-logit))
+    cols = {f"x{i}": X[:, i] for i in range(GLM_FEAT)}
+    cols[GLM_Y] = np.where(y, "YES", "NO")
+    return cols
+
+
+def count_syncs(fn):
+    """``fn()`` under torch's sync debug mode: every operation that makes
+    the host wait for the card warns, and the warnings are counted by the
+    source line that issued them. Returns (result, {"file:line": n})."""
+    import warnings
+    from collections import Counter
+    from pathlib import Path
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, dict(Counter(f"{Path(r.filename).name}:{r.lineno}"
+                             for r in rec if "synchroniz" in str(r.message)))
+
+
+def loop_syncs(sites: dict) -> int:
+    """The syncs issued from inside GLM._irls_fit (the IRLS loop's fetch
+    and the L1 pass's)."""
+    import inspect
+    from h2o3_tpu_torch.models.glm import GLM
+    lines, start = inspect.getsourcelines(GLM._irls_fit)
+    return sum(n for site, n in sites.items()
+               if site.startswith("glm.py:")
+               and start <= int(site.split(":")[1]) < start + len(lines))
+
+
+def glm_agree(what: str, a, b, ra, rb, coef: bool = True,
+              pred_rtol: float = 1e-5, pred_atol: float | None = None
+              ) -> dict:
+    """Two fits of one GLM (CPU and card) held to the CPU tests'
+    tolerances: iterations equal, deviance rtol 1e-5, coefficients rtol
+    1e-4 with an atol of 1e-5 x max|beta|, outputs ``ra``/``rb``
+    (predictions) rtol 1e-5 with an atol of 1e-6 x max(1, max|ra|)."""
+    if pred_atol is None:
+        pred_atol = 1e-6 * max(1.0, float(np.abs(ra).max()))
+    ba, bb = (m.output["beta"].cpu().numpy() for m in (a, b))
+    dbeta = float(np.abs(ba - bb).max())
+    dpred = float(np.abs(ra - rb).max())
+    dev_a, dev_b = a.output["residual_deviance"], b.output["residual_deviance"]
+    print(f"  {what}: iterations {a.output['iterations']} / "
+          f"{b.output['iterations']}, deviance {dev_a:.6f} / {dev_b:.6f}, "
+          f"max |dbeta| {dbeta:.3e} (max |beta| {np.abs(ba).max():.3g}), "
+          f"max |dpred| {dpred:.3e}")
+    if a.output["iterations"] != b.output["iterations"]:
+        raise AssertionError(f"GLM {what}: iterations differ")
+    np.testing.assert_allclose(dev_b, dev_a, rtol=1e-5, err_msg=what)
+    if coef:
+        np.testing.assert_allclose(bb, ba, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ba).max(),
+                                   err_msg=what)
+    np.testing.assert_allclose(rb, ra, rtol=pred_rtol, atol=pred_atol,
+                               err_msg=what)
+    return dict(check_iterations=a.output["iterations"], max_dbeta=dbeta,
+                max_dpred=dpred)
+
+
+def phase_glm_bench() -> dict:
+    """Phase 8a: bench_glm's configuration at full size (1M x 12 binomial,
+    lambda 1e-4, max_iterations 30) on the CPU and on the card, timed
+    warm, twice more for bit-identity, with TF32 allowed, under the sync
+    counter and under torch.profiler."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.glm import GLM
+    cols = glm_bench_cols(GLM_ROWS)
+    fr = Frame.from_arrays(cols, device="cuda")
+    params = dict(family="binomial", lambda_=1e-4, max_iterations=30)
+
+    def fit(frame):
+        return GLM(**params).train(y=GLM_Y, training_frame=frame)
+
+    t0 = time.perf_counter()
+    cpu = fit(Frame.from_arrays(cols, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    fit(fr)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = fit(fr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    again = fit(fr)
+    repeat = torch.equal(card.output["beta"], again.output["beta"])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = fit(fr)
+        X = torch.stack([fr.vec(f"x{i}").data for i in range(GLM_FEAT)], 1)
+        g_tf32 = X.T @ X
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g_full = X.T @ X
+    tf32_raw = float(((g_tf32 - g_full).abs() / g_full.abs().clamp_min(
+        1e-30)).max())
+    tf32_same = torch.equal(card.output["beta"], tf32.output["beta"])
+    _, sites = count_syncs(lambda: fit(fr))
+    iters = card.output["iterations"]
+    in_loop = loop_syncs(sites)
+    prof = profile_training(lambda: fit(fr), seconds)
+    agree = glm_agree("8a CPU / card", cpu, card,
+                      cpu.training_metrics.auc, card.training_metrics.auc,
+                      pred_rtol=0, pred_atol=1e-4)
+    print(f"GLM 8a (bench_glm) {GLM_ROWS} x {GLM_FEAT} binomial: {iters} "
+          f"iterations, timed {seconds:.4f} s ({seconds / iters:.4f} s an "
+          f"iteration, {GLM_ROWS * iters / seconds:.4g} rows*iterations/s; "
+          f"CPU {cpu_s:.2f} s), AUC card {card.training_metrics.auc:.6f} "
+          f"CPU {cpu.training_metrics.auc:.6f}; coefficients repeat bit for "
+          f"bit {repeat}; TF32 allowed: coefficients bit-identical "
+          f"{tf32_same} (a plain TF32 X'X differs by up to {tf32_raw:.2e} "
+          f"relative); host syncs {sum(sites.values())} in all, {in_loop} "
+          f"in the IRLS loop ({in_loop / iters:.2f} an iteration): {sites}")
+    if not (repeat and tf32_same):
+        raise AssertionError("GLM 8a: coefficients differ between runs or "
+                             "with TF32 allowed")
+    del fr, X, g_tf32, g_full
+    return dict(seconds=seconds, iterations=iters,
+                rows_iters_per_s=GLM_ROWS * iters / seconds,
+                s_per_iteration=seconds / iters, cpu_seconds=cpu_s,
+                auc=card.training_metrics.auc,
+                auc_cpu=cpu.training_metrics.auc, repeat_bitwise=repeat,
+                tf32_bitwise=tf32_same, tf32_raw_gram_rel=tf32_raw,
+                host_syncs=sum(sites.values()),
+                host_syncs_per_iteration=in_loop / iters, **agree, **prof)
+
+
+def glm_lambda_search() -> dict:
+    """Phase 8d: lambda search on 8a's frame (alpha 0.5, 30 lambdas)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.glm import GLM
+    fr = Frame.from_arrays(glm_bench_cols(GLM_ROWS), device="cuda")
+
+    def fit():
+        return GLM(family="binomial", alpha=0.5, lambda_search=True,
+                   nlambdas=30).train(y=GLM_Y, training_frame=fr)
+
+    fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _, sites = count_syncs(fit)
+    path = model.get_regularization_path()
+    n = len(path)
+    total = sum(sites.values())
+    print(f"GLM 8d lambda search {GLM_ROWS} x {GLM_FEAT}, alpha 0.5, 30 "
+          f"lambdas: path of {n} (best lambda {model.output['lambda_best']:.4g}"
+          f", {path[-1]['nonzero']} nonzero at the last), {seconds:.3f} s, "
+          f"{total} host syncs ({total / n:.2f} a lambda): {sites}")
+    if not (2 <= n <= 30 and all(np.isfinite(e["deviance"]) for e in path)):
+        raise AssertionError(f"GLM 8d: path {path}")
+    return dict(seconds=seconds, path_length=n, host_syncs=total,
+                host_syncs_per_lambda=total / n,
+                lambda_best=model.output["lambda_best"])
+
+
+def fp32_peak() -> tuple:
+    """The card's float32 rate outside the tensor cores: SMs x 128 lanes x
+    2 (a fused multiply-add) x the SM clock (``clock_rate`` of the device
+    properties where torch gives it, else nvidia-smi's clocks.max.sm)."""
+    props = torch.cuda.get_device_properties(0)
+    khz = getattr(props, "clock_rate", None)
+    src = "device properties"
+    if not khz:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0]
+        khz, src = float(mhz) * 1e3, "nvidia-smi clocks.max.sm"
+    return props.multi_processor_count * 128 * 2 * khz * 1e3, src
+
+
+def phase_glm_airlines(fr, vf) -> dict:
+    """Phase 8b: the airlines logistic GLM at full width on phase 7's
+    frames (10M rows, 6 categoricals one-hot into 666 columns, DepTime and
+    Distance standardised; alpha 0.5, lambda 1e-5 so that the L1 pass
+    runs), timed and once more under torch.profiler, then the Gram, the
+    expansion, the Cholesky and one host pass of non_negative's coordinate
+    descent timed apart."""
+    from h2o3_tpu_torch.models.glm import (GLM, _nn_solve, _weighted_gram,
+                                           full_fp32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = dict(family="binomial", alpha=0.5, lambda_=1e-5)
+
+    def fit():
+        return GLM(**params).train(x=AIRLINE_X, y=AIRLINE_Y,
+                                   training_frame=fr, validation_frame=vf)
+
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_training(fit, seconds)
+    di = model.data_info
+    P = di.ncols_expanded
+    t0 = time.perf_counter()
+    scored = model.model_performance(fr)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    tm, vm = model.training_metrics, model.validation_metrics
+    iters = model.output["iterations"]
+    # the pieces, timed apart at the fit's shapes
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    X = di.expand(fr)
+    end.record()
+    torch.cuda.synchronize()
+    expand_ms = start.elapsed_time(end)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    W = torch.rand(AIRLINE_ROWS, generator=gen, device="cuda") * 0.25
+    z = torch.randn(AIRLINE_ROWS, generator=gen, device="cuda")
+    nobs = torch.tensor(float(AIRLINE_ROWS), device="cuda")
+    with full_fp32():
+        gram_ms = cuda_ms(lambda: _weighted_gram(X, W, z, 1e-5, nobs, 1e-5),
+                          reps=3, warmup=1)
+        gram, _ = _weighted_gram(X, W, z, 1e-5, nobs, 1e-5)
+    chol_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(gram), reps=20)
+    # non_negative's coordinate descent runs on the host: one pass at P + 1
+    rhs = torch.randn(P + 1, generator=gen, device="cuda")
+    beta0 = torch.zeros(P + 1, device="cuda")
+    t0 = time.perf_counter()
+    _nn_solve(gram, rhs, beta0, max_passes=1)
+    nn_pass_ms = (time.perf_counter() - t0) * 1e3
+    peak, src = fp32_peak()
+    bound_ms = 2.0 * AIRLINE_ROWS * P * P / peak * 1e3
+    grams = iters + 10          # the IRLS steps and the L1 pass's ten
+    print(f"GLM 8b airlines {AIRLINE_ROWS} x {len(AIRLINE_X)} -> P = {P} "
+          f"expanded columns: {iters} iterations + the 10-step L1 pass "
+          f"({grams} Gram builds), fit {seconds:.3f} s, peak memory "
+          f"{peak_gb:.2f} GB; training AUC {tm.auc:.6f} logloss "
+          f"{tm.logloss:.6f}, validation AUC {vm.auc:.6f} logloss "
+          f"{vm.logloss:.6f}; scored logloss {scored.logloss:.6f} AUC "
+          f"{scored.auc:.6f} in {score_s:.3f} s; expansion {expand_ms:.2f} "
+          f"ms; Gram {gram_ms:.2f} ms against its bound {bound_ms:.2f} ms "
+          f"(2RP^2 FLOP at {peak / 1e12:.2f} TFLOP/s float32 from {src}; "
+          f"{100 * bound_ms / gram_ms:.1f}% of it); Cholesky {chol_ms:.3f} "
+          f"ms ({P + 1}^2); one non_negative coordinate pass on the host "
+          f"{nn_pass_ms:.2f} ms")
+    if not (np.isfinite([tm.auc, tm.logloss, vm.auc, vm.logloss]).all()
+            and vm.auc > 0.6):
+        raise AssertionError(f"GLM 8b: metrics {tm} {vm}")
+    if not (abs(scored.logloss - tm.logloss) < 1e-6
+            and abs(scored.auc - tm.auc) < 1e-9):
+        raise AssertionError("GLM 8b: scored metrics differ from training")
+    del X, W, z, gram, rhs, beta0, model
+    torch.cuda.empty_cache()
+    return dict(rows=AIRLINE_ROWS, P=P, iterations=iters, seconds=seconds,
+                peak_gb=peak_gb, train_auc=tm.auc, train_logloss=tm.logloss,
+                valid_auc=vm.auc, valid_logloss=vm.logloss,
+                scored_logloss=scored.logloss, expand_ms=expand_ms,
+                gram_ms=gram_ms, gram_bound_ms=bound_ms,
+                grams_per_fit=grams, cholesky_ms=chol_ms,
+                nn_pass_ms=nn_pass_ms, fp32_tflops=peak / 1e12, **prof)
+
+
+def phase_glm_multinomial(fr) -> dict:
+    """Phase 8c: multinomial GLM on phase 4's 11M x 28 frame with phase
+    6's 3-class label (lambda 1e-4, max_iterations 10), timed warm; then
+    the CPU against the card on its first 200k rows."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models.glm import GLM
+    x = [f"x{i}" for i in range(NFEAT)]
+    codes = multi_codes(fr.vec("x0").data, fr.vec("x1").data,
+                        fr.vec("x2").data, np.random.default_rng(12))
+    dom = ("c0", "c1", "c2")
+    frm = Frame(x + ["c"], [fr.vec(c) for c in x]
+                + [Vec.from_device(codes, VecType.CAT, domain=dom)])
+
+    def fit(frame):
+        return GLM(family="multinomial", lambda_=1e-4,
+                   max_iterations=10).train(x=x, y="c", training_frame=frame)
+
+    fit(frm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fit(frm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    sweeps = model.output["iterations"]
+    n = GLM_CHECK_ROWS
+    small = {c: fr.vec(c).data[:n] for c in x}
+    small_c = codes[:n]
+    fits = []
+    for dev in ("cpu", "cuda"):
+        f = Frame(x + ["c"], [Vec.from_device(small[c].to(dev).contiguous(),
+                                              VecType.NUM) for c in x]
+                  + [Vec.from_device(small_c.to(dev).contiguous(),
+                                     VecType.CAT, domain=dom)])
+        m = fit(f)
+        fits.append((m, m._score_raw(f).cpu().numpy()))
+    agree = glm_agree(f"8c multinomial {n} rows CPU / card", fits[0][0],
+                      fits[1][0], fits[0][1], fits[1][1])
+    ll_cpu = fits[0][0].training_metrics.logloss
+    ll_card = fits[1][0].training_metrics.logloss
+    tm = model.training_metrics
+    print(f"GLM 8c multinomial {ROWS} x {NFEAT}, K = 3: {sweeps} sweeps in "
+          f"{seconds:.3f} s ({seconds / sweeps:.4f} s a sweep), logloss "
+          f"{tm.logloss:.6f}, mean per-class error "
+          f"{tm.mean_per_class_error:.4f}; {n} rows: logloss CPU "
+          f"{ll_cpu:.7f} card {ll_card:.7f}")
+    if abs(ll_cpu - ll_card) > 1e-5 * ll_cpu or not np.isfinite(tm.logloss):
+        raise AssertionError("GLM 8c: logloss")
+    del frm, codes, model
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, sweeps=sweeps,
+                s_per_sweep=seconds / sweeps, logloss=tm.logloss,
+                check_logloss_cpu=ll_cpu, check_logloss_card=ll_card,
+                **agree)
+
+
+def glm_family_cols(rows: int) -> dict:
+    """The 8e frame: six normal features, two categoricals (5 and 4
+    levels), weights, an offset, and a response per family from one linear
+    predictor (seed 17)."""
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(rows, 6)).astype(np.float32)
+    cols = {f"x{i}": X[:, i] for i in range(6)}
+    c1 = rng.integers(0, 5, rows)
+    c2 = rng.integers(0, 4, rows)
+    cols["c1"] = np.array(list("abcde"))[c1]
+    cols["c2"] = np.array(list("pqrs"))[c2]
+    eta = (0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3 * X[:, 2]
+           + np.array([0.0, 0.4, -0.3, 0.2, 0.1])[c1])
+    cols["w"] = rng.uniform(0.5, 2.0, rows).astype(np.float32)
+    cols["off"] = (0.1 * rng.normal(size=rows)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-eta))
+    mu = np.exp(0.3 * eta)
+    cols["yb"] = np.where(rng.random(rows) < p, "Y", "N")
+    cols["yg"] = (eta + rng.normal(size=rows)).astype(np.float32)
+    cols["yp"] = rng.poisson(mu).astype(np.float32)
+    cols["ygam"] = rng.gamma(2.0, mu / 2.0).astype(np.float32)
+    cols["yt"] = (rng.gamma(2.0, mu / 2.0)
+                  * (rng.random(rows) < 0.7)).astype(np.float32)
+    cols["yq"] = np.clip(p + 0.1 * rng.normal(size=rows), 0, 1).astype(
+        np.float32)
+    lat = 1.1 * X[:, 0] - 0.6 * X[:, 2] + rng.logistic(size=rows)
+    cols["yo"] = np.array(["1lo", "2mid", "3hi", "4top"])[
+        np.digitize(lat, [-1.0, 0.2, 1.3])]
+    return cols
+
+
+#: phase 8e's fits: (what, x, y, params); the others of 8a-8d run on the
+#: card only, against a CPU fit where they say so
+NUM6 = [f"x{i}" for i in range(6)]
+GLM_CASES = [
+    ("gaussian, weights and offset", NUM6 + ["c1"], "yg",
+     dict(family="gaussian", weights_column="w", offset_column="off")),
+    ("poisson", NUM6 + ["c1"], "yp", dict(family="poisson")),
+    ("gamma", NUM6 + ["c1"], "ygam", dict(family="gamma")),
+    ("tweedie 1.5", NUM6 + ["c1"], "yt", dict(family="tweedie")),
+    ("negativebinomial", NUM6 + ["c1"], "yp",
+     dict(family="negativebinomial", theta=0.5)),
+    ("quasibinomial", NUM6 + ["c1"], "yq", dict(family="quasibinomial")),
+    ("binomial non_negative", NUM6 + ["c1"], "yb",
+     dict(family="binomial", non_negative=True)),
+    ("binomial beta_constraints", NUM6 + ["c1"], "yb",
+     dict(family="binomial", beta_constraints={"x0": (-1, 0.4),
+                                               "x2": (0.0, 0.1)})),
+    ("binomial offset", NUM6 + ["c1"], "yb",
+     dict(family="binomial", offset_column="off")),
+    ("interactions cat x cat", NUM6, "yg",
+     dict(family="gaussian", interactions=["c1", "c2"])),
+    ("interactions cat x num", NUM6[:3] + ["c2"], "yg",
+     dict(family="gaussian", interactions=["c1", "x3"])),
+    ("p-values", NUM6 + ["c1"], "yg",
+     dict(family="gaussian", compute_p_values=True)),
+    ("ordinal, 200 Adam steps", NUM6 + ["c1"], "yo",
+     dict(family="ordinal", max_iterations=10)),
+]
+
+
+def phase_glm_cross() -> dict:
+    """Phase 8e: each of GLM_CASES on the CPU and on the card at 200k
+    rows, and the sparse path on one COO, held to the CPU tests'
+    tolerances."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.sparse import SparseFrame, SparseMatrix
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models.glm import GLM
+    t0 = time.perf_counter()
+    cols = glm_family_cols(GLM_CHECK_ROWS)
+    frames = {d: Frame.from_arrays(cols, device=d) for d in ("cpu", "cuda")}
+    out = {}
+    print(f"GLM 8e: CPU against the card at {GLM_CHECK_ROWS} rows")
+    for what, x, y, params in GLM_CASES:
+        fits = []
+        for d in ("cpu", "cuda"):
+            m = GLM(**params).train(x=x, y=y, training_frame=frames[d])
+            fits.append((m, m._score_raw(frames[d]).cpu().numpy()))
+        (a, ra), (b, rb) = fits
+        if params["family"] == "ordinal":
+            out[what] = glm_agree(what, a, b, ra, rb, coef=False,
+                                  pred_rtol=0, pred_atol=1e-4)
+        else:
+            out[what] = glm_agree(what, a, b, ra, rb)
+        if params.get("compute_p_values"):
+            for k in ("std_errs", "z_values", "p_values"):
+                np.testing.assert_allclose(b.output[k], a.output[k],
+                                           rtol=1e-4, atol=1e-12, err_msg=k)
+    # the sparse path: 200k x 500 at 1% density, binomial ridge
+    rng = np.random.default_rng(19)
+    nnz = GLM_CHECK_ROWS * 5
+    rows = np.sort(rng.integers(0, GLM_CHECK_ROWS, nnz))
+    colx = rng.integers(0, 500, nnz)
+    vals = rng.normal(size=nnz).astype(np.float32)
+    eta = np.zeros(GLM_CHECK_ROWS, np.float32)
+    np.add.at(eta, rows, vals * rng.normal(scale=0.5, size=500)[colx])
+    yv = (eta + rng.logistic(size=GLM_CHECK_ROWS) > 0).astype(np.float32)
+    fits = []
+    for d in ("cpu", "cuda"):
+        sf = SparseFrame(SparseMatrix.from_scipy_like(
+            rows, colx, vals, GLM_CHECK_ROWS, 500, device=d),
+            {"C0": Vec.from_numpy(yv, device=d)})
+        m = GLM(family="binomial", lambda_=1e-3).train(y="C0",
+                                                       training_frame=sf)
+        fits.append((m, m._score_raw(sf).cpu().numpy()))
+    out["sparse binomial"] = glm_agree("sparse binomial 200k x 500",
+                                       fits[0][0], fits[1][0], fits[0][1],
+                                       fits[1][1])
+    print(f"GLM 8e: {len(out)} cases agree, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_glm(glm_airlines: dict, glm_multi: dict) -> dict:
+    """Phase 8: GLM on the card (8b and 8c ran beside phases 7 and 6,
+    which hold their frames)."""
+    return dict(bench_glm=phase_glm_bench(), airlines=glm_airlines,
+                multinomial=glm_multi, lambda_search=glm_lambda_search(),
+                cross=phase_glm_cross())
 
 
 def totals_times() -> list:
@@ -1786,9 +2267,15 @@ def main() -> int:
     times = phase_kernel_times()["levels"]
     tot_times = totals_times()
     new_paths = phase_new_paths(fr)
+    glm_multi = phase_glm_multinomial(fr)
     del fr
     new_times = phase_new_path_times()
-    airlines = phase_airlines()
+    air_fr, air_vf = airlines_frames()
+    airlines = phase_airlines(air_fr, air_vf)
+    glm_airlines = phase_glm_airlines(air_fr, air_vf)
+    del air_fr, air_vf
+    torch.cuda.empty_cache()
+    glm = phase_glm(glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
     binned_T, _, g, h, w = hist_inputs(AIRLINE_ROWS, len(AIRLINE_X),
                                        NBINS + 1, 1, torch.int8, gen)
@@ -1834,6 +2321,7 @@ def main() -> int:
         name="node_totals", path="binomial", replaces=TOTALS_REPLACES,
         multinomial_k3=tot_times[1]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,14 @@ laplace, quantile and huber, with offsets), DRF and XGBoost (gbtree)
 training and scoring, with row and column sampling; the level histograms
 of tree growth, one call per level for all the class trees of a round, are
 built by hand-written CUDA kernels (``csrc/hist.cu``, wrapped by
-:mod:`h2o3_tpu_torch.ops.hist`).
+:mod:`h2o3_tpu_torch.ops.hist`). GLM (:mod:`h2o3_tpu_torch.models.glm`)
+trains and scores every family of the JAX package (gaussian, binomial,
+poisson, gamma, tweedie, negativebinomial, quasibinomial, multinomial and
+ordinal) by IRLS on the dense design of
+:class:`~h2o3_tpu_torch.models.data_info.DataInfo`, with elastic net,
+lambda search, bounds, p-values and a matrix-free path for sparse frames
+(:mod:`h2o3_tpu_torch.models.glm_sparse`); its Gram and Cholesky are
+PyTorch calls, at full float32.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device

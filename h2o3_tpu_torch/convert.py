@@ -1,6 +1,10 @@
-"""Carry trained tree models across from the JAX package to the port.
+"""Carry trained models across from the JAX package to the port.
 
-:func:`gbm_model`, :func:`drf_model` and :func:`xgboost_model` take a JAX
+:func:`glm_model` takes a JAX GLM's ``output`` (beta, coef, coef_names,
+the ordinal thresholds, the interaction domains), the fields of its
+``DataInfo`` and its params, all as numpy arrays and plain values, and
+returns the port's GLMModel. :func:`gbm_model`, :func:`drf_model` and
+:func:`xgboost_model` take a JAX
 model's ``output`` as plain numpy and dicts — each tree a dict of its heap
 arrays (and ``left_mask`` in a group-split model), ``trees`` a list of
 them and ``trees_multi`` (multinomial) a list per class, with ``cat_card``
@@ -20,7 +24,9 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.gbm import DISTRIBUTIONS, DRFModel, GBMModel
+from h2o3_tpu_torch.models.glm import GLMModel
 from h2o3_tpu_torch.models.model_base import make_model_key
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
@@ -126,3 +132,56 @@ def drf_model(output: Mapping, response_column: str | None = None,
                distribution=output.get("distribution", "gaussian"))
     return _model(DRFModel, "drf", out, response_column, response_domain,
                   params)
+
+
+#: the GLM params scoring reads, with the reference GLM's defaults
+_GLM_SCORING_PARAMS = dict(offset_column=None, interactions=None,
+                           tweedie_variance_power=1.5, theta=1.0)
+
+
+def glm_model(output: Mapping, data_info: Mapping,
+              response_column: str | None = None,
+              response_domain: tuple[str, ...] | None = None,
+              params: Mapping | None = None,
+              device: str | torch.device | None = None) -> GLMModel:
+    """The port's GLMModel from a reference GLM: ``output`` with ``beta``
+    ([P+1], [P+1, K] for multinomial, [P] for ordinal), ``coef``,
+    ``coef_names``, ``family``, and where the model has them
+    ``ordinal_theta`` and ``interaction_domains``; ``data_info`` the
+    fields of its DataInfo (``dataclasses.asdict``); ``params`` those
+    scoring reads (``family``, ``offset_column``, ``interactions``,
+    ``tweedie_variance_power``, ``theta``). A sparse GLM has no DataInfo
+    and is not carried across."""
+    dev = resolve_device(device)
+    if output.get("sparse"):
+        raise NotImplementedError("sparse GLMs are not carried across")
+    di = DataInfo(
+        cat_cols=list(data_info["cat_cols"]),
+        num_cols=list(data_info["num_cols"]),
+        cat_domains=[tuple(d) for d in data_info["cat_domains"]],
+        cat_offsets=np.asarray(data_info["cat_offsets"], np.int32),
+        num_means=np.asarray(data_info["num_means"], np.float32),
+        num_mul=np.asarray(data_info["num_mul"], np.float32),
+        num_sub=np.asarray(data_info["num_sub"], np.float32),
+        use_all_factor_levels=bool(data_info["use_all_factor_levels"]),
+        standardize=bool(data_info["standardize"]),
+        ncats_expanded=int(data_info["ncats_expanded"]))
+    p = dict(_GLM_SCORING_PARAMS, **dict(params or {}))
+    p["family"] = p.get("family") or output["family"]
+    out = {k: v for k, v in output.items()
+           if k not in ("beta", "ordinal_theta")}
+    out["beta"] = torch.as_tensor(np.array(output["beta"],
+                                             np.float32)).to(dev)
+    out["coef"] = np.asarray(output["coef"], np.float64)
+    out["coef_names"] = list(output["coef_names"])
+    if output.get("ordinal_theta") is not None:
+        out["ordinal_theta"] = torch.as_tensor(
+            np.array(output["ordinal_theta"], np.float32)).to(dev)
+    if output.get("interaction_domains"):
+        out["interaction_domains"] = {
+            c: tuple(d) for c, d in output["interaction_domains"].items()}
+    return GLMModel(key=make_model_key("glm", None), params=p,
+                    response_column=response_column,
+                    response_domain=tuple(response_domain)
+                    if response_domain else None,
+                    output=out, data_info=di)

@@ -76,6 +76,14 @@ class Vec:
                              else numeric_rollups(self.data))
         return self._rollups
 
+    def mean(self) -> float:
+        """Mean of the finite values (NaN when there are none)."""
+        return self.rollups().mean
+
+    def sigma(self) -> float:
+        """Sample standard deviation of the finite values (n - 1)."""
+        return self.rollups().sigma
+
     def to_numpy(self) -> np.ndarray:
         return self.data.cpu().numpy()
 

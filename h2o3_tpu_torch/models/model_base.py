@@ -162,11 +162,13 @@ class ModelBuilder:
 
     def train(self, x: Sequence[str] | None = None, y: str | None = None,
               training_frame: Frame | None = None,
-              validation_frame: Frame | None = None) -> Model:
+              validation_frame: Frame | None = None,
+              weights=None) -> Model:
         """Train on ``training_frame``, on the frame's device (reference:
         h2o-py ``estimator.train``); with a ``validation_frame``, score it
         into ``model.validation_metrics`` (builders that stop early score
-        it per tree too)."""
+        it per tree too). ``weights`` (one per row) multiply the
+        ``weights_column``'s."""
         frame = training_frame
         if frame is None:
             raise ValueError("training_frame is required")
@@ -188,6 +190,12 @@ class ModelBuilder:
         base_w = frame.row_mask().float()
         if self.params.get("weights_column"):
             base_w = base_w * frame.vec(self.params["weights_column"]).data
+        if weights is not None:
+            base_w = base_w * torch.as_tensor(weights, dtype=torch.float32,
+                                              device=frame.device)
+        # a builder that drops rows from the fit (GLM's Skip) sets the
+        # weights its metrics must see
+        self._metrics_weights = None
         # for builders that score held-out data while they train
         self._validation_frame = validation_frame
         self._x_cols, self._y_col = x, y
@@ -198,8 +206,9 @@ class ModelBuilder:
         def fit(job: Job) -> Model:
             model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
-            model.training_metrics = self._holdout_metrics(model, frame, y,
-                                                           base_w)
+            w_metrics = self._metrics_weights
+            model.training_metrics = self._holdout_metrics(
+                model, frame, y, base_w if w_metrics is None else w_metrics)
             if validation_frame is not None:
                 model.validation_metrics = model.model_performance(
                     validation_frame)
