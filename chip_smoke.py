@@ -88,12 +88,36 @@ Phases, each of which fails the run on error:
    at 200k rows for the other families, non_negative, beta_constraints,
    an offset, interactions, p-values, ordinal and the sparse path.
 
+9. the rest of the tree family, each path warmed up, timed, profiled and
+   scored, its launches counted by kernel and held to the plan's: (a) the
+   uplift levels' kernel shapes against the plain version (14M x 12, 65
+   int8 bins, K = 8 trees each with its own w: level 0 against float64
+   sums, node totals at 32 nodes; two launches bit for bit) and timed at
+   each level; (b) the decision tree at its defaults on
+   phase 4's frame (depth 10: fixed kernel at levels 0-6, global at 7-9);
+   (c) uplift DRF at the JAX package's defaults on a frame shaped as the
+   Criteo Uplift Prediction Dataset v2.1 (13,979,592 x 12, 85% treated,
+   visit about 4.7%; 7 batches of 8 trees), with the CPU against the card
+   on one batch grown from the same weights (splits alike but at the CPU's
+   exact ties) and on a whole 200k-row model (AUUC within 1e-3 of it); (d)
+   DART (bench_xgboost's settings, rate_drop 0.1, skip_drop 0.5, 50
+   rounds), its dropping rounds printed, and a 200k-row CPU-against-card
+   fit alike at every split but ties; (e) varimp (the CPU's, from the same
+   trees) and TreeSHAP of the main path's model on 1M rows (rows sum to
+   the margin; 10k rows against the CPU at rtol 1e-9), timed with its
+   device ops; (f) calibration (Platt and isotonic) from a 1M-row frame,
+   cal_p1 within 1e-6 of the CPU's; (g) the isolation forest and the
+   extended one (extension 0 and 27) fitted and scored on phase 4's
+   frame, the bytes a fit copies to the host counted, and 200k-row fits
+   equal bit for bit to the CPU's.
+
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
 at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
-line before the ``kernels`` line. Without a CUDA card the script exits
+line and phase 9's the ``tree_family`` line before the ``kernels``
+line. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
 
@@ -135,10 +159,10 @@ FIRST_KERNEL_MS = (3.570, 3.223, 3.221, 3.208, 3.207, 3.201)
 ATOMIC_KERNEL_MS = (2.6527, 2.4376, 2.4218)
 
 
-def higgs_arrays(rows: int) -> dict:
+def higgs_arrays(rows: int, seed: int = 11) -> dict:
     """The HIGGS-shaped frame's columns: bench.py's ``_higgs_frame``
     generator (seed 11, 28 normal columns, the same logit, labels s/b)."""
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     X = rng.normal(size=(rows, NFEAT)).astype(np.float32)
     logit = X[:, :4] @ np.array([1.2, -0.8, 0.5, 0.3], np.float32) \
         + 0.2 * X[:, 4] * X[:, 5]
@@ -950,12 +974,16 @@ def reset_launches() -> None:
 
 
 def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
-             metrics, kernels: tuple) -> dict:
+             metrics, kernels: tuple, expected_totals: int | None = None,
+             pred_check=None) -> dict:
     """Train once to warm up (``warm``: fewer trees at the same shapes) and
     once timed, with the kernels' launches counted from 0 and held to
-    ``expected`` (launches by kernel), each of ``kernels`` at least once;
+    ``expected`` (launches by kernel), each of ``kernels`` at least once,
+    and the node totals to ``expected_totals`` (default: one a tree);
     then score the frame and hold the scored metrics to the training ones.
-    ``metrics`` names the metrics, each with its tolerance."""
+    ``metrics`` names the metrics, each with its tolerance;
+    ``pred_check(pred)`` checks the predictions (default: probabilities
+    of every row)."""
     from h2o3_tpu_torch.ops.hist import (launch_count, level_histograms,
                                          node_totals)
     t0 = time.perf_counter()
@@ -981,29 +1009,36 @@ def run_path(what: str, train, warm, fr, ntrees: int, expected: dict,
     trained = {m: getattr(model.training_metrics, m) for m in metrics}
     shown = ", ".join(f"training {m} {v:.6f} scored "
                       f"{getattr(scored, m):.6f}" for m, v in trained.items())
+    rows = fr.nrows
     print(f"{what}: warm-up {warm_s:.2f} s, timed {seconds:.3f} s, "
-          f"{ROWS * ntrees / seconds:.4g} rows*trees/s, kernel launches "
+          f"{rows * ntrees / seconds:.4g} rows*trees/s, kernel launches "
           f"{launches} {by_kernel}, node totals {totals}, peak device memory "
           f"{peak:.2f} GiB; {shown}; scoring {score_s:.3f} s")
     prof = profile_training(train, seconds)
+    want_totals = ntrees if expected_totals is None else expected_totals
     if by_kernel != expected or launches != sum(expected.values()) \
-            or not all(by_kernel[k] for k in kernels) or totals != ntrees:
+            or not all(by_kernel[k] for k in kernels) \
+            or totals != want_totals:
         raise AssertionError(f"{what}: kernels launched {by_kernel}, "
                              f"expected {expected}, each of {kernels}; "
-                             f"node totals {totals}, expected {ntrees}")
+                             f"node totals {totals}, expected {want_totals}")
     for m, tol in metrics.items():
         if not np.isfinite(trained[m]) or \
                 abs(getattr(scored, m) - trained[m]) >= tol:
             raise AssertionError(f"{what}: scored {m} {getattr(scored, m)} "
                                  f"vs training {trained[m]}")
-    probs = torch.stack([v.data for v in pred.vecs[1:]], 1)
-    if probs.shape[0] != ROWS or not bool(torch.isfinite(probs).all()) \
-            or not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]),
-                                  atol=1e-4):
-        raise AssertionError(f"{what}: scores are not probabilities")
+    if pred_check is not None:
+        pred_check(pred)
+    else:
+        probs = torch.stack([v.data for v in pred.vecs[1:]], 1)
+        if probs.shape[0] != rows or not bool(torch.isfinite(probs).all()) \
+                or not torch.allclose(probs.sum(1),
+                                      torch.ones_like(probs[:, 0]),
+                                      atol=1e-4):
+            raise AssertionError(f"{what}: scores are not probabilities")
     return dict(seconds=seconds, launches=launches, by_kernel=by_kernel,
                 node_totals=totals, score_s=score_s,
-                rows_trees_per_s=ROWS * ntrees / seconds,
+                rows_trees_per_s=rows * ntrees / seconds,
                 peak_gib=peak, **trained, **prof)
 
 
@@ -2243,6 +2278,518 @@ def totals_times() -> list:
     return rows
 
 
+# -- phase 9: the rest of the tree family ---------------------------------
+
+#: the uplift frame, shaped as the Criteo Uplift Prediction Dataset v2.1
+#: (Diemert et al., "A Large Scale Benchmark for Uplift Modeling", AdKDD
+#: 2018): its rows, its 12 float features f0-f11, 85% treated, the visit
+#: label at about 4.7%
+UPLIFT_ROWS, UPLIFT_FEAT = 13_979_592, 12
+#: rows of the CPU-against-card check of one uplift batch
+UPLIFT_BATCH_ROWS = 500_000
+#: DART at bench_xgboost's settings and XGBoost's DART tutorial's
+DART_TREES = 50
+DART = dict(booster="dart", max_depth=DEPTH, max_bin=XGB_BINS, eta=0.3,
+            rate_drop=0.1, skip_drop=0.5, normalize_type="tree", seed=42)
+#: rows of the CPU-against-card fits, of TreeSHAP and of calibration
+CROSS_ROWS, SHAP_ROWS, SHAP_CROSS_ROWS, CAL_ROWS = (200_000, 1_000_000,
+                                                    10_000, 1_000_000)
+#: the isolation forests: (name, builder parameters, trees)
+ISO_CASES = (("IF", dict(ntrees=50, sample_size=256, max_depth=8), 50),
+             ("EIF extension 0", dict(ntrees=100, extension_level=0), 100),
+             ("EIF extension 27", dict(ntrees=100, extension_level=27), 100))
+#: the fixed few bytes a fit copies to the host besides the subsamples
+ISO_FIXED_BYTES = 4096
+
+
+def head(fr, n: int):
+    """The frame's first n rows, as views on its device."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    return Frame(fr.names, [Vec(v.data[:n], v.type, v.domain)
+                            for v in fr.vecs])
+
+
+def frame_on(fr, dev):
+    """A copy of the frame on ``dev``."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    return Frame(fr.names, [Vec(v.data.to(dev), v.type, v.domain)
+                            for v in fr.vecs])
+
+
+def model_on(model, dev):
+    """A copy of a model with every tensor of its output (trees included)
+    on ``dev``."""
+    import copy
+    import dataclasses
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: move(getattr(v, f.name))
+                                             for f in dataclasses.fields(v)})
+        if isinstance(v, list):
+            return [move(u) for u in v]
+        if isinstance(v, dict):
+            return {k: move(u) for k, u in v.items()}
+        return v
+
+    out = copy.copy(model)
+    out.output = move(model.output)
+    return out
+
+
+def _outputs_bitwise(a: dict, b: dict, keys) -> bool:
+    """The outputs' entries ``keys`` equal bit for bit (trees field by
+    field), wherever they lie."""
+    from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+    for k in keys:
+        u, v = a[k], b[k]
+        if k == "trees":
+            pairs = [(getattr(x, f), getattr(y, f)) for x, y in zip(u, v)
+                     for f in HEAP_FIELDS]
+            if len(u) != len(v):
+                return False
+        else:
+            pairs = [(u, v)]
+        for x, y in pairs:
+            if (x is None) != (y is None):
+                return False
+            if isinstance(x, torch.Tensor):
+                if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def tree_family_dt(fr) -> dict:
+    """(b) The decision tree at its defaults (depth 10, min_rows 10, 64
+    bins) on phase 4's frame: levels 0-6 on the fixed kernel, 7-9 (64-256
+    histogrammed nodes) on the global kernel."""
+    from h2o3_tpu_torch.models.decision_tree import DecisionTree
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def train():
+        return DecisionTree().train(x=x, y="y", training_frame=fr)
+
+    return run_path(f"decision tree {ROWS} x {NFEAT}, depth 10, min_rows 10, "
+                    f"{NBINS} bins", train, train, fr, 1,
+                    planned_launches(1, 10, NBINS + 1, 1), {"auc": 1e-9},
+                    ("fixed", "global"))
+
+
+def tree_family_dart(fr) -> dict:
+    """(d) DART at bench_xgboost's settings with XGBoost's DART tutorial's
+    (rate_drop 0.1, skip_drop 0.5, normalize_type tree), 50 rounds, on
+    phase 4's frame; then 6 rounds on 200k rows on the CPU and the card,
+    sampling off, alike at every split but the CPU's exact ties."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.xgboost import XGBoost
+    x = [f"x{i}" for i in range(NFEAT)]
+    builders = []
+
+    def dart(n):
+        def train():
+            builders.append(XGBoost(ntrees=n, **DART))
+            return builders[-1].train(x=x, y="y", training_frame=fr)
+        return train
+
+    out = run_path(
+        f"DART XGBoost {ROWS} x {NFEAT}, {DART_TREES} rounds depth {DEPTH} "
+        f"{XGB_BINS} bins, rate_drop 0.1, skip_drop 0.5", dart(DART_TREES),
+        dart(2), fr, DART_TREES,
+        planned_launches(DART_TREES, DEPTH, XGB_BINS + 1, 2), {"auc": 1e-4},
+        ("fixed", "global"))
+    drops = {m: len(d) for m, d in enumerate(builders[1].dart_drops) if d}
+    print(f"DART rounds that dropped trees (round: trees dropped), "
+          f"{len(drops)} of {DART_TREES}: {drops}")
+    out["dropped"] = drops
+    cols = higgs_arrays(CROSS_ROWS)
+    out["cross"] = cross_device_ties(
+        f"DART XGBoost {CROSS_ROWS} x {NFEAT}, 6 rounds, rate_drop 0.3, "
+        "skip_drop 0.3", lambda dev: Frame.from_arrays(cols, device=dev),
+        lambda: XGBoost(ntrees=6, **dict(DART, rate_drop=0.3,
+                                         skip_drop=0.3)),
+        x, "y", "auc", DEPTH)
+    return out
+
+
+def device_ops(fn) -> tuple:
+    """``fn()`` once under torch.profiler: (its device ops, their device
+    ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in cuda),
+            sum(e.device_time_total for e in cuda) / 1e3)
+
+
+def tree_family_shap(fr) -> dict:
+    """(e) varimp and TreeSHAP of the main path's model (20 trees, depth
+    6): varimp equal to the CPU's from the same trees; contributions of 1M
+    rows, timed and profiled, each row summing to the raw margin within
+    1e-5 x max(1, |margin|); 10k rows against the port on the CPU at rtol
+    1e-9 (float64 sums in another order; an absolute floor of 1e-12 x the
+    largest contribution)."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    m = GBM(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+            seed=42).train(y="y", training_frame=fr)
+    cpu = model_on(m, "cpu")
+    vi = m.varimp()
+    if vi != cpu.varimp():
+        raise AssertionError("varimp on the card differs from the CPU's")
+    print(f"varimp (card = CPU): {[(r[0], round(r[3], 4)) for r in vi[:5]]}")
+    sub = head(fr, SHAP_ROWS)
+    m.contributions(head(fr, 1000))                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    phi = m.contributions(sub)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    margin = (m.output["f0"] + m.output["learn_rate"]
+              * m._tree_raw_sum(sub)).double()
+    gap = float(((phi.sum(1) - margin).abs()
+                 / margin.abs().clamp_min(1.0)).max())
+    frame = m.predict_contributions(head(fr, 1000))
+    ops, busy_ms = device_ops(lambda: m.contributions(sub))
+    small = head(fr, SHAP_CROSS_ROWS)
+    a = m.contributions(small).cpu()
+    b = cpu.contributions(frame_on(small, "cpu"))
+    rel = float(((a - b).abs() / (b.abs() + 1e-12 * float(b.abs().max())))
+                .max())
+    print(f"TreeSHAP {SHAP_ROWS} rows x {NFEAT}, {NTREES} trees depth "
+          f"{DEPTH}: {seconds:.3f} s ({seconds / NTREES * 1e3:.2f} ms a "
+          f"tree), {ops} device ops ({ops / NTREES:.0f} a tree), device busy "
+          f"{busy_ms:.1f} ms; rows sum to the margin within "
+          f"{gap:.2e} x max(1, |margin|); {SHAP_CROSS_ROWS} rows: card "
+          f"against CPU max rel diff {rel:.2e}; columns "
+          f"{frame.names[:3]}...{frame.names[-1]}")
+    if gap > 1e-5 or rel > 1e-9 or frame.names[-1] != "BiasTerm" \
+            or not bool(torch.isfinite(phi).all()):
+        raise AssertionError("TreeSHAP contributions disagree")
+    return dict(seconds=seconds, ms_per_tree=seconds / NTREES * 1e3,
+                device_ops=ops, ops_per_tree=ops / NTREES, busy_ms=busy_ms,
+                margin_gap=gap, cpu_rel=rel, rows=SHAP_ROWS)
+
+
+def tree_family_calibration(fr) -> dict:
+    """(f) The main path's GBM with calibrate_model on a 1M-row calibration
+    frame (phase 4's generator, seed 12), by Platt scaling and by isotonic
+    regression: the calibration step timed apart, and cal_p1 of its frame
+    within 1e-6 of the CPU's (the same trees on the CPU, calibrated from
+    the CPU's own scores of the same frame)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    ccols = higgs_arrays(CAL_ROWS, seed=12)
+    cf, cf_cpu = Frame.from_arrays(ccols), Frame.from_arrays(ccols,
+                                                             device="cpu")
+    del ccols
+    out = {}
+    for method in ("PlattScaling", "IsotonicRegression"):
+        kw = dict(calibrate_model=True, calibration_method=method)
+        b = GBM(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                seed=42, calibration_frame=cf, **kw)
+        m = b.train(y="y", training_frame=fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b._maybe_calibrate(m)                 # the calibration step alone
+        cal_s = time.perf_counter() - t0
+        # the CPU: the same trees, calibrated from its own scores of the
+        # same frame
+        cpu = model_on(m, "cpu")
+        GBM(calibration_frame=cf_cpu, **kw)._maybe_calibrate(cpu)
+        pred, pred_cpu = m.predict(cf), cpu.predict(cf_cpu)
+        differ = int((pred.vec("ps").data.cpu() != pred_cpu.vec("ps").data)
+                     .sum())
+        got = pred.vec("cal_p1").data.cpu()
+        diff = float((got - pred_cpu.vec("cal_p1").data).abs().max())
+        cal, cal_cpu = m.output["calibration"], cpu.output["calibration"]
+        shown = (f"a {cal['a']:.6f} b {cal['b']:.6f} (the CPU's a "
+                 f"{cal_cpu['a']:.6f} b {cal_cpu['b']:.6f})" if "a" in cal
+                 else f"{len(cal['xs'])} steps (the CPU's "
+                 f"{len(cal_cpu['xs'])})")
+        print(f"calibration {method} on {CAL_ROWS} rows: {shown}; the step "
+              f"(score on the card, one fetch, fit on the host) "
+              f"{cal_s:.3f} s; p1 differs from the CPU's in {differ} rows; "
+              f"cal_p1 card against CPU max |diff| {diff:.2e}")
+        if diff > 1e-6 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"calibration {method} disagrees")
+        out[method] = dict(seconds=cal_s, max_diff=diff,
+                           p1_rows_differing=differ,
+                           steps=len(cal.get("xs", [])))
+    return out
+
+
+def d2h_bytes(fn) -> tuple:
+    """``fn()`` under torch.profiler: its result and the bytes its
+    device-to-host copies moved (the trace's memcpy events)."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    path = Path(__file__).resolve().parent / "chiprun_out" / "d2h_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "")]
+    if any("bytes" not in e.get("args", {}) for e in copies):
+        raise AssertionError("the trace's device-to-host copies carry no "
+                             "byte counts")
+    return result, sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+def tree_family_isofor(fr) -> dict:
+    """(g) The isolation forests on phase 4's frame, fit (timed; its
+    device-to-host bytes counted under the profiler, held to ntrees x 256
+    x 28 x 4 plus a few kB) and scored (timed; profiled on 1M rows); then
+    fitted on its first 200k rows on the card and on the CPU: equal bit
+    for bit, scores within 1e-6 x max(1, |score|)."""
+    from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForest,
+                                              IsolationForest)
+    x = [f"x{i}" for i in range(NFEAT)]
+    sub = head(fr, CROSS_ROWS)
+    sub_cpu = frame_on(sub, "cpu")
+    out = {}
+    for name, params, ntrees in ISO_CASES:
+        cls = IsolationForest if name == "IF" else ExtendedIsolationForest
+        make = lambda: cls(seed=42, **params)
+        make().train(x=x, training_frame=head(fr, 100_000))    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = make().train(x=x, training_frame=fr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = model.predict(fr)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        # the profile of a 1M-row scoring (one chunk of rows)
+        ops, busy_ms = device_ops(lambda: model.predict(head(fr, SHAP_ROWS)))
+        _, nbytes, ncopies = d2h_bytes(
+            lambda: make().train(x=x, training_frame=fr))
+        bound = ntrees * 256 * NFEAT * 4 + ISO_FIXED_BYTES
+        card = make().train(x=x, training_frame=sub)
+        cpu = make().train(x=x, training_frame=sub_cpu)
+        keys = (("trees", "min_path_length", "max_path_length") if name == "IF"
+                else ("normals", "offsets", "is_split", "leaf", "cn"))
+        same = _outputs_bitwise(card.output, cpu.output, keys)
+        a = torch.stack([v.data for v in card.predict(sub).vecs]).cpu()
+        b = torch.stack([v.data for v in cpu.predict(sub_cpu).vecs])
+        gap = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+        col = pred.vecs[0].data
+        print(f"{name} {ROWS} x {NFEAT}, {ntrees} trees: fit {fit_s:.3f} s, "
+              f"score {score_s:.3f} s (1M rows: {ops} device ops, busy "
+              f"{busy_ms:.1f} ms); device-to-host {nbytes} bytes in "
+              f"{ncopies} copies (bound {bound}); {CROSS_ROWS} rows: forest "
+              f"equal to the CPU's bit for bit {same}, scores within "
+              f"{gap:.2e}; {pred.names[0]} in [{float(col.min()):.4f}, "
+              f"{float(col.max()):.4f}]")
+        if nbytes > bound or not same or gap > 1e-6 \
+                or not bool(torch.isfinite(col).all()):
+            raise AssertionError(f"{name} disagrees")
+        out[name] = dict(fit_s=fit_s, score_s=score_s, score_ops=ops,
+                         score_busy_ms=busy_ms, d2h_bytes=nbytes,
+                         d2h_bound=bound, score_gap=gap)
+    return out
+
+
+def uplift_frame(rows: int, seed: int):
+    """The Criteo-shaped uplift frame, made on the card from ``seed``:
+    f0-f11 normal, treatment at 85%, visit from a logit whose treatment
+    lift grows with f0."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((UPLIFT_FEAT, rows), generator=gen, device="cuda")
+    treated = torch.rand(rows, generator=gen, device="cuda") < 0.85
+    logit = -3.43 + 0.4 * X[1] - 0.3 * X[2] + treated * (0.3 + 0.35 * X[0])
+    visit = torch.rand(rows, generator=gen, device="cuda") < \
+        torch.sigmoid(logit)
+    names = [f"f{i}" for i in range(UPLIFT_FEAT)] + ["treatment", "visit"]
+    vecs = [Vec(X[i], VecType.NUM) for i in range(UPLIFT_FEAT)]
+    vecs += [Vec(treated.to(torch.int32), VecType.CAT,
+                 ("control", "treatment")),
+             Vec(visit.to(torch.int32), VecType.CAT, ("0", "1"))]
+    return Frame(names, vecs)
+
+
+def batch_tie_differences(cpu_trees, card_trees, ties: list,
+                          depth: int) -> tuple:
+    """:func:`tie_aware_differences` for the K trees of one batched
+    growth: ``ties`` holds each level's :func:`tree.tied_splits` over the
+    level's K x N nodes (tree-major)."""
+    differ, tied = [], []
+    for k, (a, b) in enumerate(zip(cpu_trees, card_trees)):
+        alike = torch.stack([getattr(a, f).cpu() == getattr(b, f).cpu()
+                             for f in SPLIT_KEYS]).all(0)
+        todo = [0]
+        while todo:
+            i = todo.pop()
+            d = int(np.log2(i + 1))
+            if d >= depth:
+                continue
+            if not alike[i]:
+                n = 2 ** d
+                (tied if bool(ties[d][k * n + i - (n - 1)])
+                 else differ).append((k, i))
+            elif bool(a.is_split[i]):
+                todo += [2 * i + 1, 2 * i + 2]
+    return differ, tied
+
+
+def tree_family_uplift() -> dict:
+    """(a) and (c): the uplift path's kernel shapes held against the plain
+    version (level 0 at 14M x 12, K = 8, w per tree; node totals at K = 8,
+    32 nodes), timed at each level; uplift DRF
+    at the JAX package's defaults on the Criteo-shaped frame; the CPU
+    against the card on one batch of 8 trees (500k rows) and on a whole
+    model (200k rows), both from bootstrap weights drawn on the CPU."""
+    from h2o3_tpu_torch.models import tree
+    from h2o3_tpu_torch.models.uplift import UpliftDRF
+    t0 = time.perf_counter()
+    ufr = uplift_frame(UPLIFT_ROWS, 21)
+    torch.cuda.synchronize()
+    shares = [float(ufr.vec(c).data.float().mean())
+              for c in ("treatment", "visit")]
+    print(f"uplift frame {UPLIFT_ROWS} x {UPLIFT_FEAT} on the card: "
+          f"{time.perf_counter() - t0:.2f} s, treated {shares[0]:.4f}, visit "
+          f"{shares[1]:.4f}")
+    K, Bt, R = 8, NBINS + 1, UPLIFT_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    binned_T, _, g, h, w = batch_inputs(R, UPLIFT_FEAT, Bt, 1, torch.int8,
+                                        gen, K, True)
+    node0 = torch.zeros((K, R), dtype=torch.int32, device="cuda")
+    shape = f"uplift R={R} F={UPLIFT_FEAT} Bt={Bt} K={K} w per tree"
+    # level 0: every row in node 0, so each entry sums ~215k rows and the
+    # float32 plain version's own rounding nears the check: held to float64
+    # sums (check_fixed without against_plain)
+    fixed = check_fixed((binned_T, node0, g, h, w), 1, Bt,
+                        f"{shape} level 0", against_plain=False)
+    del node0
+    node = torch.randint(-1, 32, (K, R), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    totals_err = check_totals(node, g, h, w, 32, f"{shape} final level N=32")
+    del node
+    layouts = []
+    for level in range(5):
+        per_tree = [level_nodes(R, level, gen) for _ in range(K)]
+        layouts.append((level, per_tree[0][0],
+                        torch.stack([n for _, n in per_tree])))
+    times = time_levels(f"uplift K={K}", binned_T, g, h, w, Bt, layouts)
+    del layouts, binned_T, g, h, w
+    torch.cuda.empty_cache()
+
+    x = [f"f{i}" for i in range(UPLIFT_FEAT)]
+
+    def uplift(n):
+        return lambda: UpliftDRF(treatment_column="treatment", ntrees=n,
+                                 seed=42).train(x=x, y="visit",
+                                                training_frame=ufr)
+
+    def finite_uplift(pred):
+        u = pred.vec("uplift_predict").data
+        if u.shape[0] != UPLIFT_ROWS or not bool(torch.isfinite(u).all()):
+            raise AssertionError("uplift predictions are not finite")
+
+    out = run_path(
+        f"uplift DRF {UPLIFT_ROWS} x {UPLIFT_FEAT}, 50 trees depth 5 "
+        f"{NBINS} bins, sample_rate 0.632, 8 trees a batch", uplift(50),
+        uplift(8), ufr, 50, planned_launches(7, 5, Bt, 1),
+        {"auuc": 1e-6, "qini": 1e-6, "auuc_normalized": 1e-9}, ("fixed",),
+        expected_totals=7, pred_check=finite_uplift)
+    out.update(times=times, err=fixed["err"], totals_err=totals_err)
+
+    class CPUDrawn(UpliftDRF):
+        """Bootstrap weights drawn on the CPU, one generator a tree, and
+        copied to the frame's device."""
+
+        def _batch_weights(self, w, s, k):
+            rate = float(self.params["sample_rate"])
+            return [w * torch.poisson(torch.full((w.shape[0],), rate),
+                                      generator=torch.Generator().manual_seed(
+                                          1000 + s + i)).to(w.device)
+                    for i in range(k)]
+
+    # one batch of 8 trees on the first rows, the same weights
+    ties, find = [], tree._find_splits
+
+    def recording(hists, *a, **kw):
+        ties.append(tree.tied_splits(hists, *a, **kw).cpu())
+        return find(hists, *a, **kw)
+
+    one = head(ufr, UPLIFT_BATCH_ROWS)
+    models = {}
+    for dev, f in (("cpu", frame_on(one, "cpu")), ("cuda", one)):
+        tree._find_splits = recording if dev == "cpu" else find
+        try:
+            models[dev] = CPUDrawn(treatment_column="treatment", ntrees=8) \
+                .train(x=x, y="visit", training_frame=f)
+        finally:
+            tree._find_splits = find
+    differ, tied = batch_tie_differences(models["cpu"].output["trees"],
+                                         models["cuda"].output["trees"],
+                                         ties, 5)
+    # the whole model on the first 200k rows, the same weights
+    part = head(ufr, CROSS_ROWS)
+    whole = {dev: CPUDrawn(treatment_column="treatment", ntrees=50).train(
+        x=x, y="visit", training_frame=f).training_metrics
+        for dev, f in (("cpu", frame_on(part, "cpu")), ("cuda", part))}
+    d_auuc = abs(whole["cpu"].auuc - whole["cuda"].auuc)
+    print(f"uplift CPU against the card: one batch of 8 trees on "
+          f"{UPLIFT_BATCH_ROWS} rows, "
+          f"split nodes that differ {differ}, at the CPU's exact ties "
+          f"{tied}; the whole model on {CROSS_ROWS} rows: AUUC CPU "
+          f"{whole['cpu'].auuc:.6f} card {whole['cuda'].auuc:.6f}, qini "
+          f"{whole['cpu'].qini:.6f} / {whole['cuda'].qini:.6f}")
+    # tolerance: trees alike but at ties, whose leaves move a few rows'
+    # predictions; 1e-3 of the AUUC
+    if differ or d_auuc > 1e-3 * abs(whole["cpu"].auuc) \
+            or not all(np.isfinite([whole["cuda"].auuc, whole["cuda"].qini,
+                                    whole["cuda"].auuc_normalized])):
+        raise AssertionError("uplift DRF on the card disagrees with the CPU")
+    out["cross_auuc"] = (whole["cpu"].auuc, whole["cuda"].auuc)
+    del ufr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tree_family(fr) -> dict:
+    """Phase 9: the rest of the tree family, (b) and (d)-(g) on phase 4's
+    frame, then (a) and (c) on the uplift frame; each part's seconds (its
+    checks on the CPU included) in ``part_seconds``."""
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    for name, part in (("decision_tree", lambda: tree_family_dt(fr)),
+                       ("dart", lambda: tree_family_dart(fr)),
+                       ("treeshap", lambda: tree_family_shap(fr)),
+                       ("calibration", lambda: tree_family_calibration(fr)),
+                       ("isofor", lambda: tree_family_isofor(fr)),
+                       ("uplift", tree_family_uplift)):
+        t1 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t1
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 9: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2268,6 +2815,7 @@ def main() -> int:
     tot_times = totals_times()
     new_paths = phase_new_paths(fr)
     glm_multi = phase_glm_multinomial(fr)
+    tree_family = phase_tree_family(fr)
     del fr
     new_times = phase_new_path_times()
     air_fr, air_vf = airlines_frames()
@@ -2320,8 +2868,26 @@ def main() -> int:
         main_path["node_totals"], skewed["totals_err"], tot_times[:1],
         name="node_totals", path="binomial", replaces=TOTALS_REPLACES,
         multinomial_k3=tot_times[1]))
+    # phase 9's paths: the decision tree's levels are DRF's levels 0-9 and
+    # DART's the XGBoost levels (the same shapes, timed in phase 6); the
+    # uplift levels (K = 8, w per tree) were timed in phase 9
+    fam = tree_family
+    kernels.append(kernel_entry(
+        fam["decision_tree"]["launches"], max_err["drf_depth14"],
+        new_times["drf_depth14"][:10], path="decision_tree"))
+    kernels.append(kernel_entry(
+        fam["uplift"]["launches"], fam["uplift"]["err"],
+        fam["uplift"]["times"], path="uplift_drf_k8",
+        node_totals_err=fam["uplift"]["totals_err"]))
+    kernels.append(kernel_entry(
+        fam["dart"]["launches"], max_err["xgboost_257"],
+        new_times["xgboost_257"], path="dart_257"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
+    print(json.dumps({"tree_family": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "times"}
+            if isinstance(v, dict) else v) for k, v in fam.items()}},
+        default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

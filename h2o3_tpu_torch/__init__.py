@@ -7,8 +7,11 @@ for the whole process (:func:`set_device`). With no card and no such
 request they raise: nothing moves to the CPU quietly.
 
 So far: GBM (bernoulli, multinomial, gaussian, poisson, gamma, tweedie,
-laplace, quantile and huber, with offsets), DRF and XGBoost (gbtree)
-training and scoring, with row and column sampling; the level histograms
+laplace, quantile and huber, with offsets), DRF, XGBoost (gbtree and
+DART), the decision tree, uplift DRF and the isolation forests, training
+and scoring, with row and column sampling, calibration, varimp and
+TreeSHAP contributions (:mod:`h2o3_tpu_torch.genmodel.treeshap`, on the
+card); the level histograms
 of tree growth, one call per level for all the class trees of a round, are
 built by hand-written CUDA kernels (``csrc/hist.cu``, wrapped by
 :mod:`h2o3_tpu_torch.ops.hist`). GLM (:mod:`h2o3_tpu_torch.models.glm`)

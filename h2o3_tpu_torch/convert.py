@@ -3,17 +3,20 @@
 :func:`glm_model` takes a JAX GLM's ``output`` (beta, coef, coef_names,
 the ordinal thresholds, the interaction domains), the fields of its
 ``DataInfo`` and its params, all as numpy arrays and plain values, and
-returns the port's GLMModel. :func:`gbm_model`, :func:`drf_model` and
-:func:`xgboost_model` take a JAX
+returns the port's GLMModel. :func:`gbm_model`, :func:`drf_model`,
+:func:`xgboost_model` (gbtree and DART), :func:`decision_tree_model`,
+:func:`uplift_model` and :func:`isolation_forest_model` take a JAX
 model's ``output`` as plain numpy and dicts — each tree a dict of its heap
 arrays (and ``left_mask`` in a group-split model), ``trees`` a list of
 them and ``trees_multi`` (multinomial) a list per class, with ``cat_card``
-and ``cat_bins`` where the model has group splits — and return the port's
+and ``cat_bins`` where the model has group splits, and ``calibration``
+where a binomial model has one — and return the port's
 model on the chosen device, so the port can score a model trained by the
 reference, and resume from it (``checkpoint=``). They never import the
 reference: the caller converts its tree objects to dicts
 (``{k: np.asarray(getattr(tree, k)) for k in HEAP_FIELDS +
-("left_mask",)}``).
+("left_mask",)}``). :func:`extended_isolation_forest_model` takes the
+stacked hyperplane arrays of an extended isolation forest.
 """
 
 from __future__ import annotations
@@ -25,10 +28,14 @@ import torch
 
 from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.models.data_info import DataInfo
+from h2o3_tpu_torch.models.decision_tree import DecisionTreeModel
 from h2o3_tpu_torch.models.gbm import DISTRIBUTIONS, DRFModel, GBMModel
 from h2o3_tpu_torch.models.glm import GLMModel
+from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForestModel,
+                                          IsolationForestModel)
 from h2o3_tpu_torch.models.model_base import make_model_key
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
+from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
 
 _HEAP_DTYPES = dict(feat=torch.int32, thresh_bin=torch.int32,
@@ -51,13 +58,18 @@ def _trees(dicts, dev) -> list[Tree]:
 
 def _tree_output(output: Mapping, dev) -> dict:
     """The trees (one set, or one per class) and the binning and feature
-    entries every tree model's output holds."""
-    out = dict(edges=torch.as_tensor(np.array(output["edges"],
-                                              np.float32)).to(dev),
-               x_cols=list(output["x_cols"]),
-               feat_domains=dict(output.get("feat_domains") or {}),
-               learn_rate=float(output["learn_rate"]),
-               f0=float(output.get("f0") or 0.0))
+    entries a tree model's output holds (the boosted and bagged models'
+    ``edges``, ``learn_rate`` and ``f0``, where it has them), with a
+    binomial model's ``calibration``."""
+    out = dict(x_cols=list(output["x_cols"]),
+               feat_domains=dict(output.get("feat_domains") or {}))
+    if output.get("edges") is not None:
+        out.update(edges=torch.as_tensor(np.array(output["edges"],
+                                                  np.float32)).to(dev),
+                   learn_rate=float(output["learn_rate"]),
+                   f0=float(output.get("f0") or 0.0))
+    if output.get("calibration") is not None:
+        out["calibration"] = dict(output["calibration"])
     if output.get("trees_multi") is not None:
         out["trees_multi"] = [_trees(ts, dev) for ts in output["trees_multi"]]
     else:
@@ -91,6 +103,8 @@ def _boosted(cls, algo: str, output: Mapping, response_column,
     else:
         ntrees = len(out["trees"])
     out.update(distribution=dist, ntrees=int(output.get("ntrees", ntrees)))
+    if output.get("dart_weights") is not None:
+        out["dart_weights"] = [float(v) for v in output["dart_weights"]]
     return _model(cls, algo, out, response_column, response_domain, params)
 
 
@@ -111,8 +125,9 @@ def xgboost_model(output: Mapping, response_column: str | None = None,
                   response_domain: tuple[str, ...] | None = None,
                   params: Mapping | None = None,
                   device: str | torch.device | None = None) -> XGBoostModel:
-    """The port's XGBoostModel (gbtree booster) from a reference model's
-    ``output``, read as :func:`gbm_model` reads it."""
+    """The port's XGBoostModel from a reference model's ``output``, read as
+    :func:`gbm_model` reads it; a DART model's trees carry their weights in
+    their leaves (learn rate 1), with its ``dart_weights``."""
     return _boosted(XGBoostModel, "xgboost", output, response_column,
                     response_domain, params, device)
 
@@ -132,6 +147,68 @@ def drf_model(output: Mapping, response_column: str | None = None,
                distribution=output.get("distribution", "gaussian"))
     return _model(DRFModel, "drf", out, response_column, response_domain,
                   params)
+
+
+def decision_tree_model(output: Mapping, response_column: str | None = None,
+                        response_domain: tuple[str, ...] | None = None,
+                        params: Mapping | None = None,
+                        device: str | torch.device | None = None
+                        ) -> DecisionTreeModel:
+    """The port's DecisionTreeModel from a reference model's ``output``:
+    its one tree in ``trees``, ``x_cols`` and ``feat_domains``."""
+    out = _tree_output(output, resolve_device(device))
+    return _model(DecisionTreeModel, "decisiontree", out, response_column,
+                  response_domain, params)
+
+
+def uplift_model(output: Mapping, response_column: str | None = None,
+                 response_domain: tuple[str, ...] | None = None,
+                 params: Mapping | None = None,
+                 device: str | torch.device | None = None) -> UpliftDRFModel:
+    """The port's UpliftDRFModel from a reference model's ``output``:
+    ``trees``, ``x_cols``, ``feat_domains``, ``treatment_column`` and
+    ``propensity``; ``params`` carries ``auuc_nbins`` where it is set."""
+    out = _tree_output(output, resolve_device(device))
+    out.update(treatment_column=output["treatment_column"],
+               propensity=float(output["propensity"]))
+    return _model(UpliftDRFModel, "upliftdrf", out, response_column,
+                  response_domain, params)
+
+
+def isolation_forest_model(output: Mapping, params: Mapping | None = None,
+                           device: str | torch.device | None = None
+                           ) -> IsolationForestModel:
+    """The port's IsolationForestModel from a reference model's ``output``:
+    ``trees`` (each with ``feat``, ``thresh_bin``, ``thresh_val``,
+    ``na_left``, ``is_split`` and ``leaf``), ``ntrees``, ``x_cols``,
+    ``feat_domains``, ``min_path_length`` and ``max_path_length``."""
+    out = _tree_output(output, resolve_device(device))
+    out.update(ntrees=int(output["ntrees"]),
+               min_path_length=float(output["min_path_length"]),
+               max_path_length=float(output["max_path_length"]))
+    return _model(IsolationForestModel, "isolationforest", out, None, None,
+                  params)
+
+
+def extended_isolation_forest_model(
+        output: Mapping, params: Mapping | None = None,
+        device: str | torch.device | None = None
+        ) -> ExtendedIsolationForestModel:
+    """The port's ExtendedIsolationForestModel from a reference model's
+    ``output``: ``normals`` [T, heap, F], ``offsets``, ``is_split`` and
+    ``leaf`` [T, heap], ``ntrees``, ``x_cols``, ``feat_domains`` and
+    ``cn``."""
+    dev = resolve_device(device)
+    arr = lambda k, dt: torch.as_tensor(np.array(output[k])).to(dev, dt)
+    out = dict(normals=arr("normals", torch.float32),
+               offsets=arr("offsets", torch.float32),
+               is_split=arr("is_split", torch.bool),
+               leaf=arr("leaf", torch.float32), ntrees=int(output["ntrees"]),
+               x_cols=list(output["x_cols"]),
+               feat_domains=dict(output.get("feat_domains") or {}),
+               cn=float(output["cn"]))
+    return _model(ExtendedIsolationForestModel, "extendedisolationforest",
+                  out, None, None, params)
 
 
 #: the GLM params scoring reads, with the reference GLM's defaults

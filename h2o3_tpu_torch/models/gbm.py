@@ -28,9 +28,14 @@ enum; ordinal or label_encoder keep thresholds), with more levels than
 and ``interaction_constraints`` constrain GBM and XGBoost trees.
 
 Distributions: bernoulli, multinomial, gaussian, poisson, gamma, tweedie,
-laplace, quantile and huber, with ``offset_column``. Left for later slices,
-and refused: the custom distribution (it needs ``utils/udf.py``),
-calibration, DART, varimp and TreeSHAP.
+laplace, quantile and huber, with ``offset_column``. Every tree model
+reports ``varimp`` (split gains summed per feature) and, with one tree
+set, ``predict_contributions`` (TreeSHAP on the card,
+:mod:`h2o3_tpu_torch.genmodel.treeshap`); a binomial model trained with
+``calibrate_model`` scores ``cal_p0``/``cal_p1`` through Platt scaling or
+isotonic regression fitted on its ``calibration_frame``. Left for a later
+slice, and refused: the custom distribution, whose class
+``utils/udf.py`` resolves through the DKV.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.vec import Vec
+from h2o3_tpu_torch.genmodel.treeshap import ensemble_contributions
 from h2o3_tpu_torch.models.data_info import (remap_codes, response_adapted,
                                              response_as_float)
 from h2o3_tpu_torch.models.job import Job
@@ -56,6 +63,11 @@ DISTRIBUTIONS = ("bernoulli", "multinomial", "gaussian", "poisson", "gamma",
                  "tweedie", "laplace", "quantile", "huber")
 #: the families whose margins are on the log scale
 LOG_LINK = ("poisson", "gamma", "tweedie")
+_CUSTOM_WAITS = ("distribution 'custom' waits for the DKV: utils/udf.py "
+                 "resolves the user's python:KEY=module.Class reference "
+                 "through it, and the port does not have it yet")
+#: the calibration methods (reference ``CalibrationHelper``)
+CALIBRATION_METHODS = ("PlattScaling", "IsotonicRegression")
 
 
 def tree_matrix(frame: Frame, cols: list[str],
@@ -72,6 +84,15 @@ def tree_matrix(frame: Frame, cols: list[str],
         else:
             arrs.append(v.as_float())
     return torch.stack(arrs, dim=1)
+
+
+def sigmoid(f: torch.Tensor) -> torch.Tensor:
+    """Class-1 probabilities of float32 margins, computed in float64 and
+    rounded once: the same float32 bits on the CPU and the card, whose
+    float32 sigmoids differ in the last bit on many rows (an isotonic
+    calibration's steps amplify that), and within an ulp of the
+    reference's float32 sigmoid."""
+    return torch.sigmoid(f.double()).float()
 
 
 def _weighted_quantile_host(y: torch.Tensor, w: torch.Tensor,
@@ -135,8 +156,7 @@ def _grad_hess(dist: str, F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         delta = ar[order][idx]
         return w * torch.clamp(r, -delta, delta), w
     if dist == "custom":
-        raise NotImplementedError("distribution 'custom' needs "
-                                  "utils/udf.py, which is not ported yet")
+        raise NotImplementedError(_CUSTOM_WAITS)
     raise ValueError(f"unknown distribution {dist!r}")
 
 
@@ -230,12 +250,76 @@ class SharedTreeModel(Model):
         return predict_raw(X, trees, cat_card=out.get("cat_card"),
                            n_bins=int(out.get("cat_bins") or 0))
 
-    def varimp(self, use_pandas: bool = False):
-        raise NotImplementedError("varimp is not ported yet")
+    def predict(self, frame: Frame) -> Frame:
+        """Score; a calibrated binomial model appends ``cal_p0`` and
+        ``cal_p1`` (reference: ``CalibrationHelper.postProcessPredictions``)."""
+        out = super().predict(frame)
+        cal = self.output.get("calibration")
+        if cal is None:
+            return out
+        cp1 = calibrated_p1(cal, out.vecs[2].data)
+        return Frame(out.names + ["cal_p0", "cal_p1"],
+                     out.vecs + [Vec.from_device(1 - cp1),
+                                 Vec.from_device(cp1)])
 
-    def predict_contributions(self, frame: Frame):
-        raise NotImplementedError("predict_contributions (TreeSHAP) is not "
-                                  "ported yet")
+    def varimp(self, use_pandas: bool = False):
+        """Per-feature split-gain importance (reference: ``SharedTree``'s
+        relative importance; h2o-py ``model.varimp()`` rows (variable,
+        relative, scaled, percentage)), from one fetch of every tree's
+        split features and gains, summed in float64 on the host in the
+        reference's order."""
+        cols = self.output["x_cols"]
+        rel = np.zeros(len(cols))
+        all_trees = self.output.get("trees") or [
+            t for ts in self.output.get("trees_multi", []) for t in ts]
+        with_gain = [t for t in all_trees if t.gain is not None]
+        if with_gain:
+            feat = torch.stack([t.feat for t in with_gain])
+            gain = torch.stack([t.gain for t in with_gain])
+            fetched = torch.cat([feat.to(gain.dtype), gain]).cpu().numpy()
+            n = len(with_gain)
+            for f, g in zip(fetched[:n].astype(np.int64), fetched[n:]):
+                ok = f >= 0
+                np.add.at(rel, f[ok], np.maximum(g[ok], 0.0))
+        mx = rel.max() if rel.max() > 0 else 1.0
+        tot = rel.sum() if rel.sum() > 0 else 1.0
+        rows = sorted(zip(cols, rel, rel / mx, rel / tot), key=lambda r: -r[1])
+        if use_pandas:
+            import pandas as pd
+            return pd.DataFrame(rows, columns=["variable", "relative_importance",
+                                               "scaled_importance",
+                                               "percentage"])
+        return rows
+
+    def _contrib_scale_bias(self) -> tuple[float, float]:
+        """(scale, extra_bias) mapping the trees' summed SHAP values onto
+        this model's raw margin: margin = scale * tree_sum + extra_bias."""
+        return 1.0, 0.0
+
+    def contributions(self, frame: Frame) -> torch.Tensor:
+        """[rows, F + 1] float64 SHAP contributions on the frame's device,
+        the last column the bias; each row sums to the model's raw margin
+        (logit for bernoulli, the mean for DRF and regression)."""
+        if "trees" not in self.output:
+            raise ValueError("contributions need a single-tree-set model")
+        X = tree_matrix(frame, self.output["x_cols"],
+                        self.output["feat_domains"])
+        phi = ensemble_contributions(
+            self.output["trees"], X, cat_card=self.output.get("cat_card"),
+            n_bins=int(self.output.get("cat_bins") or 0))
+        scale, bias = self._contrib_scale_bias()
+        phi *= scale
+        phi[:, -1] += bias
+        return phi
+
+    def predict_contributions(self, frame: Frame) -> Frame:
+        """Per-row SHAP contributions and ``BiasTerm`` as float32 columns
+        (reference: ``Model.scoreContributions``; h2o-py
+        ``model.predict_contributions``)."""
+        phi = self.contributions(frame)
+        names = list(self.output["x_cols"]) + ["BiasTerm"]
+        return Frame(names, [Vec.from_device(phi[:, i].float().contiguous())
+                             for i in range(phi.shape[1])])
 
     def _tree_raw_sum(self, frame: Frame) -> torch.Tensor:
         if not self.output["trees"]:
@@ -255,8 +339,85 @@ class SharedTreeModel(Model):
                            dim=1)
 
 
+def fit_calibration(method: str, p1: np.ndarray, y: np.ndarray) -> dict:
+    """The calibration of p1 (float32, clipped into (0, 1)) against the
+    0/1 response y, on the host as the reference fits it
+    (``_maybe_calibrate``): Platt scaling by at most 50 Newton steps on
+    Platt's smoothed targets, or isotonic regression by
+    pool-adjacent-violators over p1 sorted."""
+    if method == "PlattScaling":
+        f = np.log(p1 / (1 - p1))
+        # Platt's target smoothing: t+=(N++1)/(N++2), t-=1/(N-+2)
+        npos, nneg = float(y.sum()), float((1 - y).sum())
+        t = np.where(y > 0, (npos + 1) / (npos + 2), 1 / (nneg + 2))
+        a, b = 1.0, 0.0
+        for _ in range(50):
+            p = 1 / (1 + np.exp(-(a * f + b)))
+            g = np.array([np.sum((p - t) * f), np.sum(p - t)])
+            W = np.maximum(p * (1 - p), 1e-10)
+            Hm = np.array([[np.sum(W * f * f) + 1e-9, np.sum(W * f)],
+                           [np.sum(W * f), np.sum(W) + 1e-9]])
+            step = np.linalg.solve(Hm, g)
+            a, b = a - step[0], b - step[1]
+            if np.abs(step).max() < 1e-10:
+                break
+        return dict(method=method, a=float(a), b=float(b))
+    order = np.argsort(p1)
+    xs, ys = p1[order], y[order].astype(np.float64)
+    merged_v, merged_w, merged_x = [], [], []
+    for v, xx in zip(ys.tolist(), xs.tolist()):
+        merged_v.append(v)
+        merged_w.append(1.0)
+        merged_x.append(xx)
+        while len(merged_v) > 1 and merged_v[-2] > merged_v[-1]:
+            v2, w2 = merged_v.pop(), merged_w.pop()
+            merged_x.pop()
+            merged_v[-1] = (merged_v[-1] * merged_w[-1] + v2 * w2) / \
+                (merged_w[-1] + w2)
+            merged_w[-1] += w2
+    return dict(method=method, xs=[float(v) for v in merged_x],
+                ys=[float(v) for v in merged_v])
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor,
+            fp: torch.Tensor) -> torch.Tensor:
+    """``np.interp`` on the device (float64): fp[0] below xp[0], fp[-1]
+    from xp[-1] on, else the line between the knots around x (the last
+    knot at or below x, so repeated knots take their last value)."""
+    n = xp.shape[0]
+    j = (torch.searchsorted(xp, x, right=True) - 1).clamp(0, max(n - 2, 0))
+    if n == 1:
+        return torch.where(torch.isnan(x), x, fp[0].expand_as(x))
+    x0, x1, y0, y1 = xp[j], xp[j + 1], fp[j], fp[j + 1]
+    slope = (y1 - y0) / (x1 - x0)
+    out = slope * (x - x0) + y0
+    # np.interp's repair where the line's arithmetic gives NaN
+    alt = slope * (x - x1) + y1
+    out = torch.where(torch.isnan(out), alt, out)
+    out = torch.where(torch.isnan(out) & (y0 == y1), y0, out)
+    out = torch.where(x < xp[0], fp[0], out)
+    out = torch.where(x >= xp[-1], fp[-1], out)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def calibrated_p1(cal: dict, p1: torch.Tensor) -> torch.Tensor:
+    """Calibrated class-1 probabilities (float32) of the model's p1, on its
+    device, in the reference's arithmetic: Platt in float32 on p1 clipped
+    into [1e-15, 1 - 1e-15], isotonic by ``np.interp`` in float64."""
+    p1 = torch.clamp(p1, 1e-15, 1 - 1e-15)
+    if cal["method"] == "PlattScaling":
+        z = cal["a"] * torch.log(p1 / (1 - p1)) + cal["b"]
+        return 1.0 / (1.0 + torch.exp(-z))
+    f64 = dict(dtype=torch.float64, device=p1.device)
+    return _interp(p1.double(), torch.tensor(cal["xs"], **f64),
+                   torch.tensor(cal["ys"], **f64)).float()
+
+
 class GBMModel(SharedTreeModel):
     algo = "gbm"
+
+    def _contrib_scale_bias(self):
+        return float(self.output["learn_rate"]), float(self.output["f0"])
 
     def _score_raw(self, frame: Frame) -> torch.Tensor:
         out = self.output
@@ -269,7 +430,7 @@ class GBMModel(SharedTreeModel):
         if oc:
             f = f + _offset(frame, oc)
         if out["distribution"] == "bernoulli":
-            p = torch.sigmoid(f)
+            p = sigmoid(f)
             return torch.stack([1 - p, p], dim=1)
         if out["distribution"] in LOG_LINK:
             return torch.exp(torch.clamp(f, -30, 30))
@@ -341,9 +502,46 @@ class SharedTreeBuilder(ModelBuilder):
         return self._history_table(model, cols, values)
 
     def _refuse_outside_slice(self) -> None:
-        """Parameters of features the port does not have yet raise."""
-        if self.params.get("calibrate_model"):
-            raise NotImplementedError("calibrate_model is not ported yet")
+        """Parameters this builder does not take raise (see
+        :attr:`UNUSED`)."""
+        base = self.defaults()
+        for name in self.UNUSED:
+            if self.params.get(name) != base[name]:
+                raise ValueError(f"{type(self).__name__} does not take "
+                                 f"{name} (the reference leaves it "
+                                 "unapplied)")
+
+    #: the inherited parameters this builder does not apply: each must
+    #: keep its default
+    UNUSED: tuple = ()
+
+    def _maybe_calibrate(self, model) -> None:
+        """Fit probability calibration on ``calibration_frame`` (reference:
+        ``hex/tree/CalibrationHelper.java:18``): the frame scored on the
+        card, its p1, response and validity fetched once, and the fit on
+        the host (:func:`fit_calibration`)."""
+        if not self.params.get("calibrate_model"):
+            return
+        if model.nclasses != 2:
+            raise ValueError("calibrate_model requires a binomial model "
+                             "(reference: CalibrationHelper)")
+        cf = self.params.get("calibration_frame")
+        if cf is None:
+            raise ValueError("calibrate_model requires calibration_frame")
+        if not isinstance(cf, Frame):
+            raise NotImplementedError(
+                f"calibration_frame={cf!r}: a frame key needs the DKV, which "
+                "the port does not have yet; pass the Frame")
+        method = str(self.params.get("calibration_method") or "PlattScaling")
+        if method not in CALIBRATION_METHODS:
+            raise ValueError(f"unknown calibration_method {method!r}")
+        raw = model._score_raw(cf)
+        yv, valid = response_adapted(cf.vec(model.response_column),
+                                     model.response_domain)
+        p1, y, ok = torch.stack([raw[:, 1], yv, valid.float()]).cpu().numpy()
+        mask = ok > 0
+        model.output["calibration"] = fit_calibration(
+            method, np.clip(p1[mask], 1e-15, 1 - 1e-15), y[mask])
 
     def _prepare(self, frame: Frame, x: list[str], y: str, weights):
         """Bin edges from a strided sample of at most ~100k rows, the
@@ -614,8 +812,7 @@ class GBM(SharedTreeBuilder):
             raise ValueError("bernoulli distribution requires a categorical "
                              "(2-level) response")
         if dist == "custom":
-            raise NotImplementedError("distribution 'custom' needs "
-                                      "utils/udf.py, which is not ported yet")
+            raise NotImplementedError(_CUSTOM_WAITS)
         if dist not in DISTRIBUTIONS or dist == "multinomial":
             raise ValueError(f"unsupported distribution {dist!r}; have "
                              f"{', '.join(DISTRIBUTIONS)}, AUTO")
@@ -871,13 +1068,13 @@ class GBM(SharedTreeBuilder):
         trees += [r[0] for r in rounds]
         # final margins double as training predictions (skips the re-score)
         if dist == "bernoulli":
-            pe = torch.sigmoid(Fcur)
+            pe = sigmoid(Fcur)
             self._last_train_raw = torch.stack([1 - pe, pe], dim=1)
         elif dist in LOG_LINK:
             self._last_train_raw = torch.exp(torch.clamp(Fcur, -30, 30))
         else:
             self._last_train_raw = Fcur
-        return GBMModel(
+        model = GBMModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y,
             response_domain=yvec.domain if yvec.is_categorical else None,
@@ -885,6 +1082,8 @@ class GBM(SharedTreeBuilder):
                         distribution=dist, x_cols=list(x),
                         feat_domains=domains, ntrees=len(trees),
                         **self._cat_output()))
+        self._maybe_calibrate(model)
+        return model
 
     def _fit_multinomial(self, job: Job, frame, x, y, w, yc, yvec, edges,
                          binned, domains, cp=None) -> GBMModel:
@@ -950,17 +1149,22 @@ class GBM(SharedTreeBuilder):
             for k in range(K):
                 trees_multi[k].append(r[k])
         self._last_train_raw = torch.softmax(Fcur, dim=1)
-        return GBMModel(
+        model = GBMModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y, response_domain=yvec.domain,
             output=dict(trees_multi=trees_multi, edges=edges, f0_multi=f0,
                         learn_rate=lr, distribution="multinomial",
                         x_cols=list(x), feat_domains=domains,
                         ntrees=len(trees_multi[0]), **self._cat_output()))
+        self._maybe_calibrate(model)     # raises: not a binomial model
+        return model
 
 
 class DRFModel(SharedTreeModel):
     algo = "drf"
+
+    def _contrib_scale_bias(self):
+        return 1.0 / max(self.output["ntrees"], 1), 0.0
 
     def _score_raw(self, frame: Frame) -> torch.Tensor:
         n = max(self.output["ntrees"], 1)
@@ -1050,12 +1254,14 @@ class DRF(SharedTreeBuilder):
                 for k in range(nclass):
                     trees_multi[k].append(trees[k])
                 job.update(0.1 + 0.8 * (m + 1 - done) / (ntrees - done))
-            return DRFModel(
+            model = DRFModel(
                 key=make_model_key(self.algo, self.model_id),
                 params=self.params, response_column=y,
                 response_domain=yvec.domain,
                 output=dict(output, trees_multi=trees_multi, ntrees=ntrees,
                             binomial=False, distribution="multinomial"))
+            self._maybe_calibrate(model)
+            return model
         trees: list[Tree] = []
         if cp is not None:
             if cp.output.get("trees") is None:
@@ -1073,9 +1279,11 @@ class DRF(SharedTreeBuilder):
                                 cat_feats=cat_feats)
             trees.append(tree)
             job.update(0.1 + 0.8 * (m + 1 - done) / (ntrees - done))
-        return DRFModel(
+        model = DRFModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y,
             response_domain=yvec.domain if classifier else None,
             output=dict(output, trees=trees, ntrees=len(trees),
                         binomial=classifier, distribution="gaussian"))
+        self._maybe_calibrate(model)
+        return model

@@ -6,7 +6,8 @@ its device. Training metrics come from the predictions the fit already made
 (``ModelBuilder._last_train_raw``), not from re-scoring the frame; a
 ``validation_frame`` is scored into ``validation_metrics`` and handed to
 builders that score it while they train (early stopping). ``checkpoint=``
-takes a trained Model of the port to resume from. The reference's
+takes a trained Model of the port to resume from. An ``unsupervised``
+builder (the isolation forests) trains with ``y=None``. The reference's
 cross-validation, DKV (checkpoints by key), locks, auto-recovery,
 telemetry and mesh slices are left out of this slice.
 """
@@ -114,6 +115,10 @@ class ModelBuilder:
     params → fit → training metrics)."""
 
     algo = "base"
+    #: a builder that trains without a response (``y=None``)
+    unsupervised = False
+    #: whether a categorical response is taken
+    supports_classification = True
 
     def __init__(self, **params):
         self.params = self.defaults()
@@ -155,7 +160,7 @@ class ModelBuilder:
         self.params["checkpoint"] = cp.key
         return cp
 
-    def _fit(self, job: Job, frame: Frame, x: list[str], y: str,
+    def _fit(self, job: Job, frame: Frame, x: list[str], y: str | None,
              weights: torch.Tensor) -> Model:
         """Train on rows where weights > 0."""
         raise NotImplementedError
@@ -172,7 +177,7 @@ class ModelBuilder:
         frame = training_frame
         if frame is None:
             raise ValueError("training_frame is required")
-        if y is None:
+        if y is None and not self.unsupervised:
             raise ValueError(f"{self.algo} is supervised: y is required")
         ignored = set(self.params.get("ignored_columns") or [])
         for col in ("weights_column", "offset_column"):
@@ -182,6 +187,7 @@ class ModelBuilder:
              if c != y and c not in ignored and frame.vec(c).type.on_device]
         if not x:
             raise ValueError("no usable feature columns")
+        self._validate(frame, x, y)
         if validation_frame is not None and \
                 validation_frame.device != frame.device:
             raise ValueError(f"validation_frame is on "
@@ -207,9 +213,11 @@ class ModelBuilder:
             model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
             w_metrics = self._metrics_weights
-            model.training_metrics = self._holdout_metrics(
-                model, frame, y, base_w if w_metrics is None else w_metrics)
-            if validation_frame is not None:
+            if y is not None:
+                model.training_metrics = self._holdout_metrics(
+                    model, frame, y,
+                    base_w if w_metrics is None else w_metrics)
+            if validation_frame is not None and y is not None:
                 model.validation_metrics = model.model_performance(
                     validation_frame)
             model.scoring_history = self._scoring_history(model)
@@ -219,6 +227,14 @@ class ModelBuilder:
         if self.job.status == Job.FAILED:
             raise self.job.exception
         return self.model
+
+    def _validate(self, frame: Frame, x: list[str], y: str | None) -> None:
+        """Refuse a response the builder cannot train on (reference
+        ``ModelBuilder._validate``)."""
+        if y is not None and frame.vec(y).is_categorical \
+                and not self.supports_classification:
+            raise ValueError(f"{self.algo} does not support a categorical "
+                             "response")
 
     def _scoring_history(self, model: Model):
         """The per-tree scoring table of iterative builders (reference

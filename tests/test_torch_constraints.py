@@ -157,6 +157,8 @@ def test_constraint_validation_errors():
     with pytest.raises(ValueError, match="DRF does not take"):
         DRF(ntrees=2, monotone_constraints={"x": 1}).train(
             y="y", training_frame=fr)
-    for unported in (dict(calibrate_model=True),):
-        with pytest.raises(NotImplementedError, match="calibrate_model"):
-            GBM(ntrees=2, **unported).train(y="y", training_frame=fr)
+    # calibration is ported: on a numeric response it raises as the
+    # reference's does
+    with pytest.raises(ValueError, match="calibrate_model requires a "
+                                         "binomial"):
+        GBM(ntrees=2, calibrate_model=True).train(y="y", training_frame=fr)

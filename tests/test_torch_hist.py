@@ -535,3 +535,58 @@ def test_fixed_kernel_matches_plain_and_is_bit_identical_on_card(
     assert torch.equal(a.view(torch.int32), emu.view(torch.int32))
     _close(a.cpu().numpy(), hist.level_histograms_plain(
         *args, N, B + 1).cpu().numpy())
+
+
+# -- uplift DRF's class batch: K = 8 trees, each with its own bootstrap w --
+
+def test_eight_tree_batch_with_per_tree_w_matches_reference_vmap():
+    """Uplift DRF grows 8 trees a batch, each on its own bootstrap weights:
+    the plain version at K = 8 with w [8, R] against the reference's
+    segment sum under jax.vmap."""
+    data = _batch(16, 3000, 6, 64, 4, K=8, w_per_class=True, dtype=np.int8)
+    want = _vmapped(_level_histograms, data[0], *data[1:], 4, 65)
+    got = _port(hist.level_histograms_plain, *data, 4, 65)
+    assert got.shape == (8, 6, 4 * 65, 3)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,F,N", [(4099, 12, 1), (1 << 16, 12, 8),
+                                   (1 << 16, 12, 16)])
+def test_eight_tree_batch_is_bit_identical_on_card(cuda_device, R, F, N):
+    """The uplift levels' shape (12 features, 65 int8 bins, K = 8, w per
+    tree) on the plan's kernel: two launches bit for bit equal, equal bit
+    for bit to the fixed kernel's emulation, within the plain version's
+    tolerance."""
+    data = _batch(17, R, F, 64, N, K=8, w_per_class=True, dtype=np.int8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    binned_T = t(data[0].T)
+    args = (binned_T, *map(t, data[1:]))
+    p = hist.launch_plan(binned_T, N, 65, K=8)
+    assert p["kernel"] == "fixed"
+    before = hist.launch_count()
+    a = hist.level_histograms(*args, N, 65)
+    b = hist.level_histograms(*args, N, 65)
+    assert hist.launch_count() == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    emu = hist.level_histograms_fixed_plain(*args, N, 65, p["qbits"])
+    assert torch.equal(a.view(torch.int32), emu.view(torch.int32))
+    _close(a.cpu().numpy(),
+           hist.level_histograms_plain(*args, N, 65).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_eight_tree_node_totals_are_bit_identical_on_card(cuda_device):
+    """The final level of an uplift batch: node totals at K = 8, 32 nodes,
+    w per tree."""
+    _, node, g, h, w = _batch(18, 1 << 16, 1, 1, 32, K=8, w_per_class=True)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    args = tuple(map(t, (node, g, h, w)))
+    before = hist.node_totals.launches
+    a = hist.node_totals(*args, 32)
+    b = hist.node_totals(*args, 32)
+    assert hist.node_totals.launches == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.view(torch.int32), hist.node_totals_fixed_plain(
+        *args, 32).view(torch.int32))
+    _close(a.cpu().numpy(), hist.node_totals_plain(*args, 32).cpu().numpy())

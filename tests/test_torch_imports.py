@@ -61,3 +61,14 @@ def _loaded_after_importing(names: list[str]) -> list[str]:
 def test_port_imports_neither_jax_nor_the_jax_package(what, names):
     assert len(names) > 1
     assert _loaded_after_importing(names) == [], what
+
+
+def test_the_probe_covers_every_tree_builder_and_treeshap():
+    """The import probe walks the whole package: the tree family's modules
+    (TreeSHAP, calibration and DART in gbm and xgboost, the decision tree,
+    uplift DRF and the isolation forests) are among those it imports."""
+    assert {"h2o3_tpu_torch.genmodel.treeshap",
+            "h2o3_tpu_torch.models.decision_tree",
+            "h2o3_tpu_torch.models.uplift", "h2o3_tpu_torch.models.isofor",
+            "h2o3_tpu_torch.models.xgboost", "h2o3_tpu_torch.convert"} \
+        <= set(_port_modules())

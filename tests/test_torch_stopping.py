@@ -216,8 +216,9 @@ def test_stopping_metric_errors():
 
 def test_reference_stopped_model_scores_through_convert():
     """A GBM the JAX package stopped early, carried into the port, scores
-    its validation frame as the reference does (rtol 1e-5); the port's
-    models refuse what this slice leaves out, by name."""
+    its validation frame as the reference does (rtol 1e-5), with the
+    reference's varimp (rtol 1e-12) and contributions that sum to its
+    margin (rtol 1e-5: the margin is float32)."""
     cols, vcols = stop_cols(11, 1200), stop_cols(12, 400)
     jm = JGBM(ntrees=60, max_depth=3, learn_rate=0.3, stopping_rounds=2,
               stopping_tolerance=1e-3, seed=11).train(
@@ -240,7 +241,12 @@ def test_reference_stopped_model_scores_through_convert():
                                want[: vf.nrows], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(cm.model_performance(vf).logloss,
                                jm.validation_metrics.logloss, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="varimp"):
-        cm.varimp()
-    with pytest.raises(NotImplementedError, match="TreeSHAP"):
-        cm.predict_contributions(vf)
+    # the carried model's varimp is the reference's, and its SHAP rows sum
+    # to its logit margin
+    want_vi = jm.varimp()
+    assert [r[0] for r in cm.varimp()] == [r[0] for r in want_vi]
+    np.testing.assert_allclose([r[1] for r in cm.varimp()],
+                               [r[1] for r in want_vi], rtol=1e-12)
+    p1 = cm._score_raw(vf)[:, 1].double().numpy()
+    np.testing.assert_allclose(cm.contributions(vf).numpy().sum(1),
+                               np.log(p1 / (1 - p1)), rtol=1e-5, atol=1e-5)

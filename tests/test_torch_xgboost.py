@@ -127,14 +127,19 @@ def test_binned_with_int16_and_257_bins_per_level(models):
     assert binned.dtype == torch.int16 and int(binned.max()) <= 256
 
 
-@pytest.mark.parametrize("booster,exc", [("dart", NotImplementedError),
+@pytest.mark.parametrize("booster,exc", [("dart", ValueError),
                                          ("gblinear", ValueError),
                                          ("nope", ValueError)])
 def test_boosters_other_than_gbtree_raise(booster, exc):
+    """gblinear and unknown boosters raise; DART trains, and raises only on
+    a checkpoint, as the reference's does."""
     fr = Frame.from_arrays(higgs_cols(500, seed=52))
+    params = dict(ntrees=1, booster=booster)
+    if booster == "dart":
+        params["checkpoint"] = pxgb.XGBoost(ntrees=1).train(
+            y="y", training_frame=fr)
     with pytest.raises(exc, match=booster):
-        pxgb.XGBoost(ntrees=1, booster=booster).train(y="y",
-                                                      training_frame=fr)
+        pxgb.XGBoost(**params).train(y="y", training_frame=fr)
 
 
 def test_convert_scores_a_reference_xgboost(models):
