@@ -109,15 +109,32 @@ Phases, each of which fails the run on error:
    cal_p1 within 1e-6 of the CPU's; (g) the isolation forest and the
    extended one (extension 0 and 27) fitted and scored on phase 4's
    frame, the bytes a fit copies to the host counted, and 200k-row fits
-   equal bit for bit to the CPU's.
+   equal bit for bit to the CPU's;
+10. DeepLearning and the dense unsupervised builders (no kernel of their
+   own: torch operations), each timed after a warm run under
+   torch.profiler, with its throughput, device idle share, costliest ops
+   and host syncs, and each held to the CPU on a head of its frame at the
+   CPU tests' tolerances: (a)-(d) DeepLearning on bench.py's bench_dl
+   frame (60,000 x 784, labels 0-9): bench_dl itself (hidden [50, 50], B
+   128, 3 epochs), H2O's defaults (hidden [200, 200], B 32, 1 epoch),
+   MaxoutWithDropout with momentum SGD and Nesterov, and the autoencoder
+   (hidden [50], Tanh, 3 epochs) with its anomaly scores; one host sync
+   inside a fit; CPU against card on 2,000 rows, one epoch, streams drawn
+   on the host; (e) KMeans on phase 4's frame (k 10, Furthest, 10
+   iterations) and estimate_k on its first 1M rows; (f) PCA (k 10,
+   DEMEAN) and SVD (nv 10), the Gram timed beside its FLOP bound; (g)
+   GLRM's exact path (k 10) on phase 4's frame and its proximal path
+   (Categorical on the six enum columns, k 10, 50 iterations) on 1M rows
+   of phase 7's airlines frame; (h) NaiveBayes on phase 7's 10M-row
+   airlines frame.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
 at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
-line and phase 9's the ``tree_family`` line before the ``kernels``
-line. Without a CUDA card the script exits
+line, phase 9's the ``tree_family`` line and phase 10's the
+``dl_unsupervised`` line before the ``kernels`` line. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
 
@@ -2790,6 +2807,545 @@ def phase_tree_family(fr) -> dict:
     return out
 
 
+#: phase 10: bench.py:181's bench_dl frame (60,000 x 784 normal features
+#: from default_rng(5), labels 0-9) and its CPU head
+DL_ROWS, DL_FEAT, DL_CPU_ROWS = 60_000, 784, 2_000
+DL_X = [f"p{i}" for i in range(DL_FEAT)]
+#: phase 10's DeepLearning configurations: (name, builder parameters)
+DL_CASES = (
+    ("a bench_dl", dict(hidden=[50, 50], activation="Rectifier", epochs=3,
+                        mini_batch_size=128, seed=7)),
+    ("b H2O defaults", dict(hidden=[200, 200], activation="Rectifier",
+                            mini_batch_size=32, epochs=1, seed=7)),
+    ("c MaxoutWithDropout, momentum SGD, Nesterov",
+     dict(hidden=[50, 50], activation="MaxoutWithDropout",
+          adaptive_rate=False, epochs=1, seed=7)),
+    ("d AutoEncoder", dict(autoencoder=True, hidden=[50], activation="Tanh",
+                           epochs=3, seed=7)),
+)
+#: rows of the CPU heads of the unsupervised checks; estimate_k's rows and
+#: the proximal GLRM's (airlines) rows, and its CPU head
+UNSUP_CPU_ROWS, ESTIMATE_K_ROWS = 20_000, 1_000_000
+GLRM_PROX_ROWS, GLRM_PROX_CPU_ROWS = 1_000_000, 4_000
+NB_CPU_ROWS = 200_000
+KMEANS = dict(k=10, init="Furthest", max_iterations=10, standardize=True,
+              seed=7)
+#: the exact path: k 10, at most 10 iterations (the default 100 cut to keep
+#: phase 10 short; on this frame it settles in 2)
+GLRM_EXACT = dict(k=10, max_iterations=10)
+GLRM_PROX = dict(k=10, multi_loss="Categorical", max_iterations=50)
+
+
+def device_events(fn) -> list:
+    """``fn()`` once under torch.profiler (device activity only): its
+    device ops as [(name, ms, count)], costliest first. The trace's raw
+    events are summed directly: parsing them into the profiler's event
+    tree takes tens of seconds at 10^5 events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    agg: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t = agg.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e6
+            t[1] += 1
+    if not agg:
+        raise AssertionError("the profiler recorded no device op")
+    return sorted(((k, ms, n) for k, (ms, n) in agg.items()),
+                  key=lambda k: -k[1])
+
+
+def timed_fit(what: str, fit, units: float, unit: str) -> tuple:
+    """``fit()`` twice on the card: the warm run under torch.profiler (the
+    device's busy time, op count and costliest ops), then the timed run
+    under the sync counter. Returns (the timed run's model, its numbers)."""
+    t0 = time.perf_counter()
+    ops = device_events(fit)
+    warm_s = time.perf_counter() - t0
+    busy_ms = sum(ms for _, ms, _ in ops)
+    t0 = time.perf_counter()
+    model, sites = count_syncs(fit)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    idle = 1.0 - busy_ms / (seconds * 1e3)
+    print(f"{what}: {seconds:.4f} s, {units / seconds:.6g} {unit}/s; device "
+          f"busy {busy_ms:.2f} ms in {sum(n for _, _, n in ops)} ops (idle "
+          f"{100 * idle:.1f}%); host syncs {sum(sites.values())}: {sites}; "
+          f"the profiled warm run {warm_s:.2f} s")
+    for name, ms, n in ops[:5]:
+        print(f"  {ms:9.2f} ms {n:6d}x  {name[:90]}")
+    return model, dict(seconds=seconds, rate=units / seconds, unit=unit,
+                       busy_ms=busy_ms, idle_share=idle,
+                       device_ops=sum(n for _, _, n in ops),
+                       host_syncs=sum(sites.values()), sync_sites=sites,
+                       top_ops=[(name[:60], ms, n) for name, ms, n in ops[:3]])
+
+
+def prime_rollups(fr) -> None:
+    """Every column's rollups, so that no timed fit computes them."""
+    for v in fr.vecs:
+        v.rollups()
+
+
+def close(what: str, got, want, rtol: float, atol: float = 0.0) -> float:
+    """Hold two arrays at rtol (plus atol); returns the largest |difference|
+    over its allowance."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    ratio = float(np.max(np.abs(got - want) / (rtol * np.abs(want) + atol
+                                               + 1e-300)))
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: CPU and card differ by {ratio:.3g} x "
+                             f"the tolerance (rtol {rtol}, atol {atol})")
+    return ratio
+
+
+def dl_frame(device):
+    """bench.py:181's frame: 60,000 x 784 normal features from
+    default_rng(5), labels 0-9 (domain "0".."9")."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(DL_ROWS, DL_FEAT)).astype(np.float32)
+    yv = rng.integers(0, 10, size=DL_ROWS).astype(np.int32)
+    fr = Frame.from_arrays({f"p{i}": X[:, i] for i in range(DL_FEAT)},
+                           device=device)
+    y = Vec(torch.from_numpy(yv).to(device), VecType.CAT,
+            domain=tuple(str(d) for d in range(10)))
+    return Frame(fr.names + ["y"], fr.vecs + [y])
+
+
+@contextlib.contextmanager
+def host_streams(seed: int):
+    """DeepLearning's initial weights and each epoch's permutation drawn on
+    the host (a CPU generator, numpy), so that a CPU fit and a card fit
+    start alike and see the rows in one order."""
+    from h2o3_tpu_torch.models import deeplearning as dl
+    perm0, init0 = dl._permutation, dl._init_params
+
+    def perm(n, gen, device):
+        return torch.from_numpy(np.random.default_rng(seed).permutation(
+            n)).to(device)
+
+    def init(sizes, act, dist, scale, gen, device):
+        Ws, bs = init0(sizes, act, dist, scale,
+                       torch.Generator().manual_seed(seed), "cpu")
+        return [w.to(device) for w in Ws], [b.to(device) for b in bs]
+
+    dl._permutation, dl._init_params = perm, init
+    try:
+        yield
+    finally:
+        dl._permutation, dl._init_params = perm0, init0
+
+
+def dl_cross(name: str, params: dict, fr) -> dict:
+    """The configuration on the frame's first 2,000 rows, one epoch,
+    dropout 0, the streams on the host, on the CPU and on the card: class
+    probabilities (the autoencoder's anomaly) at rtol 1e-5, as the CPU
+    tests hold them; the weights' largest difference printed."""
+    from h2o3_tpu_torch.models.deeplearning import DeepLearning
+    p = dict(params, epochs=1)
+    if p["activation"].endswith("WithDropout"):
+        p["hidden_dropout_ratios"] = [0.0] * len(p["hidden"])
+    sub = head(fr, DL_CPU_ROWS)
+    fits = {}
+    t0 = time.perf_counter()
+    for dev, frame in (("cpu", frame_on(sub, "cpu")), ("cuda", sub)):
+        with host_streams(11):
+            fits[dev] = DeepLearning(**p).train(
+                x=DL_X, y=None if p.get("autoencoder") else "y",
+                training_frame=frame)
+    cpu, card = fits["cpu"], fits["cuda"]
+    w_ratio = max(float(((a.cpu() - b).abs() / (1e-5 * b.abs() + 1e-6 *
+                                                b.abs().max())).max())
+                  for a, b in zip(card.output["net"].params(),
+                                  cpu.output["net"].params()))
+    if p.get("autoencoder"):
+        got = card.anomaly(sub).vec("Reconstruction.MSE").to_numpy()
+        want = cpu.anomaly(frame_on(sub, "cpu")).vec(
+            "Reconstruction.MSE").to_numpy()
+        ratio = close(f"{name} anomaly", got, want, 1e-5)
+    else:
+        got = card._score_raw(sub).cpu().numpy()
+        want = cpu._score_raw(frame_on(sub, "cpu")).numpy()
+        ratio = close(f"{name} probabilities", got, want, 1e-5, 1e-7)
+    print(f"  CPU / card on {DL_CPU_ROWS} rows, 1 epoch, host streams "
+          f"({time.perf_counter() - t0:.1f} s): "
+          f"{'anomaly' if p.get('autoencoder') else 'probabilities'} at "
+          f"{ratio:.3g} x rtol 1e-5; weights at {w_ratio:.3g} x the step "
+          f"tolerance (rtol 1e-5 + 1e-6 x max, printed only)")
+    return dict(cross_ratio=ratio, cross_weights_ratio=w_ratio)
+
+
+def dl_part(fr) -> dict:
+    """(a)-(d): each configuration fitted warm and timed on the card, then
+    checked against the CPU on a head."""
+    from h2o3_tpu_torch.models.deeplearning import DeepLearning
+    out = {}
+    for name, params in DL_CASES:
+        auto = bool(params.get("autoencoder"))
+
+        def fit(params=params, auto=auto):
+            return DeepLearning(**params).train(
+                x=DL_X, y=None if auto else "y", training_frame=fr)
+
+        B = params.get("mini_batch_size", 32)
+        samples = DL_ROWS * params["epochs"]
+        model, res = timed_fit(f"DL ({name}) {DL_ROWS} x {DL_FEAT}, hidden "
+                               f"{params['hidden']}", fit, samples,
+                               "samples")
+        in_loop = sum(n for s, n in res["sync_sites"].items()
+                      if s.startswith("deeplearning.py:"))
+        hist = [h["train_loss"] for h in model.output["score_history"]]
+        res.update(samples_trained=model.output["samples_trained"],
+                   epoch_loss=hist, syncs_in_fit_loop=in_loop)
+        if auto:
+            t0 = time.perf_counter()
+            mse = model.anomaly(fr).vec("Reconstruction.MSE").data
+            torch.cuda.synchronize()
+            res["anomaly_s"] = time.perf_counter() - t0
+            res["anomaly_mean"] = float(mse.mean())
+            if not (torch.isfinite(mse).all() and mse.numel() == DL_ROWS):
+                raise AssertionError("DL (d): anomaly scores not finite")
+        else:
+            res["train_logloss"] = model.training_metrics.logloss
+        print(f"  epoch losses {hist}; samples trained "
+              f"{model.output['samples_trained']:.0f}; syncs inside "
+              f"deeplearning.py {in_loop}" + (
+                  f"; training logloss {res['train_logloss']:.6f}"
+                  if not auto else f"; anomaly of {DL_ROWS} rows "
+                  f"{res['anomaly_s']:.4f} s, mean {res['anomaly_mean']:.6f}"))
+        if not (np.all(np.isfinite(hist)) and model.output["samples_trained"]
+                == DL_ROWS // B * B * params["epochs"]):
+            raise AssertionError(f"DL ({name}): losses not finite or samples "
+                                 "miscounted")
+        if in_loop != 1:
+            raise AssertionError(f"DL ({name}): {in_loop} host syncs inside "
+                                 "deeplearning.py; the fit fetches once")
+        res.update(dl_cross(name, params, fr))
+        out[name.split()[0]] = res
+    return out
+
+
+@contextlib.contextmanager
+def first_center(row: int):
+    """KMeans' first center (its one random draw under Furthest) at
+    ``row`` on every device."""
+    from h2o3_tpu_torch.models import kmeans as km
+    choice0 = km._weighted_row_choice
+    km._weighted_row_choice = lambda gen, p, w: torch.tensor(row,
+                                                             device=w.device)
+    try:
+        yield
+    finally:
+        km._weighted_row_choice = choice0
+
+
+def kmeans_part(fr) -> dict:
+    """(e) KMeans on the 11M x 28 frame (k 10, Furthest, 10 iterations,
+    standardize) and estimate_k (k 10) on its first 1M rows; then on its
+    first 20,000 rows on the CPU and the card from the same first center:
+    within-SS at rtol 1e-5 and the same iterations, estimate_k's k
+    exactly, and one Lloyd step from the CPU's centers: the same
+    assignment for every row but near-ties (two nearest squared distances
+    within 1e-5 relative: the 28 features are independent normals, so
+    such rows flip with the order of the sums) and, if none flips, the new
+    centers at rtol 1e-5."""
+    from h2o3_tpu_torch.models import kmeans as km
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def fit():
+        return km.KMeans(**KMEANS).train(x=x, training_frame=fr)
+
+    model, res = timed_fit(f"KMeans {ROWS} x {NFEAT}, k 10, Furthest, "
+                           "10 iterations, standardize", fit,
+                           ROWS * KMEANS["max_iterations"], "rows*iterations")
+    C = model.centers()
+    if not (C.shape == (10, NFEAT) and np.isfinite(C).all()
+            and model.output["size"].sum() == ROWS):
+        raise AssertionError("KMeans: centers not finite or sizes off")
+    res.update(iterations=model.output["iterations"],
+               tot_withinss=model.tot_withinss(), totss=model.totss(),
+               betweenss=model.betweenss(),
+               sizes=model.output["size"].tolist())
+    sub = head(fr, ESTIMATE_K_ROWS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ek = km.KMeans(k=10, estimate_k=True).train(x=x, training_frame=sub)
+    torch.cuda.synchronize()
+    res["estimate_k"] = dict(
+        seconds=time.perf_counter() - t0,
+        k=int(ek.output["centers_std"].shape[0]),
+        iterations=ek.output["iterations"], tot_withinss=ek.tot_withinss())
+    print(f"  iterations {res['iterations']}, within-SS "
+          f"{res['tot_withinss']:.6g} of total {res['totss']:.6g}; "
+          f"estimate_k on {ESTIMATE_K_ROWS} rows: k = "
+          f"{res['estimate_k']['k']} in {res['estimate_k']['seconds']:.3f} s")
+    sub = head(fr, UNSUP_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    fits = {}
+    with first_center(0):
+        for dev, f in (("cpu", cpu_sub), ("cuda", sub)):
+            fits[dev] = (km.KMeans(**KMEANS).train(x=x, training_frame=f),
+                         km.KMeans(k=10, estimate_k=True).train(
+                             x=x, training_frame=f))
+    (cpu, cpu_ek), (card, card_ek) = fits["cpu"], fits["cuda"]
+    close("KMeans within-SS", card.tot_withinss(), cpu.tot_withinss(), 1e-5)
+    close("estimate_k within-SS", card_ek.tot_withinss(),
+          cpu_ek.tot_withinss(), 1e-5)
+    if card.output["iterations"] != cpu.output["iterations"] or \
+            card_ek.output["centers_std"].shape != \
+            cpu_ek.output["centers_std"].shape:
+        raise AssertionError("KMeans: iterations or estimate_k's k differ "
+                             "between the CPU and the card")
+    X = cpu.data_info.expand(cpu_sub)
+    C0 = cpu.output["centers_std"]
+    d2 = km._sq_dists(X, C0).sort(dim=1).values
+    tie = (d2[:, 1] - d2[:, 0]) <= 1e-5 * d2[:, 0].clamp_min(1.0)
+    a_cpu = km._assign(X, C0)[0]
+    a_card = km._assign(cpu.data_info.expand(sub), C0.cuda())[0].cpu()
+    flips = a_cpu != a_card
+    if (flips & ~tie).any():
+        raise AssertionError(f"KMeans: {int((flips & ~tie).sum())} rows "
+                             "assigned otherwise on the card, not at a tie")
+    if not flips.any():
+        close("KMeans Lloyd step centers",
+              km._lloyd_step(cpu.data_info.expand(sub), torch.ones(
+                  UNSUP_CPU_ROWS, device="cuda"), C0.cuda())[0].cpu(),
+              km._lloyd_step(X, torch.ones(UNSUP_CPU_ROWS), C0)[0],
+              1e-5, 1e-6)
+    res["cross"] = dict(rows=UNSUP_CPU_ROWS, flips=int(flips.sum()),
+                        near_ties=int(tie.sum()),
+                        wss_cpu=cpu.tot_withinss(),
+                        wss_card=card.tot_withinss())
+    print(f"  CPU / card on {UNSUP_CPU_ROWS} rows: within-SS "
+          f"{card.tot_withinss():.9g} / {cpu.tot_withinss():.9g}, "
+          f"estimate_k k = {card_ek.output['centers_std'].shape[0]}; one "
+          f"Lloyd step: {int(flips.sum())} rows assigned otherwise, "
+          f"{int(tie.sum())} near-ties")
+    return res
+
+
+def eigen_residual(M: np.ndarray, V, lam) -> float:
+    """max |M v - lambda v| over the eigenpairs, over lambda_max."""
+    V = np.asarray(V, np.float64)
+    lam = np.asarray(lam, np.float64)
+    return float(np.abs(M @ V - V * lam[None, :]).max() / lam.max())
+
+
+def pca_svd_part(fr) -> dict:
+    """(f) PCA (k 10, DEMEAN) and SVD (nv 10) on the 11M x 28 frame, the
+    Gram alone beside its 2RP^2 FLOP at the float32 peak; then on the
+    first 20,000 rows on the CPU and the card: eigenvalues (and singular
+    values) at rtol 1e-5, and the card's eigenvectors eigenvectors of the
+    CPU's float64 matrix (residual within 1e-5 of the largest eigenvalue).
+    The 28 features are independent normals, so the eigenvalues lie close
+    together and the eigenvectors themselves are not determined to rtol
+    1e-5 by float32 sums: they are printed, not held."""
+    from h2o3_tpu_torch.models import decomposition as dec
+    x = [f"x{i}" for i in range(NFEAT)]
+    out = {}
+    for name, make in (("pca", lambda: dec.PCA(k=10, transform="DEMEAN")),
+                       ("svd", lambda: dec.SVD(nv=10))):
+        def fit(make=make):
+            return make().train(x=x, training_frame=fr)
+
+        model, res = timed_fit(f"{name.upper()} {ROWS} x {NFEAT}, 10 "
+                               "components", fit, ROWS, "rows")
+        lam = model.output["eigenvalues"] if name == "pca" else \
+            model.output["d"] ** 2
+        if not (np.isfinite(lam).all() and (lam > 0).all()):
+            raise AssertionError(f"{name}: eigenvalues not finite")
+        res["values"] = (model.output["std_deviation"] if name == "pca"
+                         else model.output["d"]).tolist()
+        out[name] = res
+    X = model.data_info.expand(fr)
+    w = torch.ones(ROWS, device="cuda")
+    ms = cuda_ms(lambda: dec._gram(X, w), reps=5)
+    peak, src = fp32_peak()
+    bound = 2.0 * ROWS * NFEAT * NFEAT / peak * 1e3
+    del X, w
+    out["gram"] = dict(ms=ms, bound_ms=bound, peak_flops=peak, peak_src=src)
+    print(f"  the Gram alone ({ROWS} x {NFEAT}, weighted): {ms:.4f} ms "
+          f"against {bound:.4f} ms of 2RP^2 FLOP at {peak / 1e12:.2f} "
+          f"TFLOP/s ({src})")
+    sub = head(fr, UNSUP_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    for name, make in (("pca", lambda: dec.PCA(k=10, transform="DEMEAN")),
+                       ("svd", lambda: dec.SVD(nv=10))):
+        cpu = make().train(x=x, training_frame=cpu_sub)
+        card = make().train(x=x, training_frame=sub)
+        Xh = cpu.data_info.expand(cpu_sub).double().numpy()
+        if name == "pca":
+            mu = Xh.mean(axis=0)
+            n = Xh.shape[0]
+            M = Xh.T @ Xh / (n - 1.0) - np.outer(mu, mu) * (n / (n - 1.0))
+            V, lam, lam_cpu = (card.rotation(), card.output["eigenvalues"],
+                               cpu.output["eigenvalues"])
+        else:
+            M = Xh.T @ Xh
+            V, lam, lam_cpu = (card.output["v"].cpu().numpy(),
+                               card.output["d"] ** 2, cpu.output["d"] ** 2)
+        close(f"{name} eigenvalues", lam, lam_cpu, 1e-5)
+        resid = eigen_residual(M, V, lam)
+        if not resid <= 1e-5:
+            raise AssertionError(f"{name}: the card's eigenvectors leave a "
+                                 f"residual of {resid:.3g} x lambda_max")
+        vdiff = float(np.abs(np.abs(V) - np.abs(
+            cpu.rotation() if name == "pca" else
+            cpu.output["v"].numpy())).max())
+        out[name]["cross"] = dict(rows=UNSUP_CPU_ROWS, residual=resid,
+                                  eigvec_abs_diff=vdiff)
+        print(f"  {name} CPU / card on {UNSUP_CPU_ROWS} rows: eigenvalues "
+              f"within rtol 1e-5, residual {resid:.3g} x lambda_max; "
+              f"eigenvectors differ by up to {vdiff:.3g} (printed only)")
+    return out
+
+
+@contextlib.contextmanager
+def fixed_archetypes(k: int, seed: int = 7):
+    """GLRM's initial Y: k orthonormal rows from numpy on every device."""
+    from h2o3_tpu_torch.models import decomposition as dec
+    init0 = dec._init_archetypes
+
+    def init(Xc, k_, init, gen):
+        Q = np.linalg.qr(np.random.default_rng(seed).normal(
+            size=(Xc.shape[1], k_)))[0]
+        return torch.from_numpy(Q.T.astype(np.float32)).to(Xc.device)
+
+    dec._init_archetypes = init
+    try:
+        yield
+    finally:
+        dec._init_archetypes = init0
+
+
+def glrm_part(fr, air_fr) -> dict:
+    """(g) GLRM's exact path (k 10) on the 11M x 28 frame and the proximal
+    path (Categorical multi_loss on the six enum columns, quadratic on the
+    numeric two, transform NONE as H2O's default, k 10, 50 iterations) on
+    the first 1M airlines rows; then each on a head on the CPU and the
+    card from the same initial archetypes: the objective at rtol 1e-4
+    (exact) and 1e-3 (proximal), the exact path's reconstruction at rtol
+    1e-4, as the CPU tests hold them. The proximal path's step starts at
+    1/(observed cells), the reference's rule, so at 1M x 674 its first
+    step changes the objective by less than its 1e-7 stop rule."""
+    from h2o3_tpu_torch.models import decomposition as dec
+    x = [f"x{i}" for i in range(NFEAT)]
+    out = {}
+    air = head(air_fr, GLRM_PROX_ROWS)
+    for name, params, frame, cols, rows in (
+            ("exact", GLRM_EXACT, fr, x, ROWS),
+            ("proximal", GLRM_PROX, air, AIRLINE_X, GLRM_PROX_ROWS)):
+        def fit(params=params, frame=frame, cols=cols):
+            return dec.GLRM(**params).train(x=cols, training_frame=frame)
+
+        model, res = timed_fit(f"GLRM {name} {rows} rows, k 10", fit, rows,
+                               "rows")
+        its = model.output["iterations"]
+        res.update(iterations=its, objective=model.output["objective"],
+                   rows_iters_per_s=rows * its / res["seconds"],
+                   width=len(model.data_info.coef_names))
+        if not np.isfinite(res["objective"]):
+            raise AssertionError(f"GLRM {name}: objective not finite")
+        print(f"  {its} iterations ({res['rows_iters_per_s']:.6g} "
+              f"rows*iterations/s), objective {res['objective']:.9g}, "
+              f"{res['width']} expanded columns")
+        n_cpu = UNSUP_CPU_ROWS if name == "exact" else GLRM_PROX_CPU_ROWS
+        sub = head(frame, n_cpu)
+        cpu_sub = frame_on(sub, "cpu")
+        with fixed_archetypes(params["k"]):
+            cpu = dec.GLRM(**params).train(x=cols, training_frame=cpu_sub)
+            card = dec.GLRM(**params).train(x=cols, training_frame=sub)
+        rtol = 1e-4 if name == "exact" else 1e-3
+        ratio = close(f"GLRM {name} objective", card.output["objective"],
+                      cpu.output["objective"], rtol)
+        if name == "exact":
+            want = cpu._score_raw(cpu_sub).numpy()
+            ratio = max(ratio, close("GLRM exact reconstruction",
+                                     card._score_raw(sub).cpu().numpy(),
+                                     want, 1e-4, 1e-4 * np.abs(want).max()))
+        res["cross"] = dict(rows=n_cpu, ratio=ratio,
+                            objective_cpu=cpu.output["objective"],
+                            objective_card=card.output["objective"])
+        print(f"  CPU / card on {n_cpu} rows from the same archetypes: "
+              f"objective {card.output['objective']:.9g} / "
+              f"{cpu.output['objective']:.9g}, at {ratio:.3g} x rtol {rtol}")
+        out[name] = res
+    return out
+
+
+def nb_part(air_fr) -> dict:
+    """(h) NaiveBayes on the 10M-row airlines frame (dep_delayed_15min ~
+    the eight columns); then on its first 200k rows on the CPU and the
+    card: tables at rtol 1e-6, probabilities at rtol 1e-6 with a floor of
+    1e-6 per term of a row's log-likelihood (the prior and one a feature),
+    as the CPU tests hold them."""
+    from h2o3_tpu_torch.models.naive_bayes import NaiveBayes
+
+    def fit(frame=air_fr):
+        return NaiveBayes().train(x=AIRLINE_X, y=AIRLINE_Y,
+                                  training_frame=frame)
+
+    model, res = timed_fit(f"NaiveBayes {AIRLINE_ROWS} airlines rows", fit,
+                           AIRLINE_ROWS, "rows")
+    res["auc"] = model.training_metrics.auc
+    res["logloss"] = model.training_metrics.logloss
+    print(f"  training AUC {res['auc']:.6f}, logloss {res['logloss']:.6f}")
+    if not 0.5 < res["auc"] < 1.0:
+        raise AssertionError("NaiveBayes: training AUC out of range")
+    sub = head(air_fr, NB_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    co, ko = cpu.output, card.output
+    for k in ("log_prior", "mu", "sd"):
+        close(f"NaiveBayes {k}", ko[k].cpu(), co[k], 1e-6)
+    for a, b in zip(ko["cat_logp"], co["cat_logp"]):
+        close("NaiveBayes count tables", a.cpu(), b, 1e-6)
+    terms = 1 + len(AIRLINE_X)
+    ratio = close("NaiveBayes probabilities", card._score_raw(sub).cpu(),
+                  cpu._score_raw(cpu_sub), 1e-6, 1e-6 * terms)
+    res["cross"] = dict(rows=NB_CPU_ROWS, ratio=ratio)
+    print(f"  CPU / card on {NB_CPU_ROWS} rows: tables within rtol 1e-6, "
+          f"probabilities at {ratio:.3g} x (rtol 1e-6 + {terms} x 1e-6)")
+    return res
+
+
+def phase_dl_unsupervised(fr, air_fr) -> dict:
+    """Phase 10: DeepLearning (a)-(d) on bench_dl's frame, then KMeans (e),
+    PCA and SVD (f) and GLRM's exact path (g) on phase 4's frame, GLRM's
+    proximal path (g) and NaiveBayes (h) on phase 7's airlines frame; each
+    part's seconds (its CPU checks included) in ``part_seconds``."""
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    dl_fr = dl_frame("cuda")
+    prime_rollups(dl_fr)
+    prime_rollups(fr)
+    prime_rollups(air_fr)
+    for name, part in (("deeplearning", lambda: dl_part(dl_fr)),
+                       ("kmeans", lambda: kmeans_part(fr)),
+                       ("pca_svd", lambda: pca_svd_part(fr)),
+                       ("glrm", lambda: glrm_part(fr, air_fr)),
+                       ("naive_bayes", lambda: nb_part(air_fr))):
+        t1 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t1
+        print(f"phase 10 {name}: {parts[name]:.1f} s")
+        if name == "deeplearning":
+            del dl_fr
+            torch.cuda.empty_cache()
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 10: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2816,12 +3372,14 @@ def main() -> int:
     new_paths = phase_new_paths(fr)
     glm_multi = phase_glm_multinomial(fr)
     tree_family = phase_tree_family(fr)
-    del fr
     new_times = phase_new_path_times()
     air_fr, air_vf = airlines_frames()
     airlines = phase_airlines(air_fr, air_vf)
     glm_airlines = phase_glm_airlines(air_fr, air_vf)
-    del air_fr, air_vf
+    del air_vf
+    torch.cuda.empty_cache()
+    unsupervised = phase_dl_unsupervised(fr, air_fr)
+    del fr, air_fr
     torch.cuda.empty_cache()
     glm = phase_glm(glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
@@ -2888,6 +3446,7 @@ def main() -> int:
         k: ({kk: vv for kk, vv in v.items() if kk != "times"}
             if isinstance(v, dict) else v) for k, v in fam.items()}},
         default=float))
+    print(json.dumps({"dl_unsupervised": unsupervised}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,11 @@ ordinal) by IRLS on the dense design of
 :class:`~h2o3_tpu_torch.models.data_info.DataInfo`, with elastic net,
 lambda search, bounds, p-values and a matrix-free path for sparse frames
 (:mod:`h2o3_tpu_torch.models.glm_sparse`); its Gram and Cholesky are
-PyTorch calls, at full float32.
+PyTorch calls, at full float32. DeepLearning (the MLP and the autoencoder,
+:mod:`h2o3_tpu_torch.models.deeplearning`), KMeans, PCA, SVD, GLRM and
+NaiveBayes train and score with ordinary torch operations (autograd, the
+optimizers' updates written out, matrix products, batched solves and
+``index_add_``); eigendecompositions run on the host in float64.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device

@@ -17,6 +17,10 @@ reference: the caller converts its tree objects to dicts
 (``{k: np.asarray(getattr(tree, k)) for k in HEAP_FIELDS +
 ("left_mask",)}``). :func:`extended_isolation_forest_model` takes the
 stacked hyperplane arrays of an extended isolation forest.
+:func:`deeplearning_model`, :func:`kmeans_model`, :func:`pca_model`,
+:func:`svd_model` and :func:`glrm_model` take a model's ``output`` as
+numpy and the fields of its DataInfo, as :func:`glm_model` does;
+:func:`naive_bayes_model` its ``output`` alone.
 """
 
 from __future__ import annotations
@@ -29,11 +33,15 @@ import torch
 from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.decision_tree import DecisionTreeModel
+from h2o3_tpu_torch.models.decomposition import GLRMModel, PCAModel, SVDModel
+from h2o3_tpu_torch.models.deeplearning import MLP, DeepLearningModel
 from h2o3_tpu_torch.models.gbm import DISTRIBUTIONS, DRFModel, GBMModel
 from h2o3_tpu_torch.models.glm import GLMModel
 from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForestModel,
                                           IsolationForestModel)
+from h2o3_tpu_torch.models.kmeans import KMeansModel
 from h2o3_tpu_torch.models.model_base import make_model_key
+from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
@@ -82,11 +90,11 @@ def _tree_output(output: Mapping, dev) -> dict:
 
 
 def _model(cls, algo: str, out: dict, response_column, response_domain,
-           params):
+           params, data_info: DataInfo | None = None):
     return cls(key=make_model_key(algo, None), params=dict(params or {}),
                response_column=response_column,
                response_domain=tuple(response_domain) if response_domain
-               else None, output=out)
+               else None, output=out, data_info=data_info)
 
 
 def _boosted(cls, algo: str, output: Mapping, response_column,
@@ -211,6 +219,26 @@ def extended_isolation_forest_model(
                   out, None, None, params)
 
 
+def _data_info(data_info: Mapping) -> DataInfo:
+    """A DataInfo from the fields of the reference's
+    (``dataclasses.asdict``)."""
+    return DataInfo(
+        cat_cols=list(data_info["cat_cols"]),
+        num_cols=list(data_info["num_cols"]),
+        cat_domains=[tuple(d) for d in data_info["cat_domains"]],
+        cat_offsets=np.asarray(data_info["cat_offsets"], np.int32),
+        num_means=np.asarray(data_info["num_means"], np.float32),
+        num_mul=np.asarray(data_info["num_mul"], np.float32),
+        num_sub=np.asarray(data_info["num_sub"], np.float32),
+        use_all_factor_levels=bool(data_info["use_all_factor_levels"]),
+        standardize=bool(data_info["standardize"]),
+        ncats_expanded=int(data_info["ncats_expanded"]))
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.float32)).to(dev)
+
+
 #: the GLM params scoring reads, with the reference GLM's defaults
 _GLM_SCORING_PARAMS = dict(offset_column=None, interactions=None,
                            tweedie_variance_power=1.5, theta=1.0)
@@ -232,17 +260,7 @@ def glm_model(output: Mapping, data_info: Mapping,
     dev = resolve_device(device)
     if output.get("sparse"):
         raise NotImplementedError("sparse GLMs are not carried across")
-    di = DataInfo(
-        cat_cols=list(data_info["cat_cols"]),
-        num_cols=list(data_info["num_cols"]),
-        cat_domains=[tuple(d) for d in data_info["cat_domains"]],
-        cat_offsets=np.asarray(data_info["cat_offsets"], np.int32),
-        num_means=np.asarray(data_info["num_means"], np.float32),
-        num_mul=np.asarray(data_info["num_mul"], np.float32),
-        num_sub=np.asarray(data_info["num_sub"], np.float32),
-        use_all_factor_levels=bool(data_info["use_all_factor_levels"]),
-        standardize=bool(data_info["standardize"]),
-        ncats_expanded=int(data_info["ncats_expanded"]))
+    di = _data_info(data_info)
     p = dict(_GLM_SCORING_PARAMS, **dict(params or {}))
     p["family"] = p.get("family") or output["family"]
     out = {k: v for k, v in output.items()
@@ -262,3 +280,100 @@ def glm_model(output: Mapping, data_info: Mapping,
                     response_domain=tuple(response_domain)
                     if response_domain else None,
                     output=out, data_info=di)
+
+
+def deeplearning_model(output: Mapping, data_info: Mapping,
+                       response_column: str | None = None,
+                       response_domain: tuple[str, ...] | None = None,
+                       params: Mapping | None = None,
+                       device: str | torch.device | None = None
+                       ) -> DeepLearningModel:
+    """The port's DeepLearningModel from a reference model: ``output`` with
+    ``params`` (``{"W": [...], "b": [...]}`` as numpy), ``act``, ``sizes``
+    and ``samples_trained``; ``params`` carries ``autoencoder`` for an
+    autoencoder."""
+    dev = resolve_device(device)
+    w = output["params"]
+    net = MLP([_tensor(a, dev) for a in w["W"]],
+              [_tensor(a, dev) for a in w["b"]], str(output["act"]))
+    for prm in net.parameters():
+        prm.requires_grad_(False)
+    out = dict(net=net, act=str(output["act"]),
+               sizes=[int(s) for s in output["sizes"]],
+               score_history=list(output.get("score_history") or []),
+               samples_trained=float(output.get("samples_trained") or 0.0))
+    return _model(DeepLearningModel, "deeplearning", out, response_column,
+                  response_domain, params, _data_info(data_info))
+
+
+def kmeans_model(output: Mapping, data_info: Mapping,
+                 params: Mapping | None = None,
+                 device: str | torch.device | None = None) -> KMeansModel:
+    """The port's KMeansModel from a reference model: ``output`` with
+    ``centers_std`` (standardised, the space it assigns in), ``centers``,
+    ``tot_withinss``, ``totss``, ``betweenss``, ``size`` and
+    ``iterations``."""
+    dev = resolve_device(device)
+    out = dict(output, centers_std=_tensor(output["centers_std"], dev),
+               centers=np.asarray(output["centers"], np.float64),
+               size=np.asarray(output["size"]))
+    return _model(KMeansModel, "kmeans", out, None, None, params,
+                  _data_info(data_info))
+
+
+def pca_model(output: Mapping, data_info: Mapping,
+              params: Mapping | None = None,
+              device: str | torch.device | None = None) -> PCAModel:
+    """The port's PCAModel from a reference model: ``output`` with
+    ``eigenvectors`` [P, k] and ``mu`` [P] (and its variance entries)."""
+    out = dict(output, eigenvectors=_tensor(output["eigenvectors"],
+                                            resolve_device(device)),
+               mu=np.asarray(output["mu"], np.float32))
+    return _model(PCAModel, "pca", out, None, None, params,
+                  _data_info(data_info))
+
+
+def svd_model(output: Mapping, data_info: Mapping,
+              params: Mapping | None = None,
+              device: str | torch.device | None = None) -> SVDModel:
+    """The port's SVDModel from a reference model: ``output`` with ``v``
+    [P, nv] and ``d`` [nv]."""
+    out = dict(output, v=_tensor(output["v"], resolve_device(device)),
+               d=np.asarray(output["d"], np.float64))
+    return _model(SVDModel, "svd", out, None, None, params,
+                  _data_info(data_info))
+
+
+def glrm_model(output: Mapping, data_info: Mapping,
+               params: Mapping | None = None,
+               device: str | torch.device | None = None) -> GLRMModel:
+    """The port's GLRMModel from a reference model: ``output`` with
+    ``archetypes`` Y [k, P], ``gamma_x`` and ``objective``; ``x_factor``
+    (the training rows' A) is left behind."""
+    out = {k: v for k, v in output.items() if k != "x_factor"}
+    out["archetypes"] = _tensor(output["archetypes"], resolve_device(device))
+    out["gamma_x"] = float(output["gamma_x"])
+    return _model(GLRMModel, "glrm", out, None, None, params,
+                  _data_info(data_info))
+
+
+def naive_bayes_model(output: Mapping, response_column: str | None = None,
+                      response_domain: tuple[str, ...] | None = None,
+                      params: Mapping | None = None,
+                      device: str | torch.device | None = None
+                      ) -> NaiveBayesModel:
+    """The port's NaiveBayesModel from a reference model: ``output`` with
+    ``log_prior`` [C], ``cat_logp`` (one [C, card] table per categorical
+    column), ``mu`` and ``sd`` [C, P], ``cat_cols``, ``num_cols``,
+    ``cat_domains`` and ``cards``."""
+    dev = resolve_device(device)
+    out = dict(log_prior=_tensor(output["log_prior"], dev),
+               cat_logp=[_tensor(t, dev) for t in output["cat_logp"]],
+               mu=_tensor(output["mu"], dev), sd=_tensor(output["sd"], dev),
+               cat_cols=list(output["cat_cols"]),
+               num_cols=list(output["num_cols"]),
+               cat_domains=[tuple(d) for d in output["cat_domains"]],
+               cards=tuple(int(c) for c in output["cards"]),
+               class_counts=np.asarray(output.get("class_counts")))
+    return _model(NaiveBayesModel, "naivebayes", out, response_column,
+                  response_domain, params)

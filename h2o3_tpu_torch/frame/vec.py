@@ -80,6 +80,14 @@ class Vec:
         """Mean of the finite values (NaN when there are none)."""
         return self.rollups().mean
 
+    def min(self) -> float:
+        """Least finite value (-inf where the column holds one)."""
+        return self.rollups().min
+
+    def max(self) -> float:
+        """Greatest finite value (inf where the column holds one)."""
+        return self.rollups().max
+
     def sigma(self) -> float:
         """Sample standard deviation of the finite values (n - 1)."""
         return self.rollups().sigma

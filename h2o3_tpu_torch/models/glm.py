@@ -286,12 +286,6 @@ def _check_factorised(info: float, where: str) -> None:
 class GLMModel(Model):
     algo = "glm"
 
-    def __init__(self, key, params, response_column, response_domain,
-                 output, data_info: DataInfo | None = None):
-        super().__init__(key, params, response_column, response_domain,
-                         output)
-        self.data_info = data_info
-
     def _score_raw(self, frame) -> torch.Tensor:
         if self.output.get("sparse"):
             if not isinstance(frame, SparseFrame):

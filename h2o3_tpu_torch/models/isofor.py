@@ -85,8 +85,7 @@ class _IsoForBase(ModelBuilder):
         """The raw feature matrix on the card, the positions of its rows of
         positive weight (on the card; their count is the one value
         fetched) and the categorical domains."""
-        if self.params.get("checkpoint") is not None:
-            raise ValueError(f"{self.algo} does not resume from a checkpoint")
+        self._refuse_checkpoint()
         X = tree_matrix(frame, x, {})
         valid = torch.nonzero(weights > 0)[:, 0]
         if valid.shape[0] == 0:

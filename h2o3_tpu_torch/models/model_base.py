@@ -38,8 +38,10 @@ class Model:
 
     def __init__(self, key: str, params: dict, response_column: str | None,
                  response_domain: tuple[str, ...] | None,
-                 output: dict[str, Any]):
+                 output: dict[str, Any], data_info=None):
         self.key = key
+        # the design layout of builders that train on DataInfo.expand
+        self.data_info = data_info
         self.params = dict(params)   # a snapshot: the builder stays reusable
         self.response_column = response_column
         self.response_domain = response_domain  # None for regression
@@ -159,6 +161,11 @@ class ModelBuilder:
         self._checkpoint_model = cp
         self.params["checkpoint"] = cp.key
         return cp
+
+    def _refuse_checkpoint(self) -> None:
+        """Builders that do not resume raise on ``checkpoint``."""
+        if self.params.get("checkpoint") is not None:
+            raise ValueError(f"{self.algo} does not resume from a checkpoint")
 
     def _fit(self, job: Job, frame: Frame, x: list[str], y: str | None,
              weights: torch.Tensor) -> Model:
