@@ -127,14 +127,29 @@ Phases, each of which fails the run on error:
    (Categorical on the six enum columns, k 10, 50 iterations) on 1M rows
    of phase 7's airlines frame; (h) NaiveBayes on phase 7's 10M-row
    airlines frame.
+11. the builders on GBM and GLM and the standalone solvers (no kernel of
+   their own; RuleFit's and the infogram's GBMs launch the histogram
+   kernels, held to the plan's count), each timed after a warm run under
+   torch.profiler (for maxr and the infogram, a like part of the fit: 20
+   of its GLMs, one of its GBMs) with its throughput, idle share, host
+   syncs and peak memory, and held to the CPU on a head (2,000-200,000 rows) at the CPU
+   tests' tolerances: (a) ModelSelection maxr to 3 of 20 predictors (1,350
+   GLM fits) and ANOVAGLM on 1M rows; (b) a binomial GAM (cr, thin plate,
+   I-spline) on phase 4's frame; (c) RuleFit at the JAX package's defaults
+   and (d) the core infogram (1 + 28 GBM surrogates) on phase 4's frame;
+   (e) IsotonicRegression on 1M rows; (f) CoxPH with Efron ties on 1M x 10
+   (3,650 integer times) and its concordance; (g) HGLM with a random
+   intercept and slope over 1,000 groups of 1M rows; (h) PSVM at its
+   defaults on the first 100k rows of phase 4's frame.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
 at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
-line, phase 9's the ``tree_family`` line and phase 10's the
-``dl_unsupervised`` line before the ``kernels`` line. Without a CUDA card the script exits
+line, phase 9's the ``tree_family`` line, phase 10's the
+``dl_unsupervised`` line and phase 11's the ``builders`` line before the
+``kernels`` line. Without a CUDA card the script exits
 non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
 """
 
@@ -142,6 +157,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2859,28 +2875,51 @@ def device_events(fn) -> list:
                   key=lambda k: -k[1])
 
 
-def timed_fit(what: str, fit, units: float, unit: str) -> tuple:
+def timed_fit(what: str, fit, units: float, unit: str,
+              before_timed=None, sample=None) -> tuple:
     """``fit()`` twice on the card: the warm run under torch.profiler (the
     device's busy time, op count and costliest ops), then the timed run
-    under the sync counter. Returns (the timed run's model, its numbers)."""
+    under the sync counter, after ``before_timed()`` (which zeroes counts)
+    and with its peak device memory. A fit of hundreds of thousands of
+    device ops takes the profiler several times its own time: there
+    ``sample`` = (what it is, a fit of one of its like parts) is profiled
+    and timed instead, for the busy and idle share, and ``fit`` runs once,
+    timed. Returns (the timed run's model, its numbers)."""
+    profiled = fit if sample is None else sample[1]
     t0 = time.perf_counter()
-    ops = device_events(fit)
+    ops = device_events(profiled)
     warm_s = time.perf_counter() - t0
     busy_ms = sum(ms for _, ms, _ in ops)
+    if sample is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiled()
+        torch.cuda.synchronize()
+        busy_wall_s = time.perf_counter() - t0
+    if before_timed is not None:
+        before_timed()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, sites = count_syncs(fit)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    idle = 1.0 - busy_ms / (seconds * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if sample is None:
+        busy_wall_s = seconds
+    idle = 1.0 - busy_ms / (busy_wall_s * 1e3)
+    of = "" if sample is None else \
+        f" of {sample[0]} ({busy_wall_s:.4f} s unprofiled)"
     print(f"{what}: {seconds:.4f} s, {units / seconds:.6g} {unit}/s; device "
-          f"busy {busy_ms:.2f} ms in {sum(n for _, _, n in ops)} ops (idle "
-          f"{100 * idle:.1f}%); host syncs {sum(sites.values())}: {sites}; "
-          f"the profiled warm run {warm_s:.2f} s")
+          f"busy {busy_ms:.2f} ms in {sum(n for _, _, n in ops)} ops{of} "
+          f"(idle {100 * idle:.1f}%); host syncs {sum(sites.values())}: "
+          f"{sites}; peak device memory {peak:.2f} GiB; the profiled warm "
+          f"run {warm_s:.2f} s")
     for name, ms, n in ops[:5]:
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:90]}")
     return model, dict(seconds=seconds, rate=units / seconds, unit=unit,
-                       busy_ms=busy_ms, idle_share=idle,
+                       busy_ms=busy_ms, idle_share=idle, peak_gib=peak,
                        device_ops=sum(n for _, _, n in ops),
+                       profiled=what if sample is None else sample[0],
                        host_syncs=sum(sites.values()), sync_sites=sites,
                        top_ops=[(name[:60], ms, n) for name, ms, n in ops[:3]])
 
@@ -3346,6 +3385,528 @@ def phase_dl_unsupervised(fr, air_fr) -> dict:
     return out
 
 
+# -- phase 11: the builders on GBM and GLM, and the standalone solvers ----
+
+#: 11a: the H2O-3 ModelSelection docs' gaussian example's 20 predictors
+MS_ROWS, MS_FEAT = 1_000_000, 20
+#: 11e-11g's frames; 11f's covariates and 11g's groups
+ISO_ROWS = COX_ROWS = HGLM_ROWS = 1_000_000
+COX_FEAT, HGLM_GROUPS = 10, 1000
+#: 11h: PSVM on the first rows of phase 4's frame
+PSVM_ROWS = 100_000
+#: the CPU heads of the CPU-against-card checks
+MS_CPU_ROWS = RULEFIT_CPU_ROWS = INFOGRAM_CPU_ROWS = PSVM_CPU_ROWS = 20_000
+BUILDER_CPU_ROWS = 200_000
+#: 11b: H2O-3 GAM docs' three bases: cr on x0-x2, tp on [x3, x4], a
+#: non-negative I-spline on x5, 5 knots; the other columns linear
+GAM_PARAMS = dict(gam_columns=["x0", "x1", "x2", ["x3", "x4"], "x5"],
+                  bs=[0, 0, 0, 1, 2], num_knots=5)
+
+
+def builder_frame(cols: dict, device, cats: dict | None = None):
+    """A frame from host columns, with categorical columns given as
+    (codes, domain) in ``cats``."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    fr = Frame.from_arrays(cols, device=device)
+    extra = {k: Vec(torch.as_tensor(codes).to(device), VecType.CAT,
+                    domain=dom) for k, (codes, dom) in (cats or {}).items()}
+    return Frame(fr.names + list(extra), fr.vecs + list(extra.values()))
+
+
+def ms_frame(rows: int, device):
+    """11a: 20 normal predictors (seed 41); y = 3 m0 - 2 m1 + 1.5 m2 + m3
+    - 0.5 m4 + N(0, 1): the best subsets of sizes 1-3 are m0, m0-m1 and
+    m0-m2, each clearly ahead of the next."""
+    rng = np.random.default_rng(41)
+    X = rng.normal(size=(rows, MS_FEAT)).astype(np.float32)
+    y = X[:, :5] @ np.float32([3.0, -2.0, 1.5, 1.0, -0.5]) \
+        + rng.normal(size=rows).astype(np.float32)
+    return builder_frame(dict({f"m{i}": X[:, i] for i in range(MS_FEAT)},
+                              y=y.astype(np.float32)), device)
+
+
+def ms_check(card_sub, cpu_sub, x) -> dict:
+    """ModelSelection (maxr to 2 predictors, 210 fits) and ANOVAGLM on a
+    head, on the CPU and the card: the same subsets, R² at rtol 1e-5; the
+    same degrees of freedom, deviances at rtol 1e-4 with a floor of 2e-6 x
+    the full deviance (the CPU tests' tolerances), F values at that floor
+    carried through, and each p-value within the F tail's values at the
+    CPU's F plus and minus that F allowance."""
+    from scipy.stats import f as f_dist
+    from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
+    fits = [ModelSelection(max_predictor_number=2).train(
+        x=x, y="y", training_frame=f) for f in (cpu_sub, card_sub)]
+    a, b = (m.result() for m in fits)
+    if [r["predictors"] for r in a] != [r["predictors"] for r in b]:
+        raise AssertionError("11a: CPU and card select other subsets")
+    ratio = close("11a R2", [r["r2"] for r in b], [r["r2"] for r in a], 1e-5)
+    av = [ANOVAGLM().train(x=x[:6], y="y", training_frame=f)
+          for f in (cpu_sub, card_sub)]
+    ta, tb = (m.anova_table() for m in av)
+    if [r["df"] for r in ta] != [r["df"] for r in tb]:
+        raise AssertionError("11a: ANOVA degrees of freedom differ")
+    dev_full = float(av[0].output["full_model"].output["residual_deviance"])
+    floor = 2e-6 * dev_full
+    df_resid = cpu_sub.nrows - 7
+    f_tol = floor * df_resid / dev_full
+    close("11a ANOVA deviance", [r["deviance"] for r in tb],
+          [r["deviance"] for r in ta], 1e-4, floor)
+    close("11a ANOVA F", [r["f_value"] for r in tb],
+          [r["f_value"] for r in ta], 1e-4, f_tol)
+    for ra, rb in zip(ta, tb):
+        f_a, df = ra["f_value"], max(ra["df"], 1)
+        allow = 1e-4 * f_a + f_tol
+        lo = f_dist.sf(f_a + allow, df, df_resid)
+        hi = f_dist.sf(max(f_a - allow, 0.0), df, df_resid)
+        if not lo - 1e-15 <= rb["p_value"] <= hi + 1e-15:
+            raise AssertionError(f"11a ANOVA p-value of {ra['predictor']}: "
+                                 f"card {rb['p_value']}, CPU's F allows "
+                                 f"[{lo}, {hi}]")
+    return dict(rows=cpu_sub.nrows, r2_ratio=ratio)
+
+
+def builders_model_selection(device) -> dict:
+    """11a: ModelSelection maxr to 3 predictors (1,350 GLM fits; the
+    device's busy share profiled on its 20 one-predictor fits) and
+    ANOVAGLM (21 fits) on the 1M x 20 frame."""
+    from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
+    fr = ms_frame(MS_ROWS, device)
+    prime_rollups(fr)
+    x = [f"m{i}" for i in range(MS_FEAT)]
+    n_fits = sum(math.comb(MS_FEAT, k) for k in (1, 2, 3))
+
+    def fit():
+        return ModelSelection(mode="maxr", max_predictor_number=3).train(
+            x=x, y="y", training_frame=fr)
+
+    def sizes_1():
+        return ModelSelection(mode="maxr", max_predictor_number=1).train(
+            x=x, y="y", training_frame=fr)
+
+    model, res = timed_fit(f"11a ModelSelection maxr to 3 of {MS_FEAT} "
+                           f"predictors, {MS_ROWS} rows, {n_fits} GLM fits",
+                           fit, MS_ROWS * n_fits, "rows*fits",
+                           sample=("its 20 one-predictor fits", sizes_1))
+    best = [r["predictors"] for r in model.result()]
+    if best != [["m0"], ["m0", "m1"], ["m0", "m1", "m2"]] or not all(
+            np.isfinite(r["r2"]) for r in model.result()):
+        raise AssertionError(f"11a: best subsets {best}")
+    res.update(n_fits=n_fits, best=best,
+               r2=[r["r2"] for r in model.result()])
+    am, ares = timed_fit(f"11a ANOVAGLM on {MS_FEAT} predictors, {MS_ROWS} "
+                         "rows, 21 GLM fits",
+                         lambda: ANOVAGLM().train(x=x, y="y",
+                                                  training_frame=fr),
+                         MS_ROWS * (MS_FEAT + 1), "rows*fits")
+    pv = [r["p_value"] for r in am.anova_table()]
+    if not (max(pv[:5]) < 1e-10 and all(np.isfinite(pv))):
+        raise AssertionError(f"11a: ANOVA p-values {pv}")
+    res["anova"] = dict(ares, p_values=pv)
+    sub = head(fr, MS_CPU_ROWS)
+    res["cross"] = ms_check(sub, frame_on(sub, "cpu"), x)
+    print(f"  CPU / card on {MS_CPU_ROWS} rows (maxr to 2, 210 fits; "
+          f"ANOVA on 6): subsets alike, R2 at {res['cross']['r2_ratio']:.3g}"
+          " x rtol 1e-5")
+    return res
+
+
+def builders_gam(fr) -> dict:
+    """11b: binomial GAM on phase 4's frame (cr x0-x2, tp [x3, x4],
+    I-spline x5, 5 knots); on the first 200k rows on the CPU and the card:
+    knots at rtol 1e-6, coefficients at rtol 1e-4 with a floor of 1e-3 x
+    the largest and p1 at rtol 1e-4 with a floor of 1e-4 (the CPU tests'
+    tolerances: the spline columns make the Gram ill-conditioned)."""
+    from h2o3_tpu_torch.models.gam import GAM
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def fit(frame=fr):
+        return GAM(**GAM_PARAMS).train(x=x, y="y", training_frame=frame)
+
+    model, res = timed_fit(f"11b GAM binomial {ROWS} x {NFEAT}, cr x0-x2, "
+                           "tp [x3, x4], I-spline x5, 5 knots", fit, ROWS,
+                           "rows")
+    coef = model.coef()
+    ispl = [v for k, v in coef.items() if k.startswith("x5_gam_")]
+    auc = model.training_metrics.auc
+    if not (min(ispl) >= 0 and np.isfinite(list(coef.values())).all()
+            and 0.5 < auc < 1.0):
+        raise AssertionError(f"11b: I-spline coefficients {ispl}, AUC {auc}")
+    res.update(auc=auc, n_coef=len(coef),
+               iterations=model.output["glm"].output["iterations"])
+    sub = head(fr, BUILDER_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    for k in cpu.output["knots"]:
+        close(f"11b knots {k}", card.output["knots"][k],
+              cpu.output["knots"][k], 1e-6)
+    cv = np.asarray(list(cpu.coef().values()))
+    ratio = close("11b coefficients", list(card.coef().values()), cv, 1e-4,
+                  1e-3 * np.abs(cv).max())
+    p_cpu = cpu._score_raw(cpu_sub)[:, 1].numpy()
+    close("11b p1", card._score_raw(sub)[:, 1].cpu(), p_cpu, 1e-4,
+          1e-4 * np.abs(p_cpu).max())
+    res["cross"] = dict(rows=BUILDER_CPU_ROWS, coef_ratio=ratio)
+    print(f"  training AUC {auc:.6f}, {len(coef)} coefficients; CPU / card "
+          f"on {BUILDER_CPU_ROWS} rows: coefficients at {ratio:.3g} x "
+          "(rtol 1e-4 + 1e-3 x max)")
+    return res
+
+
+def reset_kernel_counts() -> None:
+    """Every histogram-kernel and node-totals launch count to 0."""
+    from h2o3_tpu_torch.ops.hist import node_totals
+    reset_launches()
+    node_totals.launches = 0
+
+
+def kernel_counts() -> tuple:
+    """(launches by kernel, node-totals launches) since the last reset."""
+    from h2o3_tpu_torch.ops.hist import level_histograms, node_totals
+    return dict(level_histograms.kernel_launches), node_totals.launches
+
+
+def hold_launches(what: str, plan: dict, trees: int) -> dict:
+    """The kernel launches of the timed fit against the plan's, and one
+    node-totals launch a tree."""
+    by_kernel, totals = kernel_counts()
+    if by_kernel != plan or totals != trees:
+        raise AssertionError(f"{what}: kernels launched {by_kernel}, "
+                             f"planned {plan}; node totals {totals}, "
+                             f"expected {trees}")
+    print(f"  kernel launches {by_kernel} as planned, node totals {totals}")
+    return dict(by_kernel=by_kernel, launches=sum(by_kernel.values()),
+                node_totals=totals)
+
+
+def builders_rulefit(fr) -> dict:
+    """11c: RuleFit at the JAX package's defaults (rules and linear terms,
+    rule lengths 1-3, 10 trees a depth, lambda 1e-3) on phase 4's frame,
+    its GBMs' launches held to the plan; on the first 20k rows on the CPU
+    and the card: the same rules kept and the training logloss at rtol
+    2e-3. The level-1 L1 GLM is singular and its probabilities are not
+    fixed by float32 sums: on those rows, one float32 ulp added to every
+    input moves the CPU's own p1 by up to 0.052 and its logloss by 7.5e-4
+    relative, with the same rules; the CPU-card p1 difference is printed
+    beside that."""
+    from h2o3_tpu_torch.models.rulefit import RuleFit
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def fit(frame=fr):
+        return RuleFit().train(x=x, y="y", training_frame=frame)
+
+    model, res = timed_fit(f"11c RuleFit {ROWS} x {NFEAT}, depths 1-3 x 10 "
+                           "trees, rules and linear, lambda 1e-3", fit, ROWS,
+                           "rows", before_timed=reset_kernel_counts)
+    plan = dict.fromkeys(("fixed", "global"), 0)
+    for d in (1, 2, 3):
+        for k, v in planned_launches(10, d, NBINS + 1, 1).items():
+            plan[k] += v
+    res.update(hold_launches("11c RuleFit", plan, 30))
+    o = model.output
+    auc = model.training_metrics.auc
+    if not (0.5 < auc < 1.0 and np.isfinite(o["beta"]).all()):
+        raise AssertionError(f"11c: AUC {auc}")
+    res.update(auc=auc, rules_kept=int(o["rule_keep"].sum()),
+               columns=len(o["rule_names"]),
+               nonzero=len(model.rule_importance()))
+    sub = head(fr, RULEFIT_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    if cpu.output["rule_names"] != card.output["rule_names"]:
+        raise AssertionError("11c: CPU and card keep other rules")
+    ratio = close("11c logloss", card.training_metrics.logloss,
+                  cpu.training_metrics.logloss, 2e-3)
+    dp = float((card._score_raw(sub)[:, 1].cpu()
+                - cpu._score_raw(cpu_sub)[:, 1]).abs().max())
+    res["cross"] = dict(rows=RULEFIT_CPU_ROWS, logloss_ratio=ratio,
+                        p1_max_diff=dp)
+    print(f"  training AUC {auc:.6f}; {res['rules_kept']} rules kept, "
+          f"{res['nonzero']} non-zero; CPU / card on {RULEFIT_CPU_ROWS} "
+          f"rows: the same rules, logloss at {ratio:.3g} x rtol 2e-3, p1 "
+          f"{dp:.3g} apart (one float32 ulp of the inputs moves it 0.052)")
+    return res
+
+
+def builders_infogram(fr) -> dict:
+    """11d: the core infogram with H2O's default GBM surrogates (20 trees,
+    depth 5) on phase 4's frame: 1 + 28 surrogates, their launches held to
+    the plan, the device's busy share profiled on one surrogate; on the
+    first 20k rows and 6 predictors on the CPU and the
+    card: the same predictor order and admissible set, relevance at rtol
+    1e-3 and raw CMI at an absolute 1e-4 (the card's fixed-point histogram
+    sums move the gains in their last bits)."""
+    from h2o3_tpu_torch.models.infogram import Infogram
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def fit(frame=fr, cols=x):
+        return Infogram().train(x=cols, y="y", training_frame=frame)
+
+    def surrogate():
+        return Infogram()._surrogate(x, "y", fr, fr.row_mask().float())
+
+    model, res = timed_fit(f"11d Infogram core {ROWS} x {NFEAT}, 1 + "
+                           f"{NFEAT} GBM surrogates (20 trees, depth 5)", fit,
+                           ROWS * (NFEAT + 1), "rows*surrogates",
+                           before_timed=reset_kernel_counts,
+                           sample=("its relevance surrogate", surrogate))
+    plan = {k: v * (NFEAT + 1)
+            for k, v in planned_launches(20, 5, NBINS + 1, 1).items()}
+    res.update(hold_launches("11d Infogram", plan, 20 * (NFEAT + 1)))
+    o = model.output
+    res.update(admissible=o["admissible_features"],
+               relevance=dict(zip(o["all_predictor_names"], o["relevance"])),
+               cmi=dict(zip(o["all_predictor_names"], o["cmi"])))
+    if not (o["admissible_features"] and np.isfinite(o["cmi_raw"]).all()):
+        raise AssertionError("11d: no admissible feature")
+    sub = head(fr, INFOGRAM_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = (fit(f, x[:6]) for f in (cpu_sub, sub))
+    co, ko = cpu.output, card.output
+    if co["all_predictor_names"] != ko["all_predictor_names"] or \
+            co["admissible_features"] != ko["admissible_features"]:
+        raise AssertionError("11d: CPU and card rank other predictors")
+    ratio = close("11d relevance", ko["relevance"], co["relevance"], 1e-3)
+    close("11d raw CMI", ko["cmi_raw"], co["cmi_raw"], 0.0, 1e-4)
+    res["cross"] = dict(rows=INFOGRAM_CPU_ROWS, relevance_ratio=ratio)
+    print(f"  admissible {o['admissible_features']}; CPU / card on "
+          f"{INFOGRAM_CPU_ROWS} rows, 6 predictors: the same ranking, "
+          f"relevance at {ratio:.3g} x rtol 1e-3")
+    return res
+
+
+def iso_frame(rows: int, device):
+    """11e: x uniform on [0, 10], y = log1p(x) + N(0, 0.3) (seed 42)."""
+    rng = np.random.default_rng(42)
+    x = rng.uniform(0, 10, rows).astype(np.float32)
+    y = (np.log1p(x) + rng.normal(scale=0.3, size=rows)).astype(np.float32)
+    return builder_frame(dict(x=x, y=y), device)
+
+
+def builders_isotonic(device) -> dict:
+    """11e: IsotonicRegression on 1M rows; on the first 200k rows on the
+    CPU and the card: thresholds at rtol 1e-6, predictions at rtol 1e-6
+    with a floor of 1e-6."""
+    from h2o3_tpu_torch.models.isotonic import IsotonicRegression
+    fr = iso_frame(ISO_ROWS, device)
+
+    def fit(frame=fr):
+        return IsotonicRegression().train(x=["x"], y="y",
+                                          training_frame=frame)
+
+    model, res = timed_fit(f"11e IsotonicRegression {ISO_ROWS} rows", fit,
+                           ISO_ROWS, "rows")
+    tx = model.output["thresholds_x"].cpu().numpy()
+    ty = model.output["thresholds_y"].cpu().numpy()
+    pred = model.predict(fr).vec("predict").to_numpy()
+    if not (np.all(np.diff(tx) > 0) and np.all(np.diff(ty) >= 0)
+            and np.isfinite(pred).all()):
+        raise AssertionError("11e: thresholds not monotone")
+    res.update(thresholds=len(tx), mse=model.training_metrics.mse)
+    sub = head(fr, BUILDER_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    close("11e thresholds", card.output["thresholds_y"].cpu(),
+          cpu.output["thresholds_y"], 1e-6, 1e-6)
+    ratio = close("11e predictions", card._score_raw(sub).cpu(),
+                  cpu._score_raw(cpu_sub), 1e-6, 1e-6)
+    res["cross"] = dict(rows=BUILDER_CPU_ROWS, ratio=ratio)
+    print(f"  {len(tx)} thresholds, training MSE {res['mse']:.6f}; CPU / "
+          f"card on {BUILDER_CPU_ROWS} rows: predictions at {ratio:.3g} x "
+          "(rtol 1e-6 + 1e-6)")
+    return res
+
+
+#: 11f's true coefficients
+COX_BETA = np.float32([0.5, -0.4, 0.3, 0.2, -0.1, 0, 0, 0, 0, 0])
+
+
+def cox_frame(rows: int, device):
+    """11f: 10 normal covariates (seed 43), hazard exp(x·beta), times in
+    days rounded up and capped at 1..3,650 (heavy ties), ~30% censored."""
+    rng = np.random.default_rng(43)
+    X = rng.normal(size=(rows, COX_FEAT)).astype(np.float32)
+    haz = np.exp(X @ COX_BETA)
+    t = np.clip(np.ceil(rng.exponential(1.0 / haz) * 365.0), 1, 3650)
+    event = (rng.random(rows) >= 0.3).astype(np.float32)
+    return builder_frame(dict({f"c{i}": X[:, i] for i in range(COX_FEAT)},
+                              t=t.astype(np.float32), event=event), device)
+
+
+def builders_coxph(device) -> dict:
+    """11f: CoxPH with Efron ties on 1M rows, then its concordance; on the
+    first 200k rows on the CPU and the card: coefficients at rtol 1e-4,
+    the log-likelihood at rtol 1e-5, the baseline hazard and the
+    concordance at rtol 1e-4 (the CPU tests' tolerances)."""
+    from h2o3_tpu_torch.models.coxph import CoxPH
+    fr = cox_frame(COX_ROWS, device)
+    x = [f"c{i}" for i in range(COX_FEAT)]
+
+    def fit(frame=fr):
+        return CoxPH(stop_column="t").train(x=x, y="event",
+                                            training_frame=frame)
+
+    model, res = timed_fit(f"11f CoxPH Efron {COX_ROWS} x {COX_FEAT}", fit,
+                           COX_ROWS, "rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conc = model.concordance()
+    conc_s = time.perf_counter() - t0
+    coef = model.output["coef"].cpu().numpy()
+    if not (np.abs(coef - COX_BETA).max() < 0.05 and 0.5 < conc < 1.0):
+        raise AssertionError(f"11f: coefficients {coef}, concordance {conc}")
+    res.update(iterations=model.output["iterations"], coef=coef.tolist(),
+               concordance=conc, concordance_s=conc_s,
+               tie_groups=len(model.output["baseline_times"]))
+    sub = head(fr, BUILDER_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    co, ko = cpu.output, card.output
+    ratio = close("11f coefficients", ko["coef"].cpu(), co["coef"], 1e-4)
+    close("11f loglik", ko["loglik"], co["loglik"], 1e-5)
+    close("11f baseline hazard", ko["baseline_cumhaz"],
+          co["baseline_cumhaz"], 1e-4)
+    close("11f concordance", card.concordance(), cpu.concordance(), 1e-4)
+    res["cross"] = dict(rows=BUILDER_CPU_ROWS, coef_ratio=ratio)
+    print(f"  {res['iterations']} Newton iterations, {res['tie_groups']} tie "
+          f"groups, concordance {conc:.6f} in {conc_s:.3f} s; CPU / card on "
+          f"{BUILDER_CPU_ROWS} rows: coefficients at {ratio:.3g} x rtol 1e-4")
+    return res
+
+
+def hglm_frame(rows: int, device):
+    """11g: 5 normal fixed effects (seed 44), 1,000 groups, a random
+    intercept (sd 1) and a random slope on h0 (sd 0.5), noise sd 1."""
+    rng = np.random.default_rng(44)
+    X = rng.normal(size=(rows, 5)).astype(np.float32)
+    g = rng.integers(0, HGLM_GROUPS, rows)
+    u0 = rng.normal(size=HGLM_GROUPS)
+    u1 = rng.normal(scale=0.5, size=HGLM_GROUPS)
+    y = 1.0 + X @ np.float32([1.0, -0.5, 0.25, 0.0, 0.75]) + u0[g] \
+        + u1[g] * X[:, 0] + rng.normal(size=rows)
+    dom = tuple(f"g{i:04d}" for i in range(HGLM_GROUPS))
+    return builder_frame(dict({f"h{i}": X[:, i] for i in range(5)},
+                              y=y.astype(np.float32)), device,
+                         cats=dict(grp=(g.astype(np.int32), dom)))
+
+
+def builders_hglm(device) -> dict:
+    """11g: HGLM with a random intercept and a random slope on h0 (q = 2)
+    over 1,000 groups of 1M rows; on the first 200k rows on the CPU and
+    the card: fixed effects, random effects and both variances at rtol
+    1e-4 with a floor of 1e-4 x each's largest (the CPU tests')."""
+    from h2o3_tpu_torch.models.hglm import HGLM
+    fr = hglm_frame(HGLM_ROWS, device)
+    x = [f"h{i}" for i in range(5)]
+
+    def fit(frame=fr):
+        return HGLM(group_column="grp", random_columns=["h0"]).train(
+            x=x, y="y", training_frame=frame)
+
+    model, res = timed_fit(f"11g HGLM {HGLM_ROWS} rows, 5 fixed effects, "
+                           f"{HGLM_GROUPS} groups, q = 2", fit, HGLM_ROWS,
+                           "rows")
+    o = model.output
+    if not (0.4 < o["sig_u"] < 1.2 and 0.8 < o["sig_e"] < 1.2):
+        raise AssertionError(f"11g: variances {o['sig_u']}, {o['sig_e']}")
+    res.update(iterations=o["iterations"], sig_u=o["sig_u"],
+               sig_e=o["sig_e"], coef=o["coef"].tolist())
+    sub = head(fr, BUILDER_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = fit(cpu_sub), fit(sub)
+    co, ko = cpu.output, card.output
+    ratio = close("11g fixed effects", ko["coef"], co["coef"], 1e-4,
+                  1e-4 * np.abs(co["coef"]).max())
+    u = co["u"].numpy()
+    close("11g random effects", ko["u"].cpu(), u, 1e-4, 1e-4 * np.abs(u).max())
+    close("11g variances", [ko["sig_u"], ko["sig_e"]],
+          [co["sig_u"], co["sig_e"]], 1e-4)
+    res["cross"] = dict(rows=BUILDER_CPU_ROWS, coef_ratio=ratio,
+                        iterations=(co["iterations"], ko["iterations"]))
+    print(f"  {o['iterations']} EM iterations, sig_u {o['sig_u']:.6f}, "
+          f"sig_e {o['sig_e']:.6f}; CPU / card on {BUILDER_CPU_ROWS} rows: "
+          f"fixed effects at {ratio:.3g} x (rtol 1e-4 + 1e-4 x max)")
+    return res
+
+
+def builders_psvm(fr) -> dict:
+    """11h: PSVM at its defaults (gaussian kernel, gamma 1/28, rank
+    sqrt(n) = 316, C 1) on the first 100k rows of phase 4's frame, scored
+    in row blocks; on the first 20k rows on the CPU and the card: training
+    AUC within 5e-3 and the decision's sign alike on 99% of rows (the IPM
+    is chaotic in float32; the CPU tests hold it so)."""
+    from h2o3_tpu_torch.models.psvm import PSVM
+    x = [f"x{i}" for i in range(NFEAT)]
+    sub = head(fr, PSVM_ROWS)
+
+    def fit(frame=sub):
+        return PSVM().train(x=x, y="y", training_frame=frame)
+
+    model, res = timed_fit(f"11h PSVM {PSVM_ROWS} x {NFEAT}, rank 316", fit,
+                           PSVM_ROWS, "rows")
+    auc = model.training_metrics.auc
+    if not (model.output["svs_count"] > 0 and 0.5 < auc < 1.0):
+        raise AssertionError(f"11h: {model.output['svs_count']} SVs, "
+                             f"AUC {auc}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.decision_function(sub)
+    torch.cuda.synchronize()
+    res.update(auc=auc, svs=model.output["svs_count"],
+               rank=model.output["rank"],
+               score_s=time.perf_counter() - t0)
+    small = head(fr, PSVM_CPU_ROWS)
+    cpu_small = frame_on(small, "cpu")
+    cpu, card = fit(cpu_small), fit(small)
+    d_auc = abs(cpu.training_metrics.auc - card.training_metrics.auc)
+    agree = float((np.sign(card.decision_function(small).cpu().numpy())
+                   == np.sign(cpu.decision_function(cpu_small).numpy()))
+                  .mean())
+    if not (d_auc <= 5e-3 and agree >= 0.99):
+        raise AssertionError(f"11h: CPU and card AUC {d_auc} apart, signs "
+                             f"alike on {agree}")
+    res["cross"] = dict(rows=PSVM_CPU_ROWS, auc_diff=d_auc, agree=agree)
+    print(f"  {res['svs']} support vectors, training AUC {auc:.6f}, scoring "
+          f"{res['score_s']:.3f} s; CPU / card on {PSVM_CPU_ROWS} rows: AUC "
+          f"{d_auc:.2e} apart, signs alike on {agree:.4f}")
+    return res
+
+
+def phase_builders(fr) -> dict:
+    """Phase 11: 11a ModelSelection and ANOVAGLM, 11b GAM, 11c RuleFit,
+    11d Infogram, 11e IsotonicRegression, 11f CoxPH, 11g HGLM and 11h
+    PSVM, each timed after a warm run under torch.profiler and held to
+    the CPU on a head; each part's seconds (its CPU check included) in
+    ``part_seconds``."""
+    t0 = time.perf_counter()
+    dev = fr.device
+    out, parts = {}, {}
+    for name, part in (("11a_model_selection",
+                        lambda: builders_model_selection(dev)),
+                       ("11b_gam", lambda: builders_gam(fr)),
+                       ("11c_rulefit", lambda: builders_rulefit(fr)),
+                       ("11d_infogram", lambda: builders_infogram(fr)),
+                       ("11e_isotonic", lambda: builders_isotonic(dev)),
+                       ("11f_coxph", lambda: builders_coxph(dev)),
+                       ("11g_hglm", lambda: builders_hglm(dev)),
+                       ("11h_psvm", lambda: builders_psvm(fr))):
+        t1 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t1
+        print(f"phase {name}: {parts[name]:.1f} s")
+        torch.cuda.empty_cache()
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"phase 11: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3379,6 +3940,7 @@ def main() -> int:
     del air_vf
     torch.cuda.empty_cache()
     unsupervised = phase_dl_unsupervised(fr, air_fr)
+    builders = phase_builders(fr)
     del fr, air_fr
     torch.cuda.empty_cache()
     glm = phase_glm(glm_airlines, glm_multi)
@@ -3440,6 +4002,13 @@ def main() -> int:
     kernels.append(kernel_entry(
         fam["dart"]["launches"], max_err["xgboost_257"],
         new_times["xgboost_257"], path="dart_257"))
+    # phase 11's GBMs: RuleFit's ladder takes the main path's levels 0-2,
+    # the infogram's surrogates levels 0-4 (27 or 28 features)
+    for key, path, depth in (("11c_rulefit", "rulefit_ladder", 3),
+                             ("11d_infogram", "infogram_surrogates", 5)):
+        kernels.append(kernel_entry(
+            builders[key]["launches"], max_err["binomial"], times[:depth],
+            path=path, node_totals=builders[key]["node_totals"]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -3447,6 +4016,7 @@ def main() -> int:
             if isinstance(v, dict) else v) for k, v in fam.items()}},
         default=float))
     print(json.dumps({"dl_unsupervised": unsupervised}, default=float))
+    print(json.dumps({"builders": builders}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,22 @@ PyTorch calls, at full float32. DeepLearning (the MLP and the autoencoder,
 NaiveBayes train and score with ordinary torch operations (autograd, the
 optimizers' updates written out, matrix products, batched solves and
 ``index_add_``); eigendecompositions run on the host in float64.
+The builders on GBM and GLM (ModelSelection and ANOVAGLM, GAM, RuleFit,
+Infogram with ``fairness_metrics``) train the port's GBM, DRF and GLM;
+IsotonicRegression, CoxPH, HGLM and PSVM are solvers of their own in
+torch operations. These are exported here.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device
+from h2o3_tpu_torch.models.coxph import CoxPH
+from h2o3_tpu_torch.models.gam import GAM
+from h2o3_tpu_torch.models.hglm import HGLM
+from h2o3_tpu_torch.models.infogram import Infogram, fairness_metrics
+from h2o3_tpu_torch.models.isotonic import IsotonicRegression
+from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
+from h2o3_tpu_torch.models.psvm import PSVM
+from h2o3_tpu_torch.models.rulefit import RuleFit
 
-__all__ = ["resolve_device", "set_device"]
+__all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "CoxPH", "Infogram",
+           "IsotonicRegression", "ModelSelection", "RuleFit",
+           "fairness_metrics", "resolve_device", "set_device"]

@@ -31,17 +31,26 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.models.coxph import CoxPHModel
 from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.decision_tree import DecisionTreeModel
 from h2o3_tpu_torch.models.decomposition import GLRMModel, PCAModel, SVDModel
 from h2o3_tpu_torch.models.deeplearning import MLP, DeepLearningModel
+from h2o3_tpu_torch.models.gam import GAMModel
 from h2o3_tpu_torch.models.gbm import DISTRIBUTIONS, DRFModel, GBMModel
 from h2o3_tpu_torch.models.glm import GLMModel
+from h2o3_tpu_torch.models.hglm import HGLMModel
+from h2o3_tpu_torch.models.infogram import InfogramModel
 from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForestModel,
                                           IsolationForestModel)
+from h2o3_tpu_torch.models.isotonic import IsotonicRegressionModel
 from h2o3_tpu_torch.models.kmeans import KMeansModel
 from h2o3_tpu_torch.models.model_base import make_model_key
+from h2o3_tpu_torch.models.model_selection import (ANOVAGLMModel,
+                                                   ModelSelectionModel)
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel
+from h2o3_tpu_torch.models.psvm import PSVMModel
+from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
@@ -377,3 +386,189 @@ def naive_bayes_model(output: Mapping, response_column: str | None = None,
                class_counts=np.asarray(output.get("class_counts")))
     return _model(NaiveBayesModel, "naivebayes", out, response_column,
                   response_domain, params)
+
+
+def isotonic_model(output: Mapping, response_column: str | None = None,
+                   params: Mapping | None = None,
+                   device: str | torch.device | None = None
+                   ) -> IsotonicRegressionModel:
+    """The port's IsotonicRegressionModel from a reference model's
+    ``output``: ``thresholds_x``, ``thresholds_y``, ``min_x``, ``max_x``,
+    ``x_col`` and ``nobs``; ``params`` carries ``out_of_bounds``."""
+    dev = resolve_device(device)
+    out = dict(thresholds_x=_tensor(output["thresholds_x"], dev),
+               thresholds_y=_tensor(output["thresholds_y"], dev),
+               min_x=float(output["min_x"]), max_x=float(output["max_x"]),
+               x_col=str(output["x_col"]), nobs=int(output["nobs"]))
+    return _model(IsotonicRegressionModel, "isotonicregression", out,
+                  response_column, None, params)
+
+
+def coxph_model(output: Mapping, data_info: Mapping,
+                response_column: str | None = None,
+                params: Mapping | None = None,
+                device: str | torch.device | None = None) -> CoxPHModel:
+    """The port's CoxPHModel from a reference model: ``output`` with
+    ``coef`` [P], ``x_mean``, ``coef_names``, the baseline hazard
+    (``baseline_times``, ``baseline_cumhaz``) and the training triplet of
+    the concordance (``train_lp``, ``train_time``, ``train_event``);
+    ``params`` carries ``stop_column``."""
+    dev = resolve_device(device)
+    f64 = ("se_coef", "baseline_times", "baseline_cumhaz", "train_lp",
+           "train_time", "train_event")
+    out = dict(output, coef=_tensor(output["coef"], dev),
+               x_mean=np.asarray(output["x_mean"], np.float32),
+               coef_names=list(output["coef_names"]),
+               **{k: np.asarray(output[k], np.float64) for k in f64})
+    return _model(CoxPHModel, "coxph", out, response_column, None, params,
+                  _data_info(data_info))
+
+
+def hglm_model(output: Mapping, data_info: Mapping,
+               response_column: str | None = None,
+               params: Mapping | None = None,
+               device: str | torch.device | None = None) -> HGLMModel:
+    """The port's HGLMModel from a reference model: ``output`` with the
+    fixed effects ``beta`` [P+1], the random effects ``u`` [G, q] and
+    their covariances ``u_var`` [G, q, q], and ``group_domain``;
+    ``params`` carries ``group_column`` and ``random_columns``."""
+    dev = resolve_device(device)
+    out = dict(output, beta=_tensor(output["beta"], dev),
+               u=_tensor(output["u"], dev),
+               u_var=_tensor(output["u_var"], dev),
+               coef=np.asarray(output["coef"], np.float32),
+               coef_names=list(output["coef_names"]),
+               group_domain=tuple(output["group_domain"]))
+    return _model(HGLMModel, "hglm", out, response_column, None, params,
+                  _data_info(data_info))
+
+
+def psvm_model(output: Mapping, data_info: Mapping,
+               response_column: str | None = None,
+               response_domain: tuple[str, ...] | None = None,
+               params: Mapping | None = None,
+               device: str | torch.device | None = None) -> PSVMModel:
+    """The port's PSVMModel from a reference model: ``output`` with the
+    support vectors ``sv_x`` [S, P] (standardised design rows), their
+    signed coefficients ``sv_coef``, ``sv_norms``, ``gamma`` and
+    ``rho``."""
+    dev = resolve_device(device)
+    out = dict(output, sv_x=_tensor(output["sv_x"], dev),
+               sv_coef=_tensor(output["sv_coef"], dev),
+               sv_norms=_tensor(output["sv_norms"], dev),
+               gamma=float(output["gamma"]), rho=float(output["rho"]))
+    return _model(PSVMModel, "psvm", out, response_column, response_domain,
+                  params, _data_info(data_info))
+
+
+def _glm_of(spec: Mapping, device) -> GLMModel:
+    """The port's GLMModel from an inner GLM given as a mapping of
+    :func:`glm_model`'s arguments (``output``, ``data_info``,
+    ``response_column``, ``response_domain``, ``params``)."""
+    return glm_model(spec["output"], spec["data_info"],
+                     spec.get("response_column"), spec.get("response_domain"),
+                     spec.get("params"), device)
+
+
+def model_selection_model(output: Mapping, best_model: Mapping,
+                          response_column: str | None = None,
+                          response_domain: tuple[str, ...] | None = None,
+                          params: Mapping | None = None,
+                          device: str | torch.device | None = None
+                          ) -> ModelSelectionModel:
+    """The port's ModelSelectionModel from a reference model: ``output``
+    with ``results`` (each size's best subset) and ``best_per_size``;
+    ``best_model`` the best GLM, as :func:`_glm_of` reads it."""
+    out = dict(results=[dict(r) for r in output["results"]],
+               best_per_size=dict(output.get("best_per_size") or {}),
+               best_model=_glm_of(best_model, device))
+    return _model(ModelSelectionModel, "modelselection", out,
+                  response_column, response_domain, params)
+
+
+def anova_glm_model(output: Mapping, full_model: Mapping,
+                    response_column: str | None = None,
+                    response_domain: tuple[str, ...] | None = None,
+                    params: Mapping | None = None,
+                    device: str | torch.device | None = None
+                    ) -> ANOVAGLMModel:
+    """The port's ANOVAGLMModel from a reference model: ``output`` with
+    its F-test ``table``; ``full_model`` the GLM on every predictor, as
+    :func:`_glm_of` reads it."""
+    out = dict(table=[dict(r) for r in output["table"]],
+               full_model=_glm_of(full_model, device))
+    return _model(ANOVAGLMModel, "anovaglm", out, response_column,
+                  response_domain, params)
+
+
+def gam_model(output: Mapping, glm: Mapping,
+              response_column: str | None = None,
+              response_domain: tuple[str, ...] | None = None,
+              params: Mapping | None = None,
+              device: str | torch.device | None = None) -> GAMModel:
+    """The port's GAMModel from a reference model: ``output`` with
+    ``gam_columns``, ``bs``, ``knots`` (per entry, numpy), ``col_means``
+    and ``gam_names``; ``glm`` the GLM on the expanded frame, as
+    :func:`_glm_of` reads it."""
+    out = dict(gam_columns=list(output["gam_columns"]),
+               bs=[int(b) for b in output["bs"]],
+               knots={k: np.asarray(v, np.float32)
+                      for k, v in output["knots"].items()},
+               col_means={k: float(v) for k, v in output["col_means"].items()},
+               gam_names=list(output["gam_names"]),
+               glm=_glm_of(glm, device))
+    return _model(GAMModel, "gam", out, response_column, response_domain,
+                  params)
+
+
+def rulefit_model(output: Mapping, response_column: str | None = None,
+                  response_domain: tuple[str, ...] | None = None,
+                  params: Mapping | None = None,
+                  device: str | torch.device | None = None) -> RuleFitModel:
+    """The port's RuleFitModel from a reference model's ``output``:
+    ``trees`` (the depth ladder's trees, each a dict of its heap arrays,
+    as :func:`gbm_model` reads them), ``x_cols``, ``feat_domains``,
+    ``rule_keep``, ``rule_names``, ``beta`` (the level-1 GLM's coefficients,
+    the intercept last), ``model_type``, ``lin_mean`` and ``lin_sd``."""
+    out = dict(trees=_trees(output["trees"], resolve_device(device)),
+               x_cols=list(output["x_cols"]),
+               feat_domains=dict(output.get("feat_domains") or {}),
+               rule_keep=np.asarray(output["rule_keep"], bool),
+               rule_names=list(output["rule_names"]),
+               beta=np.asarray(output["beta"], np.float64),
+               model_type=str(output["model_type"]),
+               lin_mean=np.asarray(output["lin_mean"], np.float32),
+               lin_sd=np.asarray(output["lin_sd"], np.float32))
+    return _model(RuleFitModel, "rulefit", out, response_column,
+                  response_domain, params)
+
+
+#: the inner models an infogram's relevance surrogate may be
+_SURROGATES = {"gbm": gbm_model, "drf": drf_model}
+
+
+def infogram_model(output: Mapping, relevance_model: Mapping,
+                   response_column: str | None = None,
+                   response_domain: tuple[str, ...] | None = None,
+                   params: Mapping | None = None,
+                   device: str | torch.device | None = None) -> InfogramModel:
+    """The port's InfogramModel from a reference model: ``output`` with
+    ``all_predictor_names``, ``relevance``, ``cmi``, ``cmi_raw``,
+    ``admissible_features``, ``protected_columns`` and ``build_core``;
+    ``relevance_model`` the surrogate that scores, a mapping with its
+    ``algo`` ("gbm", "drf" or "glm") and the arguments of
+    :func:`gbm_model`, :func:`drf_model` or :func:`glm_model`."""
+    spec = dict(relevance_model)
+    algo = spec.pop("algo")
+    if algo == "glm":
+        rel = _glm_of(spec, device)
+    else:
+        rel = _SURROGATES[algo](spec["output"], spec.get("response_column"),
+                                spec.get("response_domain"),
+                                spec.get("params"), device)
+    keys = ("all_predictor_names", "relevance", "cmi", "cmi_raw",
+            "admissible_features", "protected_columns")
+    out = {k: list(output[k]) for k in keys}
+    out.update(build_core=bool(output["build_core"]), relevance_model=rel)
+    return _model(InfogramModel, "infogram", out, response_column,
+                  response_domain, params, rel.data_info)

@@ -70,9 +70,9 @@ _CUSTOM_WAITS = ("distribution 'custom' waits for the DKV: utils/udf.py "
 CALIBRATION_METHODS = ("PlattScaling", "IsotonicRegression")
 
 
-def tree_matrix(frame: Frame, cols: list[str],
-                domains: dict[str, tuple]) -> torch.Tensor:
-    """[rows, F] raw float32 feature matrix; categorical codes are mapped
+def tree_columns(frame: Frame, cols: list[str],
+                 domains: dict[str, tuple]) -> list[torch.Tensor]:
+    """Each feature as a raw float32 column; categorical codes are mapped
     onto the training domain (a level unseen in training is missing)."""
     arrs = []
     for c in cols:
@@ -83,7 +83,13 @@ def tree_matrix(frame: Frame, cols: list[str],
             arrs.append(torch.where(codes < 0, torch.nan, codes.float()))
         else:
             arrs.append(v.as_float())
-    return torch.stack(arrs, dim=1)
+    return arrs
+
+
+def tree_matrix(frame: Frame, cols: list[str],
+                domains: dict[str, tuple]) -> torch.Tensor:
+    """[rows, F] raw float32 feature matrix (:func:`tree_columns`)."""
+    return torch.stack(tree_columns(frame, cols, domains), dim=1)
 
 
 def sigmoid(f: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,11 @@ from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
 #: the weighted block is the only temporary of the design's width
 GRAM_BLOCK_ELEMS = 1 << 26
 
+#: the Gram's ridge, relative to its mean diagonal, and the most the IRLS
+#: loop raises it to (tenfold a try) where a singular design's float32 Gram
+#: rounds below it and fails to factorise (RuleFit's complementary rules)
+JITTER, MAX_JITTER = 1e-5, 1e-2
+
 
 @contextlib.contextmanager
 def full_fp32():
@@ -161,7 +166,8 @@ def _eta(X, beta, off):
     return X @ beta[:-1] + beta[-1] + off
 
 
-def _irls_step(fam, X, y, w, beta, l2, non_negative: bool = False, off=0.0):
+def _irls_step(fam, X, y, w, beta, l2, non_negative: bool, off,
+               jitter: float):
     """One IRLS iteration: the weighted Gram and its solve. ``off`` is the
     per-row margin offset: it enters eta and is left out of the working
     response the solve fits. Returns ``(new_beta, deviance at beta,
@@ -173,7 +179,7 @@ def _irls_step(fam, X, y, w, beta, l2, non_negative: bool = False, off=0.0):
     W = w * d * d / var.clamp_min(1e-12)
     z = eta + (y - mu) / d.clamp_min(1e-12) - off
     nobs = w.sum().clamp_min(1.0)
-    gram, rhs = _weighted_gram(X, W, z, l2, nobs, 1e-5)
+    gram, rhs = _weighted_gram(X, W, z, l2, nobs, jitter)
     new_beta, info = _solve(gram, rhs, beta, non_negative)
     dev = (w * fam.deviance(y, mu)).sum()
     return new_beta, dev, (new_beta - beta).abs().max(), info
@@ -626,7 +632,8 @@ class GLM(ModelBuilder):
         ``beta_epsilon``, gaussian's second step, the deviance's relative
         change within ``objective_epsilon``, or ``max_iterations``; one
         host fetch per iteration carries it with the deviance and the
-        Cholesky's status."""
+        Cholesky's status. A step whose Gram fails to factorise is taken
+        again with ten times the ridge, up to :data:`MAX_JITTER`."""
         lam = lambda_ * (1.0 - float(params["alpha"]))
         nn = bool(params.get("non_negative"))
         bounds = self._beta_bounds
@@ -637,9 +644,11 @@ class GLM(ModelBuilder):
         gaussian_ls = fam.name == "gaussian" and not nn
         dev_prev = torch.full((), float("inf"), device=X.device)
         dev, it_total, done = float("inf"), 0, False
+        jitter = JITTER
         while it_total < max_it and not done:
             new_beta, dev_t, delta, info = _irls_step(
-                fam, X, yy, w, beta, lam, non_negative=nn, off=off)
+                fam, X, yy, w, beta, lam, non_negative=nn, off=off,
+                jitter=jitter)
             if bounds is not None:
                 # projected Newton: clip into the box, measure the step
                 # against the projected point
@@ -648,6 +657,9 @@ class GLM(ModelBuilder):
             stop = (delta < beta_eps) | _plateau(dev_prev, dev_t, obj_eps)
             dev, stop_h, info_h = torch.stack(
                 [dev_t, stop.float(), info.float()]).tolist()
+            if info_h and jitter < MAX_JITTER:
+                jitter *= 10.0
+                continue
             _check_factorised(info_h, f"IRLS iteration {it_total}")
             # weighted least squares solves exactly in one step; the
             # second confirms
@@ -659,16 +671,23 @@ class GLM(ModelBuilder):
                        f"iter {it_total - 1} deviance {dev:.4f}")
         it = max(it_total - 1, 0)
         if float(params["alpha"]) > 0 and lambda_ > 0:
-            beta, info = self._admm_l1(fam, X, yy, w, beta, lambda_, params)
-            if bounds is not None:
-                beta = torch.clamp(beta, bounds[0], bounds[1])
-            dev, info_h = torch.stack([
-                _deviance_at(fam, X, yy, w, beta, off),
-                info.float()]).tolist()
+            while True:
+                b_l1, info = self._admm_l1(fam, X, yy, w, beta, lambda_,
+                                           params, jitter)
+                if bounds is not None:
+                    b_l1 = torch.clamp(b_l1, bounds[0], bounds[1])
+                dev, info_h = torch.stack([
+                    _deviance_at(fam, X, yy, w, b_l1, off),
+                    info.float()]).tolist()
+                if not (info_h and jitter < MAX_JITTER):
+                    break
+                jitter *= 10.0
             _check_factorised(info_h, "the L1 pass")
+            beta = b_l1
         return beta, dev, it
 
-    def _admm_l1(self, fam, X, yy, w, beta, lambda_: float, params):
+    def _admm_l1(self, fam, X, yy, w, beta, lambda_: float, params,
+                 jitter: float):
         """L1 by proximal IRLS (the reference's simplified ADMM,
         hex/optimization/ADMM.java): ten IRLS steps, each followed by a
         soft threshold of the non-intercept coefficients at
@@ -682,7 +701,8 @@ class GLM(ModelBuilder):
         worst = torch.zeros((), dtype=torch.int32, device=X.device)
         for _ in range(10):
             beta, _dev, _delta, info = _irls_step(fam, X, yy, w, beta, lam2,
-                                                  non_negative=nn, off=off)
+                                                  non_negative=nn, off=off,
+                                                  jitter=jitter)
             worst = torch.maximum(worst, info.to(torch.int32))
             thr = _l1_threshold(fam, X, w, beta, lam1, lam2, off)
             beta = torch.cat([_soft_threshold(beta[:-1], thr), beta[-1:]])

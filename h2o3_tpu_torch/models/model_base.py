@@ -121,6 +121,8 @@ class ModelBuilder:
     unsupervised = False
     #: whether a categorical response is taken
     supports_classification = True
+    #: whether a numeric response is taken
+    supports_regression = True
 
     def __init__(self, **params):
         self.params = self.defaults()
@@ -238,10 +240,13 @@ class ModelBuilder:
     def _validate(self, frame: Frame, x: list[str], y: str | None) -> None:
         """Refuse a response the builder cannot train on (reference
         ``ModelBuilder._validate``)."""
-        if y is not None and frame.vec(y).is_categorical \
-                and not self.supports_classification:
+        if y is None:
+            return
+        if frame.vec(y).is_categorical and not self.supports_classification:
             raise ValueError(f"{self.algo} does not support a categorical "
                              "response")
+        if not frame.vec(y).is_categorical and not self.supports_regression:
+            raise ValueError(f"{self.algo} requires a categorical response")
 
     def _scoring_history(self, model: Model):
         """The per-tree scoring table of iterative builders (reference
