@@ -141,6 +141,22 @@ Phases, each of which fails the run on error:
    (3,650 integer times) and its concordance; (g) HGLM with a random
    intercept and slope over 1,000 groups of 1M rows; (h) PSVM at its
    defaults on the first 100k rows of phase 4's frame.
+12. cross-validation, the TargetEncoder, the explanations, the Aggregator
+   and the scikit-learn surface (no kernel of their own; the GBMs launch
+   the histogram kernels, held to the plan's count), each timed after a
+   warm run under the sync counter with its peak memory, profiled on a
+   like part (one fold, ten trees, one partial dependence, one chunk of
+   the sweep) and held to the CPU on a head (10k-50k rows): (a)
+   bench_gbm with 5-fold CV and kept out-of-fold predictions (6 fits,
+   720 fixed-kernel launches and 120 node totals), its main model bit
+   for bit a GBM trained without CV; (b) the TargetEncoder at H2O-3's
+   documented settings (KFold, blending, noise 0.15) on Origin, Dest and
+   UniqueCarrier of phase 7's frame, then phase 7's GBM on the encodings;
+   (c) ``explain`` of the CV GBM and a binomial GLM on 1M rows, with
+   permutation importance and ICE, the scorings counted; (d) the
+   Aggregator at H2O-3's 5,000 exemplars on 1M rows; (e) the scikit-learn
+   GBM classifier on 1M rows as numpy, ``predict_proba`` bit for bit the
+   GBM's ``predict``.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -148,9 +164,10 @@ at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
 line, phase 9's the ``tree_family`` line, phase 10's the
-``dl_unsupervised`` line and phase 11's the ``builders`` line before the
-``kernels`` line. Without a CUDA card the script exits
-non-zero and prints no result. It imports nothing of JAX or ``h2o3_tpu``.
+``dl_unsupervised`` line, phase 11's the ``builders`` line and phase
+12's the ``cv_explain`` line before the ``kernels`` line. Without a CUDA
+card the script exits non-zero and prints no result. It imports nothing
+of JAX or ``h2o3_tpu``.
 """
 
 from __future__ import annotations
@@ -259,12 +276,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 def phase_env() -> dict:
     """Phase 1: card, versions, kernel build."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    card = card_name()
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     from h2o3_tpu_torch.ops import _build
@@ -276,7 +299,7 @@ def phase_env() -> dict:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
-    return dict(card=smi.stdout.strip())
+    return dict(card=card)
 
 
 def sass_check() -> dict:
@@ -1647,9 +1670,15 @@ def airlines_frame(cols: dict, device):
     return Frame(list(cols), vecs)
 
 
+#: rows of phase 3's C.1 GBMs, trained on the CPU and on the card
+C1_GBM_ROWS = 500_000
+
+
 def phase_cross_device_new() -> dict:
     """Phase 3's new models, CPU (plain path) against the card: fault C.1's
-    GBMs (cases (a), (b), (c) at 2M rows, depth 6, 64 bins, 3 trees) and a
+    GBMs (cases (a), (b), (c) at 500k rows, depth 6, 64 bins, 3 trees;
+    levels 0 and 1 keep 15 bits a value as at 2M rows, levels 2-5 one more
+    bit, and the CPU side takes a quarter of 2M rows' 140-180 s) and a
     100k-row airlines-shaped GBM with group splits (Origin and Dest range-
     grouped into 64 bins), a monotone DepTime and interaction sets
     {Origin, Dest} and {DepTime, Distance}."""
@@ -1657,10 +1686,10 @@ def phase_cross_device_new() -> dict:
     from h2o3_tpu_torch.models.gbm import GBM
     out = {}
     for case in "abc":
-        cols = skewed_cols(case, 2_000_000)
+        cols = skewed_cols(case, C1_GBM_ROWS)
         out[case] = cross_device_ties(
-            f"C.1 case ({case}) GBM 2M x 28", lambda dev: Frame.from_arrays(
-                cols, device=dev),
+            f"C.1 case ({case}) GBM {C1_GBM_ROWS} x 28",
+            lambda dev: Frame.from_arrays(cols, device=dev),
             lambda: GBM(ntrees=3, max_depth=DEPTH, nbins=NBINS,
                         learn_rate=0.1, seed=42,
                         weights_column="w" if case == "b" else None),
@@ -3898,11 +3927,399 @@ def phase_builders(fr) -> dict:
         torch.cuda.empty_cache()
     out["part_seconds"] = parts
     out["seconds"] = time.perf_counter() - t0
-    out["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    out["card"] = card_name()
     print(f"phase 11: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
+# -- phase 12: cross-validation, TargetEncoder, explanations, Aggregator, ---
+# -- and the scikit-learn surface ---------------------------------------------
+
+#: bench_gbm's configuration (phase 4)
+MAIN_GBM = dict(ntrees=NTREES, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                seed=42)
+#: AutoML's CV setting (h2o3_tpu/orchestration/automl.py:185)
+CV_FOLDS = 5
+#: H2O-3's Target Encoding docs' example settings, on three airlines columns
+TE_COLS = ["Origin", "Dest", "UniqueCarrier"]
+TE_PARAMS = dict(data_leakage_handling="KFold", blending=True,
+                 inflection_point=3, smoothing=10, noise=0.15, nfolds=5,
+                 seed=42)
+#: phase 7's GBM (validation, stopping on logloss, monotone DepTime)
+AIRLINE_GBM = dict(ntrees=300, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                   stopping_rounds=5, stopping_metric="logloss",
+                   stopping_tolerance=1e-4,
+                   monotone_constraints={"DepTime": 1}, seed=42)
+#: a user explains, aggregates and fits sklearn on a sample of phase 4's frame
+SAMPLE_ROWS = 1_000_000
+#: H2O-3's AggregatorModel default (the JAX package's is 100)
+AGG_EXEMPLARS = 5000
+#: the CPU heads of phase 12's CPU-against-card checks
+CV_CPU_ROWS = EXPLAIN_CPU_ROWS = 10_000
+AGG_CPU_ROWS = 20_000
+TE_CPU_ROWS = 50_000
+
+
+def cv_part(fr) -> tuple:
+    """12a: bench_gbm's GBM with 5-fold CV and the out-of-fold predictions
+    kept (AutoML's setting) on phase 4's frame: 6 fits, exactly 720
+    fixed-kernel launches and 120 node totals; the main model bit for bit
+    a GBM trained without CV; the pooled CV AUC that of the kept
+    predictions; 5 folds in the summary. Profiled on one fold (a fit with
+    a fold's weights). On the first 10k rows, the CPU's CV against the
+    card's: the same folds, CV AUC within 1e-4, logloss at rtol 1e-4 and
+    out-of-fold probabilities within 1e-4 (phase 3's tolerances)."""
+    from h2o3_tpu_torch.models.data_info import response_as_float
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.model_base import compute_metrics
+
+    def cv(frame):
+        return GBM(nfolds=CV_FOLDS, keep_cross_validation_predictions=True,
+                   **MAIN_GBM).train(y="y", training_frame=frame)
+
+    fold_w = (torch.arange(ROWS, device=fr.device) % CV_FOLDS != 0).float()
+
+    def one_fold():
+        GBM(**MAIN_GBM).train(y="y", training_frame=fr, weights=fold_w)
+
+    fits = CV_FOLDS + 1
+    model, res = timed_fit(
+        f"12a CV GBM {ROWS} x {NFEAT}, {CV_FOLDS} folds, {NTREES} trees "
+        f"depth {DEPTH}", lambda: cv(fr), ROWS * NTREES * fits, "rows*trees",
+        before_timed=reset_kernel_counts, sample=("one fold", one_fold))
+    res.update(hold_launches("12a", planned_launches(
+        NTREES * fits, DEPTH, NBINS + 1, 1), NTREES * fits))
+    plain = GBM(**MAIN_GBM).train(y="y", training_frame=fr)
+    same = (_heaps_bitwise(plain, model)
+            and plain.training_metrics.auc == model.training_metrics.auc
+            and plain.training_metrics.logloss
+            == model.training_metrics.logloss)
+    cvm = model.cross_validation_metrics
+    rescored = compute_metrics(model.cv_holdout_predictions,
+                               response_as_float(fr.vec("y"))[0],
+                               model.cv_holdout_mask, 2)
+    names, k, rows = model.cv_metrics_summary
+    print(f"  main model bit for bit the plain GBM's: {same}; CV AUC "
+          f"{cvm.auc:.6f} logloss {cvm.logloss:.6f} (training AUC "
+          f"{model.training_metrics.auc:.6f}), the kept predictions' AUC "
+          f"{rescored.auc:.6f}; summary {names} over {k} folds")
+    if not same:
+        raise AssertionError("12a: the main model differs from a GBM "
+                             "trained without CV")
+    if not (np.isfinite(cvm.auc) and 0.5 < cvm.auc
+            and rescored.auc == cvm.auc
+            and rescored.logloss == cvm.logloss
+            and bool(model.cv_holdout_mask.all())):
+        raise AssertionError(f"12a: CV metrics {cvm}, rescored {rescored}")
+    if k != CV_FOLDS or any(len(r) != 3 + CV_FOLDS for r in rows):
+        raise AssertionError(f"12a: summary {model.cv_metrics_summary}")
+    sub = head(fr, CV_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    cpu, card = cv(cpu_sub), cv(sub)
+    d_auc = abs(cpu.cross_validation_metrics.auc
+                - card.cross_validation_metrics.auc)
+    ll = close("12a CV logloss", card.cross_validation_metrics.logloss,
+               cpu.cross_validation_metrics.logloss, 1e-4)
+    d_oof = float((card.cv_holdout_predictions.cpu()
+                   - cpu.cv_holdout_predictions).abs().max())
+    print(f"  CPU / card on {CV_CPU_ROWS} rows: CV AUC {d_auc:.2e} apart, "
+          f"logloss at {ll:.3g} x rtol 1e-4, out-of-fold probabilities "
+          f"{d_oof:.2e} apart")
+    if not (d_auc < 1e-4 and d_oof <= 1e-4):
+        raise AssertionError("12a: CPU and card CV disagree")
+    res.update(cv_auc=cvm.auc, cv_logloss=cvm.logloss,
+               train_auc=model.training_metrics.auc, main_bitwise=same,
+               summary=dict(zip(names, (r[1] for r in rows))),
+               cross=dict(rows=CV_CPU_ROWS, auc_diff=d_auc, logloss_ratio=ll,
+                          oof_max_diff=d_oof))
+    del plain, cpu, card, fold_w
+    return model, res
+
+
+def te_part(air_fr, air_vf) -> dict:
+    """12b: TargetEncoder at H2O-3's documented example settings (KFold,
+    blending, inflection point 3, smoothing 10, noise 0.15, 5 folds) on
+    Origin, Dest and UniqueCarrier of phase 7's 10M-row frame, the
+    training frame transformed as_training and the validation frame by
+    the full statistics; then phase 7's GBM with those columns replaced by
+    their encodings, its launches held to the plan for the trees it grew.
+    |noisy - clean| <= 0.15; on the first 50k rows, the CPU's encodings
+    without noise against the card's at rtol 1e-6."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.target_encoder import TargetEncoder
+
+    def te(frame, **over):
+        return TargetEncoder(**dict(TE_PARAMS, **over)).train(
+            x=TE_COLS, y=AIRLINE_Y, training_frame=frame)
+
+    def encode(**over):
+        m = te(air_fr, **over)
+        return m, m.transform(air_fr, as_training=True), m.transform(air_vf)
+
+    (model, tr, va), res = timed_fit(
+        f"12b TargetEncoder {AIRLINE_ROWS} rows x {len(TE_COLS)} columns, "
+        "KFold 5, blending, noise 0.15", encode, AIRLINE_ROWS, "rows")
+    _, clean, _ = encode(noise=0.0)
+    d_noise = max(float((tr.vec(f"{c}_te").data.double()
+                         - clean.vec(f"{c}_te").data.double()).abs().max())
+                  for c in TE_COLS)
+    del clean
+    print(f"  |noisy - clean| at most {d_noise:.6f}")
+    if not 0.1 < d_noise <= 0.15 + 2 ** -23:
+        raise AssertionError(f"12b: the noise reaches {d_noise}")
+    x_te = [c for c in AIRLINE_X if c not in TE_COLS] + \
+        [f"{c}_te" for c in TE_COLS]
+    builders = []
+
+    def gbm(**over):
+        b = GBM(**dict(AIRLINE_GBM, **over))
+        builders.append(b)
+        return b.train(x=x_te, y=AIRLINE_Y, training_frame=tr,
+                       validation_frame=va)
+
+    gm, gres = timed_fit(
+        f"12b GBM on the encodings {AIRLINE_ROWS} x {len(x_te)}, up to "
+        "300 trees, stopping", gbm, AIRLINE_ROWS, "rows",
+        before_timed=reset_kernel_counts,
+        sample=("10 of its trees", lambda: gbm(ntrees=10,
+                                               stopping_rounds=0)))
+    grown = builders[-1]._rounds_grown
+    gres.update(hold_launches("12b GBM", planned_launches(
+        grown, DEPTH, NBINS + 1, 1), grown))
+    tm, vm = gm.training_metrics, gm.validation_metrics
+    scored = gm.model_performance(tr)
+    print(f"  {grown} trees grown, {gm.output['ntrees']} kept; training AUC "
+          f"{tm.auc:.6f} logloss {tm.logloss:.6f}, validation AUC "
+          f"{vm.auc:.6f} logloss {vm.logloss:.6f}")
+    if not (abs(scored.logloss - tm.logloss) < 1e-4 and vm.auc > 0.6
+            and np.isfinite(vm.logloss)):
+        raise AssertionError(f"12b: GBM metrics {tm} {vm} scored {scored}")
+    sub = head(air_fr, TE_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    worst = 0.0
+    ms = [te(f, noise=0.0) for f in (cpu_sub, sub)]
+    for c in TE_COLS:
+        worst = max(worst, close(f"12b {c} table", ms[1].output["lut"][c]
+                                 .cpu(), ms[0].output["lut"][c], 1e-6))
+        for t in (True, False):
+            got = ms[1].transform(sub, as_training=t).vec(f"{c}_te").data
+            want = ms[0].transform(cpu_sub, as_training=t).vec(f"{c}_te").data
+            worst = max(worst, close(f"12b {c} as_training={t}", got.cpu(),
+                                     want, 1e-6))
+    print(f"  CPU / card encodings on {TE_CPU_ROWS} rows at {worst:.3g} x "
+          "rtol 1e-6")
+    res.update(noise_max=d_noise, gbm=gres, trees_grown=grown,
+               trees_kept=gm.output["ntrees"], valid_auc=vm.auc,
+               valid_logloss=vm.logloss,
+               cross=dict(rows=TE_CPU_ROWS, ratio=worst))
+    del model, tr, va, gm, builders
+    return res
+
+
+def explain_part(gbm, fr1m) -> dict:
+    """12c: the 12a model and a binomial GLM (phase 8a's settings) fitted
+    on the first 1M rows of phase 4's frame, explained there: ``explain``
+    (varimp heatmap, model correlation, partial dependence of each model's
+    top 5 features, the GBM's SHAP summary), ``permutation_varimp`` (seed
+    42) and ``ice`` of x0; the scorings counted. Profiled on x0's partial
+    dependence. On the first 10k rows, the CPU against the card: partial
+    dependence at rtol 1e-5, the SHAP ranking equal, permutation deltas
+    at rtol 1e-4 with a floor of 1e-6."""
+    from h2o3_tpu_torch.explanation import (explain, ice, partial_dependence,
+                                            permutation_varimp, shap_summary)
+    from h2o3_tpu_torch.models.glm import GLM
+    glm = GLM(family="binomial", lambda_=1e-4, max_iterations=30).train(
+        y="y", training_frame=fr1m)
+    scorings = {"gbm": 0, "glm": 0}
+
+    def count(model, key):
+        inner = model._score_raw
+
+        def scored(frame):
+            scorings[key] += 1
+            return inner(frame)
+        model._score_raw = scored
+
+    count(gbm, "gbm")
+    count(glm, "glm")
+
+    def run():
+        return (explain([gbm, glm], fr1m),
+                permutation_varimp(gbm, fr1m, seed=42),
+                ice(gbm, fr1m, "x0"))
+
+    (bundle, pvi, curves), res = timed_fit(
+        f"12c explain [GBM, GLM] + permutation varimp + ICE on "
+        f"{SAMPLE_ROWS} rows", run, SAMPLE_ROWS, "rows",
+        before_timed=lambda: scorings.update(gbm=0, glm=0),
+        sample=("x0's partial dependence",
+                lambda: partial_dependence(gbm, fr1m, "x0")))
+    del gbm._score_raw, glm._score_raw
+    want = {"gbm": 1 + 5 * 20 + (1 + NFEAT) + 20, "glm": 1 + 5 * 20}
+    corr = bundle["model_correlation"]["matrix"][0][1]
+    top = [r[0] for r in gbm.varimp()[:5]]
+    pd_card = bundle["models"][gbm.key]["partial_dependence"]
+    print(f"  scorings {scorings} (expected {want}); model correlation "
+          f"{corr:.4f}; GBM top features {top}; permutation top "
+          f"{[r['variable'] for r in pvi[:3]]}; ICE {curves.nrows} rows")
+    if scorings != want or not 0.5 < corr <= 1.0 or curves.nrows != 2000:
+        raise AssertionError(f"12c: scorings {scorings}, correlation {corr}")
+    for c, t in pd_card.items():
+        if not np.isfinite(t.vec("mean_response").to_numpy()).all():
+            raise AssertionError(f"12c: partial dependence of {c}")
+    sub = head(fr1m, EXPLAIN_CPU_ROWS)
+    cpu_sub = frame_on(sub, "cpu")
+    gcpu = model_on(gbm, "cpu")
+    worst = 0.0
+    for a, b in zip(partial_dependence(gbm, sub, top),
+                    partial_dependence(gcpu, cpu_sub, top)):
+        worst = max(worst, close("12c partial dependence",
+                                 a.vec("mean_response").to_numpy(),
+                                 b.vec("mean_response").to_numpy(), 1e-5))
+    rank_card = [r[0] for r in shap_summary(gbm, sub)]
+    rank_cpu = [r[0] for r in shap_summary(gcpu, cpu_sub)]
+    pv_card = {r["variable"]: r["relative_importance"]
+               for r in permutation_varimp(gbm, sub, seed=42)}
+    pv_cpu = {r["variable"]: r["relative_importance"]
+              for r in permutation_varimp(gcpu, cpu_sub, seed=42)}
+    pv = close("12c permutation deltas", [pv_card[c] for c in pv_cpu],
+               list(pv_cpu.values()), 1e-4, 1e-6)
+    print(f"  CPU / card on {EXPLAIN_CPU_ROWS} rows: partial dependence at "
+          f"{worst:.3g} x rtol 1e-5, SHAP ranking alike "
+          f"{rank_card == rank_cpu}, permutation deltas at {pv:.3g} x the "
+          "tolerance")
+    if rank_card != rank_cpu:
+        raise AssertionError(f"12c: SHAP ranking {rank_card} vs {rank_cpu}")
+    res.update(scorings=scorings, correlation=corr, gbm_top=top,
+               permutation_top=[r["variable"] for r in pvi[:5]],
+               cross=dict(rows=EXPLAIN_CPU_ROWS, pd_ratio=worst,
+                          permutation_ratio=pv))
+    del glm, bundle
+    return res
+
+
+def aggregator_part(fr1m) -> dict:
+    """12d: Aggregator at H2O-3's default 5,000 exemplars, NORMALIZE, on
+    the first 1M rows of phase 4's frame: 5,000 exemplars, counts summing
+    to 1M, peak memory under 8 GiB (the assignment row-blocked), its
+    fetches counted; profiled on one chunk of the sweep (257 exemplars).
+    On the first 20k rows with the first exemplar injected (row 0), the
+    CPU's exemplars, assignment and counts against the card's, exactly."""
+    from h2o3_tpu_torch.models import aggregator
+    from h2o3_tpu_torch.models.aggregator import Aggregator
+    x = [f"x{i}" for i in range(NFEAT)]
+
+    def agg(frame, k=AGG_EXEMPLARS):
+        return Aggregator(target_num_exemplars=k, transform="NORMALIZE"
+                          ).train(x=x, training_frame=frame)
+
+    model, res = timed_fit(
+        f"12d Aggregator {SAMPLE_ROWS} x {NFEAT}, {AGG_EXEMPLARS} exemplars",
+        lambda: agg(fr1m), SAMPLE_ROWS, "rows",
+        sample=("one chunk of the sweep", lambda: agg(
+            fr1m, aggregator.SWEEP_CHUNK + 1)))
+    counts = model.output["counts"]
+    n_ex = len(model.output["exemplar_rows"])
+    total = float(counts.sum())
+    print(f"  {n_ex} exemplars, counts summing to {total:.0f}, "
+          f"{(counts == 0).sum().item()} empty")
+    if n_ex != AGG_EXEMPLARS or total != SAMPLE_ROWS \
+            or res["peak_gib"] >= 8.0:
+        raise AssertionError(f"12d: {n_ex} exemplars, counts {total}, peak "
+                             f"{res['peak_gib']} GiB")
+    sub = head(fr1m, AGG_CPU_ROWS)
+    first = aggregator._first_exemplar
+    aggregator._first_exemplar = lambda mask, seed: 0
+    try:
+        cpu, card = agg(frame_on(sub, "cpu")), agg(sub)
+    finally:
+        aggregator._first_exemplar = first
+    same = (np.array_equal(cpu.output["exemplar_rows"],
+                           card.output["exemplar_rows"])
+            and torch.equal(cpu.output["exemplar_assignment"],
+                            card.output["exemplar_assignment"].cpu())
+            and torch.equal(cpu.output["counts"],
+                            card.output["counts"].cpu()))
+    print(f"  CPU / card on {AGG_CPU_ROWS} rows, first exemplar row 0: the "
+          f"same exemplars, assignment and counts {same}")
+    if not same:
+        raise AssertionError("12d: CPU and card aggregate otherwise")
+    res.update(exemplars=n_ex, counts_sum=total,
+               sweep_fetches=model.output.get("sweep_fetches"),
+               cross=dict(rows=AGG_CPU_ROWS, same=same))
+    return res
+
+
+def sklearn_part(fr1m) -> dict:
+    """12e: ``H2OGradientBoostingClassifier(ntrees=20, max_depth=6)``
+    fitted on the first 1M rows of phase 4's frame as numpy, its
+    ``predict_proba`` equal bit for bit to the port's GBM trained and
+    scored on the same frames."""
+    from h2o3_tpu_torch import sklearn_adapter as sk
+    from h2o3_tpu_torch.models.gbm import GBM
+    X = torch.stack([fr1m.vec(f"x{i}").data for i in range(NFEAT)],
+                    1).cpu().numpy()
+    yv = fr1m.vec("y")
+    y = np.asarray(yv.domain)[yv.data.cpu().numpy()]
+    params = dict(ntrees=NTREES, max_depth=DEPTH)
+
+    def fit():
+        clf = sk.H2OGradientBoostingClassifier(**params).fit(X, y)
+        return clf, clf.predict_proba(X)
+
+    (clf, proba), res = timed_fit(
+        f"12e sklearn GBM classifier fit + predict_proba on {SAMPLE_ROWS} "
+        f"x {NFEAT} numpy", fit, SAMPLE_ROWS, "rows")
+    fr, names, ycol = sk._to_frame(X, y, classification=True)
+    m = GBM(**params).train(x=names, y=ycol, training_frame=fr)
+    pred = m.predict(sk._to_frame(X)[0])
+    want = np.stack([pred.vec(f"p{d}").to_numpy()
+                     for d in m.response_domain], 1)
+    same = np.array_equal(proba, want)
+    print(f"  classes {[str(c) for c in clf.classes_]}; predict_proba bit "
+          f"for bit the GBM's predict: {same}; accuracy "
+          f"{clf.score(X, y):.4f}")
+    if not same or proba.shape != (SAMPLE_ROWS, 2):
+        raise AssertionError("12e: predict_proba differs from GBM.predict")
+    res.update(bitwise=same)
+    return res
+
+
+def phase_cv_explain(fr, air_fr, air_vf) -> dict:
+    """Phase 12: 12a CV GBM, 12b TargetEncoder → GBM, 12c explanations,
+    12d Aggregator and 12e scikit-learn, each timed after a warm run under
+    the sync counter with its peak memory, profiled on a like part, and
+    held to the CPU on a head; each part's seconds (its CPU check
+    included) in ``part_seconds``."""
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    fr1m = head(fr, SAMPLE_ROWS)
+    prime_rollups(fr1m)
+    holder = {}
+
+    def cv():
+        holder["gbm"], res = cv_part(fr)
+        return res
+
+    for name, part in (("12a_cv_gbm", cv),
+                       ("12b_target_encoder", lambda: te_part(air_fr,
+                                                              air_vf)),
+                       ("12c_explain", lambda: explain_part(holder["gbm"],
+                                                            fr1m)),
+                       ("12d_aggregator", lambda: aggregator_part(fr1m)),
+                       ("12e_sklearn", lambda: sklearn_part(fr1m))):
+        t1 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t1
+        print(f"phase {name}: {parts[name]:.1f} s")
+        torch.cuda.empty_cache()
+    del holder
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card_name()
+    print(f"phase 12: {out['seconds']:.1f} s; by part "
           f"{ {k: round(v, 1) for k, v in parts.items()} }")
     return out
 
@@ -3941,7 +4358,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     unsupervised = phase_dl_unsupervised(fr, air_fr)
     builders = phase_builders(fr)
-    del fr, air_fr
+    air_vf = airlines_frame(airlines_arrays(AIRLINE_VALID, 32), "cuda")
+    cv_explain = phase_cv_explain(fr, air_fr, air_vf)
+    del fr, air_fr, air_vf
     torch.cuda.empty_cache()
     glm = phase_glm(glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
@@ -4002,13 +4421,28 @@ def main() -> int:
     kernels.append(kernel_entry(
         fam["dart"]["launches"], max_err["xgboost_257"],
         new_times["xgboost_257"], path="dart_257"))
-    # phase 11's GBMs: RuleFit's ladder takes the main path's levels 0-2,
-    # the infogram's surrogates levels 0-4 (27 or 28 features)
+    # phases 11 and 12 launch the kernel at level shapes timed above, so
+    # their entries carry those times and errors (named by ``timed_at``);
+    # only the launch counts are their own. RuleFit's ladder takes the
+    # main path's levels 0-2, the infogram's surrogates levels 0-4 (27 or
+    # 28 features), the CV GBM's 6 fits the main path's levels, and the
+    # GBM on the encodings the airlines levels (8 features)
+    main_levels = "the main path's levels (phase 4), not this path's fits"
     for key, path, depth in (("11c_rulefit", "rulefit_ladder", 3),
                              ("11d_infogram", "infogram_surrogates", 5)):
         kernels.append(kernel_entry(
             builders[key]["launches"], max_err["binomial"], times[:depth],
-            path=path, node_totals=builders[key]["node_totals"]))
+            path=path, node_totals=builders[key]["node_totals"],
+            timed_at=main_levels))
+    kernels.append(kernel_entry(
+        cv_explain["12a_cv_gbm"]["launches"], max_err["binomial"], times,
+        path="gbm_cv5", node_totals=cv_explain["12a_cv_gbm"]["node_totals"],
+        timed_at=main_levels))
+    te_gbm = cv_explain["12b_target_encoder"]["gbm"]
+    kernels.append(kernel_entry(
+        te_gbm["launches"], air_err, air_times, path="te_airlines_gbm",
+        node_totals=te_gbm["node_totals"],
+        timed_at="the airlines GBM's levels (phase 7), not this path's fit"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -4017,6 +4451,7 @@ def main() -> int:
         default=float))
     print(json.dumps({"dl_unsupervised": unsupervised}, default=float))
     print(json.dumps({"builders": builders}, default=float))
+    print(json.dumps({"cv_explain": cv_explain}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,16 @@ optimizers' updates written out, matrix products, batched solves and
 The builders on GBM and GLM (ModelSelection and ANOVAGLM, GAM, RuleFit,
 Infogram with ``fairness_metrics``) train the port's GBM, DRF and GLM;
 IsotonicRegression, CoxPH, HGLM and PSVM are solvers of their own in
-torch operations. These are exported here.
+torch operations. Every supervised builder cross-validates (``nfolds``,
+``fold_column``). TargetEncoder and Aggregator transform and reduce
+frames; :mod:`h2o3_tpu_torch.explanation` explains models (partial
+dependence, ICE, SHAP summaries, permutation importance) and
+:mod:`h2o3_tpu_torch.sklearn_adapter` wraps the builders for
+scikit-learn. The builders of the later slices are exported here.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device
+from h2o3_tpu_torch.models.aggregator import Aggregator
 from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.gam import GAM
 from h2o3_tpu_torch.models.hglm import HGLM
@@ -41,7 +47,9 @@ from h2o3_tpu_torch.models.isotonic import IsotonicRegression
 from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
 from h2o3_tpu_torch.models.psvm import PSVM
 from h2o3_tpu_torch.models.rulefit import RuleFit
+from h2o3_tpu_torch.models.target_encoder import TargetEncoder
 
-__all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "CoxPH", "Infogram",
-           "IsotonicRegression", "ModelSelection", "RuleFit",
-           "fairness_metrics", "resolve_device", "set_device"]
+__all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH",
+           "Infogram", "IsotonicRegression", "ModelSelection", "RuleFit",
+           "TargetEncoder", "fairness_metrics", "resolve_device",
+           "set_device"]

@@ -20,7 +20,10 @@ stacked hyperplane arrays of an extended isolation forest.
 :func:`deeplearning_model`, :func:`kmeans_model`, :func:`pca_model`,
 :func:`svd_model` and :func:`glrm_model` take a model's ``output`` as
 numpy and the fields of its DataInfo, as :func:`glm_model` does;
-:func:`naive_bayes_model` its ``output`` alone.
+:func:`naive_bayes_model` its ``output`` alone, and
+:func:`target_encoder_model` a TargetEncoder's tables (its training
+encodings stay with the JAX model: a converted encoder transforms any
+frame by its full statistics).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from h2o3_tpu_torch.models.model_selection import (ANOVAGLMModel,
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel
 from h2o3_tpu_torch.models.psvm import PSVMModel
 from h2o3_tpu_torch.models.rulefit import RuleFitModel
+from h2o3_tpu_torch.models.target_encoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
@@ -572,3 +576,21 @@ def infogram_model(output: Mapping, relevance_model: Mapping,
     out.update(build_core=bool(output["build_core"]), relevance_model=rel)
     return _model(InfogramModel, "infogram", out, response_column,
                   response_domain, params, rel.data_info)
+
+
+def target_encoder_model(output: Mapping, response_column: str | None = None,
+                         params: Mapping | None = None,
+                         device: str | torch.device | None = None
+                         ) -> TargetEncoderModel:
+    """The port's TargetEncoderModel from a reference encoder's ``output``:
+    ``lut`` (per column its [K + 1] level values, the last the NA slot),
+    ``domains``, ``prior``, ``columns`` and ``data_leakage_handling``."""
+    dev = resolve_device(device)
+    out = dict(columns=list(output["columns"]),
+               lut={c: _tensor(v, dev) for c, v in output["lut"].items()},
+               domains={c: tuple(d) for c, d in output["domains"].items()},
+               prior=float(output["prior"]),
+               data_leakage_handling=str(output["data_leakage_handling"]),
+               train_encoded=None)
+    return _model(TargetEncoderModel, "targetencoder", out, response_column,
+                  None, params)

@@ -1,9 +1,9 @@
 """Frame — a named list of equal-length columns — the port of
 ``h2o3_tpu/frame/frame.py``.
 
-All columns of a Frame live on one device and carry no padding. The
-reference's mesh views, DKV registration, Cleaner and compression are left
-out of this slice.
+All on-device columns of a Frame live on one device and carry no padding;
+host-resident string columns sit beside them. The reference's mesh views,
+DKV registration, Cleaner and compression are left out.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class Frame:
             raise ValueError(f"duplicate column names: {names}")
         if len({v.nrows for v in vecs}) > 1:
             raise ValueError("vecs disagree on nrows")
-        if len({v.device for v in vecs}) > 1:
+        if len({v.device for v in vecs if v.data is not None}) > 1:
             raise ValueError("vecs live on different devices")
         self.names: list[str] = list(names)
         self.vecs: list[Vec] = list(vecs)
@@ -78,7 +78,10 @@ class Frame:
 
     @property
     def device(self) -> torch.device:
-        return self.vecs[0].device
+        """The device of the on-device columns (the CPU for a frame of
+        host columns alone)."""
+        return next((v.device for v in self.vecs if v.data is not None),
+                    torch.device("cpu"))
 
     @property
     def types(self) -> dict[str, str]:

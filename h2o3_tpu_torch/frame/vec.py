@@ -2,8 +2,9 @@
 
 A Vec is one tensor on one device, with no padding: float32 for numeric
 columns (NaN = missing) and int32 codes for categoricals (-1 = missing) with
-a sorted host-side domain. The reference's mesh sharding, compression and
-host-only string columns are left out of this slice.
+a sorted host-side domain. A string column (``VecType.STR``) has no tensor:
+its values stay on the host as an object array (None = missing). The
+reference's mesh sharding and compression are left out.
 """
 
 from __future__ import annotations
@@ -21,11 +22,14 @@ from h2o3_tpu_torch.frame.types import CAT_NA, VecType
 class Vec:
     """One named, typed column of a Frame."""
 
-    def __init__(self, data: torch.Tensor, type: VecType,
-                 domain: tuple[str, ...] | None = None):
+    def __init__(self, data: torch.Tensor | None, type: VecType,
+                 domain: tuple[str, ...] | None = None,
+                 host_values: np.ndarray | None = None):
         self.data = data        # [nrows] float32 (numeric) or int32 (codes)
         self.type = type
         self.domain = domain    # categorical level names, sorted
+        # the values of a host-resident column (STR), with data None
+        self.host_values = host_values
         self._rollups: Rollups | None = None
 
     @staticmethod
@@ -33,9 +37,12 @@ class Vec:
                    domain: Sequence[str] | None = None,
                    device: str | torch.device | None = None) -> "Vec":
         """Build a Vec from a host array, guessing the type if not given."""
-        dev = resolve_device(device)
         if type is None:
             type = _guess_type(values)
+        if type is VecType.STR:
+            return Vec(None, type,
+                       host_values=np.asarray(values, dtype=object))
+        dev = resolve_device(device)
         if type is VecType.CAT:
             if domain is None:
                 codes, domain = _factorize(values)
@@ -56,11 +63,14 @@ class Vec:
 
     @property
     def nrows(self) -> int:
+        if self.data is None:
+            return len(self.host_values)
         return self.data.shape[0]
 
     @property
-    def device(self) -> torch.device:
-        return self.data.device
+    def device(self) -> torch.device | None:
+        """The tensor's device; None for a host-resident column."""
+        return None if self.data is None else self.data.device
 
     @property
     def is_categorical(self) -> bool:
@@ -93,7 +103,19 @@ class Vec:
         return self.rollups().sigma
 
     def to_numpy(self) -> np.ndarray:
+        if self.data is None:
+            return self.host_values
         return self.data.cpu().numpy()
+
+    def labels(self) -> np.ndarray:
+        """A categorical column as its level strings (NA → None)."""
+        if not self.is_categorical:
+            raise ValueError("labels() requires a categorical Vec")
+        codes = self.to_numpy()
+        out = np.full(len(codes), None, dtype=object)
+        ok = codes >= 0
+        out[ok] = np.array(self.domain, dtype=object)[codes[ok]]
+        return out
 
     def as_float(self) -> torch.Tensor:
         """Column as float32 with NaN for missing (cats → code floats)."""

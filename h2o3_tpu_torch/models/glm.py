@@ -417,6 +417,10 @@ class GLM(ModelBuilder):
                 raise ValueError("column selection (x) is not supported on "
                                  "SparseFrame inputs: slice the COO instead")
             self._refuse_outside_slice()
+            if self.params.get("nfolds") or self.params.get("fold_column"):
+                # the reference's sparse path runs no fold either
+                raise NotImplementedError(
+                    "cross-validation of a SparseFrame is not ported")
             self.job = Job(f"glm-sparse on {training_frame.key or 'frame'}")
 
             def fit_sparse(j):

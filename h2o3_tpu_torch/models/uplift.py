@@ -139,6 +139,15 @@ class UpliftDRF(SharedTreeBuilder):
         if str(self.params.get("auuc_type")).lower() not in ("qini", "auto"):
             raise ValueError("auuc_type: only 'qini' is computed")
 
+    def _check_folds(self, frame: Frame) -> int:
+        nfolds = super()._check_folds(frame)
+        if nfolds:
+            raise NotImplementedError(
+                "UpliftDRF does not cross-validate: its holdout predictions "
+                "are uplifts, which the fold metrics cannot score (the "
+                "reference's cross-validation fails on them too)")
+        return nfolds
+
     def _batch_weights(self, w: torch.Tensor, s: int, k: int) -> list:
         """The Poisson bootstrap weights of trees s .. s + k - 1, each from
         its tree's generator (reference: ``_row_weights`` per tree key)."""

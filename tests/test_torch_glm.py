@@ -238,10 +238,10 @@ def test_max_iterations_rules(cols):
 
 
 @pytest.mark.parametrize("params,exc,match", [
-    (dict(nfolds=5), ValueError, "nfolds"),
-    (dict(fold_column="c1"), ValueError, "fold_column"),
-    (dict(keep_cross_validation_predictions=True), ValueError,
-     "keep_cross_validation_predictions"),
+    (dict(nfolds=1), ValueError, "nfolds"),
+    (dict(fold_column="c1", nfolds=3), ValueError, "fold_column"),
+    (dict(nfolds=3, keep_cross_validation_predictions=True,
+          checkpoint="glm_1"), NotImplementedError, "checkpoint"),
     (dict(max_runtime_secs=10.0), ValueError, "max_runtime_secs"),
     (dict(custom_metric_func="python:k=m.C"), ValueError,
      "custom_metric_func"),

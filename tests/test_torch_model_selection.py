@@ -155,4 +155,4 @@ def test_refusals(frames):
         pms.ModelSelection(mode="sideways").train(x=X, y="y",
                                                   training_frame=pf)
     with pytest.raises(ValueError, match="unknown parameters"):
-        pms.ModelSelection(nfolds=3)
+        pms.ModelSelection(max_runtime_secs=3)
