@@ -32,7 +32,7 @@ Phases, each of which fails the run on error:
 3. small models trained on the CPU (plain path) and on the card (kernels),
    which must agree on every split, on the training metric and on the
    margins: a 100k-row binomial GBM, multinomial GBM (K = 3) and XGBoost
-   (256 bins), sampling off, and XGBoost at 4.5M rows (2 trees, depth 4),
+   (256 bins), sampling off, and XGBoost at 4.5M rows (1 tree, depth 4),
    whose levels run the fixed kernel at 15 bits a value; then a 200k-row
    GBM of depth 12, whose levels of 32 to 1024 nodes run the global
    kernel, held to the metric and to the first tree's leaves on the rows
@@ -99,7 +99,7 @@ Phases, each of which fails the run on error:
    Criteo Uplift Prediction Dataset v2.1 (13,979,592 x 12, 85% treated,
    visit about 4.7%; 7 batches of 8 trees), with the CPU against the card
    on one batch grown from the same weights (splits alike but at the CPU's
-   exact ties) and on a whole 200k-row model (AUUC within 1e-3 of it); (d)
+   exact ties) and on a whole 100k-row model (AUUC within 1e-3 of it); (d)
    DART (bench_xgboost's settings, rate_drop 0.1, skip_drop 0.5, 50
    rounds), its dropping rounds printed, and a 200k-row CPU-against-card
    fit alike at every split but ties; (e) varimp (the CPU's, from the same
@@ -109,10 +109,10 @@ Phases, each of which fails the run on error:
    cal_p1 within 1e-6 of the CPU's; (g) the isolation forest and the
    extended one (extension 0 and 27) fitted and scored on phase 4's
    frame, the bytes a fit copies to the host counted, and 200k-row fits
-   equal bit for bit to the CPU's;
+   (the extended ones' 50k) equal bit for bit to the CPU's;
 10. DeepLearning and the dense unsupervised builders (no kernel of their
    own: torch operations), each timed after a warm run under
-   torch.profiler, with its throughput, device idle share, costliest ops
+   torch.profiler (DeepLearning's: one epoch of its first 10,000 rows), with its throughput, device idle share, costliest ops
    and host syncs, and each held to the CPU on a head of its frame at the
    CPU tests' tolerances: (a)-(d) DeepLearning on bench.py's bench_dl
    frame (60,000 x 784, labels 0-9): bench_dl itself (hidden [50, 50], B
@@ -157,6 +157,25 @@ Phases, each of which fails the run on error:
    Aggregator at H2O-3's 5,000 exemplars on 1M rows; (e) the scikit-learn
    GBM classifier on 1M rows as numpy, ``predict_proba`` bit for bit the
    GBM's ``predict``.
+13. the DKV and orchestration (no kernel of their own; every GBM and
+   XGBoost they build launches the histogram kernels, held to the plan of
+   the grown trees): (a) AutoML as H2O-3's AutoML docs' Python example
+   (``max_models=20, seed=1``, cut to 10 models; nfolds 5, parallelism 2)
+   on the first 1M rows of phase 4's frame: GLM, three XGBoosts, five
+   GBMs and the lr-annealed GBM (60 fits) and two ensembles, 12
+   leaderboard rows; timed once with its host syncs, peak memory and each
+   step's seconds, profiled on one fold of one step, the leader's CV AUC
+   that of its kept out-of-fold predictions, and on the first 5k rows
+   the CPU's AutoML against the card's; (b) AutoML's GBM grid
+   (RandomDiscrete, 6 models) at parallelism 1 and 2, both timed, the
+   same model ids, the models whose every level runs the fixed kernel bit
+   for bit; (c) AutoML with target encoding and the lr-annealed step on
+   the first 1M rows of phase 7's frame, its tree models scoring through
+   the encoder; (d) a GBM per carrier (``train_segments``, 22 segments)
+   on those rows, every model in the DKV, and on 20k rows the CPU's
+   segment models (5 trees) alike at every split but the CPU's exact
+   ties; (e) the
+   kernels timed at 13a's level shapes.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -164,8 +183,9 @@ at the DRF levels it takes and one for the fixed kernel at the XGBoost
 levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
 line, phase 9's the ``tree_family`` line, phase 10's the
-``dl_unsupervised`` line, phase 11's the ``builders`` line and phase
-12's the ``cv_explain`` line before the ``kernels`` line. Without a CUDA
+``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
+12's the ``cv_explain`` line and phase 13's the ``orchestration`` line
+before the ``kernels`` line. Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -195,6 +215,8 @@ XGB_TREES, XGB_BINS = 10, 256
 DRF_TREES, DRF_DEPTH, DRF_MTRIES = 50, 14, 5
 #: phase 3's XGBoost at a size where the fixed kernel keeps 15 bits a value
 QBITS15_ROWS, QBITS15_DEPTH = 4_500_000, 4
+#: its trees (cut from 2: ROADMAP.md "Reduced checks")
+QBITS15_TREES = 1
 #: 16-byte float reductions into global memory per second at random
 #: addresses of a 3 MB array (bench/global_red_rates.cu on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W): what bounds the global kernel's updates
@@ -938,7 +960,8 @@ def phase_cross_device() -> None:
         raise AssertionError(f"no level at 15 bits: {qbits}")
     cross_device(f"XGBoost {QBITS15_ROWS} x 28, 256 bins, depth "
                  f"{QBITS15_DEPTH}", higgs_arrays(QBITS15_ROWS),
-                 lambda: XGBoost(ntrees=2, max_depth=QBITS15_DEPTH,
+                 lambda: XGBoost(ntrees=QBITS15_TREES,
+                                 max_depth=QBITS15_DEPTH,
                                  max_bin=XGB_BINS, eta=0.3, seed=42), "auc")
     deep = cross_device("GBM 200k x 28, depth 12", higgs_arrays(200_000),
                         lambda: GBM(ntrees=3, max_depth=12, nbins=NBINS,
@@ -2347,8 +2370,9 @@ def totals_times() -> list:
 #: 2018): its rows, its 12 float features f0-f11, 85% treated, the visit
 #: label at about 4.7%
 UPLIFT_ROWS, UPLIFT_FEAT = 13_979_592, 12
-#: rows of the CPU-against-card check of one uplift batch
-UPLIFT_BATCH_ROWS = 500_000
+#: rows of the CPU-against-card checks of one uplift batch and of a whole
+#: uplift model (cut from 500k and 200k: ROADMAP.md "Reduced checks")
+UPLIFT_BATCH_ROWS, UPLIFT_CROSS_ROWS = 200_000, 100_000
 #: DART at bench_xgboost's settings and XGBoost's DART tutorial's
 DART_TREES = 50
 DART = dict(booster="dart", max_depth=DEPTH, max_bin=XGB_BINS, eta=0.3,
@@ -2356,6 +2380,9 @@ DART = dict(booster="dart", max_depth=DEPTH, max_bin=XGB_BINS, eta=0.3,
 #: rows of the CPU-against-card fits, of TreeSHAP and of calibration
 CROSS_ROWS, SHAP_ROWS, SHAP_CROSS_ROWS, CAL_ROWS = (200_000, 1_000_000,
                                                     10_000, 1_000_000)
+#: rows of the isolation forests' CPU-against-card fits (cut from 200k:
+#: ROADMAP.md "Reduced checks")
+ISO_CROSS_ROWS = 50_000
 #: the isolation forests: (name, builder parameters, trees)
 ISO_CASES = (("IF", dict(ntrees=50, sample_size=256, max_depth=8), 50),
              ("EIF extension 0", dict(ntrees=100, extension_level=0), 100),
@@ -2618,15 +2645,16 @@ def tree_family_isofor(fr) -> dict:
     """(g) The isolation forests on phase 4's frame, fit (timed; its
     device-to-host bytes counted under the profiler, held to ntrees x 256
     x 28 x 4 plus a few kB) and scored (timed; profiled on 1M rows); then
-    fitted on its first 200k rows on the card and on the CPU: equal bit
-    for bit, scores within 1e-6 x max(1, |score|)."""
+    fitted on its first 50k rows on the card and on the CPU: equal bit for
+    bit (the entries that differ printed), scores within 1e-6 x max(1,
+    |score|)."""
     from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForest,
                                               IsolationForest)
     x = [f"x{i}" for i in range(NFEAT)]
-    sub = head(fr, CROSS_ROWS)
-    sub_cpu = frame_on(sub, "cpu")
     out = {}
     for name, params, ntrees in ISO_CASES:
+        sub = head(fr, ISO_CROSS_ROWS)
+        sub_cpu = frame_on(sub, "cpu")
         cls = IsolationForest if name == "IF" else ExtendedIsolationForest
         make = lambda: cls(seed=42, **params)
         make().train(x=x, training_frame=head(fr, 100_000))    # warm-up
@@ -2648,7 +2676,13 @@ def tree_family_isofor(fr) -> dict:
         cpu = make().train(x=x, training_frame=sub_cpu)
         keys = (("trees", "min_path_length", "max_path_length") if name == "IF"
                 else ("normals", "offsets", "is_split", "leaf", "cn"))
-        same = _outputs_bitwise(card.output, cpu.output, keys)
+        differ = [k for k in keys
+                  if not _outputs_bitwise(card.output, cpu.output, (k,))]
+        same = not differ
+        if differ:
+            print(f"{name}: the CPU's forest differs in {differ}: "
+                  + "; ".join(f"{k} {card.output[k]!r} / {cpu.output[k]!r}"
+                              for k in differ if "path_length" in k))
         a = torch.stack([v.data for v in card.predict(sub).vecs]).cpu()
         b = torch.stack([v.data for v in cpu.predict(sub_cpu).vecs])
         gap = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
@@ -2656,8 +2690,8 @@ def tree_family_isofor(fr) -> dict:
         print(f"{name} {ROWS} x {NFEAT}, {ntrees} trees: fit {fit_s:.3f} s, "
               f"score {score_s:.3f} s (1M rows: {ops} device ops, busy "
               f"{busy_ms:.1f} ms); device-to-host {nbytes} bytes in "
-              f"{ncopies} copies (bound {bound}); {CROSS_ROWS} rows: forest "
-              f"equal to the CPU's bit for bit {same}, scores within "
+              f"{ncopies} copies (bound {bound}); {ISO_CROSS_ROWS} rows: "
+              f"forest equal to the CPU's bit for bit {same}, scores within "
               f"{gap:.2e}; {pred.names[0]} in [{float(col.min()):.4f}, "
               f"{float(col.max()):.4f}]")
         if nbytes > bound or not same or gap > 1e-6 \
@@ -2719,8 +2753,8 @@ def tree_family_uplift() -> dict:
     version (level 0 at 14M x 12, K = 8, w per tree; node totals at K = 8,
     32 nodes), timed at each level; uplift DRF
     at the JAX package's defaults on the Criteo-shaped frame; the CPU
-    against the card on one batch of 8 trees (500k rows) and on a whole
-    model (200k rows), both from bootstrap weights drawn on the CPU."""
+    against the card on one batch of 8 trees (200k rows) and on a whole
+    model (100k rows), both from bootstrap weights drawn on the CPU."""
     from h2o3_tpu_torch.models import tree
     from h2o3_tpu_torch.models.uplift import UpliftDRF
     t0 = time.perf_counter()
@@ -2806,8 +2840,8 @@ def tree_family_uplift() -> dict:
     differ, tied = batch_tie_differences(models["cpu"].output["trees"],
                                          models["cuda"].output["trees"],
                                          ties, 5)
-    # the whole model on the first 200k rows, the same weights
-    part = head(ufr, CROSS_ROWS)
+    # the whole model on the first rows, the same weights
+    part = head(ufr, UPLIFT_CROSS_ROWS)
     whole = {dev: CPUDrawn(treatment_column="treatment", ntrees=50).train(
         x=x, y="visit", training_frame=f).training_metrics
         for dev, f in (("cpu", frame_on(part, "cpu")), ("cuda", part))}
@@ -2815,7 +2849,7 @@ def tree_family_uplift() -> dict:
     print(f"uplift CPU against the card: one batch of 8 trees on "
           f"{UPLIFT_BATCH_ROWS} rows, "
           f"split nodes that differ {differ}, at the CPU's exact ties "
-          f"{tied}; the whole model on {CROSS_ROWS} rows: AUUC CPU "
+          f"{tied}; the whole model on {UPLIFT_CROSS_ROWS} rows: AUUC CPU "
           f"{whole['cpu'].auuc:.6f} card {whole['cuda'].auuc:.6f}, qini "
           f"{whole['cpu'].qini:.6f} / {whole['cuda'].qini:.6f}")
     # tolerance: trees alike but at ties, whose leaves move a few rows'
@@ -2855,6 +2889,9 @@ def phase_tree_family(fr) -> dict:
 #: phase 10: bench.py:181's bench_dl frame (60,000 x 784 normal features
 #: from default_rng(5), labels 0-9) and its CPU head
 DL_ROWS, DL_FEAT, DL_CPU_ROWS = 60_000, 784, 2_000
+#: the like part of each fit that is profiled: one epoch of its first rows
+#: (cut from the whole warm fit: ROADMAP.md "Reduced checks")
+DL_PROFILE_ROWS = 10_000
 DL_X = [f"p{i}" for i in range(DL_FEAT)]
 #: phase 10's DeepLearning configurations: (name, builder parameters)
 DL_CASES = (
@@ -3062,11 +3099,17 @@ def dl_part(fr) -> dict:
             return DeepLearning(**params).train(
                 x=DL_X, y=None if auto else "y", training_frame=fr)
 
+        def part(params=params, auto=auto, sub=head(fr, DL_PROFILE_ROWS)):
+            return DeepLearning(**dict(params, epochs=1)).train(
+                x=DL_X, y=None if auto else "y", training_frame=sub)
+
         B = params.get("mini_batch_size", 32)
         samples = DL_ROWS * params["epochs"]
         model, res = timed_fit(f"DL ({name}) {DL_ROWS} x {DL_FEAT}, hidden "
                                f"{params['hidden']}", fit, samples,
-                               "samples")
+                               "samples", sample=(
+                                   f"one epoch of its first "
+                                   f"{DL_PROFILE_ROWS} rows", part))
         in_loop = sum(n for s, n in res["sync_sites"].items()
                       if s.startswith("deeplearning.py:"))
         hist = [h["train_loss"] for h in model.output["score_history"]]
@@ -4324,6 +4367,441 @@ def phase_cv_explain(fr, air_fr, air_vf) -> dict:
     return out
 
 
+# -- phase 13: the DKV and orchestration ---------------------------------
+
+#: 13a: H2O-3's AutoML docs' Python example, ``H2OAutoML(max_models=20,
+#: seed=1)``, cut to 10 models (ROADMAP.md "Reduced checks"); the JAX
+#: package's defaults otherwise (nfolds 5, parallelism 2, sort by AUC)
+AML_ROWS = 1_000_000
+AML = dict(max_models=10, seed=1)
+#: 13a's CPU head: the same plan, smaller (2 models where 3 were planned:
+#: ROADMAP.md "Reduced checks")
+AML_CPU = dict(max_models=2, nfolds=3, seed=1,
+               include_algos=["GLM", "GBM", "STACKEDENSEMBLE"])
+AML_CPU_ROWS = 5_000
+#: the like part of 13a that is profiled: one fold of the GBM step def_1,
+#: at this many of its trees
+AML_PROFILE_TREES = 10
+#: 13b: AutoML's own GBM grid (h2o3_tpu/orchestration/automl.py:138-153)
+GRID_HYPER = {"max_depth": [3, 5, 7, 9], "learn_rate": [0.05, 0.1, 0.2],
+              "sample_rate": [0.6, 0.8, 1.0],
+              "col_sample_rate": [0.4, 0.7, 1.0]}
+GRID_CRITERIA = dict(strategy="RandomDiscrete", max_models=6, seed=42)
+GRID_FIXED = dict(ntrees=50, seed=1, nfolds=0)
+#: the deepest tree of 65 bins whose every level runs the fixed kernel:
+#: its last level histograms 2^(depth-2) nodes, below the 64 at which
+#: ``_KERNEL_SWITCH`` takes the global kernel
+FIXED_DEPTH_65 = 7
+#: 13c: tests/test_orchestration.py:159's settings
+TE_AML = dict(max_models=5, nfolds=0, seed=7,
+              include_algos=["GBM", "STACKEDENSEMBLE"],
+              preprocessing=["target_encoding"], exploitation_ratio=0.2)
+#: 13d: one GBM per carrier (H2O-3's train_segments)
+SEG_GBM = dict(ntrees=20, max_depth=5, seed=1)
+SEG_COL = "UniqueCarrier"
+SEG_CPU_ROWS = 20_000
+#: 13d's CPU head grows the segment models' first trees only
+SEG_CPU_TREES = 5
+
+
+def model_plan(models) -> tuple:
+    """The launches of each kernel, and of the node totals, that trees
+    grown as ``models``' were grew: per fit (the main model and each fold)
+    and tree, one launch a level, of the kernel the plan takes at the
+    level's node count and bin count (:func:`planned_launches`)."""
+    from h2o3_tpu_torch.ops.quantile import bin_dtype
+    plan, totals = {}, 0
+    for m in models:
+        if m.algo not in ("gbm", "xgboost"):
+            continue
+        p = m.params
+        nfolds = int(p.get("nfolds") or 0)
+        fits = nfolds + 1 if nfolds >= 2 else 1
+        trees = int(m.output["ntrees"]) * fits
+        nb = int(p["nbins"])
+        for k, n in planned_launches(
+                trees, int(p["max_depth"]), nb + 1,
+                torch.empty((), dtype=bin_dtype(nb)).element_size()).items():
+            plan[k] = plan.get(k, 0) + n
+        totals += trees
+    return plan, totals
+
+
+@contextlib.contextmanager
+def count_shapes():
+    """A tally of the tree engine's histogram calls by (bins, nodes), kept
+    while the context is open (calls from every build thread; each call
+    is one launch on the card)."""
+    from h2o3_tpu_torch.models import tree
+    tally: dict = {}
+    inner = tree.level_histograms
+
+    def counted(binned_T, node, g, h, w, n_nodes, n_bins_tot):
+        key = (n_bins_tot, n_nodes)
+        tally[key] = tally.get(key, 0) + 1
+        return inner(binned_T, node, g, h, w, n_nodes, n_bins_tot)
+
+    tree.level_histograms = counted
+    try:
+        yield tally
+    finally:
+        tree.level_histograms = inner
+
+
+def step_seconds(aml) -> list:
+    """(model key, step, seconds) of each base and annealed step, from the
+    EventLog's "model" and "exploit" events."""
+    import re
+    out = []
+    for _, _lvl, stage, msg, _n, _v in aml.event_log.events:
+        if stage == "model":
+            m = re.fullmatch(r"(\S+) \((\w+)\) in ([0-9.]+)s", msg)
+            if m:
+                out.append((m[1], m[2], float(m[3])))
+        elif stage == "exploit":
+            m = re.fullmatch(r"lr-annealed (\w+): (\S+) in ([0-9.]+)s", msg)
+            out.append((m[2], f"{m[1]} annealed", float(m[3])))
+    return out
+
+
+def events_ok(what: str, aml) -> None:
+    errs = [e for e in aml.event_log.events if e[2] == "error"]
+    if errs:
+        raise AssertionError(f"{what}: the EventLog holds errors {errs}")
+
+
+def automl_part(fr1m) -> dict:
+    """13a: AutoML(max_models=10, seed=1) at nfolds 5 and parallelism 2 on
+    the first 1M rows of phase 4's frame: the budget takes GLM, the three
+    XGBoosts, the five GBMs and the lr-annealed GBM, 60 fits, then the
+    BestOfFamily and AllModels ensembles: 12 leaderboard rows. Timed once,
+    its launches by kernel held to the plan of the grown trees, its host
+    syncs and peak memory; profiled on one fold of the GBM step def_1 (10
+    of its trees). The leader's CV AUC is the one its kept out-of-fold predictions give
+    (an ensemble's: its metalearner's on the level-one rows). On the first
+    5k rows, the CPU's AutoML (GLM, GBM, ensembles; 2 models, 3 folds)
+    against the card's: the same leaderboard members in plan order, GLM's
+    CV AUC within 1e-4 (no sampling), the GBMs' and ensembles' within 0.02
+    (the GBM steps sample from each device's own generator)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models.data_info import response_as_float
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.model_base import compute_metrics
+    from h2o3_tpu_torch.orchestration import SLICE_STATS, AutoML
+    from h2o3_tpu_torch.orchestration.stacked_ensemble import _base_columns
+
+    def run(frame, **kw):
+        aml = AutoML(**kw)
+        aml.train(y="y", training_frame=frame)
+        return aml
+
+    gbm1 = dict(AutoML()._steps()[4][2], nfolds=0, seed=1,
+                ntrees=AML_PROFILE_TREES)
+    fold_w = (torch.arange(AML_ROWS, device=fr1m.device) % 5 != 0).float()
+    SLICE_STATS.reset()
+    with count_shapes() as shapes:
+        aml, res = timed_fit(
+            f"13a AutoML max_models=10 seed=1 on {AML_ROWS} x {NFEAT}",
+            lambda: run(fr1m, **AML), AML_ROWS, "rows",
+            before_timed=lambda: (reset_kernel_counts(), shapes.clear()),
+            sample=(f"one fold of the GBM step def_1, {AML_PROFILE_TREES} "
+                    "trees", lambda: GBM(
+                **gbm1).train(y="y", training_frame=fr1m, weights=fold_w)))
+    events_ok("13a", aml)
+    rows = aml.leaderboard._sorted()
+    models = [r["_model"] for r in rows]
+    base = [m for m in models if m.algo != "stackedensemble"]
+    fits = sum(int(m.params.get("nfolds") or 0) + 1 for m in base)
+    plan, totals = model_plan(base)
+    res.update(hold_launches("13a", plan, totals))
+    res["by_shape"] = {f"{b}x{n}": c for (b, n), c in sorted(shapes.items())}
+    if sum(shapes.values()) != res["launches"]:
+        raise AssertionError(f"13a: {sum(shapes.values())} histogram calls, "
+                             f"{res['launches']} launches")
+    steps = step_seconds(aml)
+    table = aml.leaderboard.table()
+    print(f"  {len(rows)} leaderboard rows from {len(base)} models, {fits} "
+          f"fits; steps {[(a, s) for _, a, s in steps]}; launches by "
+          f"(bins x nodes) {res['by_shape']}; leases "
+          f"{SLICE_STATS.snapshot()['slices']}")
+    for r in table[1]:
+        print("   ", r[0], " ".join(f"{v:.6f}" for v in r[1:]))
+    want_algos = sorted(["glm"] + ["xgboost"] * 3 + ["gbm"] * 6
+                        + ["stackedensemble"] * 2)
+    if len(rows) != 12 or fits != 60 or \
+            sorted(m.algo for m in models) != want_algos:
+        raise AssertionError(f"13a: {len(rows)} rows, {fits} fits, "
+                             f"{sorted(m.algo for m in models)}")
+    leader = aml.leader
+    yy = response_as_float(fr1m.vec("y"))[0]
+    if leader.algo == "stackedensemble":
+        meta = leader.output["metalearner"]
+        cols, hold = [], None
+        for m in leader.output["base_models"]:
+            cols += _base_columns(m, m.cv_holdout_predictions)
+            hold = m.cv_holdout_mask if hold is None \
+                else hold & m.cv_holdout_mask
+        lvl1 = Frame(list(leader.output["levelone_names"]),
+                     [Vec.from_device(c.contiguous()) for c in cols])
+        kept = compute_metrics(meta._score_raw(lvl1), yy, hold, 2)
+    else:
+        kept = compute_metrics(leader.cv_holdout_predictions, yy,
+                               leader.cv_holdout_mask, 2)
+    cv_auc = leader.cross_validation_metrics.auc
+    print(f"  leader {leader.key} ({leader.algo}): CV AUC {cv_auc:.6f}, "
+          f"from its kept out-of-fold predictions {kept.auc:.6f}")
+    if abs(kept.auc - cv_auc) > (1e-6 if leader.algo == "stackedensemble"
+                                 else 0.0):
+        raise AssertionError("13a: the leader's CV AUC is not its kept "
+                             "predictions'")
+    sub = head(fr1m, AML_CPU_ROWS)
+    heads = {dev: run(f, **AML_CPU) for dev, f in
+             (("cpu", frame_on(sub, "cpu")), ("cuda", sub))}
+    for dev, a in heads.items():
+        events_ok(f"13a CPU head ({dev})", a)
+    plan_rows = [[(r["algo"], r["auc"]) for r in a.leaderboard._rows]
+                 for a in heads.values()]
+    if [a for a, _ in plan_rows[0]] != [a for a, _ in plan_rows[1]]:
+        raise AssertionError(f"13a: CPU and card members {plan_rows}")
+    worst = 0.0
+    for (algo, a_cpu), (_, a_card) in zip(*plan_rows):
+        tol = 1e-4 if algo == "glm" else 0.02
+        worst = max(worst, abs(a_cpu - a_card) / tol)
+    print(f"  CPU / card on {AML_CPU_ROWS} rows: members "
+          f"{[a for a, _ in plan_rows[0]]}, CV AUC apart at {worst:.3g} x "
+          "their tolerance (GLM 1e-4, the rest 0.02)")
+    if worst > 1.0:
+        raise AssertionError(f"13a: CPU and card CV AUCs {plan_rows}")
+    cross = dict(rows=AML_CPU_ROWS, members=[a for a, _ in plan_rows[0]],
+                 auc_ratio=worst)
+    res.update(models=len(base), fits=fits, rows=len(rows),
+               step_seconds=steps, leader=leader.algo, leader_cv_auc=cv_auc,
+               leaderboard=[(r[0], r[1]) for r in table[1]],
+               leases=SLICE_STATS.snapshot()["slices"], cross=cross)
+    del aml, models, base, heads, fold_w
+    return res
+
+
+def grid_part(fr1m) -> dict:
+    """13b: AutoML's GBM grid, RandomDiscrete (search seed 42, 6 of its
+    108 points, builder seed 1, 50 trees, no CV) on 13a's rows, once at
+    parallelism 1 and once at 2 (two builds in flight, each on a stream of
+    its own): both timed, their launches held to the plan, the same model
+    ids, the models of max_depth 7 or less (every level on the fixed
+    kernel) equal bit for bit, the deeper ones (global kernel from 64
+    nodes on, float reductions in another order each run) at training AUC
+    within 1e-3."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+    from h2o3_tpu_torch.orchestration import GridSearch
+    grids, out = {}, {}
+    for par in (1, 2):
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = GridSearch(GBM, GRID_HYPER, grid_id="grid13b",
+                       search_criteria=GRID_CRITERIA, parallelism=par,
+                       **GRID_FIXED).train(y="y", training_frame=fr1m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        plan, totals = model_plan(g.models)
+        held = hold_launches(f"13b parallelism {par}", plan, totals)
+        print(f"13b grid at parallelism {par}: {secs:.3f} s, "
+              f"{len(g.models)} models, {len(g.failures)} failed")
+        grids[par], out[f"par{par}_seconds"] = g, secs
+        out[f"par{par}_launches"] = held["by_kernel"]
+    a, b = grids[1], grids[2]
+    if a.model_ids != b.model_ids or len(a.models) != 6:
+        raise AssertionError(f"13b: ids {a.model_ids} vs {b.model_ids}")
+    bitwise, auc_diff = [], 0.0
+    for ma, mb in zip(a.models, b.models):
+        same = all(torch.equal(getattr(ta, f), getattr(tb, f))
+                   for ta, tb in zip(ma.output["trees"], mb.output["trees"])
+                   for f in HEAP_FIELDS)
+        bitwise.append(same)
+        d = abs(ma.training_metrics.auc - mb.training_metrics.auc)
+        auc_diff = max(auc_diff, d)
+        if (ma.params["max_depth"] <= FIXED_DEPTH_65 and not same) or \
+                d > 1e-3:
+            raise AssertionError(f"13b: {ma.key} (depth "
+                                 f"{ma.params['max_depth']}) differs")
+    print(f"  ids equal; bit for bit {sum(bitwise)} of 6 (depths "
+          f"{[m.params['max_depth'] for m in a.models]}: {bitwise}); "
+          f"training AUC at most {auc_diff:.2e} apart; parallelism 2 / 1 = "
+          f"{out['par2_seconds'] / out['par1_seconds']:.3f}")
+    out.update(ids=a.model_ids, depths=[m.params["max_depth"]
+                                        for m in a.models],
+               bitwise=bitwise, auc_max_diff=auc_diff)
+    return out
+
+
+def te_automl_part(air1m) -> dict:
+    """13c: AutoML with target encoding at tests/test_orchestration.py's
+    settings (max_models 5, no CV, seed 7, GBM and ensembles, exploitation
+    ratio 0.2) on the first 1M rows of phase 7's airlines frame: the
+    EventLog holds "target-encoded" (the columns of more than 10 levels)
+    and "lr-annealed"; every tree model scores the raw frame through its
+    encoder, bit for bit its scores of the encoded frame; launches held to
+    the plan."""
+    from h2o3_tpu_torch.orchestration import AutoML
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aml = AutoML(**TE_AML)
+    aml.train(y=AIRLINE_Y, training_frame=air1m)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    events_ok("13c", aml)
+    models = aml.leaderboard.models
+    held = hold_launches("13c", *model_plan(models))
+    log = " ".join(aml.event_log.as_list())
+    encoded = [e[3] for e in aml.event_log.events if e[2] == "preprocess"]
+    probe = head(air1m, 10_000)
+    through = True
+    for m in models:
+        te, = m.preprocessors
+        a = m.predict(probe).vecs[2].data
+        b = m.predict(te.transform(probe)).vecs[2].data
+        through &= bool(torch.equal(a, b))
+    print(f"13c AutoML with target encoding on {air1m.nrows} airlines rows: "
+          f"{secs:.3f} s, {len(models)} models ({[m.algo for m in models]}); "
+          f"{encoded}; lr-annealed in the log {'lr-annealed' in log}; "
+          f"scores through the encoder {through}")
+    if "target-encoded" not in log or "lr-annealed" not in log \
+            or not through or len(models) != 5:
+        raise AssertionError(f"13c: {aml.event_log.as_list()}")
+    return dict(seconds=secs, models=len(models), encoded=encoded,
+                step_seconds=step_seconds(aml), **held)
+
+
+def segments_part(air1m) -> dict:
+    """13d: ``train_segments(GBM(ntrees=20, max_depth=5, seed=1),
+    ["UniqueCarrier"])`` on the first 1M rows of phase 7's frame: a model
+    per carrier, every status SUCCEEDED, each model found through the DKV,
+    launches held to the plan. On the first 20k rows, the CPU's segment
+    models of 5 trees against the card's: alike at every split node but
+    where the CPU's split search tied two candidates exactly."""
+    from h2o3_tpu_torch.models import tree
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.utils.registry import DKV
+    x = [c for c in AIRLINE_X if c != SEG_COL]
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm = GBM(**SEG_GBM).train_segments([SEG_COL], AIRLINE_Y, air1m, x=x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    status = [r["status"] for r in sm.rows]
+    models = [sm.get_model(**r["segment"]) for r in sm.rows]
+    found = all(m is not None and DKV.get(m.key) is m for m in models)
+    held = hold_launches("13d", *model_plan(models))
+    print(f"13d segment models by {SEG_COL} on {air1m.nrows} rows: "
+          f"{secs:.3f} s, {len(sm)} segments, statuses {set(status)}, every "
+          f"model in the DKV {found}")
+    if len(sm) != AIRLINE_CATS[SEG_COL] or set(status) != {"SUCCEEDED"} \
+            or not found or DKV.get(sm.key) is not sm:
+        raise AssertionError(f"13d: {[(r['segment'], r['status'], r['errors']) for r in sm.rows]}")
+    sub = head(air1m, SEG_CPU_ROWS)
+    ties, find = [], tree._find_splits
+
+    def recording(hists, *a, **kw):
+        ties.append(tree.tied_splits(hists, *a, **kw).cpu())
+        return find(hists, *a, **kw)
+
+    head_gbm = dict(SEG_GBM, ntrees=SEG_CPU_TREES)
+    tree._find_splits = recording
+    try:
+        cpu = GBM(**head_gbm).train_segments([SEG_COL], AIRLINE_Y,
+                                             frame_on(sub, "cpu"), x=x)
+    finally:
+        tree._find_splits = find
+    card = GBM(**head_gbm).train_segments([SEG_COL], AIRLINE_Y, sub, x=x)
+    levels = SEG_CPU_TREES * SEG_GBM["max_depth"]
+    differ, tied = [], []
+    for i, (rc, rg) in enumerate(zip(cpu.rows, card.rows)):
+        if rc["segment"] != rg["segment"] or rc["status"] != rg["status"]:
+            raise AssertionError(f"13d: CPU {rc} vs card {rg}")
+        d, t = tie_aware_differences(
+            cpu.get_model(**rc["segment"]), card.get_model(**rg["segment"]),
+            ties[i * levels:(i + 1) * levels], SEG_GBM["max_depth"])
+        differ += [(rc["segment"][SEG_COL], *n) for n in d]
+        tied += [(rc["segment"][SEG_COL], *n) for n in t]
+    print(f"  CPU / card on {SEG_CPU_ROWS} rows, {len(cpu)} segments: split "
+          f"nodes that differ {differ}, differing at the CPU's exact ties "
+          f"{len(tied)}")
+    if differ or len(ties) != levels * len(cpu):
+        raise AssertionError("13d: CPU and card segment models differ")
+    return dict(seconds=secs, segments=len(sm), statuses=sorted(set(status)),
+                cross=dict(rows=SEG_CPU_ROWS, segments=len(cpu),
+                           tied_nodes=len(tied)), **held)
+
+
+def orchestration_times() -> dict:
+    """The kernels at 13a's level shapes (1M rows x 28 features): the
+    GBMs' 65 int8 bins at levels 0-12 (1 to 2048 histogrammed nodes) and
+    the XGBoosts' 257 int16 bins at levels 0-8, each beside its bound, its
+    plain version and one ``index_add_``; each bin count held against its
+    plain version at a level of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    out = {}
+    for name, Bt, dtype, depth, checks in (("gbm_65", NBINS + 1, torch.int8,
+                                            13, (6, 7)),
+                                           ("xgboost_257", 257, torch.int16,
+                                            9, (4, 5))):
+        binned_T, _, g, h, w = hist_inputs(AML_ROWS, NFEAT, Bt, 1, dtype,
+                                           gen)
+        layouts = [(level, *level_nodes(AML_ROWS, level, gen))
+                   for level in range(depth)]
+        err = max(check_call((binned_T, layouts[lv][2], g, h, w),
+                             layouts[lv][1], Bt,
+                             f"13a {name} level {lv} R={AML_ROWS}")[1]
+                  for lv in checks)
+        out[name] = dict(err=err, times=time_levels(
+            f"13a {name}", binned_T, g, h, w, Bt, layouts))
+        del binned_T, g, h, w, layouts
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_orchestration(fr, air_fr) -> dict:
+    """Phase 13: 13a AutoML, 13b the grid at parallelism 1 and 2, 13c
+    AutoML with target encoding, 13d segment models, then the kernels at
+    13a's level shapes; each part's seconds (its CPU check included) in
+    ``part_seconds``."""
+    from h2o3_tpu_torch.utils.registry import DKV
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    fr1m, air1m = head(fr, AML_ROWS), head(air_fr, AML_ROWS)
+    prime_rollups(fr1m)
+    prime_rollups(air1m)
+    for name, part in (("13a_automl", lambda: automl_part(fr1m)),
+                       ("13b_grid", lambda: grid_part(fr1m)),
+                       ("13c_automl_te", lambda: te_automl_part(air1m)),
+                       ("13d_segments", lambda: segments_part(air1m)),
+                       ("13e_kernel_times", orchestration_times)):
+        t1 = time.perf_counter()
+        out[name] = part()
+        parts[name] = time.perf_counter() - t1
+        print(f"phase {name}: {parts[name]:.1f} s")
+        DKV.clear()
+        torch.cuda.empty_cache()
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card_name()
+    print(f"phase 13: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
+def drop_models() -> None:
+    """Empty the port's DKV, where ``train`` puts every finished model, so
+    that no later phase's peak memory holds an earlier phase's models."""
+    from h2o3_tpu_torch.utils.registry import DKV
+    DKV.clear()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4342,25 +4820,38 @@ def main() -> int:
     fixed = phase_fixed_checks()
     skewed = phase_skewed_checks()
     phase_cross_device()
+    drop_models()
     phase_cross_device_new()
+    drop_models()
     fr = build_frame()
     main_path = phase_main_path(fr)
+    drop_models()
     times = phase_kernel_times()["levels"]
     tot_times = totals_times()
     new_paths = phase_new_paths(fr)
+    drop_models()
     glm_multi = phase_glm_multinomial(fr)
+    drop_models()
     tree_family = phase_tree_family(fr)
+    drop_models()
     new_times = phase_new_path_times()
     air_fr, air_vf = airlines_frames()
     airlines = phase_airlines(air_fr, air_vf)
+    drop_models()
     glm_airlines = phase_glm_airlines(air_fr, air_vf)
+    drop_models()
     del air_vf
     torch.cuda.empty_cache()
     unsupervised = phase_dl_unsupervised(fr, air_fr)
+    drop_models()
     builders = phase_builders(fr)
+    drop_models()
     air_vf = airlines_frame(airlines_arrays(AIRLINE_VALID, 32), "cuda")
     cv_explain = phase_cv_explain(fr, air_fr, air_vf)
-    del fr, air_fr, air_vf
+    drop_models()
+    del air_vf
+    orchestration = phase_orchestration(fr, air_fr)
+    del fr, air_fr
     torch.cuda.empty_cache()
     glm = phase_glm(glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
@@ -4443,6 +4934,17 @@ def main() -> int:
         te_gbm["launches"], air_err, air_times, path="te_airlines_gbm",
         node_totals=te_gbm["node_totals"],
         timed_at="the airlines GBM's levels (phase 7), not this path's fit"))
+    # phase 13: 13a's launches at each bin count, timed at 13a's own level
+    # shapes (1M rows), with each kernel's launches by level shape
+    aml, aml_times = orchestration["13a_automl"], orchestration[
+        "13e_kernel_times"]
+    for name, bins in (("gbm_65", NBINS + 1), ("xgboost_257", 257)):
+        shapes = {k: n for k, n in aml["by_shape"].items()
+                  if k.startswith(f"{bins}x")}
+        kernels.append(kernel_entry(
+            sum(shapes.values()), aml_times[name]["err"],
+            aml_times[name]["times"], path=f"automl_{name}",
+            launches_by_shape=shapes))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -4452,6 +4954,9 @@ def main() -> int:
     print(json.dumps({"dl_unsupervised": unsupervised}, default=float))
     print(json.dumps({"builders": builders}, default=float))
     print(json.dumps({"cv_explain": cv_explain}, default=float))
+    print(json.dumps({"orchestration": {
+        k: v for k, v in orchestration.items() if k != "13e_kernel_times"}},
+        default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

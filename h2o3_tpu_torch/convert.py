@@ -23,12 +23,21 @@ numpy and the fields of its DataInfo, as :func:`glm_model` does;
 :func:`naive_bayes_model` its ``output`` alone, and
 :func:`target_encoder_model` a TargetEncoder's tables (its training
 encodings stay with the JAX model: a converted encoder transforms any
-frame by its full statistics).
+frame by its full statistics). :func:`stacked_ensemble_model` takes an
+ensemble's level-one names with its base models and metalearner already
+carried across, so both packages score the same ensemble.
+
+Every function also carries a model's kept out-of-fold predictions: where
+``output`` holds ``cv_holdout_predictions`` and ``cv_holdout_mask`` (the
+reference model's attributes, as numpy), they become the port model's,
+cut to ``output["nrows"]`` rows (the reference pads its columns).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import functools
+import inspect
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +57,7 @@ from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForestModel,
                                           IsolationForestModel)
 from h2o3_tpu_torch.models.isotonic import IsotonicRegressionModel
 from h2o3_tpu_torch.models.kmeans import KMeansModel
-from h2o3_tpu_torch.models.model_base import make_model_key
+from h2o3_tpu_torch.models.model_base import Model, make_model_key
 from h2o3_tpu_torch.models.model_selection import (ANOVAGLMModel,
                                                    ModelSelectionModel)
 from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel
@@ -58,6 +67,34 @@ from h2o3_tpu_torch.models.target_encoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
+from h2o3_tpu_torch.orchestration.stacked_ensemble import StackedEnsembleModel
+
+#: the entries of a carried ``output`` that are the model's kept
+#: out-of-fold predictions, not its output
+_CV_KEYS = ("cv_holdout_predictions", "cv_holdout_mask", "nrows")
+
+
+def _carries_cv(fn):
+    """``fn`` with the out-of-fold entries taken out of its ``output`` and
+    set on the model it returns, on the model's device."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def carried(output, *args, **kw):
+        cv = {k: output[k] for k in _CV_KEYS if k in output}
+        model = fn({k: v for k, v in output.items() if k not in _CV_KEYS},
+                   *args, **kw)
+        preds = cv.get("cv_holdout_predictions")
+        if preds is not None:
+            dev = resolve_device(sig.bind(output, *args, **kw)
+                                 .arguments.get("device"))
+            n = int(cv.get("nrows") or len(preds))
+            model.cv_holdout_predictions = torch.as_tensor(
+                np.array(preds, np.float32)[:n]).to(dev)
+            model.cv_holdout_mask = torch.as_tensor(
+                np.array(cv["cv_holdout_mask"], bool)[:n]).to(dev)
+        return model
+    return carried
 
 _HEAP_DTYPES = dict(feat=torch.int32, thresh_bin=torch.int32,
                     thresh_val=torch.float32, na_left=torch.bool,
@@ -129,6 +166,7 @@ def _boosted(cls, algo: str, output: Mapping, response_column,
     return _model(cls, algo, out, response_column, response_domain, params)
 
 
+@_carries_cv
 def gbm_model(output: Mapping, response_column: str | None = None,
               response_domain: tuple[str, ...] | None = None,
               params: Mapping | None = None,
@@ -142,6 +180,7 @@ def gbm_model(output: Mapping, response_column: str | None = None,
                     response_domain, params, device)
 
 
+@_carries_cv
 def xgboost_model(output: Mapping, response_column: str | None = None,
                   response_domain: tuple[str, ...] | None = None,
                   params: Mapping | None = None,
@@ -153,6 +192,7 @@ def xgboost_model(output: Mapping, response_column: str | None = None,
                     response_domain, params, device)
 
 
+@_carries_cv
 def drf_model(output: Mapping, response_column: str | None = None,
               response_domain: tuple[str, ...] | None = None,
               params: Mapping | None = None,
@@ -170,6 +210,7 @@ def drf_model(output: Mapping, response_column: str | None = None,
                   params)
 
 
+@_carries_cv
 def decision_tree_model(output: Mapping, response_column: str | None = None,
                         response_domain: tuple[str, ...] | None = None,
                         params: Mapping | None = None,
@@ -182,6 +223,7 @@ def decision_tree_model(output: Mapping, response_column: str | None = None,
                   response_domain, params)
 
 
+@_carries_cv
 def uplift_model(output: Mapping, response_column: str | None = None,
                  response_domain: tuple[str, ...] | None = None,
                  params: Mapping | None = None,
@@ -196,6 +238,7 @@ def uplift_model(output: Mapping, response_column: str | None = None,
                   response_domain, params)
 
 
+@_carries_cv
 def isolation_forest_model(output: Mapping, params: Mapping | None = None,
                            device: str | torch.device | None = None
                            ) -> IsolationForestModel:
@@ -211,6 +254,7 @@ def isolation_forest_model(output: Mapping, params: Mapping | None = None,
                   params)
 
 
+@_carries_cv
 def extended_isolation_forest_model(
         output: Mapping, params: Mapping | None = None,
         device: str | torch.device | None = None
@@ -257,6 +301,7 @@ _GLM_SCORING_PARAMS = dict(offset_column=None, interactions=None,
                            tweedie_variance_power=1.5, theta=1.0)
 
 
+@_carries_cv
 def glm_model(output: Mapping, data_info: Mapping,
               response_column: str | None = None,
               response_domain: tuple[str, ...] | None = None,
@@ -295,6 +340,7 @@ def glm_model(output: Mapping, data_info: Mapping,
                     output=out, data_info=di)
 
 
+@_carries_cv
 def deeplearning_model(output: Mapping, data_info: Mapping,
                        response_column: str | None = None,
                        response_domain: tuple[str, ...] | None = None,
@@ -319,6 +365,7 @@ def deeplearning_model(output: Mapping, data_info: Mapping,
                   response_domain, params, _data_info(data_info))
 
 
+@_carries_cv
 def kmeans_model(output: Mapping, data_info: Mapping,
                  params: Mapping | None = None,
                  device: str | torch.device | None = None) -> KMeansModel:
@@ -334,6 +381,7 @@ def kmeans_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def pca_model(output: Mapping, data_info: Mapping,
               params: Mapping | None = None,
               device: str | torch.device | None = None) -> PCAModel:
@@ -346,6 +394,7 @@ def pca_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def svd_model(output: Mapping, data_info: Mapping,
               params: Mapping | None = None,
               device: str | torch.device | None = None) -> SVDModel:
@@ -357,6 +406,7 @@ def svd_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def glrm_model(output: Mapping, data_info: Mapping,
                params: Mapping | None = None,
                device: str | torch.device | None = None) -> GLRMModel:
@@ -370,6 +420,7 @@ def glrm_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def naive_bayes_model(output: Mapping, response_column: str | None = None,
                       response_domain: tuple[str, ...] | None = None,
                       params: Mapping | None = None,
@@ -392,6 +443,7 @@ def naive_bayes_model(output: Mapping, response_column: str | None = None,
                   response_domain, params)
 
 
+@_carries_cv
 def isotonic_model(output: Mapping, response_column: str | None = None,
                    params: Mapping | None = None,
                    device: str | torch.device | None = None
@@ -408,6 +460,7 @@ def isotonic_model(output: Mapping, response_column: str | None = None,
                   response_column, None, params)
 
 
+@_carries_cv
 def coxph_model(output: Mapping, data_info: Mapping,
                 response_column: str | None = None,
                 params: Mapping | None = None,
@@ -428,6 +481,7 @@ def coxph_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def hglm_model(output: Mapping, data_info: Mapping,
                response_column: str | None = None,
                params: Mapping | None = None,
@@ -447,6 +501,7 @@ def hglm_model(output: Mapping, data_info: Mapping,
                   _data_info(data_info))
 
 
+@_carries_cv
 def psvm_model(output: Mapping, data_info: Mapping,
                response_column: str | None = None,
                response_domain: tuple[str, ...] | None = None,
@@ -474,6 +529,7 @@ def _glm_of(spec: Mapping, device) -> GLMModel:
                      spec.get("params"), device)
 
 
+@_carries_cv
 def model_selection_model(output: Mapping, best_model: Mapping,
                           response_column: str | None = None,
                           response_domain: tuple[str, ...] | None = None,
@@ -490,6 +546,7 @@ def model_selection_model(output: Mapping, best_model: Mapping,
                   response_column, response_domain, params)
 
 
+@_carries_cv
 def anova_glm_model(output: Mapping, full_model: Mapping,
                     response_column: str | None = None,
                     response_domain: tuple[str, ...] | None = None,
@@ -505,6 +562,7 @@ def anova_glm_model(output: Mapping, full_model: Mapping,
                   response_domain, params)
 
 
+@_carries_cv
 def gam_model(output: Mapping, glm: Mapping,
               response_column: str | None = None,
               response_domain: tuple[str, ...] | None = None,
@@ -525,6 +583,7 @@ def gam_model(output: Mapping, glm: Mapping,
                   params)
 
 
+@_carries_cv
 def rulefit_model(output: Mapping, response_column: str | None = None,
                   response_domain: tuple[str, ...] | None = None,
                   params: Mapping | None = None,
@@ -551,6 +610,7 @@ def rulefit_model(output: Mapping, response_column: str | None = None,
 _SURROGATES = {"gbm": gbm_model, "drf": drf_model}
 
 
+@_carries_cv
 def infogram_model(output: Mapping, relevance_model: Mapping,
                    response_column: str | None = None,
                    response_domain: tuple[str, ...] | None = None,
@@ -578,6 +638,7 @@ def infogram_model(output: Mapping, relevance_model: Mapping,
                   response_domain, params, rel.data_info)
 
 
+@_carries_cv
 def target_encoder_model(output: Mapping, response_column: str | None = None,
                          params: Mapping | None = None,
                          device: str | torch.device | None = None
@@ -594,3 +655,22 @@ def target_encoder_model(output: Mapping, response_column: str | None = None,
                train_encoded=None)
     return _model(TargetEncoderModel, "targetencoder", out, response_column,
                   None, params)
+
+
+@_carries_cv
+def stacked_ensemble_model(output: Mapping, base_models: Sequence[Model],
+                           metalearner: Model,
+                           response_column: str | None = None,
+                           response_domain: tuple[str, ...] | None = None,
+                           params: Mapping | None = None,
+                           device: str | torch.device | None = None
+                           ) -> StackedEnsembleModel:
+    """The port's StackedEnsembleModel from a reference ensemble:
+    ``output`` with ``levelone_names`` (the metalearner's columns, in the
+    base models' order); ``base_models`` and ``metalearner`` the port's
+    models carried across by the functions above, in the reference's
+    order."""
+    out = dict(base_models=list(base_models), metalearner=metalearner,
+               levelone_names=list(output["levelone_names"]))
+    return _model(StackedEnsembleModel, "stackedensemble", out,
+                  response_column, response_domain, params)

@@ -35,7 +35,8 @@ set, ``predict_contributions`` (TreeSHAP on the card,
 ``calibrate_model`` scores ``cal_p0``/``cal_p1`` through Platt scaling or
 isotonic regression fitted on its ``calibration_frame``. Left for a later
 slice, and refused: the custom distribution, whose class
-``utils/udf.py`` resolves through the DKV.
+``utils/udf.py`` loads from a zip uploaded under a DKV key. A
+``calibration_frame`` is a Frame or the key of one in the DKV.
 """
 
 from __future__ import annotations
@@ -57,15 +58,17 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
                                         predict_raw)
 from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
                                          compute_bin_edges)
+from h2o3_tpu_torch.utils.registry import DKV
 
 #: the GBM distributions the port trains
 DISTRIBUTIONS = ("bernoulli", "multinomial", "gaussian", "poisson", "gamma",
                  "tweedie", "laplace", "quantile", "huber")
 #: the families whose margins are on the log scale
 LOG_LINK = ("poisson", "gamma", "tweedie")
-_CUSTOM_WAITS = ("distribution 'custom' waits for the DKV: utils/udf.py "
-                 "resolves the user's python:KEY=module.Class reference "
-                 "through it, and the port does not have it yet")
+_CUSTOM_WAITS = ("distribution 'custom' waits for utils/udf.py: it loads "
+                 "the user's python:KEY=module.Class reference from a zip "
+                 "uploaded under a DKV key, and the port has neither the "
+                 "upload nor the loader yet")
 #: the calibration methods (reference ``CalibrationHelper``)
 CALIBRATION_METHODS = ("PlattScaling", "IsotonicRegression")
 
@@ -534,10 +537,8 @@ class SharedTreeBuilder(ModelBuilder):
         cf = self.params.get("calibration_frame")
         if cf is None:
             raise ValueError("calibrate_model requires calibration_frame")
-        if not isinstance(cf, Frame):
-            raise NotImplementedError(
-                f"calibration_frame={cf!r}: a frame key needs the DKV, which "
-                "the port does not have yet; pass the Frame")
+        if isinstance(cf, str):
+            cf = DKV[cf]
         method = str(self.params.get("calibration_method") or "PlattScaling")
         if method not in CALIBRATION_METHODS:
             raise ValueError(f"unknown calibration_method {method!r}")
@@ -747,8 +748,9 @@ class SharedTreeBuilder(ModelBuilder):
         if rate >= 1.0:
             return torch.ones(F, dtype=torch.bool, device=device)
         m = torch.rand(F, generator=gen, device=device) < rate
-        m[torch.randint(0, F, (1,), generator=gen, device=device)] = True
-        return m
+        # a scatter, where indexed assignment would wait for the card
+        return m.scatter_(0, torch.randint(0, F, (1,), generator=gen,
+                                           device=device), True)
 
     def _sample_fmask(self, gen: torch.Generator, fmask_base: torch.Tensor,
                       rate: float) -> torch.Tensor:

@@ -42,6 +42,7 @@ from h2o3_tpu_torch.models.distributions import get_family
 from h2o3_tpu_torch.models.glm_sparse import fit_sparse_glm, sparse_score
 from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
+from h2o3_tpu_torch.utils.registry import DKV
 
 #: elements of one row block of the Gram's product (256 MB in float32):
 #: the weighted block is the only temporary of the design's width
@@ -485,6 +486,7 @@ class GLM(ModelBuilder):
             # MeanImputation (default) | Skip | PlugValues
             missing_values_handling="MeanImputation",
             plug_values=None,         # with PlugValues: {numeric_col: value}
+            #                           or the key of a 1-row frame
         )
 
     def _refuse_outside_slice(self) -> None:
@@ -767,12 +769,15 @@ class GLM(ModelBuilder):
             return di
         plugs = params.get("plug_values")
         if isinstance(plugs, str):
-            raise NotImplementedError(
-                f"plug_values={plugs!r}: a frame key needs the DKV, which "
-                "the port does not have yet; pass {column: value}")
+            pf = DKV[plugs]
+            if pf.nrows != 1:
+                raise ValueError(f"plug_values frame {plugs!r} must have "
+                                 f"exactly 1 row, got {pf.nrows}")
+            plugs = {c: pf.vec(c).to_numpy()[0] for c in pf.names}
         if not isinstance(plugs, dict) or not plugs:
             raise ValueError("missing_values_handling='PlugValues' needs "
-                             "plug_values ({column: value})")
+                             "plug_values ({column: value} or a 1-row "
+                             "frame key)")
         bad = [c for c in plugs if c in di.cat_cols]
         if bad:
             raise ValueError(f"categorical plug values not supported yet: "

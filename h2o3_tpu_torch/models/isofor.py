@@ -52,8 +52,10 @@ class IsolationForestModel(Model):
     def _mean_length(self, frame: Frame) -> torch.Tensor:
         X = tree_matrix(frame, self.output["x_cols"],
                         self.output["feat_domains"])
-        return predict_raw(X, self.output["trees"]) / \
-            max(self.output["ntrees"], 1)
+        total = predict_raw(X, self.output["trees"])
+        # a tensor divisor: CUDA divides by a host scalar as a product with
+        # its reciprocal, a last bit apart from the CPU's quotient
+        return total / total.new_full((), max(self.output["ntrees"], 1))
 
     def _score_raw(self, frame: Frame) -> torch.Tensor:
         return self._mean_length(frame)

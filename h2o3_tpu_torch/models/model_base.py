@@ -14,8 +14,11 @@ reference does: each fold's model trains on the whole frame with the
 fold's rows at weight 0, and the holdout predictions of all folds are
 pooled into one metrics pass (``cross_validation_metrics``), kept with
 ``keep_cross_validation_predictions``, and summarised per fold
-(``cv_metrics_summary``). The reference's DKV (checkpoints by key),
-locks, auto-recovery, telemetry and mesh slices are left out.
+(``cv_metrics_summary``). A finished model is put into the DKV
+(``utils/registry.py``) under its key, and a build holds the write lock on
+its ``model_id`` from its first fit to that put; ``checkpoint=`` takes a
+Model or the key of one in the DKV. The reference's auto-recovery,
+telemetry and mesh slices are left out.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.metrics import (binomial_metrics,
                                            multinomial_metrics,
                                            regression_metrics)
+from h2o3_tpu_torch.utils.registry import DKV, LOCKS
 
 
 class Model:
@@ -65,6 +69,9 @@ class Model:
         # (columns, rows) of the per-tree scoring history, or None
         self.scoring_history = None
         self.run_time_ms: int = 0
+        # transformers applied to every frame scored by predict and
+        # model_performance (AutoML's target encoding of the tree steps)
+        self.preprocessors: list = []
 
     @property
     def nclasses(self) -> int:
@@ -79,8 +86,17 @@ class Model:
         [rows, nclasses] probabilities for classification."""
         raise NotImplementedError
 
+    def _preprocess(self, frame: Frame) -> Frame:
+        """The frame through each of ``preprocessors`` not yet applied."""
+        for p in self.preprocessors:
+            if hasattr(p, "is_applied") and p.is_applied(frame):
+                continue
+            frame = p.transform(frame)
+        return frame
+
     def predict(self, frame: Frame) -> Frame:
         """Score a frame (reference: ``Model.score`` → prediction frame)."""
+        frame = self._preprocess(frame)
         raw = self._score_raw(frame)
         if not self.is_classifier:
             return Frame(["predict"], [Vec.from_device(raw, VecType.NUM)])
@@ -97,6 +113,7 @@ class Model:
         are left out)."""
         if self.response_column not in frame:
             raise ValueError(f"frame lacks response column {self.response_column!r}")
+        frame = self._preprocess(frame)
         y, valid = response_adapted(
             frame.vec(self.response_column),
             self.response_domain if self.is_classifier else None)
@@ -162,26 +179,28 @@ class ModelBuilder:
 
     def _resolve_checkpoint(self) -> Model | None:
         """The ``checkpoint`` parameter as a Model of the port (reference:
-        ``Model.Parameters._checkpoint``); a model key needs the DKV, which
-        the port does not have yet."""
+        ``Model.Parameters._checkpoint``): a Model, or the key of one in
+        the DKV. The parameters (and the models' snapshots of them) keep
+        the key, not the prior model's trees; the builder holds the model,
+        so a fold's builder resumes from it by key."""
         cp = self.params.get("checkpoint")
         if cp is None:
             return None
         held = getattr(self, "_checkpoint_model", None)
-        if held is not None and cp == held.key:
-            cp = held
-        if not isinstance(cp, Model):
-            raise NotImplementedError(
-                f"checkpoint={cp!r}: resuming from a model key needs the "
-                "DKV, which the port does not have yet; pass the Model")
-        if cp.algo != self.algo:
-            raise ValueError(f"checkpoint is a {cp.algo!r} model; "
+        if isinstance(cp, Model):
+            model = cp
+        elif held is not None and cp == held.key:
+            model = held
+        else:
+            model = DKV.get(cp)
+            if model is None:
+                raise ValueError(f"checkpoint model {cp!r} not found in DKV")
+        if model.algo != self.algo:
+            raise ValueError(f"checkpoint is a {model.algo!r} model; "
                              f"this builder is {self.algo!r}")
-        # the parameters (and the models' snapshots of them) keep the key,
-        # not the prior model's trees
-        self._checkpoint_model = cp
-        self.params["checkpoint"] = cp.key
-        return cp
+        self._checkpoint_model = model
+        self.params["checkpoint"] = model.key
+        return model
 
     def _refuse_checkpoint(self) -> None:
         """Builders that do not resume raise on ``checkpoint``."""
@@ -233,6 +252,13 @@ class ModelBuilder:
         t0 = time.time()
 
         def fit(job: Job) -> Model:
+            # the write lock on the named destination key from the first
+            # fit to the DKV put (reference: water/Lockable.java); a
+            # generated key is unguessable and needs none
+            with LOCKS.write(self.model_id):
+                return locked_fit(job)
+
+        def locked_fit(job: Job) -> Model:
             model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
             w_metrics = self._metrics_weights
@@ -249,12 +275,23 @@ class ModelBuilder:
             if nfolds >= 2 and y is not None:
                 model.cross_validation_metrics = self._cross_validate(
                     job, frame, x, y, w_metrics, nfolds, model)
+            DKV.put(model.key, model)
             return model
 
         self.model = self.job.run(fit).result
         if self.job.status == Job.FAILED:
             raise self.job.exception
         return self.model
+
+    def train_segments(self, segments: list[str], y: str,
+                       training_frame: Frame, x: list[str] | None = None,
+                       segment_models_id: str | None = None):
+        """One model per observed segment of ``segments`` (h2o-py
+        ``estimator.train_segments``; :mod:`~h2o3_tpu_torch.orchestration.
+        segments`)."""
+        from h2o3_tpu_torch.orchestration.segments import train_segments
+        return train_segments(self, segments, training_frame, y, x=x,
+                              segment_models_id=segment_models_id)
 
     def _begin_fit(self, x: list[str], y: str | None,
                    validation_frame: Frame | None) -> None:
@@ -286,11 +323,6 @@ class ModelBuilder:
         elif nfolds == 1 or nfolds < 0:
             raise ValueError(f"nfolds={nfolds}: 0 (no cross-validation) or "
                              "at least 2")
-        if nfolds >= 2 and self.params.get("checkpoint") is not None:
-            raise NotImplementedError(
-                "cross-validation with a checkpoint resumes each fold from "
-                "the checkpoint's key, which needs the DKV; the port does "
-                "not have it yet")
         return nfolds
 
     def _fold_column_values(self, frame: Frame) -> np.ndarray:
@@ -355,6 +387,9 @@ class ModelBuilder:
         for k in range(nfolds):
             in_fold = folds == k
             cv_builder = type(self)(**{**self.params, "nfolds": 0})
+            # a checkpoint resumes every fold, by key
+            cv_builder._checkpoint_model = getattr(self, "_checkpoint_model",
+                                                   None)
             cv_builder._begin_fit(x, y, None)
             cv_model = cv_builder._fit(job, frame, x, y, base_w * ~in_fold)
             raw = cv_model._score_raw(frame)

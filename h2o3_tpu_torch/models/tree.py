@@ -231,7 +231,8 @@ def _level_feat_mask(feat_mask, col_rate: float, generator):
     dev = feat_mask.device
     sub = torch.rand((K, F), generator=generator, device=dev) < col_rate
     forced = torch.randint(0, F, (K,), generator=generator, device=dev)
-    sub[torch.arange(K, device=dev), forced] = True
+    # a scatter, where indexed assignment would wait for the card
+    sub.scatter_(1, forced[:, None], True)
     m = feat_mask & sub
     return torch.where(m.any(1, keepdim=True), m, feat_mask)
 

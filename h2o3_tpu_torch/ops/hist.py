@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -110,6 +111,12 @@ _KERNEL_SWITCH = {65: ("fixed", 64), 129: ("fixed", 32), 257: ("fixed", 16),
 
 #: kind of the occupancy query by kernel
 _KINDS = {"fixed": _FIXED, "global": _GLOBAL}
+#: held across each call into the library and each update of the launch
+#: counts: a launch sets its kernel's dynamic shared-memory ceiling, which
+#: is process-wide, before it launches, so overlapped builds on other
+#: threads must not set it in between (a launch above another's lower
+#: ceiling is refused)
+_LAUNCH_LOCK = threading.Lock()
 
 
 def level_histograms_plain(binned_T: torch.Tensor, node: torch.Tensor,
@@ -436,8 +443,9 @@ def _blocks_per_sm(device_index: int, kind: int, bin_bytes: int,
     from h2o3_tpu_torch.ops import _build
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _build.library().h2o3_level_hist_blocks_per_sm(
-            kind, bin_bytes, threads, smem_bytes, ctypes.byref(blocks))
+        with _LAUNCH_LOCK:
+            err = _build.library().h2o3_level_hist_blocks_per_sm(
+                kind, bin_bytes, threads, smem_bytes, ctypes.byref(blocks))
     _build.check(err, "level histogram occupancy query")
     if blocks.value < 1:
         raise RuntimeError(f"the histogram kernel does not fit an SM at "
@@ -491,13 +499,15 @@ def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
     scratch = torch.empty(_fixed_scratch_words(p, F, n_nodes, n_bins_tot),
                           dtype=torch.int64, device=node.device)
     stream = torch.cuda.current_stream().cuda_stream
-    return out, lib.h2o3_fixed_hist(
-        mode, ctypes.c_void_p(bins), bin_bytes, node.data_ptr(),
-        g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), R, F, n_nodes, n_bins_tot,
-        p["features_per_group"], p["nodes_per_block"], p["row_splits"],
-        p["smem_bytes"], p["classes"], R if w.dim() == 2 else 0,
-        p["scale_blocks"], p["flush_tiles"], p["qbits"], stream)
+    with _LAUNCH_LOCK:
+        err = lib.h2o3_fixed_hist(
+            mode, ctypes.c_void_p(bins), bin_bytes, node.data_ptr(),
+            g.data_ptr(), h.data_ptr(), w.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), R, F, n_nodes, n_bins_tot,
+            p["features_per_group"], p["nodes_per_block"], p["row_splits"],
+            p["smem_bytes"], p["classes"], R if w.dim() == 2 else 0,
+            p["scale_blocks"], p["flush_tiles"], p["qbits"], stream)
+    return out, err
 
 
 def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
@@ -531,16 +541,18 @@ def _launch(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
             out = torch.zeros(shape[:-1] + (4,), dtype=torch.float32,
                               device=binned_T.device)
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.h2o3_global_hist(
-                binned_T.data_ptr(), binned_T.element_size(),
-                node.data_ptr(), g.data_ptr(), h.data_ptr(), w.data_ptr(),
-                out.data_ptr(), R, F, n_nodes, n_bins_tot,
-                p["features_per_group"], p["row_splits"], p["smem_bytes"], K,
-                R if w.dim() == 2 else 0, stream)
+            with _LAUNCH_LOCK:
+                err = lib.h2o3_global_hist(
+                    binned_T.data_ptr(), binned_T.element_size(),
+                    node.data_ptr(), g.data_ptr(), h.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), R, F, n_nodes, n_bins_tot,
+                    p["features_per_group"], p["row_splits"],
+                    p["smem_bytes"], K, R if w.dim() == 2 else 0, stream)
             out = out[..., :3]
     _build.check(err, f"level histogram ({p['kernel']}) launch")
     if mode == _COUNT:
-        level_histograms.kernel_launches[p["kernel"]] += 1
+        with _LAUNCH_LOCK:
+            level_histograms.kernel_launches[p["kernel"]] += 1
     out = out.contiguous()
     return out if batched else out[0]
 
@@ -646,7 +658,8 @@ def node_totals(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         out, err = _launch_fixed(lib, p, None, node, g, h, w, n_nodes, 1,
                                  (K, 1, n_nodes, 3), _TOTALS)
     _build.check(err, "node totals launch")
-    node_totals.launches += 1
+    with _LAUNCH_LOCK:
+        node_totals.launches += 1
     return out[:, 0]
 
 

@@ -202,7 +202,8 @@ def test_calibration_refusals():
     fr = Frame.from_arrays(cols)
     with pytest.raises(ValueError, match="requires calibration_frame"):
         GBM(ntrees=1, calibrate_model=True).train(y="y", training_frame=fr)
-    with pytest.raises(NotImplementedError, match="DKV"):
+    # a key the DKV does not hold: the reference's KeyError
+    with pytest.raises(KeyError, match="calib.hex"):
         GBM(ntrees=1, calibrate_model=True,
             calibration_frame="calib.hex").train(y="y", training_frame=fr)
     with pytest.raises(ValueError, match="unknown calibration_method"):

@@ -198,7 +198,7 @@ def test_every_immutability_check_raises():
         resume(y="t")
     with pytest.raises(ValueError, match="is a 'gbm' model"):
         resume(cls=DRF)
-    with pytest.raises(NotImplementedError, match="DKV"):
+    with pytest.raises(ValueError, match="not found in DKV"):
         resume(checkpoint="gbm_some_key")
     single = DRF(ntrees=2, **kw).train(y="b", training_frame=fr)
     double = DRF(ntrees=2, binomial_double_trees=True, **kw).train(

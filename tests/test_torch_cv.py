@@ -153,12 +153,22 @@ def test_refusals(frames, params, exc, match):
 
 
 def test_cv_with_a_checkpoint_is_refused_by_name(frames):
+    """Cross-validation with a checkpoint, refused by name until the port
+    had a DKV, now resumes every fold from the checkpoint's key: passing
+    the Model or its key gives the same bits (tests/test_torch_dkv_params.py
+    holds it to the JAX package)."""
     _, _, pf = frames
     half = GBM(ntrees=2, max_depth=2).train(y="yb", training_frame=pf,
                                             x=["x0", "x1"])
-    with pytest.raises(NotImplementedError, match="DKV"):
-        GBM(ntrees=4, max_depth=2, nfolds=3, checkpoint=half).train(
-            y="yb", training_frame=pf, x=["x0", "x1"])
+    by_model, by_key = (GBM(ntrees=4, max_depth=2, nfolds=3,
+                            keep_cross_validation_predictions=True,
+                            checkpoint=cp).train(y="yb", training_frame=pf,
+                                                 x=["x0", "x1"])
+                        for cp in (half, half.key))
+    assert torch.equal(by_model.cv_holdout_predictions,
+                       by_key.cv_holdout_predictions)
+    assert by_model.cross_validation_metrics.auc == \
+        by_key.cross_validation_metrics.auc > 0.5
 
 
 def _summary_close(pm, jm, rtol, floor=0.0):

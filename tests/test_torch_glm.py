@@ -248,7 +248,7 @@ def test_max_iterations_rules(cols):
     (dict(solver="L_BFGS"), NotImplementedError, "L_BFGS"),
     (dict(checkpoint="glm_1"), NotImplementedError, "checkpoint"),
     (dict(missing_values_handling="PlugValues", plug_values="key"),
-     NotImplementedError, "plug_values"),
+     KeyError, "key"),
 ])
 def test_refused_parameters_raise_by_name(cols, params, exc, match):
     with pytest.raises(exc, match=match):

@@ -72,3 +72,15 @@ def test_the_probe_covers_every_tree_builder_and_treeshap():
             "h2o3_tpu_torch.models.uplift", "h2o3_tpu_torch.models.isofor",
             "h2o3_tpu_torch.models.xgboost", "h2o3_tpu_torch.convert"} \
         <= set(_port_modules())
+
+
+def test_the_probe_covers_the_dkv_and_orchestration():
+    """The DKV, the grid's combo key and every orchestration module are
+    among the modules the probe imports."""
+    assert {"h2o3_tpu_torch.utils.registry",
+            "h2o3_tpu_torch.persist.recovery",
+            "h2o3_tpu_torch.orchestration",
+            *(f"h2o3_tpu_torch.orchestration.{m}" for m in (
+                "parallel_build", "scheduler", "grid", "leaderboard",
+                "stacked_ensemble", "automl", "segments"))} \
+        <= set(_port_modules())
