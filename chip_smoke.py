@@ -165,17 +165,39 @@ Phases, each of which fails the run on error:
    GBMs and the lr-annealed GBM (60 fits) and two ensembles, 12
    leaderboard rows; timed once with its host syncs, peak memory and each
    step's seconds, profiled on one fold of one step, the leader's CV AUC
-   that of its kept out-of-fold predictions, and on the first 5k rows
-   the CPU's AutoML against the card's; (b) AutoML's GBM grid
+   that of its kept out-of-fold predictions, and on the first 2k rows
+   the CPU's AutoML (its GLM step) against the card's; (b) AutoML's GBM grid
    (RandomDiscrete, 6 models) at parallelism 1 and 2, both timed, the
    same model ids, the models whose every level runs the fixed kernel bit
    for bit; (c) AutoML with target encoding and the lr-annealed step on
    the first 1M rows of phase 7's frame, its tree models scoring through
    the encoder; (d) a GBM per carrier (``train_segments``, 22 segments)
-   on those rows, every model in the DKV, and on 20k rows the CPU's
+   on those rows, every model in the DKV, and on 10k rows the CPU's
    segment models (5 trees) alike at every split but the CPU's exact
    ties; (e) the
    kernels timed at 13a's level shapes.
+14. the text path of H2O-3's Word2Vec tutorial at full width (no kernel
+   of its own: Word2Vec's steps are torch operations; the GBM launches the
+   histogram kernels, held to the plan of its rounds): (a) 150,000 job
+   titles in 6 categories made from a seed (4-12 tokens over a
+   20,000-word Zipf vocabulary with each category's topic words mixed
+   in), written as a CSV; (b) ``import_file`` with the titles typed
+   string, on the native tokenizer; (c) ``tolower``, ``tokenize(" ")``
+   and Word2Vec at the tutorial's settings (100 dimensions, window 5,
+   min_word_freq 5, SGNS with 5 negatives, B 1024, no subsampling, 5
+   epochs), timed with tokens/s and pairs/s, a profiled like part of 500
+   steps, one HSM epoch over the same pairs and the synonyms of three
+   topic words; (d) ``transform(..., "AVERAGE")``; (e) a multinomial GBM
+   (50 trees, depth 5) on the 100 averaged columns with a 0.8
+   ``split_frame`` for validation, profiled, timed, its launches held to
+   the plan and its validation logloss checked; (f) the CPU against the
+   card on the first 2,000 titles (Word2Vec with the initial matrix and
+   negatives injected; the GBM's trees split alike but at exact ties);
+   (g) a custom gaussian distribution uploaded as h2o-py zips it,
+   batched, against the built-in gaussian on 1M rows of phase 4's frame
+   (bit for bit), the row loop's time a tree on 10,000 rows, and the MAE
+   custom metric on the host at 1M rows; (h) the kernel at (e)'s level
+   shapes (K = 6, F = 100).
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -184,8 +206,8 @@ levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
 line, phase 9's the ``tree_family`` line, phase 10's the
 ``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
-12's the ``cv_explain`` line and phase 13's the ``orchestration`` line
-before the ``kernels`` line. Without a CUDA
+12's the ``cv_explain`` line, phase 13's the ``orchestration`` line and
+phase 14's the ``text`` line before the ``kernels`` line. Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -4374,11 +4396,11 @@ def phase_cv_explain(fr, air_fr, air_vf) -> dict:
 #: package's defaults otherwise (nfolds 5, parallelism 2, sort by AUC)
 AML_ROWS = 1_000_000
 AML = dict(max_models=10, seed=1)
-#: 13a's CPU head: the same plan, smaller (2 models where 3 were planned:
+#: 13a's CPU head: the plan's first step alone, GLM, at 2 folds on 2,000
+#: rows (PR 12 ran GLM, GBM and the ensembles at 3 folds on 5,000:
 #: ROADMAP.md "Reduced checks")
-AML_CPU = dict(max_models=2, nfolds=3, seed=1,
-               include_algos=["GLM", "GBM", "STACKEDENSEMBLE"])
-AML_CPU_ROWS = 5_000
+AML_CPU = dict(max_models=1, nfolds=2, seed=1, include_algos=["GLM"])
+AML_CPU_ROWS = 2_000
 #: the like part of 13a that is profiled: one fold of the GBM step def_1,
 #: at this many of its trees
 AML_PROFILE_TREES = 10
@@ -4399,7 +4421,7 @@ TE_AML = dict(max_models=5, nfolds=0, seed=7,
 #: 13d: one GBM per carrier (H2O-3's train_segments)
 SEG_GBM = dict(ntrees=20, max_depth=5, seed=1)
 SEG_COL = "UniqueCarrier"
-SEG_CPU_ROWS = 20_000
+SEG_CPU_ROWS = 10_000
 #: 13d's CPU head grows the segment models' first trees only
 SEG_CPU_TREES = 5
 
@@ -4479,7 +4501,7 @@ def automl_part(fr1m) -> dict:
     syncs and peak memory; profiled on one fold of the GBM step def_1 (10
     of its trees). The leader's CV AUC is the one its kept out-of-fold predictions give
     (an ensemble's: its metalearner's on the level-one rows). On the first
-    5k rows, the CPU's AutoML (GLM, GBM, ensembles; 2 models, 3 folds)
+    2k rows, the CPU's AutoML (its GLM step alone, 2 folds)
     against the card's: the same leaderboard members in plan order, GLM's
     CV AUC within 1e-4 (no sampling), the GBMs' and ensembles' within 0.02
     (the GBM steps sample from each device's own generator)."""
@@ -4679,7 +4701,7 @@ def segments_part(air1m) -> dict:
     """13d: ``train_segments(GBM(ntrees=20, max_depth=5, seed=1),
     ["UniqueCarrier"])`` on the first 1M rows of phase 7's frame: a model
     per carrier, every status SUCCEEDED, each model found through the DKV,
-    launches held to the plan. On the first 20k rows, the CPU's segment
+    launches held to the plan. On the first 10k rows, the CPU's segment
     models of 5 trees against the card's: alike at every split node but
     where the CPU's split search tied two candidates exactly."""
     from h2o3_tpu_torch.models import tree
@@ -4794,6 +4816,653 @@ def phase_orchestration(fr, air_fr) -> dict:
     return out
 
 
+# -- phase 14: the text path and the uploaded UDFs ---------------------------
+
+#: H2O-3's Word2Vec tutorial (the craigslist job titles demo): its six job
+#: categories, short titles
+TEXT_CATEGORIES = ("accounting", "administrative", "customerservice",
+                   "education", "healthcare", "labor")
+TEXT_TITLES, TEXT_VOCAB, TEXT_ZIPF_A = 150_000, 20_000, 1.1
+TEXT_MIN_LEN, TEXT_MAX_LEN = 4, 12
+#: a category's topic words, and the share of a title's tokens drawn from
+#: them (the rest from the Zipf vocabulary)
+TEXT_TOPIC_WORDS, TEXT_TOPIC_SHARE = 40, 0.35
+TEXT_SEED = 61
+#: the tutorial's Word2Vec (H2OWord2vecEstimator(sent_sample_rate=0.0,
+#: epochs=10) at h2o-py's other defaults), epochs halved (ROADMAP.md
+#: "Reduced checks")
+W2V = dict(vec_size=100, window_size=5, min_word_freq=5, negative_samples=5,
+           mini_batch_size=1024, sent_sample_rate=0.0, epochs=5,
+           init_learning_rate=0.025, seed=7)
+#: the warm-up fit's titles (one epoch) and the profiled like part's steps
+W2V_WARM_TITLES, W2V_PROFILE_STEPS = 20_000, 500
+#: the tutorial's GBM on the averaged vectors: h2o-py's 50 trees, depth 5
+TEXT_GBM = dict(ntrees=50, max_depth=5, seed=1)
+TEXT_SPLIT_SEED = 1234
+#: the CPU-against-card head: titles, and rounds of its GBM
+TEXT_CPU_TITLES, TEXT_CPU_ROUNDS = 2_000, 10
+#: its Word2Vec's largest |CPU - card| difference allowed, as a share of
+#: the largest |W|; 14f prints, beside it, how far the CPU's own epoch
+#: moves when each minibatch's pairs are reordered (its sums of duplicates
+#: taken in another order)
+W2V_CROSS_TOL = 1e-2
+#: the uploaded UDFs on phase 4's frame: rows, the GBMs, the row loop's rows
+UDF_ROWS, UDF_GBM = 1_000_000, dict(ntrees=20, max_depth=5, seed=1)
+UDF_LOOP_ROWS, UDF_LOOP_TREES = 10_000, 3
+
+#: h2o-py's generated sources (tests/test_udf.py): the MAE metric and a
+#: gaussian custom distribution; the same gaussian computed with ``math``,
+#: which cannot take tensors and so runs the row loop
+MAE_METRIC_SRC = """# Generated code
+import water.udf.CMetricFunc as MetricFunc
+
+class CustomMaeFunc:
+    def map(self, pred, act, w, o, model):
+        return [w * abs(act[0] - pred[0]), w]
+
+    def reduce(self, l, r):
+        return [l[0] + r[0], l[1] + r[1]]
+
+    def metric(self, l):
+        return l[0] / l[1]
+
+class CustomMaeFuncWrapper(CustomMaeFunc, MetricFunc, object):
+    pass
+"""
+GAUSS_DIST_SRC = """# Generated code
+import water.udf.CDistributionFunc as DistributionFunc
+
+class CustomGaussianFunc:
+    def link(self):
+        return "identity"
+
+    def init(self, w, o, y):
+        return [w * (y - o), w]
+
+    def gradient(self, y, f):
+        return y - f
+
+    def gamma(self, w, y, z, f):
+        return [w * z, w]
+
+class CustomGaussianFuncWrapper(CustomGaussianFunc, DistributionFunc, object):
+    pass
+"""
+GAUSS_MATH_SRC = GAUSS_DIST_SRC.replace(
+    "        return y - f\n",
+    "        import math\n        return math.fsum([y, -f])\n")
+
+
+def text_corpus(n: int, seed: int) -> tuple:
+    """(categories, titles) of ``n`` job titles in the tutorial's shape: a
+    category each, 4-12 tokens of a 20,000-word Zipf vocabulary mixed with
+    the category's topic words, the first word capitalised."""
+    rng = np.random.default_rng(seed)
+    cats = rng.integers(0, len(TEXT_CATEGORIES), n)
+    lens = rng.integers(TEXT_MIN_LEN, TEXT_MAX_LEN + 1, n)
+    total = int(lens.sum())
+    zipf = (rng.zipf(TEXT_ZIPF_A, total * 2) - 1)
+    zipf = zipf[zipf < TEXT_VOCAB][:total]
+    doc = np.repeat(np.arange(n), lens)
+    topic = rng.random(total) < TEXT_TOPIC_SHARE
+    tid = TEXT_VOCAB + cats[doc] * TEXT_TOPIC_WORDS + rng.integers(
+        0, TEXT_TOPIC_WORDS, total)
+    ids = np.where(topic, tid, zipf)
+    words = [f"w{i}" for i in range(TEXT_VOCAB)] + [
+        f"{c[:5]}{j}" for c in TEXT_CATEGORIES for j in range(TEXT_TOPIC_WORDS)]
+    upper = [w.capitalize() for w in words]
+    ends = np.cumsum(lens)
+    starts = ends - lens
+    idl = ids.tolist()
+    titles = [" ".join([upper[idl[a]]] + [words[i] for i in idl[a + 1:b]])
+              for a, b in zip(starts.tolist(), ends.tolist())]
+    return np.array(TEXT_CATEGORIES, dtype=object)[cats], titles
+
+
+def text_import(path: str, rows: int):
+    """The CSV through ``import_file`` (``jobtitle`` typed string) on the
+    native tokenizer: once to build the tokenizer, once timed."""
+    from h2o3_tpu_torch.device import resolve_device
+    from h2o3_tpu_torch.frame import parse
+    from h2o3_tpu_torch.frame.types import VecType
+    ct = {"jobtitle": "string"}
+    t0 = time.perf_counter()
+    parse.import_file(path, col_types=ct)
+    first_s = time.perf_counter() - t0
+    before = parse.routes["native"]
+    t0 = time.perf_counter()
+    fr = parse.import_file(path, col_types=ct)
+    secs = time.perf_counter() - t0
+    cat, title = fr.vec("category"), fr.vec("jobtitle")
+    if parse.routes["native"] != before + 1 or fr.nrows != rows or \
+            cat.domain != TEXT_CATEGORIES or title.type is not VecType.STR \
+            or cat.device.type != resolve_device().type:
+        raise AssertionError(f"14 import: routes {parse.routes}, {fr.nrows} "
+                             f"rows, {fr.types}, {cat.domain}")
+    print(f"14 import_file {rows} titles: {secs:.3f} s (first, with the "
+          f"tokenizer's build, {first_s:.2f} s; g++ "
+          f"{parse.native_csv.build_info.get('seconds', 0):.2f} s), steps "
+          f"{ {k: round(v, 4) for k, v in parse.last_timing.items()} }")
+    return fr, dict(seconds=secs, first_seconds=first_s,
+                    steps=dict(parse.last_timing))
+
+
+def text_tokens(fr) -> tuple:
+    """``tolower`` then ``tokenize(" ")`` of the titles, timed (second
+    run)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.rapids import advprims, strings
+    for _ in range(2):
+        t0 = time.perf_counter()
+        low = strings.tolower(fr.vec("jobtitle"))
+        t1 = time.perf_counter()
+        tok = advprims.tokenize(Frame(["jobtitle"], [low]), " ")
+        t2 = time.perf_counter()
+    vals = tok.vec("token").host_values
+    ntok = int(sum(v is not None for v in vals))
+    if any(v is not None and v != v.lower() for v in vals[:10_000]) or \
+            len(vals) - ntok != fr.nrows:
+        raise AssertionError("14 tokenize: not one NA row a title, or "
+                             "upper case left")
+    print(f"14 tolower {t1 - t0:.3f} s, tokenize {t2 - t1:.3f} s: {ntok} "
+          f"tokens in {len(vals)} rows")
+    return low, tok, dict(tolower_s=t1 - t0, tokenize_s=t2 - t1,
+                          tokens=ntok, rows=len(vals))
+
+
+def w2v_profile(model_args, steps: int) -> dict:
+    """``steps`` SGNS minibatch steps of the fit's shapes (vocabulary,
+    vec_size, B, negatives) under the profiler, and the same unprofiled:
+    device busy and idle share, device ops a step, costliest ops."""
+    from h2o3_tpu_torch.models import word2vec as pw
+    V, D, centers, contexts, noise_cdf = model_args
+    B = W2V["mini_batch_size"]
+    rng = np.random.default_rng(3)
+    pick = rng.integers(0, len(centers), steps * B)
+    cb = torch.as_tensor(centers[pick].reshape(steps, B)).cuda()
+    xb = torch.as_tensor(contexts[pick].reshape(steps, B)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    Wc = torch.rand((V, D), device="cuda") - 0.5
+    Wx = torch.zeros((V, D), device="cuda")
+
+    def run():
+        pw._sgns_epoch(Wc, Wx, cb, xb, noise_cdf, gen, 0.025,
+                       W2V["negative_samples"])
+
+    run()
+    ops = device_events(run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(ms for _, ms, _ in ops)
+    nops = sum(n for _, _, n in ops)
+    out = dict(steps=steps, wall_s=wall, busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3), ops_per_step=nops / steps,
+               host_us_per_op=wall * 1e6 / nops,
+               top_ops=[(n[:60], ms, c) for n, ms, c in ops[:5]])
+    print(f"  profiled {steps} SGNS steps: {wall:.4f} s unprofiled, device "
+          f"busy {busy:.2f} ms in {nops} ops ({nops / steps:.1f} a step, "
+          f"{out['host_us_per_op']:.1f} us of host time an op), idle "
+          f"{100 * out['idle_share']:.1f}%")
+    for name, ms, n in ops[:5]:
+        print(f"    {ms:9.2f} ms {n:6d}x  {name[:90]}")
+    return out
+
+
+def w2v_part(tok) -> tuple:
+    """14c: Word2Vec at the tutorial's settings on the tokens: a one-epoch
+    warm-up on the first titles, the timed fit under the sync counter
+    (tokens/s and pairs/s over its epochs), a profiled like part, one HSM
+    epoch on the same pairs, and the synonyms of three topic words (most
+    of each one's top five must be its category's topic words)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.models import word2vec as pw
+    vals = tok.vec("token").host_values
+    na = np.fromiter((v is None for v in vals), bool, len(vals))
+    cut = int(np.flatnonzero(na)[W2V_WARM_TITLES - 1]) + 1
+    warm = Frame(["token"], [Vec(None, VecType.STR,
+                                 host_values=vals[:cut])])
+    pw.Word2Vec(**dict(W2V, epochs=1)).train(training_frame=warm)
+    torch.cuda.synchronize()
+    builder = pw.Word2Vec(**W2V)
+    t0 = time.perf_counter()
+    model, sites = count_syncs(lambda: builder.train(training_frame=tok))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = model.output
+    host_s = out["host_pass_seconds"]
+    epochs_s = secs - host_s
+    ntok = int((~na).sum())
+    W = out["vectors"]
+    V, D = W.shape
+    if D != W2V["vec_size"] or not bool(torch.isfinite(W).all()):
+        raise AssertionError(f"14 Word2Vec: vectors {tuple(W.shape)}")
+    res = dict(seconds=secs, host_pass_s=host_s, epochs_s=epochs_s,
+               vocab=V, pairs=out["n_pairs"], tokens=ntok,
+               tokens_per_s=ntok * W2V["epochs"] / epochs_s,
+               pairs_per_s=out["n_pairs"] * W2V["epochs"] / epochs_s,
+               host_syncs=sum(sites.values()), sync_sites=sites)
+    print(f"14 Word2Vec {W2V}: {secs:.3f} s ({host_s:.3f} s host pass, "
+          f"{epochs_s:.3f} s for {W2V['epochs']} epochs): vocabulary {V}, "
+          f"{out['n_pairs']} pairs, {res['tokens_per_s']:.4g} tokens/s, "
+          f"{res['pairs_per_s']:.4g} pairs/s; host syncs "
+          f"{res['host_syncs']}: {sites}")
+    centers, contexts, counts = builder.pairs
+    rng = np.random.default_rng(W2V["seed"])
+    f = counts.astype(np.float64) ** 0.75
+    cdf = torch.as_tensor(np.cumsum(f / f.sum()), dtype=torch.float32).cuda()
+    res["profile"] = w2v_profile((V, D, centers, contexts, cdf),
+                                 W2V_PROFILE_STEPS)
+    hn, hc, hm = (torch.as_tensor(a).cuda() for a in
+                  pw._huffman_paths(counts.astype(np.float64)))
+    cb, xb = pw.epoch_batches(centers, contexts, W2V["mini_batch_size"],
+                              rng, "cuda")
+    # from fresh vectors, as an objective="hsm" fit starts
+    Wc = pw._init_vectors(V, D, torch.Generator(device="cuda").manual_seed(
+        W2V["seed"]))
+    Wn = torch.zeros((V - 1, D), device="cuda")
+    pw._hsm_epoch(Wc, Wn, cb[:20], xb[:20], hn, hc, hm, 0.025)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw._hsm_epoch(Wc, Wn, cb, xb, hn, hc, hm, 0.025)
+    torch.cuda.synchronize()
+    res["hsm_epoch_s"] = time.perf_counter() - t0
+    res["hsm_path_len"] = int(hn.shape[1])
+    if not bool(torch.isfinite(Wc).all()):
+        raise AssertionError("14 HSM epoch: non-finite vectors")
+    print(f"  one HSM epoch over the same {len(centers)} pairs (Huffman "
+          f"paths up to {hn.shape[1]}): {res['hsm_epoch_s']:.3f} s, "
+          f"{len(centers) / res['hsm_epoch_s']:.4g} pairs/s")
+    del cb, xb, Wc, Wn, hn, hc, hm
+    syn = {}
+    for cat in TEXT_CATEGORIES[:3]:
+        word = f"{cat[:5]}0"
+        top = model.find_synonyms(word, 5)
+        same = sum(w.startswith(cat[:5]) for w in top)
+        syn[word] = dict(top=list(top), same_topic=same)
+        print(f"  synonyms of {word!r}: {top}")
+        if same < 3:
+            raise AssertionError(f"14 Word2Vec: {word}'s synonyms {top}")
+    res["synonyms"] = syn
+    return model, res
+
+
+def text_gbm_part(avg, cats_vec) -> tuple:
+    """14e: the tutorial's GBM (multinomial, 6 classes, h2o-py's 50 trees
+    and depth 5) on the 100 averaged columns, split 0.8 / 0.2 with
+    ``split_frame``: warmed up, profiled on a like part (5 rounds), timed
+    under the sync counter, its launches held to the plan of its grown
+    rounds; the validation logloss must beat the uniform guess by far."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.utils import split_frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.ops.hist import _kernel_plan, level_histograms
+    fr = Frame(avg.names + ["category"], avg.vecs + [cats_vec])
+    t0 = time.perf_counter()
+    train, valid = split_frame(fr, [0.8], seed=TEXT_SPLIT_SEED)
+    split_s = time.perf_counter() - t0
+    x = list(avg.names)
+
+    def fit(n):
+        return lambda: GBM(**dict(TEXT_GBM, ntrees=n)).train(
+            x=x, y="category", training_frame=train, validation_frame=valid)
+
+    fit(2)()
+    model, res = timed_fit(
+        f"14 multinomial GBM on {train.nrows} x {len(x)} (validation "
+        f"{valid.nrows})", fit(TEXT_GBM["ntrees"]),
+        train.nrows * TEXT_GBM["ntrees"], "rows*trees",
+        before_timed=reset_kernel_counts,
+        sample=("5 rounds", fit(5)))
+    rounds = int(model.output["ntrees"])
+    Bt = int(model.params["nbins"]) + 1
+    plan = dict.fromkeys(level_histograms.kernel_launches, 0)
+    for d in range(TEXT_GBM["max_depth"]):
+        plan[_kernel_plan(len(x), max(1, 2 ** (d - 1)), Bt, 1, None,
+                          len(TEXT_CATEGORIES))["kernel"]] += rounds
+    res.update(hold_launches("14 GBM", plan, rounds))
+    vm = model.validation_metrics
+    res.update(split_s=split_s, train_rows=train.nrows,
+               valid_rows=valid.nrows, valid_logloss=vm.logloss,
+               valid_error=vm.mean_per_class_error,
+               train_logloss=model.training_metrics.logloss)
+    print(f"  split {split_s:.3f} s; validation logloss {vm.logloss:.6f}, "
+          f"mean per-class error {vm.mean_per_class_error:.6f} (training "
+          f"logloss {model.training_metrics.logloss:.6f})")
+    if not vm.logloss < 0.5 * np.log(len(TEXT_CATEGORIES)):
+        raise AssertionError(f"14 GBM: validation logloss {vm.logloss}")
+    return model, res
+
+
+def text_cross(low, avg_card, cats_vec) -> dict:
+    """14f: the CPU against the card on the first 2,000 titles. Word2Vec
+    one epoch from the same initial matrix and the same negatives (drawn
+    on the host, injected): the vectors within ``W2V_CROSS_TOL`` of the
+    largest |W| (the card's ``index_add_`` sums duplicates in another
+    order, and SGD carries the difference on). The GBM
+    on the card's averaged vectors of those titles, grown on both devices
+    (10 rounds): every split alike but where the CPU's split search tied
+    two candidates exactly (in the first round each class's gradient takes
+    two values, so thresholds that part a small node's rows alike tie),
+    and the training logloss within 1e-3."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.models import tree
+    from h2o3_tpu_torch.models import word2vec as pw
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.rapids import advprims
+    n = TEXT_CPU_TITLES
+    head_low = Frame(["t"], [Vec(None, VecType.STR,
+                                 host_values=low.host_values[:n])])
+    tok = advprims.tokenize(head_low, " ")
+    init, draws = pw._init_vectors, pw._negative_draws
+
+    def fixed_init(V, D, gen):
+        r = np.random.default_rng(11)
+        return torch.as_tensor(((r.random((V, D)) - 0.5) / D).astype(
+            np.float32)).to(gen.device)
+
+    def fixed_draws(noise_cdf, nb, B, n_neg, gen):
+        u = np.random.default_rng(100).random((nb, B, n_neg)).astype(
+            np.float32)
+        neg = np.searchsorted(noise_cdf.cpu().numpy(), u)
+        return torch.as_tensor(neg).to(noise_cdf.device)
+
+    batches, order = pw.epoch_batches, {}
+
+    def reordered(*a, **kw):
+        cb, xb = batches(*a, **kw)
+        order["perm"] = torch.randperm(
+            cb.shape[1], generator=torch.Generator().manual_seed(1))
+        return cb[:, order["perm"]], xb[:, order["perm"]]
+
+    def fit(dev):
+        return pw.Word2Vec(**dict(W2V, epochs=1)).train(
+            training_frame=tok, device=dev).output["vectors"].cpu()
+
+    pw._init_vectors, pw._negative_draws = fixed_init, fixed_draws
+    try:
+        vec = {dev: fit(dev) for dev in ("cpu", "cuda")}
+        pw.epoch_batches = reordered
+        pw._negative_draws = lambda *a: fixed_draws(*a)[:, order["perm"]]
+        vec["cpu_reordered"] = fit("cpu")
+    finally:
+        pw._init_vectors, pw._negative_draws = init, draws
+        pw.epoch_batches = batches
+    w_max = float(vec["cpu"].abs().max())
+    w_err, w_order = (float((vec["cpu"] - vec[k]).abs().max()) / w_max
+                      for k in ("cuda", "cpu_reordered"))
+    w_ok = w_err <= W2V_CROSS_TOL
+    print(f"14 CPU / card Word2Vec on {n} titles, one epoch, injected "
+          f"draws: vocabulary {vec['cpu'].shape[0]}, max |dW| {w_err:.3e} "
+          f"of max |W| {w_max:.4f} (allowed {W2V_CROSS_TOL}; the CPU's own "
+          f"epoch with each minibatch reordered moves {w_order:.3e} of it) "
+          f"{'ok' if w_ok else 'FAIL'}")
+    if not w_ok:
+        raise AssertionError("14: CPU and card Word2Vec vectors differ")
+    cols = [v.data[:n] for v in avg_card.vecs]
+    card_fr = Frame(avg_card.names + ["category"],
+                    [Vec(c, VecType.NUM) for c in cols]
+                    + [Vec(cats_vec.data[:n], VecType.CAT,
+                           domain=cats_vec.domain)])
+    ties, find = [], tree._find_splits
+
+    def recording(hists, *a, **kw):
+        ties.append(tree.tied_splits(hists, *a, **kw).cpu())
+        return find(hists, *a, **kw)
+
+    gb = dict(TEXT_GBM, ntrees=TEXT_CPU_ROUNDS)
+    tree._find_splits = recording
+    try:
+        cpu = GBM(**gb).train(y="category",
+                              training_frame=frame_on(card_fr, "cpu"))
+    finally:
+        tree._find_splits = find
+    card = GBM(**gb).train(y="category", training_frame=card_fr)
+    depth = TEXT_GBM["max_depth"]
+    differ, tied = [], []
+    for r in range(TEXT_CPU_ROUNDS):
+        d, t = batch_tie_differences(
+            [ts[r] for ts in cpu.output["trees_multi"]],
+            [ts[r] for ts in card.output["trees_multi"]],
+            ties[r * depth:(r + 1) * depth], depth)
+        differ += [(r, *x) for x in d]
+        tied += [(r, *x) for x in t]
+    d_ll = abs(cpu.training_metrics.logloss - card.training_metrics.logloss)
+    print(f"  GBM CPU / card on {n} rows, {TEXT_CPU_ROUNDS} rounds: split "
+          f"nodes that differ {differ}, differing at the CPU's exact ties "
+          f"{len(tied)} (a tie of thresholds that part the rows alike); "
+          f"|d logloss| {d_ll:.2e}")
+    if differ or d_ll > 1e-3:
+        raise AssertionError("14: CPU and card GBMs split otherwise")
+    return dict(titles=n, w2v_max_rel=w_err, w2v_reorder_rel=w_order,
+                gbm_rounds=TEXT_CPU_ROUNDS, tied_nodes=len(tied),
+                d_logloss=d_ll)
+
+
+def upload_udf(key: str, module: str, src: str) -> None:
+    """A zip of ``module.py`` under ``key`` in the port's DKV, as h2o-py's
+    ``upload_custom_*`` puts it."""
+    import io
+    import zipfile
+
+    from h2o3_tpu_torch.frame.parse import RawFile
+    from h2o3_tpu_torch.utils.registry import DKV
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr(f"{module}.py", src)
+    DKV.put(key, RawFile(buf.getvalue(), name="func.jar"))
+
+
+def udf_part(fr) -> dict:
+    """14g: the uploaded UDFs on the first 1M rows of phase 4's frame, with
+    a numeric ``response`` (twice the frame's logit, rounded into an
+    integer rating in [-3, 3]): the custom gaussian (20 trees, depth 5)
+    batched, against the built-in gaussian: every split alike; bit for bit
+    where their initial margins are one float32 (the fixed kernel's sums
+    are exact, and both gradients are F - y), else within rtol 1e-5 plus
+    atol 1e-5. The row loop (the same gaussian
+    through ``math``) timed a tree on 10,000 rows beside the batched path;
+    the MAE metric timed on the host at 1M rows, equal to the MAE of the
+    predictions at rtol 1e-6."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.model_base import ModelBuilder
+    from h2o3_tpu_torch.models.metrics import regression_metrics
+    from h2o3_tpu_torch.utils import udf
+    sub = head(fr, UDF_ROWS)
+    X = [sub.vec(f"x{i}").data for i in range(6)]
+    # an integer rating in [-3, 3]: its sum is exact in float32, so the
+    # built-in's float32 mean and the UDF's float64 one round alike
+    resp = torch.clamp(torch.round(2 * (1.2 * X[0] - 0.8 * X[1] + 0.5 * X[2]
+                                        + 0.3 * X[3] + 0.2 * X[4] * X[5])),
+                       -3, 3)
+    x = [f"x{i}" for i in range(NFEAT)]
+    f1m = Frame(x + ["response"], [sub.vec(c) for c in x]
+                + [Vec(resp.contiguous(), VecType.NUM)])
+    upload_udf("gauss", "distributions", GAUSS_DIST_SRC)
+    upload_udf("gauss_math", "distributions", GAUSS_MATH_SRC)
+    upload_udf("mae", "metrics", MAE_METRIC_SRC)
+    ref = "python:gauss=distributions.CustomGaussianFuncWrapper"
+
+    def fit(frame, n, **kw):
+        return GBM(**dict(UDF_GBM, ntrees=n), **kw).train(
+            x=x, y="response", training_frame=frame)
+
+    fit(f1m, 2)
+    out = {}
+    for name, kw in (("builtin", {}), ("custom", dict(
+            distribution="custom", custom_distribution_func=ref))):
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fit(f1m, UDF_GBM["ntrees"], **kw)
+        torch.cuda.synchronize()
+        out[name] = (m, time.perf_counter() - t0, kernel_counts())
+    bm, cm = out["builtin"][0], out["custom"][0]
+    alike = all(torch.equal(getattr(a, k), getattr(b, k))
+                for a, b in zip(bm.output["trees"], cm.output["trees"])
+                for k in SPLIT_KEYS)
+    f0_same = np.float32(bm.output["f0"]) == np.float32(cm.output["f0"])
+    pb = bm.predict(f1m).vec("predict").data
+    pc = cm.predict(f1m).vec("predict").data
+    bitwise = torch.equal(pb, pc)
+    d_pred = float((pb - pc).abs().max())
+    print(f"14 UDF custom gaussian on {UDF_ROWS} x {NFEAT}, "
+          f"{UDF_GBM['ntrees']} trees depth {UDF_GBM['max_depth']}: "
+          f"{out['custom'][1]:.3f} s (built-in gaussian {out['builtin'][1]:.3f}"
+          f" s), batched {cm.output['custom_vectorized']}, launches "
+          f"{out['custom'][2]}; every split alike {alike}; f0 "
+          f"{cm.output['f0']!r} / built-in {bm.output['f0']!r} (one float32 "
+          f"{f0_same}); predictions bit for bit {bitwise}, max |d| "
+          f"{d_pred:.3e}")
+    if not (alike and cm.output["custom_vectorized"] is True
+            and out["custom"][2] == out["builtin"][2]
+            and (bitwise if f0_same else torch.allclose(
+                pc, pb, rtol=1e-5, atol=1e-5))):
+        raise AssertionError("14: the custom gaussian is not the built-in")
+    small = head(f1m, UDF_LOOP_ROWS)
+    loop = {}
+    for name, r in (("batched", ref), ("row_loop", "python:gauss_math="
+                                                   "distributions."
+                                                   "CustomGaussianFuncWrapper")):
+        fit(small, 1, distribution="custom", custom_distribution_func=r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fit(small, UDF_LOOP_TREES, distribution="custom",
+                custom_distribution_func=r)
+        torch.cuda.synchronize()
+        loop[name] = (time.perf_counter() - t0) / UDF_LOOP_TREES
+        if m.output["custom_vectorized"] is not (name == "batched"):
+            raise AssertionError(f"14: the {name} UDF took the other path")
+    print(f"  a tree on {UDF_LOOP_ROWS} rows: batched {loop['batched']:.4f} "
+          f"s, row loop {loop['row_loop']:.4f} s")
+    fn = udf.metric_callable(udf.load_cfunc(
+        "python:mae=metrics.CustomMaeFuncWrapper"), "mae", model=cm)
+    mm = regression_metrics(pc, resp, torch.ones_like(resp, dtype=torch.bool))
+    t0 = time.perf_counter()
+    ModelBuilder._apply_custom_metric(cm, f1m, "response", None, fn, mm)
+    mae_s = time.perf_counter() - t0
+    want = float((resp.double() - pc.double()).abs().mean())
+    print(f"  custom MAE metric on {UDF_ROWS} rows on the host: "
+          f"{mae_s:.3f} s, {mm.custom_metric_value:.8f} (the predictions' "
+          f"MAE {want:.8f})")
+    if abs(mm.custom_metric_value - want) > 1e-6 * want:
+        raise AssertionError("14: the custom MAE is not the predictions'")
+    return dict(custom_s=out["custom"][1], builtin_s=out["builtin"][1],
+                splits_alike=alike, f0_one_float32=bool(f0_same),
+                bitwise=bitwise, max_pred_diff=d_pred,
+                tree_s_batched_10k=loop["batched"],
+                tree_s_row_loop_10k=loop["row_loop"], mae_metric_s=mae_s,
+                mae=mm.custom_metric_value)
+
+
+def text_kernel_times(rows: int) -> dict:
+    """The kernel at 14e's level shapes: K = 6 classes, 100 features, 65
+    int8 bins, ``rows`` rows (the training split), levels 0-4 (1 to 8
+    histogrammed nodes), each beside its bound, its plain version and one
+    ``index_add_``; held against the plain version at level 4."""
+    K, F, Bt = len(TEXT_CATEGORIES), W2V["vec_size"], NBINS + 1
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    binned_T, _, g, h, w = batch_inputs(rows, F, Bt, 1, torch.int8, gen, K,
+                                        False)
+    layouts = []
+    for level in range(TEXT_GBM["max_depth"]):
+        per_class = [level_nodes(rows, level, gen) for _ in range(K)]
+        layouts.append((level, per_class[0][0],
+                        torch.stack([nd for _, nd in per_class])))
+    err = check_call((binned_T, layouts[-1][2], g, h, w), layouts[-1][1], Bt,
+                     f"14 K={K} F={F} level 4 R={rows}")[1]
+    times = time_levels(f"14 K={K} F={F}", binned_T, g, h, w, Bt, layouts)
+    del binned_T, g, h, w, layouts
+    torch.cuda.empty_cache()
+    return dict(err=err, times=times)
+
+
+def phase_text(fr) -> dict:
+    """Phase 14: H2O-3's Word2Vec tutorial at full width — a 150,000-title
+    CSV made from a seed, ``import_file`` with the titles typed string
+    (the native tokenizer), ``tolower``, ``tokenize(" ")``, Word2Vec (100
+    dimensions, SGNS, 5 epochs), ``transform(..., "AVERAGE")``, and a
+    6-class GBM on the averages with a validation split; then the CPU
+    against the card on 2,000 titles, the uploaded UDFs on phase 4's
+    frame, and the kernel at the GBM's level shapes."""
+    import os
+    import shutil
+    import tempfile
+
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.utils.registry import DKV
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    cats, titles = text_corpus(TEXT_TITLES, TEXT_SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_text_")
+    path = os.path.join(tmp, "jobtitles.csv")
+    with open(path, "w") as fh:
+        fh.write("category,jobtitle\n")
+        fh.write("".join(f"{c},{t}\n" for c, t in zip(cats, titles)))
+    parts["14a_corpus"] = time.perf_counter() - t0
+    print(f"14 corpus: {TEXT_TITLES} titles, {os.path.getsize(path)} bytes "
+          f"of CSV, {parts['14a_corpus']:.2f} s")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        imported, out["import"] = text_import(path, TEXT_TITLES)
+        parts["14b_import"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    low, tok, out["tokens"] = text_tokens(imported)
+    model, out["word2vec"] = w2v_part(tok)
+    parts["14c_word2vec"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.transform(Frame(["t"], [tok.vec("token")]), "AVERAGE")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    avg = model.transform(tok, "AVERAGE")
+    torch.cuda.synchronize()
+    out["transform_s"] = time.perf_counter() - t1
+    M = torch.stack([v.data for v in avg.vecs], 1)
+    if avg.nrows != TEXT_TITLES or avg.ncols != W2V["vec_size"] or \
+            not bool(torch.isfinite(M).all()):
+        raise AssertionError(f"14 transform: {avg.nrows} x {avg.ncols}")
+    del M
+    print(f"14 transform AVERAGE: {out['transform_s']:.3f} s (warm-up "
+          f"{t1 - t0:.3f} s), {avg.nrows} x {avg.ncols}")
+    parts["14d_transform"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, out["gbm"] = text_gbm_part(avg, imported.vec("category"))
+    parts["14e_gbm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cross"] = text_cross(low, avg, imported.vec("category"))
+    parts["14f_cross"] = time.perf_counter() - t0
+    del model, avg, tok, low, imported
+    DKV.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["udf"] = udf_part(fr)
+    parts["14g_udf"] = time.perf_counter() - t0
+    DKV.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["kernel_times"] = text_kernel_times(out["gbm"]["train_rows"])
+    parts["14h_kernel_times"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_name()
+    print(f"phase 14: {out['seconds']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return out
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -4851,6 +5520,9 @@ def main() -> int:
     drop_models()
     del air_vf
     orchestration = phase_orchestration(fr, air_fr)
+    drop_models()
+    text = phase_text(fr)
+    drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
     glm = phase_glm(glm_airlines, glm_multi)
@@ -4945,6 +5617,12 @@ def main() -> int:
             sum(shapes.values()), aml_times[name]["err"],
             aml_times[name]["times"], path=f"automl_{name}",
             launches_by_shape=shapes))
+    # phase 14: the text GBM's launches (K = 6 classes, 100 features),
+    # timed at its own level shapes
+    kernels.append(kernel_entry(
+        text["gbm"]["launches"], text["kernel_times"]["err"],
+        text["kernel_times"]["times"], path="text_gbm_k6",
+        node_totals=text["gbm"]["node_totals"]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -4957,6 +5635,8 @@ def main() -> int:
     print(json.dumps({"orchestration": {
         k: v for k, v in orchestration.items() if k != "13e_kernel_times"}},
         default=float))
+    print(json.dumps({"text": {k: v for k, v in text.items()
+                               if k != "kernel_times"}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,13 +34,22 @@ torch operations. Every supervised builder cross-validates (``nfolds``,
 frames; :mod:`h2o3_tpu_torch.explanation` explains models (partial
 dependence, ICE, SHAP summaries, permutation importance) and
 :mod:`h2o3_tpu_torch.sklearn_adapter` wraps the builders for
-scikit-learn. The builders of the later slices are exported here.
+scikit-learn. The text path: :func:`import_file` parses delimited text
+(the native tokenizer, ``native/csv_parser.cpp``, built on first use),
+:mod:`h2o3_tpu_torch.rapids.strings` and ``rapids.advprims.tokenize``
+transform string columns on the host, :class:`Word2Vec` trains word
+vectors on the card and :class:`Grep` searches text; a GBM takes an
+uploaded custom distribution and every builder an uploaded custom metric
+(:mod:`h2o3_tpu_torch.utils.udf`). The builders of the later slices are
+exported here.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device
+from h2o3_tpu_torch.frame.parse import import_file, parse_raw, upload_file
 from h2o3_tpu_torch.models.aggregator import Aggregator
 from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.gam import GAM
+from h2o3_tpu_torch.models.grep_algo import Grep
 from h2o3_tpu_torch.models.hglm import HGLM
 from h2o3_tpu_torch.models.infogram import Infogram, fairness_metrics
 from h2o3_tpu_torch.models.isotonic import IsotonicRegression
@@ -48,8 +57,9 @@ from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
 from h2o3_tpu_torch.models.psvm import PSVM
 from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoder import TargetEncoder
+from h2o3_tpu_torch.models.word2vec import Word2Vec
 
-__all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH",
+__all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "Infogram", "IsotonicRegression", "ModelSelection", "RuleFit",
-           "TargetEncoder", "fairness_metrics", "resolve_device",
-           "set_device"]
+           "TargetEncoder", "Word2Vec", "fairness_metrics", "import_file",
+           "parse_raw", "resolve_device", "set_device", "upload_file"]

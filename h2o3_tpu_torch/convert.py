@@ -26,6 +26,10 @@ encodings stay with the JAX model: a converted encoder transforms any
 frame by its full statistics). :func:`stacked_ensemble_model` takes an
 ensemble's level-one names with its base models and metalearner already
 carried across, so both packages score the same ensemble.
+:func:`word2vec_model` takes a Word2Vec model's vectors, vocabulary and
+counters, :func:`grep_model` a Grep model's matches as columns; a
+custom-distribution GBM carries its ``custom_link``, and its
+``custom_distribution_func`` names an upload in the port's DKV.
 
 Every function also carries a model's kept out-of-fold predictions: where
 ``output`` holds ``cv_holdout_predictions`` and ``cv_holdout_mask`` (the
@@ -51,6 +55,7 @@ from h2o3_tpu_torch.models.deeplearning import MLP, DeepLearningModel
 from h2o3_tpu_torch.models.gam import GAMModel
 from h2o3_tpu_torch.models.gbm import DISTRIBUTIONS, DRFModel, GBMModel
 from h2o3_tpu_torch.models.glm import GLMModel
+from h2o3_tpu_torch.models.grep_algo import GrepModel
 from h2o3_tpu_torch.models.hglm import HGLMModel
 from h2o3_tpu_torch.models.infogram import InfogramModel
 from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForestModel,
@@ -66,6 +71,7 @@ from h2o3_tpu_torch.models.rulefit import RuleFitModel
 from h2o3_tpu_torch.models.target_encoder import TargetEncoderModel
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, Tree
 from h2o3_tpu_torch.models.uplift import UpliftDRFModel
+from h2o3_tpu_torch.models.word2vec import Word2VecModel
 from h2o3_tpu_torch.models.xgboost import XGBoostModel
 from h2o3_tpu_torch.orchestration.stacked_ensemble import StackedEnsembleModel
 
@@ -161,9 +167,28 @@ def _boosted(cls, algo: str, output: Mapping, response_column,
     else:
         ntrees = len(out["trees"])
     out.update(distribution=dist, ntrees=int(output.get("ntrees", ntrees)))
+    if dist == "custom":
+        out["custom_link"] = _custom_link(output, params)
     if output.get("dart_weights") is not None:
         out["dart_weights"] = [float(v) for v in output["dart_weights"]]
     return _model(cls, algo, out, response_column, response_domain, params)
+
+
+def _custom_link(output: Mapping, params: Mapping | None) -> str:
+    """A custom-distribution model's link, checked against its
+    distribution: the model carries the UDF's reference
+    (``custom_distribution_func``), not its bytes, so the key must be in
+    the port's DKV, and the UDF's link must be the model's."""
+    from h2o3_tpu_torch.utils.udf import resolve_distribution
+    ref = (params or {}).get("custom_distribution_func")
+    if not ref:
+        raise ValueError("a custom-distribution model needs its "
+                         "custom_distribution_func in params")
+    link = str(output["custom_link"])
+    have = resolve_distribution(str(ref)).link_name
+    if have != link:
+        raise ValueError(f"custom_link {link!r}: {ref!r} links by {have!r}")
+    return link
 
 
 @_carries_cv
@@ -175,7 +200,10 @@ def gbm_model(output: Mapping, response_column: str | None = None,
     arrays of every tree (``trees``, or ``trees_multi`` per class for
     multinomial), ``edges``, ``f0`` (``f0_multi`` for multinomial),
     ``learn_rate``, ``distribution``, ``x_cols`` and ``feat_domains``.
-    ``params`` carries ``offset_column`` where the model has one."""
+    ``params`` carries ``offset_column`` where the model has one; a custom
+    distribution's model carries ``custom_link`` in ``output`` and its
+    ``custom_distribution_func`` in ``params``, whose key must be in the
+    port's DKV."""
     return _boosted(GBMModel, "gbm", output, response_column,
                     response_domain, params, device)
 
@@ -674,3 +702,46 @@ def stacked_ensemble_model(output: Mapping, base_models: Sequence[Model],
                levelone_names=list(output["levelone_names"]))
     return _model(StackedEnsembleModel, "stackedensemble", out,
                   response_column, response_domain, params)
+
+
+def word2vec_model(output: Mapping, params: Mapping | None = None,
+                   device: str | torch.device | None = None
+                   ) -> Word2VecModel:
+    """The port's Word2VecModel from a reference model's ``output``:
+    ``vectors`` ([V, D], numpy), ``vocab`` and its counters (``vec_size``,
+    ``epochs_run``, ``n_pairs``, ``pre_trained``); ``word_index`` is
+    rebuilt from ``vocab`` where absent and must agree with it."""
+    dev = resolve_device(device)
+    vocab = [str(w) for w in output["vocab"]]
+    index = {w: i for i, w in enumerate(vocab)}
+    if output.get("word_index") is not None and \
+            dict(output["word_index"]) != index:
+        raise ValueError("word_index does not number vocab in order")
+    W = torch.as_tensor(np.asarray(output["vectors"], np.float32)).to(dev)
+    out = dict(vectors=W, vocab=vocab, word_index=index,
+               vec_size=int(output.get("vec_size", W.shape[1])),
+               epochs_run=int(output.get("epochs_run", 0)),
+               n_pairs=int(output.get("n_pairs", 0)))
+    if output.get("pre_trained"):
+        out["pre_trained"] = True
+    return _model(Word2VecModel, "word2vec", out, None, None, params)
+
+
+def grep_model(output: Mapping, params: Mapping | None = None,
+               device: str | torch.device | None = None) -> GrepModel:
+    """The port's GrepModel from a reference model's matches, as columns:
+    ``output["matches"]`` = {"row": [...], "match": [...], "offset":
+    [...]}."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    dev = resolve_device(device)
+    m = output["matches"]
+    frame = Frame(["row", "match", "offset"],
+                  [Vec.from_numpy(np.asarray(m["row"], np.float32),
+                                  device=dev),
+                   Vec(None, VecType.STR,
+                       host_values=np.array(list(m["match"]), dtype=object)),
+                   Vec.from_numpy(np.asarray(m["offset"], np.float32),
+                                  device=dev)])
+    return _model(GrepModel, "grep", dict(matches=frame), None, None, params)

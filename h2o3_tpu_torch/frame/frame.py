@@ -2,8 +2,9 @@
 ``h2o3_tpu/frame/frame.py``.
 
 All on-device columns of a Frame live on one device and carry no padding;
-host-resident string columns sit beside them. The reference's mesh views,
-DKV registration, Cleaner and compression are left out.
+host-resident string columns sit beside them. :meth:`Frame.from_pandas`
+and :meth:`Frame.to_pandas` convert from and to pandas. The reference's
+mesh views, DKV registration, Cleaner and compression are left out.
 """
 
 from __future__ import annotations
@@ -67,6 +68,53 @@ class Frame:
             for i, (k, _, t) in enumerate(floats):
                 vecs[k] = Vec(dmat[i], t)
         return Frame(names, [vecs[k] for k in names], key=key)
+
+    @staticmethod
+    def from_pandas(df, key: str | None = None,
+                    device: str | torch.device | None = None) -> "Frame":
+        """A pandas DataFrame as a Frame, with the parser's type guessing:
+        object and string columns become categorical (sorted domains),
+        datetimes TIME, booleans INT (0/1) and numbers NUM or INT, through
+        :meth:`from_arrays`' batched upload."""
+        dev = resolve_device(device)
+        cols: dict[str, np.ndarray] = {}
+        types: dict[str, VecType] = {}
+        times: dict[str, np.ndarray] = {}
+        for col in df.columns:
+            s, name = df[col], str(col)
+            if s.dtype.kind in "OUS" or str(s.dtype) in ("category", "str"):
+                # a category column is factorized again: sorted domain
+                cols[name] = (s.astype(object).to_numpy()
+                              if str(s.dtype) == "category"
+                              else s.to_numpy(dtype=object))
+            elif s.dtype.kind == "M":
+                times[name] = s.to_numpy()
+            elif s.dtype.kind == "b":
+                cols[name] = s.to_numpy().astype(np.float32)
+                types[name] = VecType.INT
+            else:
+                cols[name] = s.to_numpy(dtype=np.float32, na_value=np.nan)
+        fr = Frame.from_arrays(cols, types=types, device=dev)
+        vecs = [Vec.from_numpy(times[str(c)], type=VecType.TIME, device=dev)
+                if str(c) in times else fr.vec(str(c)) for c in df.columns]
+        return Frame([str(c) for c in df.columns], vecs, key=key)
+
+    def to_pandas(self):
+        """The frame as a pandas DataFrame: categorical columns as their
+        labels (None for missing), string columns as objects, TIME columns
+        as datetimes, numbers as float32."""
+        import pandas as pd
+        out = {}
+        for n, v in zip(self.names, self.vecs):
+            if v.is_categorical:
+                out[n] = pd.Series(v.labels(), dtype=object)
+            elif v.type is VecType.TIME:
+                out[n] = pd.to_datetime(pd.Series(v.to_numpy()), unit="ms")
+            elif v.data is not None:
+                out[n] = v.to_numpy()
+            else:
+                out[n] = pd.Series(v.host_values, dtype=object)
+        return pd.DataFrame(out)
 
     @property
     def nrows(self) -> int:

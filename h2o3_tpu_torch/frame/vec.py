@@ -2,9 +2,12 @@
 
 A Vec is one tensor on one device, with no padding: float32 for numeric
 columns (NaN = missing) and int32 codes for categoricals (-1 = missing) with
-a sorted host-side domain. A string column (``VecType.STR``) has no tensor:
-its values stay on the host as an object array (None = missing). The
-reference's mesh sharding and compression are left out.
+a sorted host-side domain. A string column (``VecType.STR``, or ``UUID``)
+has no tensor: its values stay on the host as an object array (None =
+missing). A time column (``VecType.TIME``) holds float32 milliseconds
+relative to ``time_offset`` on the device (epoch milliseconds overflow a
+float32 mantissa) and the exact float64 epoch milliseconds on the host.
+The reference's mesh sharding and compression are left out.
 """
 
 from __future__ import annotations
@@ -24,12 +27,16 @@ class Vec:
 
     def __init__(self, data: torch.Tensor | None, type: VecType,
                  domain: tuple[str, ...] | None = None,
-                 host_values: np.ndarray | None = None):
+                 host_values: np.ndarray | None = None,
+                 time_offset: float = 0.0):
         self.data = data        # [nrows] float32 (numeric) or int32 (codes)
         self.type = type
         self.domain = domain    # categorical level names, sorted
-        # the values of a host-resident column (STR), with data None
+        # the values of a host-resident column (STR, UUID), with data None;
+        # a TIME column's exact float64 epoch milliseconds
         self.host_values = host_values
+        # a TIME column's device data is milliseconds after time_offset
+        self.time_offset = time_offset
         self._rollups: Rollups | None = None
 
     @staticmethod
@@ -39,10 +46,17 @@ class Vec:
         """Build a Vec from a host array, guessing the type if not given."""
         if type is None:
             type = _guess_type(values)
-        if type is VecType.STR:
+        if type in (VecType.STR, VecType.UUID):
             return Vec(None, type,
                        host_values=np.asarray(values, dtype=object))
         dev = resolve_device(device)
+        if type is VecType.TIME and np.asarray(values).dtype.kind == "M":
+            ns = np.asarray(values).astype("datetime64[ns]")
+            ms = ns.astype(np.int64).astype(np.float64) / 1e6
+            ms = np.where(np.isnat(ns), np.nan, ms)
+            offset = float(np.nanmin(ms)) if np.isfinite(ms).any() else 0.0
+            rel = torch.as_tensor((ms - offset).astype(np.float32)).to(dev)
+            return Vec(rel, VecType.TIME, host_values=ms, time_offset=offset)
         if type is VecType.CAT:
             if domain is None:
                 codes, domain = _factorize(values)
@@ -76,14 +90,26 @@ class Vec:
     def is_categorical(self) -> bool:
         return self.type is VecType.CAT
 
+    @property
+    def is_numeric(self) -> bool:
+        return self.type.is_numeric
+
     def cardinality(self) -> int:
         """Number of categorical levels (reference: ``Vec.cardinality()``)."""
         return len(self.domain) if self.domain is not None else -1
 
     def rollups(self) -> Rollups:
         if self._rollups is None:
-            self._rollups = (cat_rollups(self.data) if self.is_categorical
-                             else numeric_rollups(self.data))
+            if self.data is None:
+                # a host column: its count of missing values alone
+                na = int(sum(v is None for v in self.host_values))
+                nan = float("nan")
+                self._rollups = Rollups(self.nrows, na, nan, nan, nan, nan,
+                                        0, False, 0, 0)
+            else:
+                self._rollups = (cat_rollups(self.data)
+                                 if self.is_categorical
+                                 else numeric_rollups(self.data))
         return self._rollups
 
     def mean(self) -> float:
@@ -103,7 +129,10 @@ class Vec:
         return self.rollups().sigma
 
     def to_numpy(self) -> np.ndarray:
+        """The column on the host (a TIME column: exact epoch ms)."""
         if self.data is None:
+            return self.host_values
+        if self.type is VecType.TIME and self.host_values is not None:
             return self.host_values
         return self.data.cpu().numpy()
 

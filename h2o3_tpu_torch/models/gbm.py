@@ -28,14 +28,17 @@ enum; ordinal or label_encoder keep thresholds), with more levels than
 and ``interaction_constraints`` constrain GBM and XGBoost trees.
 
 Distributions: bernoulli, multinomial, gaussian, poisson, gamma, tweedie,
-laplace, quantile and huber, with ``offset_column``. Every tree model
+laplace, quantile, huber and custom (a link/init/gradient/gamma UDF uploaded
+as a zip under a DKV key and named by ``custom_distribution_func``,
+:mod:`h2o3_tpu_torch.utils.udf`: evaluated on whole float64 columns on the
+card, or by the reference's row loop on the host where the UDF cannot
+take tensors; ``output["custom_vectorized"]`` says which), with
+``offset_column``. Every tree model
 reports ``varimp`` (split gains summed per feature) and, with one tree
 set, ``predict_contributions`` (TreeSHAP on the card,
 :mod:`h2o3_tpu_torch.genmodel.treeshap`); a binomial model trained with
 ``calibrate_model`` scores ``cal_p0``/``cal_p1`` through Platt scaling or
-isotonic regression fitted on its ``calibration_frame``. Left for a later
-slice, and refused: the custom distribution, whose class
-``utils/udf.py`` loads from a zip uploaded under a DKV key. A
+isotonic regression fitted on its ``calibration_frame``. A
 ``calibration_frame`` is a Frame or the key of one in the DKV.
 """
 
@@ -59,16 +62,13 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
 from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
                                          compute_bin_edges)
 from h2o3_tpu_torch.utils.registry import DKV
+from h2o3_tpu_torch.utils.udf import linkinv, resolve_distribution
 
 #: the GBM distributions the port trains
 DISTRIBUTIONS = ("bernoulli", "multinomial", "gaussian", "poisson", "gamma",
-                 "tweedie", "laplace", "quantile", "huber")
+                 "tweedie", "laplace", "quantile", "huber", "custom")
 #: the families whose margins are on the log scale
 LOG_LINK = ("poisson", "gamma", "tweedie")
-_CUSTOM_WAITS = ("distribution 'custom' waits for utils/udf.py: it loads "
-                 "the user's python:KEY=module.Class reference from a zip "
-                 "uploaded under a DKV key, and the port has neither the "
-                 "upload nor the loader yet")
 #: the calibration methods (reference ``CalibrationHelper``)
 CALIBRATION_METHODS = ("PlattScaling", "IsotonicRegression")
 
@@ -122,12 +122,14 @@ def _weighted_quantile_host(y: torch.Tensor, w: torch.Tensor,
 
 def _grad_hess(dist: str, F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                quantile_alpha: float = 0.5, huber_alpha: float = 0.9,
-               tweedie_power: float = 1.5):
+               tweedie_power: float = 1.5, custom=None):
     """Per-row (g, h) of the loss at margins F (reference: the
     ``hex/Distribution.java`` families; the non-smooth losses take the
     standard GBM pseudo-residual with a unit hessian, so the leaf is the
     weighted mean pseudo-residual). The hyperparameters enter as float32
-    scalars, as the reference's traced float32 values do."""
+    scalars, as the reference's traced float32 values do. ``custom``: the
+    :class:`~h2o3_tpu_torch.utils.udf.CustomDistribution` of
+    ``dist="custom"``."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=F.device)
     if dist == "bernoulli":
         p = torch.sigmoid(F)
@@ -165,7 +167,10 @@ def _grad_hess(dist: str, F: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         delta = ar[order][idx]
         return w * torch.clamp(r, -delta, delta), w
     if dist == "custom":
-        raise NotImplementedError(_CUSTOM_WAITS)
+        if custom is None:
+            raise ValueError("distribution 'custom' takes its gradients "
+                             "from an uploaded distribution (custom=)")
+        return custom.grad_hess(F, y, w)
     raise ValueError(f"unknown distribution {dist!r}")
 
 
@@ -180,13 +185,15 @@ def _grad_hess_multinomial(F: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
 
 
 def _metric_device(metric: str, dist: str, F: torch.Tensor, y: torch.Tensor,
-                   w: torch.Tensor, nclass: int) -> torch.Tensor:
+                   w: torch.Tensor, nclass: int,
+                   custom_link: str | None = None) -> torch.Tensor:
     """A stopping/score metric as device code, less is better (AUC is
     negated), so that every tree's value stays on the card until the
     stopping rule fetches a chunk of them (reference: ``ScoreKeeper``).
     ``F``: margins ([rows, K] for multinomial); ``dist="drf_prob"`` means
     ``F`` already is the prediction (DRF's averaged probability or mean).
-    AUC credits tied predictions at half, exactly."""
+    AUC credits tied predictions at half, exactly. A custom distribution
+    scores in response space, through its ``custom_link``'s inverse."""
     n = torch.clamp(w.sum(), min=1e-30)
     if nclass > 1:
         prob = F if dist == "drf_prob" else torch.softmax(F, dim=1)
@@ -208,6 +215,8 @@ def _metric_device(metric: str, dist: str, F: torch.Tensor, y: torch.Tensor,
         prob = torch.clamp(F, 0.0, 1.0)
     elif dist in LOG_LINK:
         mu = torch.exp(torch.clamp(F, -30, 30))
+    elif dist == "custom":
+        mu = linkinv(custom_link or "identity", F)
     else:
         mu = F
     if metric in ("AUTO", "deviance", "logloss"):
@@ -443,6 +452,8 @@ class GBMModel(SharedTreeModel):
             return torch.stack([1 - p, p], dim=1)
         if out["distribution"] in LOG_LINK:
             return torch.exp(torch.clamp(f, -30, 30))
+        if out["distribution"] == "custom":
+            return linkinv(out["custom_link"], f)
         return f
 
 
@@ -801,7 +812,9 @@ class GBM(SharedTreeBuilder):
     def defaults(cls) -> dict:
         return dict(super().defaults(), learn_rate=0.1, distribution="AUTO",
                     reg_lambda=0.0, col_sample_rate=1.0, quantile_alpha=0.5,
-                    huber_alpha=0.9, tweedie_power=1.5)
+                    huber_alpha=0.9, tweedie_power=1.5,
+                    # "python:KEY=module.Class" of an uploaded UDF
+                    custom_distribution_func=None)
 
     def _distribution(self, yvec) -> str:
         dist = str(self.params["distribution"])
@@ -819,8 +832,11 @@ class GBM(SharedTreeBuilder):
         if dist == "bernoulli":
             raise ValueError("bernoulli distribution requires a categorical "
                              "(2-level) response")
-        if dist == "custom":
-            raise NotImplementedError(_CUSTOM_WAITS)
+        if dist == "custom" and not self.params.get(
+                "custom_distribution_func"):
+            raise ValueError("distribution='custom' requires "
+                             "custom_distribution_func "
+                             "(h2o.upload_custom_distribution reference)")
         if dist not in DISTRIBUTIONS or dist == "multinomial":
             raise ValueError(f"unsupported distribution {dist!r}; have "
                              f"{', '.join(DISTRIBUTIONS)}, AUTO")
@@ -866,7 +882,11 @@ class GBM(SharedTreeBuilder):
         math as the per-tree tracker (:func:`_metric_device`)."""
         sdist = "multinomial" if nclass > 1 else dist
         metric = self._stopping_metric(sdist, metric)
-        return float(_metric_device(metric, sdist, F, y, w, nclass))
+        return float(_metric_device(metric, sdist, F, y, w, nclass,
+                                    self._custom_link))
+
+    #: the link of the custom distribution being trained (None otherwise)
+    _custom_link = None
 
     def _valid_stop_data(self, edges, nclass: int, f0, lr: float, domains,
                          y_domain, prior_trees=None):
@@ -952,12 +972,13 @@ class GBM(SharedTreeBuilder):
                 self._rounds_grown += 1
                 Fcur = Fcur + lr * (row_leaf if nclass <= 1 else row_leaf.T)
                 pending_t.append(_metric_device(metric, sdist, Fcur, yc, w,
-                                                nclass))
+                                                nclass, self._custom_link))
                 if valid is not None:
                     Fval = step_valid(Fval, trees)
                     pending_v.append(_metric_device(metric, sdist, Fval,
                                                     valid[1], valid[2],
-                                                    nclass))
+                                                    nclass,
+                                                    self._custom_link))
                 job.update(0.1 + 0.8 * (m + 1 - done) / max(M, 1),
                            f"{m + 1}/{ntrees} trees")
             stop_at = None
@@ -1006,6 +1027,17 @@ class GBM(SharedTreeBuilder):
                                         lr, F_start[:, k].contiguous())
                             for k in range(nclass)], dim=1)
 
+    def _custom_distribution(self, dist: str):
+        """The uploaded distribution of ``dist="custom"`` (None for the
+        built-in families), its link kept for the per-tree metric."""
+        if dist != "custom":
+            self._custom_link = None
+            return None
+        custom = resolve_distribution(
+            str(self.params["custom_distribution_func"]))
+        self._custom_link = custom.link_name
+        return custom
+
     def _fit(self, job: Job, frame: Frame, x, y, weights) -> GBMModel:
         p = self.params
         edges, binned, yy, valid, yvec = self._prepare(frame, x, y, weights)
@@ -1024,8 +1056,14 @@ class GBM(SharedTreeBuilder):
             return self._fit_multinomial(job, frame, x, y, w, yc, yvec, edges,
                                          binned, domains, cp)
         self._check_checkpoint(cp, x, dist)
-        f0 = (float(cp.output["f0"]) if cp is not None
-              else self._f0(dist, yy, yc, w, p))
+        custom = self._custom_distribution(dist)
+        oc = p.get("offset_column")
+        if cp is not None:
+            f0 = float(cp.output["f0"])
+        elif custom is not None:
+            f0 = custom.f0(yy, w, _offset(frame, oc) if oc else None)
+        else:
+            f0 = self._f0(dist, yy, yc, w, p)
         lr = float(p["learn_rate"])
         params = self._tree_params()
         binned_T = binned.T.contiguous()   # the histogram kernel reads [F, rows]
@@ -1039,7 +1077,6 @@ class GBM(SharedTreeBuilder):
         cat_feats = self._cat_feats
         Fcur = torch.full((binned.shape[0],), f0, dtype=torch.float32,
                           device=dev)
-        oc = p.get("offset_column")
         if oc:
             # the offset adds to the margins in training and in scoring
             Fcur = Fcur + _offset(frame, oc)
@@ -1061,7 +1098,7 @@ class GBM(SharedTreeBuilder):
         def grow_round(m, F):
             gen = self._tree_generator(dev, m)
             wt = self._row_weights(gen, w, sample_rate, bootstrap=False)
-            g, h = _grad_hess(dist, F, yc, wt, *hp)
+            g, h = _grad_hess(dist, F, yc, wt, *hp, custom=custom)
             fmask = self._sample_fmask(gen, fmask_base, col_tree_rate)
             tree, row_leaf = grow_tree(binned, binned_T, edges, g, h, wt,
                                        params, fmask, col_rate, gen,
@@ -1080,8 +1117,13 @@ class GBM(SharedTreeBuilder):
             self._last_train_raw = torch.stack([1 - pe, pe], dim=1)
         elif dist in LOG_LINK:
             self._last_train_raw = torch.exp(torch.clamp(Fcur, -30, 30))
+        elif custom is not None:
+            self._last_train_raw = linkinv(custom.link_name, Fcur)
         else:
             self._last_train_raw = Fcur
+        extra = {} if custom is None else dict(
+            custom_link=custom.link_name,
+            custom_vectorized=custom.vectorized)
         model = GBMModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
             response_column=y,
@@ -1089,7 +1131,7 @@ class GBM(SharedTreeBuilder):
             output=dict(trees=trees, edges=edges, f0=f0, learn_rate=lr,
                         distribution=dist, x_cols=list(x),
                         feat_domains=domains, ntrees=len(trees),
-                        **self._cat_output()))
+                        **extra, **self._cat_output()))
         self._maybe_calibrate(model)
         return model
 

@@ -175,7 +175,10 @@ class ModelBuilder:
                     # Modulo | Random | Stratified (hex/FoldAssignment.java)
                     fold_assignment="Modulo",
                     fold_column=None,  # per-row fold ids
-                    keep_cross_validation_predictions=False)
+                    keep_cross_validation_predictions=False,
+                    # a callable (preds, y, w) -> value, or the reference
+                    # "python:KEY=module.Class" of an uploaded UDF
+                    custom_metric_func=None)
 
     def _resolve_checkpoint(self) -> Model | None:
         """The ``checkpoint`` parameter as a Model of the port (reference:
@@ -270,6 +273,16 @@ class ModelBuilder:
             if validation_frame is not None and y is not None:
                 model.validation_metrics = model.model_performance(
                     validation_frame)
+            cmf = self._custom_metric(model) if y is not None else None
+            if cmf is not None:
+                self._apply_custom_metric(model, frame, y, w_metrics, cmf,
+                                          model.training_metrics)
+                if validation_frame is not None:
+                    wc = self.params.get("weights_column")
+                    vw = (validation_frame.vec(wc).data
+                          if wc and wc in validation_frame else None)
+                    self._apply_custom_metric(model, validation_frame, y, vw,
+                                              cmf, model.validation_metrics)
             # taken before the fold fits below
             model.scoring_history = self._scoring_history(model)
             if nfolds >= 2 and y is not None:
@@ -292,6 +305,34 @@ class ModelBuilder:
         from h2o3_tpu_torch.orchestration.segments import train_segments
         return train_segments(self, segments, training_frame, y, x=x,
                               segment_models_id=segment_models_id)
+
+    def _custom_metric(self, model: Model):
+        """``custom_metric_func`` as a callable (an uploaded UDF's reference
+        loaded through :mod:`~h2o3_tpu_torch.utils.udf`), or None."""
+        cmf = self.params.get("custom_metric_func")
+        if isinstance(cmf, str):
+            from h2o3_tpu_torch.utils import udf
+            cmf = udf.metric_callable(udf.load_cfunc(cmf),
+                                      udf.parse_ref(cmf)[1], model=model)
+        return cmf
+
+    @staticmethod
+    def _apply_custom_metric(model: Model, frame: Frame, y: str, weights,
+                             fn, mm) -> None:
+        """``fn(predictions, response, weights)`` over ``frame``'s rows of
+        a valid response, on the host, set on the metrics ``mm`` as
+        ``custom_metric_name`` and ``custom_metric_value`` (reference: the
+        custom metric of every scored frame, ``CMetricScoringTask``)."""
+        if mm is None:
+            return
+        raw = model._score_raw(frame)
+        yv, valid = response_adapted(
+            frame.vec(y), model.response_domain if model.is_classifier
+            else None)
+        w = valid.float() if weights is None else weights * valid
+        value = fn(raw.cpu().numpy(), yv.cpu().numpy(), w.cpu().numpy())
+        mm.custom_metric_name = getattr(fn, "__name__", "custom")
+        mm.custom_metric_value = float(value)
 
     def _begin_fit(self, x: list[str], y: str | None,
                    validation_frame: Frame | None) -> None:

@@ -13,7 +13,9 @@ the dropped and new trees (``rate_drop``, ``skip_drop``, ``one_drop``,
 ``normalize_type``); the drops come from ``np.random.default_rng(seed)``
 as in the reference, so the dropped sets are the reference's, and the
 tree weights are baked into the leaves at the end. ``gblinear`` is a
-linear model and raises the reference's error.
+linear model and raises the reference's error. ``gbtree`` trains
+``distribution="custom"`` as GBM does; DART refuses it (the reference's
+DART loop has no custom distribution and fails).
 """
 
 from __future__ import annotations
@@ -23,9 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.models.gbm import (_CUSTOM_WAITS, GBM, GBMModel,
-                                       LOG_LINK, _grad_hess, _offset,
-                                       sigmoid)
+from h2o3_tpu_torch.models.gbm import (GBM, LOG_LINK, GBMModel,
+                                       _grad_hess, _offset, sigmoid)
 from h2o3_tpu_torch.models.model_base import make_model_key
 from h2o3_tpu_torch.models.tree import grow_tree
 
@@ -138,7 +139,10 @@ class XGBoost(GBM):
         elif dist == "AUTO":
             dist = "gaussian"
         elif dist == "custom":
-            raise NotImplementedError(_CUSTOM_WAITS)
+            # the reference's DART loop has no custom distribution (its
+            # gradient call finds none registered and fails)
+            raise ValueError("booster='dart' does not take "
+                             "distribution='custom'; use booster='gbtree'")
         dev = frame.device
         w = weights * valid
         yc = torch.where(w > 0, yy, 0.0)

@@ -27,7 +27,12 @@ def _gather_vec(v: Vec, idx: torch.Tensor, idx_host) -> Vec:
     fill = CAT_NA if v.type is VecType.CAT else float("nan")
     g = v.data[idx.clamp(0, max(v.nrows - 1, 0))]
     g = torch.where(idx < 0, torch.full_like(g, fill), g)
-    return Vec(g, v.type, domain=v.domain)
+    out = Vec(g, v.type, domain=v.domain, time_offset=v.time_offset)
+    if v.type is VecType.TIME and v.host_values is not None:
+        host = idx_host()
+        out.host_values = np.where(
+            host >= 0, v.host_values[np.clip(host, 0, None)], np.nan)
+    return out
 
 
 def gather_rows(frame: Frame, idx) -> Frame:

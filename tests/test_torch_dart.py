@@ -178,6 +178,6 @@ def test_dart_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match="requires a categorical"):
         pxgb.XGBoost(booster="dart", ntrees=2, distribution="bernoulli") \
             .train(y="t", training_frame=fr)
-    with pytest.raises(NotImplementedError, match="DKV"):
+    with pytest.raises(ValueError, match="dart"):
         pxgb.XGBoost(booster="dart", ntrees=2, distribution="custom") \
             .train(y="t", training_frame=fr)

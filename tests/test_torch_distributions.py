@@ -76,9 +76,32 @@ def test_grad_hess_matches_reference(dist):
 
 
 def test_custom_distribution_waits_for_udf():
-    with pytest.raises(NotImplementedError, match="custom"):
+    """The "custom" distribution takes its (g, h) from the uploaded one it is
+    given, and raises without one."""
+    with pytest.raises(ValueError, match="custom"):
         pgbm._grad_hess("custom", torch.zeros(3), torch.zeros(3),
                         torch.ones(3))
+
+    class Gauss:
+        def link(self):
+            return "identity"
+
+        def init(self, w, o, y):
+            return [w * (y - o), w]
+
+        def gradient(self, y, f):
+            return y - f
+
+        def gamma(self, w, y, z, f):
+            return [w * z, w]
+
+    from h2o3_tpu_torch.utils.udf import CustomDistribution
+    F, y = torch.tensor([0.5, -1.0, 2.0]), torch.tensor([1.0, 0.0, 2.5])
+    w = torch.tensor([1.0, 2.0, 0.0])
+    g, h = pgbm._grad_hess("custom", F, y, w,
+                           custom=CustomDistribution(Gauss(), "gauss"))
+    torch.testing.assert_close(g, torch.tensor([-0.5, -2.0, 0.0]))
+    torch.testing.assert_close(h, torch.tensor([1.0, 2.0, 1e-10]))
 
 
 def _trees_equal(jtrees, ptrees):

@@ -243,8 +243,7 @@ def test_max_iterations_rules(cols):
     (dict(nfolds=3, keep_cross_validation_predictions=True,
           checkpoint="glm_1"), NotImplementedError, "checkpoint"),
     (dict(max_runtime_secs=10.0), ValueError, "max_runtime_secs"),
-    (dict(custom_metric_func="python:k=m.C"), ValueError,
-     "custom_metric_func"),
+    (dict(custom_metric_func="python:k=m.C"), KeyError, "UDF key 'k'"),
     (dict(solver="L_BFGS"), NotImplementedError, "L_BFGS"),
     (dict(checkpoint="glm_1"), NotImplementedError, "checkpoint"),
     (dict(missing_values_handling="PlugValues", plug_values="key"),

@@ -84,3 +84,15 @@ def test_the_probe_covers_the_dkv_and_orchestration():
                 "parallel_build", "scheduler", "grid", "leaderboard",
                 "stacked_ensemble", "automl", "segments"))} \
         <= set(_port_modules())
+
+
+def test_the_probe_covers_the_text_path_and_udfs():
+    """The text path's modules (the parser and its native loader, the
+    frame utilities, the string functions, tokenize, Word2Vec, Grep) and
+    the UDF loader are among the modules the probe imports."""
+    assert {"h2o3_tpu_torch.frame.parse", "h2o3_tpu_torch.frame.native_csv",
+            "h2o3_tpu_torch.frame.utils", "h2o3_tpu_torch.rapids.strings",
+            "h2o3_tpu_torch.rapids.advprims",
+            "h2o3_tpu_torch.models.word2vec",
+            "h2o3_tpu_torch.models.grep_algo",
+            "h2o3_tpu_torch.utils.udf"} <= set(_port_modules())
