@@ -198,6 +198,28 @@ Phases, each of which fails the run on error:
    (bit for bit), the row loop's time a tree on 10,000 rows, and the MAE
    custom metric on the host at 1M rows; (h) the kernel at (e)'s level
    shapes (K = 6, F = 100).
+15. the Rapids munging layer as H2O-3's "Data Manipulation" docs use it
+   (no kernel of its own: sorts, scatter reductions, gathers and scans
+   are torch operations; the GBM launches the histogram kernels, held to
+   the plan of its trees), on phase 7's 10M-row frame: (a) a group-by on
+   Origin (count, sum of the label, mean, sd and median of Distance, min
+   and max of DepTime) and one on (Month, UniqueCarrier) (mean, first,
+   last); (b) a merge (``all_x``) with an airport table made from a seed
+   (about 5% of the airports missing, a 50-level state, an elevation with
+   NAs); (a) and (b) profiled for the idle share and timed under the sync
+   counter; (c) sorts by (Origin, DepTime) and by Distance descending;
+   (d) Rapids strings over the DKV-keyed merged frame: tmp= columns made
+   with intDiv, ifelse and cut, a forward fillna with maxlen 3, the
+   elevation imputed by its state's mean, a cumsum over the sorted frame,
+   the quantiles of the 20M-row rbind (above torch's 2^24-element limit,
+   equal to numpy's float64 quantiles), table, unique, ranks within
+   groups, a 5-fold column and a runif 80/20 split; (e) a GBM (20 trees,
+   depth 6, 64 bins) on the munged split with the new columns, validated
+   on the 20%, profiled on 2 trees, its launches by level shape, then
+   PermutationVarImp and makeLeaderboard through the engine on 100k
+   validation rows; (f) (a)-(d) on a 200k-row head on the CPU and on the
+   card, exact but for float sums, and a 5-tree GBM on the heads' splits
+   held as phase 3's.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -206,8 +228,9 @@ levels it takes); the last line is
 ``{"ok": true, "device": {...}}``; phase 8's numbers are the ``glm`` JSON
 line, phase 9's the ``tree_family`` line, phase 10's the
 ``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
-12's the ``cv_explain`` line, phase 13's the ``orchestration`` line and
-phase 14's the ``text`` line before the ``kernels`` line. Without a CUDA
+12's the ``cv_explain`` line, phase 13's the ``orchestration`` line,
+phase 14's the ``text`` line and phase 15's the ``munge`` line before the
+``kernels`` line. Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -2530,17 +2553,10 @@ def tree_family_dart(fr) -> dict:
 
 def device_ops(fn) -> tuple:
     """``fn()`` once under torch.profiler: (its device ops, their device
-    ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    cuda = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in cuda),
-            sum(e.device_time_total for e in cuda) / 1e3)
+    ms), summed from the trace's raw events (:func:`device_events`; the
+    profiler's own averages take seconds to build at 10^4-10^5 events)."""
+    ops = device_events(fn)
+    return sum(n for _, _, n in ops), sum(ms for _, ms, _ in ops)
 
 
 def tree_family_shap(fr) -> dict:
@@ -5463,6 +5479,320 @@ def phase_text(fr) -> dict:
     return out
 
 
+# -- phase 15: the Rapids munging layer ------------------------------------
+
+#: phase 15 follows H2O-3's "Data Manipulation" docs (group-by, merging,
+#: sorting, imputing, slicing) on phase 7's airlines-shaped frame
+MUNGE_SEED = 151
+MUNGE_STATES = 50
+MUNGE_CPU_ROWS = 200_000
+MUNGE_QPROBS = [0.001, 0.01, 0.25, 0.5, 0.75, 0.99, 0.999]
+MUNGE_GBM = dict(ntrees=20, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                 seed=1)
+MUNGE_CROSS_TREES = 5
+MUNGE_X = AIRLINE_X + ["state", "elevation", "hour", "late", "band"]
+MUNGE_VALID_HEAD = 100_000
+
+
+def airports_frame(device):
+    """15b's airport table from a seed, as a parsed lookup CSV would give
+    it: one row per Origin level with about 5% of the airports left out
+    (the domain holds the levels present), a 50-level categorical
+    ``state`` and ``elevation`` in feet with about 10% missing."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.types import VecType
+    from h2o3_tpu_torch.frame.vec import Vec
+    rng = np.random.default_rng(MUNGE_SEED)
+    dom = _airline_domain("Origin", AIRLINE_CATS["Origin"])
+    kept = tuple(d for d in dom if rng.random() >= 0.05)
+    n = len(kept)
+    elev = np.round(rng.gamma(2.0, 400.0, n)).astype(np.float32)
+    elev[rng.random(n) < 0.1] = np.nan
+    states = tuple(f"S{i:02d}" for i in range(MUNGE_STATES))
+    return Frame(["Origin", "state", "elevation"], [
+        Vec(torch.arange(n, dtype=torch.int32, device=device), VecType.CAT,
+            domain=kept),
+        Vec(torch.from_numpy(rng.integers(0, MUNGE_STATES, n).astype(
+            np.int32)).to(device), VecType.CAT, domain=states),
+        Vec(torch.from_numpy(elev).to(device), VecType.NUM)])
+
+
+def munge_steps(air, airports, step) -> dict:
+    """15a-15d on ``air`` (an airlines-shaped frame) and ``airports``: each
+    step through ``step(name, rows, fn)``, which runs and times it. The
+    engine's strings are h2o-py's wire forms over DKV keys."""
+    from h2o3_tpu_torch.rapids import munge, rapids
+    from h2o3_tpu_torch.rapids.exec import Session
+    from h2o3_tpu_torch.utils.registry import DKV
+    n = air.nrows
+    r = {}
+    r["by_origin"] = step("15a group-by Origin", n, lambda: munge.group_by(
+        air, "Origin", [("nrow", "Origin"), ("sum", AIRLINE_Y),
+                        ("mean", "Distance"), ("sd", "Distance"),
+                        ("median", "Distance"), ("min", "DepTime"),
+                        ("max", "DepTime")]))
+    r["by_month_carrier"] = step(
+        "15a group-by Month, UniqueCarrier", n, lambda: munge.group_by(
+            air, ["Month", "UniqueCarrier"],
+            [("mean", "DepTime"), ("first", "Distance"),
+             ("last", "Distance")]))
+    merged = r["merged"] = step("15b merge all_x", n, lambda: air.merge(
+        airports, all_x=True))
+    r["perm_origin_dep"] = step(
+        "15c sort perm Origin, DepTime", n,
+        lambda: munge.sort_perm(merged, ["Origin", "DepTime"], True))
+    srt = step("15c sort Origin, DepTime", n,
+               lambda: merged.sort(["Origin", "DepTime"]))
+    r["perm_distance_desc"] = step(
+        "15c sort perm Distance descending", n,
+        lambda: munge.sort_perm(merged, ["Distance"], False))
+    DKV.put("merged", merged)
+    DKV.put("srt", srt)
+    s = Session()
+
+    def e(expr):
+        return step(f"  15d {expr[:44]}", n, lambda: rapids(expr, s))
+
+    def engine():
+        out = {}
+        for name, expr in (
+                ("hour", "(intDiv (cols merged 'DepTime') 100)"),
+                ("late", "(ifelse (>= (cols merged 'DepTime') 1800) 1 0)"),
+                ("band", "(cut (cols merged 'Distance') "
+                         "[0 250 500 1000 2000 5000])")):
+            e(f"(tmp= {name} {expr})")
+            out[name] = e(f"(colnames= {name} [0] ['{name}'])")
+        out["fill"] = e("(h2o.fillna (cols merged ['elevation']) 'forward' "
+                        "0 3)")
+        munged = out["munged"] = e("(tmp= munged (cbind merged hour late "
+                                   "band))")
+        step("  15d impute by state", n, lambda: munged.impute(
+            "elevation", "mean", by=["state"]))
+        out["cumsum"] = e("(cumsum (cols srt 'Distance'))")
+        out["quantile"] = e("(quantile (rbind munged munged) "
+                            f"[{' '.join(map(str, MUNGE_QPROBS))}])")
+        out["table"] = e("(table (cols munged ['state']))")
+        out["unique"] = e("(unique (cols munged 'UniqueCarrier'))")
+        io, idep = munged.names.index("Origin"), munged.names.index(
+            "DepTime")
+        out["rank"] = e(f"(rank_within_groupby munged [{io}] [{idep}] [1] "
+                        "'rank' 0)").vec("rank")
+        out["fold"] = e("(kfold_column munged 5 42)")
+        out["rnd"] = e("(tmp= rnd (h2o.runif munged 1234))")
+        out["train"] = e("(tmp= train (rows munged (< rnd 0.8)))")
+        out["valid"] = e("(tmp= valid (rows munged (>= rnd 0.8)))")
+        return out
+    r.update(step("15d the engine's strings", n, engine))
+    del srt
+    return r
+
+
+def munge_check_card(r, n: int) -> dict:
+    """What 15a-15d must give on the full frame: every row merged, the
+    impute leaving no NA, the split 80/20, and the quantiles of the 2n-row
+    rbind equal to numpy's float64 TYPE_7 quantiles of the same values
+    (rtol 1e-7 on the float32 results)."""
+    merged, munged = r["merged"], r["munged"]
+    if merged.nrows != n or munged.nrows != n:
+        raise AssertionError(f"15b merge: {merged.nrows} rows of {n}")
+    miss = int((merged.vec("state").data < 0).sum())
+    na_elev = int(torch.isnan(munged.vec("elevation").data).sum())
+    if na_elev or not 0 < miss < n // 5:
+        raise AssertionError(f"15d impute: {na_elev} NA left; {miss} rows "
+                             "without an airport")
+    qmax = 0.0
+    for c in ("Distance", "DepTime"):
+        x = munged.vec(c).data.cpu().numpy().astype(np.float64)
+        want = np.quantile(np.concatenate([x, x]), MUNGE_QPROBS)
+        got = r["quantile"].vec(c).to_numpy().astype(np.float64)
+        err = float(np.max(np.abs(got - want.astype(np.float32))
+                           / np.abs(want)))
+        if not err <= 1e-7:
+            raise AssertionError(f"15d quantile of {c}: {got} against "
+                                 f"numpy's {want}")
+        qmax = max(qmax, err)
+    tr, va = r["train"].nrows, r["valid"].nrows
+    if tr + va != n or abs(tr / n - 0.8) > 0.01:
+        raise AssertionError(f"15d split: {tr} + {va} of {n}")
+    print(f"  15b {miss} rows without an airport (state NA); 15d quantile "
+          f"of the {2 * n}-row rbind within {qmax:.2e} of numpy's float64; "
+          f"split {tr} / {va}")
+    return dict(rows_without_airport=miss, quantile_rel_err=qmax,
+                train_rows=tr, valid_rows=va)
+
+
+def munge_gbm_part(train, valid) -> tuple:
+    """15e: a GBM (20 trees, depth 6, 64 bins, learn rate 0.1) on the
+    munged split with the new columns among its features, validated on
+    the 20%: warmed up, profiled on 2 trees, timed under the sync counter,
+    its launches by level shape counted and held to the plan; then
+    PermutationVarImp and makeLeaderboard through the engine on the first
+    100k validation rows."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.rapids import rapids
+    from h2o3_tpu_torch.utils.registry import DKV
+
+    def fit(nt):
+        return lambda: GBM(**dict(MUNGE_GBM, ntrees=nt)).train(
+            x=MUNGE_X, y=AIRLINE_Y, training_frame=train,
+            validation_frame=valid)
+
+    fit(2)()
+    with count_shapes() as shapes:
+        model, res = timed_fit(
+            f"15e GBM on {train.nrows} x {len(MUNGE_X)} (validation "
+            f"{valid.nrows})", fit(MUNGE_GBM["ntrees"]),
+            train.nrows * MUNGE_GBM["ntrees"], "rows*trees",
+            before_timed=lambda: (reset_kernel_counts(), shapes.clear()),
+            sample=("2 trees", fit(2)))
+    plan, trees = model_plan([model])
+    res.update(hold_launches("15e GBM", plan, trees))
+    res["by_shape"] = {f"{b}x{nn}": c for (b, nn), c in sorted(
+        shapes.items())}
+    auc = model.validation_metrics.auc
+    if not auc > 0.6:
+        raise AssertionError(f"15e GBM: validation AUC {auc}")
+    DKV.put("valid100k", head(valid, MUNGE_VALID_HEAD))
+    t0 = time.perf_counter()
+    pvi = rapids(f"(PermutationVarImp {model.key} valid100k 'auc' -1 1 [] "
+                 "42)")
+    lb = rapids(f"(makeLeaderboard ['{model.key}'] valid100k 'auc' [] "
+                "'AUTO')")
+    torch.cuda.synchronize()
+    res["prims_s"] = time.perf_counter() - t0
+    want = model.model_performance(DKV["valid100k"]).auc
+    got = float(lb.vec("auc").to_numpy()[0])
+    if pvi.nrows != len(MUNGE_X) or abs(got - want) > 1e-6:
+        raise AssertionError(f"15e prims: {pvi.nrows} importances, "
+                             f"leaderboard AUC {got} against {want}")
+    top = list(pvi.vec("Variable").host_values[:3])
+    res.update(valid_auc=auc, leaderboard_auc=got, top_importance=top)
+    print(f"  validation AUC {auc:.6f}; PermutationVarImp + makeLeaderboard "
+          f"on {MUNGE_VALID_HEAD} rows {res['prims_s']:.3f} s, top "
+          f"{top}; launches by (bins x nodes) {res['by_shape']}")
+    return model, res
+
+
+def frames_alike(what: str, a, b, rtol: float = 0.0) -> None:
+    """Two frames (or columns) alike on the host: names, types, domains and
+    values exactly (NaN where NaN), or within rtol."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    if not isinstance(a, Frame):
+        a = Frame(["v"], [a])
+        b = Frame(["v"], [b])
+    if a.names != b.names or a.nrows != b.nrows:
+        raise AssertionError(f"{what}: {a} against {b}")
+    for n, u, v in zip(a.names, a.vecs, b.vecs):
+        if u.type is not v.type or u.domain != v.domain:
+            raise AssertionError(f"{what}: column {n} {u} against {v}")
+        x = np.asarray(u.to_numpy(), np.float64)
+        y = np.asarray(v.to_numpy(), np.float64)
+        ok = np.array_equal(x, y, equal_nan=True) if not rtol else \
+            np.allclose(x, y, rtol=rtol, atol=0, equal_nan=True)
+        if not ok:
+            raise AssertionError(f"{what}: column {n} differs (rtol {rtol})")
+
+
+def munge_cross(air_fr) -> dict:
+    """15f: 15a-15d on the first 200k rows built on the CPU and on the
+    card: group keys, counts, medians, minima, maxima, first and last, the
+    merged rows, sort orders, the tmp= columns, filled and imputed cells,
+    quantiles, table, unique, ranks, the fold and runif columns and the
+    split equal
+    exactly; means and sds (float64 sums in another order) within rtol
+    1e-6; the cumsum (float32 scans of another shape) within 1e-4. Then a
+    5-tree GBM of 15e's settings on the two train splits, held as phase
+    3's airlines GBM (:func:`cross_device_ties`)."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.utils.registry import DKV
+    card = head(air_fr, MUNGE_CPU_ROWS)
+    out = {}
+    for dev, fr in (("cuda", card), ("cpu", frame_on(card, "cpu"))):
+        t0 = time.perf_counter()
+        out[dev] = munge_steps(fr, airports_frame(dev),
+                               lambda name, rows, fn: fn())
+        DKV.clear()
+        print(f"15f steps on {MUNGE_CPU_ROWS} rows on {dev}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    a, b = out["cpu"], out["cuda"]
+    for k, floats in (("by_origin", ["mean_Distance", "sd_Distance"]),
+                      ("by_month_carrier", ["mean_DepTime"])):
+        exact = [c for c in a[k].names if c not in floats]
+        frames_alike(f"15f {k}", a[k][exact], b[k][exact])
+        frames_alike(f"15f {k}", a[k][floats], b[k][floats], rtol=1e-6)
+    for k in ("merged", "hour", "late", "band", "fill", "munged",
+              "quantile", "table", "unique", "rank", "fold", "rnd", "train",
+              "valid"):
+        frames_alike(f"15f {k}", a[k], b[k])
+    for k in ("perm_origin_dep", "perm_distance_desc"):
+        if not torch.equal(a[k], b[k].cpu()):
+            raise AssertionError(f"15f {k} differs")
+    frames_alike("15f cumsum", a["cumsum"], b["cumsum"], rtol=1e-4)
+    trains = {"cpu": a["train"], "cuda": b["train"]}
+    launches = cross_device_ties(
+        f"15f GBM {MUNGE_CROSS_TREES} trees on the {trains['cpu'].nrows}"
+        "-row munged split", lambda dev: trains[dev],
+        lambda: GBM(**dict(MUNGE_GBM, ntrees=MUNGE_CROSS_TREES)), MUNGE_X,
+        AIRLINE_Y, "auc", DEPTH)
+    print("15f CPU against the card: every step alike")
+    return dict(rows=MUNGE_CPU_ROWS, gbm_launches=launches)
+
+
+def phase_munge(air_fr) -> dict:
+    """Phase 15: the Rapids munging layer at full width on phase 7's
+    10M-row airlines-shaped frame: group-by (profiled), merge (profiled),
+    sort, the engine's strings over the DKV-keyed merged frame, a GBM on
+    the munged split with the model prims through the engine, and the CPU
+    against the card on a 200k-row head."""
+    from h2o3_tpu_torch.utils.registry import DKV
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    airports = airports_frame("cuda")
+    n = air_fr.nrows
+    out = {"steps": {}}
+
+    def step(name, rows, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        out["steps"][name] = dict(seconds=s, rows_per_s=rows / s)
+        print(f"{name}: {s:.4f} s, {rows / s:.6g} rows/s")
+        return res
+
+    from h2o3_tpu_torch.rapids import munge
+    for what, fn in (
+            ("15a group-by Origin (7 aggregates)", lambda: munge.group_by(
+                air_fr, "Origin", [("nrow", "Origin"), ("sum", AIRLINE_Y),
+                                   ("mean", "Distance"), ("sd", "Distance"),
+                                   ("median", "Distance"),
+                                   ("min", "DepTime"), ("max", "DepTime")])),
+            ("15b merge all_x with the airport table",
+             lambda: air_fr.merge(airports, all_x=True))):
+        _, out[what[:3]] = timed_fit(what, fn, n, "rows")
+    r = munge_steps(air_fr, airports, step)
+    out["check"] = munge_check_card(r, n)
+    DKV.clear()
+    train, valid = r["train"], r["valid"]
+    del r
+    torch.cuda.empty_cache()
+    _, out["gbm"] = munge_gbm_part(train, valid)
+    del train, valid
+    DKV.clear()
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    out["cross"] = munge_cross(air_fr)
+    out["cross_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card_name()
+    print(f"phase 15: {out['seconds']:.1f} s (the CPU against the card "
+          f"{out['cross_s']:.1f} s); peak device memory "
+          f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -5522,6 +5852,8 @@ def main() -> int:
     orchestration = phase_orchestration(fr, air_fr)
     drop_models()
     text = phase_text(fr)
+    drop_models()
+    munging = phase_munge(air_fr)
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
@@ -5623,6 +5955,13 @@ def main() -> int:
         text["gbm"]["launches"], text["kernel_times"]["err"],
         text["kernel_times"]["times"], path="text_gbm_k6",
         node_totals=text["gbm"]["node_totals"]))
+    # phase 15: the GBM on the munged split (13 features, 8M rows), timed
+    # at phase 7's airlines levels (8 features, 10M rows)
+    mg = munging["gbm"]
+    kernels.append(kernel_entry(
+        mg["launches"], air_err, air_times, path="munge_gbm",
+        node_totals=mg["node_totals"], launches_by_shape=mg["by_shape"],
+        timed_at="the airlines GBM's levels (phase 7), not this path's fit"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -5637,6 +5976,7 @@ def main() -> int:
         default=float))
     print(json.dumps({"text": {k: v for k, v in text.items()
                                if k != "kernel_times"}}, default=float))
+    print(json.dumps({"munge": munging}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@
 
 All on-device columns of a Frame live on one device and carry no padding;
 host-resident string columns sit beside them. :meth:`Frame.from_pandas`
-and :meth:`Frame.to_pandas` convert from and to pandas. The reference's
-mesh views, DKV registration, Cleaner and compression are left out.
+and :meth:`Frame.to_pandas` convert from and to pandas; the munging
+methods (sort, group_by, merge, ...) call :mod:`h2o3_tpu_torch.rapids`.
+The reference's mesh views, DKV registration, Cleaner and compression are
+left out.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -135,22 +137,152 @@ class Frame:
     def types(self) -> dict[str, str]:
         return {n: str(v.type) for n, v in zip(self.names, self.vecs)}
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.nrows, self.ncols)
+
     def vec(self, col: int | str) -> Vec:
+        return self.vecs[self._index(col)]
+
+    def _index(self, col: int | str) -> int:
         if isinstance(col, (int, np.integer)):
-            return self.vecs[int(col)]
+            return int(col)
         try:
-            return self.vecs[self.names.index(col)]
+            return self.names.index(col)
         except ValueError:
             raise KeyError(f"no column {col!r}; have {self.names}") from None
 
+    def __getitem__(self, sel):
+        """A column (by name or index) or a list of them as a new Frame, or
+        the rows where a Vec is truthy (reference: ``AstRowSlice``)."""
+        if isinstance(sel, (str, int, np.integer)):
+            i = self._index(sel)
+            return Frame([self.names[i]], [self.vecs[i]])
+        if isinstance(sel, (list, tuple)):
+            idxs = [self._index(c) for c in sel]
+            return Frame([self.names[i] for i in idxs],
+                         [self.vecs[i] for i in idxs])
+        if isinstance(sel, Vec):
+            return self.filter(sel)
+        raise TypeError(f"unsupported selector {sel!r}")
+
     def __contains__(self, name: str) -> bool:
         return name in self.names
+
+    def add(self, name: str, vec: Vec) -> "Frame":
+        """Append a column in place."""
+        if self.vecs and vec.nrows != self.nrows:
+            raise ValueError("row count mismatch")
+        if name in self.names:
+            raise ValueError(f"duplicate column name: {name!r}")
+        self.names.append(name)
+        self.vecs.append(vec)
+        return self
+
+    def remove(self, col: int | str) -> Vec:
+        """Take a column out in place and return it."""
+        i = self._index(col)
+        self.names.pop(i)
+        return self.vecs.pop(i)
+
+    def replace_vec(self, col: int | str, vec: Vec) -> "Frame":
+        """Replace a column's Vec in place (impute, transforms)."""
+        if self.vecs and vec.nrows != self.nrows:
+            raise ValueError("row count mismatch")
+        self.vecs[self._index(col)] = vec
+        return self
+
+    def subframe(self, cols: Iterable[str]) -> "Frame":
+        return self[list(cols)]
+
+    def matrix(self, cols: Sequence[str] | None = None) -> torch.Tensor:
+        """On-device columns stacked into a [nrows, k] float32 tensor
+        (categorical codes as floats, NaN for missing)."""
+        cols = list(cols) if cols is not None else [
+            n for n, v in zip(self.names, self.vecs) if v.data is not None]
+        arrs = []
+        for c in cols:
+            v = self.vec(c)
+            if v.data is None:
+                raise TypeError(f"column {c!r} of type {v.type} has no "
+                                "device data")
+            arrs.append(v.as_float())
+        if not arrs:
+            return torch.empty(self.nrows, 0, device=self.device)
+        return torch.stack(arrs, dim=1)
 
     def row_mask(self) -> torch.Tensor:
         """Boolean [nrows] mask of logical rows: all True, since the port's
         columns carry no padding (kept so row-weight code reads as in the
         reference)."""
         return torch.ones(self.nrows, dtype=torch.bool, device=self.device)
+
+    def head(self, n: int = 10):
+        """The first ``n`` rows as a pandas DataFrame."""
+        from h2o3_tpu_torch.rapids.munge import gather_rows
+        idx = torch.arange(min(n, self.nrows), device=self.device)
+        return gather_rows(self, idx).to_pandas()
+
+    # -- munging (the rapids layer; h2o-py H2OFrame's methods) ---------------
+
+    def sort(self, by, ascending=True) -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.sort(self, by, ascending)
+
+    def group_by(self, by):
+        from h2o3_tpu_torch.rapids import GroupBy
+        return GroupBy(self, by)
+
+    def merge(self, other: "Frame", by=None, all_x: bool = False,
+              all_y: bool = False) -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.merge(self, other, by=by, all_x=all_x, all_y=all_y)
+
+    def filter(self, mask) -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.filter_rows(self, mask)
+
+    def rbind(self, *others: "Frame") -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.rbind(self, *others)
+
+    def cbind(self, *others: "Frame") -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.cbind(self, *others)
+
+    def split_frame(self, ratios=(0.75,), destination_frames=None,
+                    seed: int = -1) -> list["Frame"]:
+        from h2o3_tpu_torch.frame.utils import split_frame
+        return split_frame(self, ratios, destination_frames, seed)
+
+    def unique(self, cols=None) -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.unique(self, cols)
+
+    def pivot(self, index: str, column: str, value: str,
+              agg: str = "mean") -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.pivot(self, index, column, value, agg)
+
+    def melt(self, id_vars, value_vars=None, **kw) -> "Frame":
+        from h2o3_tpu_torch.rapids import munge
+        return munge.melt(self, id_vars, value_vars, **kw)
+
+    def quantile(self, probs=(0.001, 0.01, 0.1, 0.25, 0.333, 0.5, 0.667,
+                              0.75, 0.9, 0.99, 0.999)) -> "Frame":
+        from h2o3_tpu_torch.rapids import ops
+        return ops.quantile(self, probs)
+
+    def impute(self, column: str, method: str = "mean", by=None) -> "Frame":
+        from h2o3_tpu_torch.rapids import ops
+        return ops.impute(self, column, method, by)
+
+    def scale(self, center: bool = True, scale: bool = True) -> "Frame":
+        from h2o3_tpu_torch.rapids import ops
+        return ops.scale(self, center, scale)
+
+    def __len__(self) -> int:
+        return self.nrows
 
     def __repr__(self) -> str:
         return f"Frame({self.nrows} rows x {self.ncols} cols: {self.names})"

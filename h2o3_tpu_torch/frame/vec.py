@@ -7,7 +7,10 @@ has no tensor: its values stay on the host as an object array (None =
 missing). A time column (``VecType.TIME``) holds float32 milliseconds
 relative to ``time_offset`` on the device (epoch milliseconds overflow a
 float32 mantissa) and the exact float64 epoch milliseconds on the host.
-The reference's mesh sharding and compression are left out.
+The element-wise operators (arithmetic, comparisons, ``& | ~``) give
+float32 NUM columns with NaN where an operand is missing, as the
+reference's do. The reference's mesh sharding and compression are left
+out.
 """
 
 from __future__ import annotations
@@ -152,9 +155,140 @@ class Vec:
             return torch.where(self.data < 0, torch.nan, self.data.float())
         return self.data
 
+    def __len__(self) -> int:
+        return self.nrows
+
     def __repr__(self) -> str:
         dom = f", card={self.cardinality()}" if self.is_categorical else ""
         return f"Vec({self.type}, nrows={self.nrows}{dom})"
+
+    # -- element-wise operators (reference: water/rapids/ast/prims/operators/)
+    #
+    # Results are NUM Vecs on the column's device; NA propagates through NaN
+    # arithmetic. Comparisons give 0.0/1.0, NaN where an operand is NA.
+
+    def _operand(self, other):
+        if isinstance(other, Vec):
+            if other.nrows != self.nrows:
+                raise ValueError("Vec length mismatch")
+            o = other.as_float()
+            # a TIME column's device data is relative to its own offset:
+            # align the operand into this column's frame
+            if self.type is VecType.TIME or other.type is VecType.TIME:
+                o = o + (other.time_offset - self.time_offset)
+            return o
+        if isinstance(other, str):
+            if not self.is_categorical:
+                raise TypeError("string comparand requires a categorical Vec")
+            try:
+                return float(self.domain.index(other))
+            except ValueError:
+                return float("nan")   # unknown level: matches nothing
+        o = float(other)
+        if self.type is VecType.TIME:
+            o = o - self.time_offset   # scalars are absolute epoch ms
+        return o
+
+    def _time_pair_host(self, other):
+        """Both-TIME operand pair as exact float64 host ms, or None: a
+        25-year offset difference overflows the float32 relative values,
+        so TIME-TIME arithmetic runs on the exact host payload."""
+        if (isinstance(other, Vec) and self.type is VecType.TIME
+                and other.type is VecType.TIME
+                and self.host_values is not None
+                and other.host_values is not None):
+            return (np.asarray(self.host_values, np.float64),
+                    np.asarray(other.host_values, np.float64))
+        return None
+
+    def _ew(self, other, fn, host_fn, swap: bool = False):
+        pair = self._time_pair_host(other)
+        if pair is not None:
+            a, o = pair
+            out = np.asarray(host_fn(o, a) if swap else host_fn(a, o),
+                             np.float32)
+            return Vec.from_numpy(out, type=VecType.NUM, device=self.device)
+        o = self._operand(other)
+        a = self.as_float()
+        if swap:
+            if not isinstance(o, torch.Tensor):
+                o = torch.full_like(a, o)
+            out = fn(o, a)
+        else:
+            out = fn(a, o)
+        return Vec(out.to(torch.float32), VecType.NUM)
+
+    def __add__(self, o): return self._ew(o, torch.add, np.add)
+    def __radd__(self, o): return self._ew(o, torch.add, np.add)
+    def __sub__(self, o): return self._ew(o, torch.sub, np.subtract)
+    def __rsub__(self, o): return self._ew(o, torch.sub, np.subtract, True)
+    def __mul__(self, o): return self._ew(o, torch.mul, np.multiply)
+    def __rmul__(self, o): return self._ew(o, torch.mul, np.multiply)
+    def __truediv__(self, o): return self._ew(o, torch.div, np.divide)
+
+    def __rtruediv__(self, o):
+        return self._ew(o, torch.div, np.divide, True)
+
+    def __pow__(self, o): return self._ew(o, torch.pow, np.power)
+    def __rpow__(self, o): return self._ew(o, torch.pow, np.power, True)
+    def __mod__(self, o): return self._ew(o, torch.remainder, np.mod)
+
+    def __rmod__(self, o):
+        return self._ew(o, torch.remainder, np.mod, True)
+
+    def __floordiv__(self, o):
+        return self._ew(o, floor_divide, np.floor_divide)
+
+    def __rfloordiv__(self, o):
+        return self._ew(o, floor_divide, np.floor_divide, True)
+
+    def __neg__(self): return self._ew(-1.0, torch.mul, np.multiply)
+
+    def _cmp(self, other, fn):
+        pair = self._time_pair_host(other)
+        if pair is not None:
+            a, o = pair
+            out = np.where(np.isnan(a) | np.isnan(o), np.nan,
+                           np.asarray(fn(a, o), np.float32))
+            return Vec.from_numpy(out.astype(np.float32), type=VecType.NUM,
+                                  device=self.device)
+        o = self._operand(other)
+        a = self.as_float()
+        valid = ~torch.isnan(a)
+        if isinstance(o, torch.Tensor):
+            valid = valid & ~torch.isnan(o)
+        out = torch.where(valid, fn(a, o).to(torch.float32), torch.nan)
+        return Vec(out, VecType.NUM)
+
+    def __lt__(self, o): return self._cmp(o, lambda a, b: a < b)
+    def __le__(self, o): return self._cmp(o, lambda a, b: a <= b)
+    def __gt__(self, o): return self._cmp(o, lambda a, b: a > b)
+    def __ge__(self, o): return self._cmp(o, lambda a, b: a >= b)
+    def __eq__(self, o): return self._cmp(o, lambda a, b: a == b)
+    def __ne__(self, o): return self._cmp(o, lambda a, b: a != b)
+    __hash__ = object.__hash__   # __eq__ returns a Vec, not a bool
+
+    def __and__(self, o):
+        return self._cmp(o, lambda a, b: (a != 0) & (b != 0))
+
+    def __or__(self, o):
+        return self._cmp(o, lambda a, b: (a != 0) | (b != 0))
+
+    def __invert__(self): return self._cmp(0.0, lambda a, b: a == b)
+
+    def isna(self) -> "Vec":
+        """1.0 where the value is missing."""
+        return Vec(torch.isnan(self.as_float()).to(torch.float32),
+                   VecType.NUM)
+
+
+def floor_divide(a: torch.Tensor, b) -> torch.Tensor:
+    """Float floor division as ``jnp.floor_divide``: NaN where the divisor
+    (a tensor or a number) is 0, where ``torch.floor_divide`` gives ±inf."""
+    if not isinstance(b, torch.Tensor):
+        return torch.full_like(a, torch.nan) if b == 0 else \
+            torch.floor_divide(a, b)
+    return torch.where(b == 0, torch.nan, torch.floor_divide(a, b))
 
 
 def _guess_type(values: np.ndarray) -> VecType:

@@ -100,7 +100,7 @@ class Model:
         raw = self._score_raw(frame)
         if not self.is_classifier:
             return Frame(["predict"], [Vec.from_device(raw, VecType.NUM)])
-        labels = decision_labels(raw).to(torch.int32)
+        labels = decision_labels(raw, self).to(torch.int32)
         names = ["predict"] + [f"p{d}" for d in self.response_domain]
         vecs = [Vec.from_device(labels, VecType.CAT, domain=self.response_domain)]
         vecs += [Vec.from_device(raw[:, k].contiguous(), VecType.NUM)
@@ -128,9 +128,13 @@ class Model:
         return "\n".join(lines)
 
 
-def decision_labels(raw: torch.Tensor) -> torch.Tensor:
-    """Class labels from [n, K] probabilities (argmax; for binomial that is
-    the 0.5 threshold)."""
+def decision_labels(raw: torch.Tensor, model=None) -> torch.Tensor:
+    """Class labels from [n, K] probabilities: argmax, or for a binomial
+    model whose threshold was reset (``model.reset.threshold``, reference
+    ``AstModelResetThreshold``) p1 at or above it."""
+    thr = getattr(model, "_default_threshold", None)
+    if thr is not None and raw.shape[1] == 2:
+        return (raw[:, 1] >= float(thr)).to(torch.int64)
     return raw.argmax(dim=1)
 
 
