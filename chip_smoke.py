@@ -99,9 +99,9 @@ Phases, each of which fails the run on error:
    Criteo Uplift Prediction Dataset v2.1 (13,979,592 x 12, 85% treated,
    visit about 4.7%; 7 batches of 8 trees), with the CPU against the card
    on one batch grown from the same weights (splits alike but at the CPU's
-   exact ties) and on a whole 100k-row model (AUUC within 1e-3 of it); (d)
+   exact ties) and on a whole 50k-row model (AUUC within 1e-3 of it); (d)
    DART (bench_xgboost's settings, rate_drop 0.1, skip_drop 0.5, 50
-   rounds), its dropping rounds printed, and a 200k-row CPU-against-card
+   rounds), its dropping rounds printed, and a 100k-row CPU-against-card
    fit alike at every split but ties; (e) varimp (the CPU's, from the same
    trees) and TreeSHAP of the main path's model on 1M rows (rows sum to
    the margin; 10k rows against the CPU at rtol 1e-9), timed with its
@@ -112,7 +112,8 @@ Phases, each of which fails the run on error:
    (the extended ones' 50k) equal bit for bit to the CPU's;
 10. DeepLearning and the dense unsupervised builders (no kernel of their
    own: torch operations), each timed after a warm run under
-   torch.profiler (DeepLearning's: one epoch of its first 10,000 rows), with its throughput, device idle share, costliest ops
+   torch.profiler (DeepLearning's: one epoch of its first 2,000 rows),
+   with its throughput, device idle share, costliest ops
    and host syncs, and each held to the CPU on a head of its frame at the
    CPU tests' tolerances: (a)-(d) DeepLearning on bench.py's bench_dl
    frame (60,000 x 784, labels 0-9): bench_dl itself (hidden [50, 50], B
@@ -220,6 +221,29 @@ Phases, each of which fails the run on error:
    validation rows; (f) (a)-(d) on a 200k-row head on the CPU and on the
    card, exact but for float sums, and a 5-tree GBM on the heads' splits
    held as phase 3's.
+16. the data plane on szilard/benchm-ml's airlines file (no kernel of its
+   own: decoding a compressed column is a copy and a widening in torch
+   operations; the GBM launches the histogram kernels, held to the plan
+   of its trees): (a) the ``train-1m`` file (Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin, Dest, DepTime, Distance, dep_delayed_15min)
+   written from phase 7's seeded arrays as CSV and as gzip (level 1);
+   (b) ``import_file`` of the gzip file on the streaming route
+   (``H2O3TPU_INGEST_STREAMING=auto``), every column lazy until first
+   used; (c) the eager import of the CSV on the native route, every
+   column equal to the streamed one (type, domain, codes, float32 bits,
+   NA positions) and both to the written arrays; (d) phase 7's GBM at 20
+   trees on each frame, bit for bit, profiled on 2 trees and held to the
+   plan, and a binomial GLM on each, bit for bit; (e) the Cleaner: the
+   three frames in the DKV under a budget below their bytes, a sweep that
+   drops the streamed frame's device views (the bytes it frees are the
+   bytes the allocator gets back) and spills the eager frame, its fault-in
+   by ``DKV.get`` and a GBM on it bit for bit 16d's, with the memory
+   meter's summary against ``torch.cuda.memory_stats()``; (f) Avro
+   (``null`` and ``deflate``), ARFF, SVMLight, SQL (sqlite), a frame
+   snapshot, ``export_file`` and ``import_file`` through a path and an
+   ``s3://`` URI (an in-process S3 on 127.0.0.1), Parquet and ORC on the
+   first 100,000 rows, and XLSX on the first 10,000, each held to the CSV
+   import of the same rows; (g) the kernel at (d)'s level shapes.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -229,8 +253,8 @@ levels it takes); the last line is
 line, phase 9's the ``tree_family`` line, phase 10's the
 ``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
 12's the ``cv_explain`` line, phase 13's the ``orchestration`` line,
-phase 14's the ``text`` line and phase 15's the ``munge`` line before the
-``kernels`` line. Without a CUDA
+phase 14's the ``text`` line, phase 15's the ``munge`` line and phase
+16's the ``data_plane`` line before the ``kernels`` line. Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -240,6 +264,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -779,17 +804,10 @@ def profile_training(train, timed_s: float) -> dict:
     """One more training under torch.profiler (device activity only): the
     device busy time, as a share of the unprofiled timed run's wall time
     (the profiler's own host cost inflates the profiled wall), and the
-    kernels that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        train()
-        torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
+    kernels that take the most device time, summed from the trace's raw
+    events (:func:`device_events`; ``key_averages()`` takes tens of
+    seconds at 10^5 events)."""
+    kernels = device_events(train)
     busy_ms = sum(ms for _, ms, _ in kernels)
     share = busy_ms / (timed_s * 1e3)
     print(f"profiled training: device busy {busy_ms:.1f} ms in "
@@ -2416,14 +2434,16 @@ def totals_times() -> list:
 #: label at about 4.7%
 UPLIFT_ROWS, UPLIFT_FEAT = 13_979_592, 12
 #: rows of the CPU-against-card checks of one uplift batch and of a whole
-#: uplift model (cut from 500k and 200k: ROADMAP.md "Reduced checks")
-UPLIFT_BATCH_ROWS, UPLIFT_CROSS_ROWS = 200_000, 100_000
+#: uplift model (cut from 500k and 200k, then 200k and 100k: ROADMAP.md
+#: "Reduced checks")
+UPLIFT_BATCH_ROWS, UPLIFT_CROSS_ROWS = 100_000, 50_000
 #: DART at bench_xgboost's settings and XGBoost's DART tutorial's
 DART_TREES = 50
 DART = dict(booster="dart", max_depth=DEPTH, max_bin=XGB_BINS, eta=0.3,
             rate_drop=0.1, skip_drop=0.5, normalize_type="tree", seed=42)
-#: rows of the CPU-against-card fits, of TreeSHAP and of calibration
-CROSS_ROWS, SHAP_ROWS, SHAP_CROSS_ROWS, CAL_ROWS = (200_000, 1_000_000,
+#: rows of DART's CPU-against-card fits (cut from 200k: ROADMAP.md
+#: "Reduced checks"), of TreeSHAP and of calibration
+CROSS_ROWS, SHAP_ROWS, SHAP_CROSS_ROWS, CAL_ROWS = (100_000, 1_000_000,
                                                     10_000, 1_000_000)
 #: rows of the isolation forests' CPU-against-card fits (cut from 200k:
 #: ROADMAP.md "Reduced checks")
@@ -2518,7 +2538,7 @@ def tree_family_dt(fr) -> dict:
 def tree_family_dart(fr) -> dict:
     """(d) DART at bench_xgboost's settings with XGBoost's DART tutorial's
     (rate_drop 0.1, skip_drop 0.5, normalize_type tree), 50 rounds, on
-    phase 4's frame; then 6 rounds on 200k rows on the CPU and the card,
+    phase 4's frame; then 6 rounds on 100k rows on the CPU and the card,
     sampling off, alike at every split but the CPU's exact ties."""
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models.xgboost import XGBoost
@@ -2791,8 +2811,8 @@ def tree_family_uplift() -> dict:
     version (level 0 at 14M x 12, K = 8, w per tree; node totals at K = 8,
     32 nodes), timed at each level; uplift DRF
     at the JAX package's defaults on the Criteo-shaped frame; the CPU
-    against the card on one batch of 8 trees (200k rows) and on a whole
-    model (100k rows), both from bootstrap weights drawn on the CPU."""
+    against the card on one batch of 8 trees (100k rows) and on a whole
+    model (50k rows), both from bootstrap weights drawn on the CPU."""
     from h2o3_tpu_torch.models import tree
     from h2o3_tpu_torch.models.uplift import UpliftDRF
     t0 = time.perf_counter()
@@ -2928,8 +2948,9 @@ def phase_tree_family(fr) -> dict:
 #: from default_rng(5), labels 0-9) and its CPU head
 DL_ROWS, DL_FEAT, DL_CPU_ROWS = 60_000, 784, 2_000
 #: the like part of each fit that is profiled: one epoch of its first rows
-#: (cut from the whole warm fit: ROADMAP.md "Reduced checks")
-DL_PROFILE_ROWS = 10_000
+#: (cut from the whole warm fit, then from 10,000 rows: ROADMAP.md
+#: "Reduced checks")
+DL_PROFILE_ROWS = 2_000
 DL_X = [f"p{i}" for i in range(DL_FEAT)]
 #: phase 10's DeepLearning configurations: (name, builder parameters)
 DL_CASES = (
@@ -3505,7 +3526,9 @@ COX_FEAT, HGLM_GROUPS = 10, 1000
 #: 11h: PSVM on the first rows of phase 4's frame
 PSVM_ROWS = 100_000
 #: the CPU heads of the CPU-against-card checks
-MS_CPU_ROWS = RULEFIT_CPU_ROWS = INFOGRAM_CPU_ROWS = PSVM_CPU_ROWS = 20_000
+MS_CPU_ROWS = RULEFIT_CPU_ROWS = PSVM_CPU_ROWS = 20_000
+#: the infogram's (cut from 20k: ROADMAP.md "Reduced checks")
+INFOGRAM_CPU_ROWS = 10_000
 BUILDER_CPU_ROWS = 200_000
 #: 11b: H2O-3 GAM docs' three bases: cr on x0-x2, tp on [x3, x4], a
 #: non-negative I-spline on x5, 5 knots; the other columns linear
@@ -3743,7 +3766,7 @@ def builders_infogram(fr) -> dict:
     """11d: the core infogram with H2O's default GBM surrogates (20 trees,
     depth 5) on phase 4's frame: 1 + 28 surrogates, their launches held to
     the plan, the device's busy share profiled on one surrogate; on the
-    first 20k rows and 6 predictors on the CPU and the
+    first 10k rows and 6 predictors on the CPU and the
     card: the same predictor order and admissible set, relevance at rtol
     1e-3 and raw CMI at an absolute 1e-4 (the card's fixed-point histogram
     sums move the gains in their last bits)."""
@@ -5793,6 +5816,593 @@ def phase_munge(air_fr) -> dict:
     return out
 
 
+# -- phase 16: the data plane -------------------------------------------------
+
+#: szilard/benchm-ml's airlines tier phase 16 imports: ``train-1m`` (1M
+#: rows; ``train-10m`` is AIRLINE_ROWS, ROADMAP "Reduced checks")
+INGEST_ROWS = 1_000_000
+#: phase 7's GBM at 20 trees (every level of 1M rows, 65 bins and depth 6
+#: runs the fixed kernel, whose sums are exact)
+INGEST_GBM = dict(ntrees=20, max_depth=DEPTH, nbins=NBINS, learn_rate=0.1,
+                  seed=42)
+INGEST_GLM = dict(family="binomial", alpha=0.5, lambda_=1e-5)
+#: rows of the other formats (16f), and of the spreadsheet
+FORMAT_ROWS, XLSX_ROWS = 100_000, 10_000
+
+
+def airline_text_columns(cols: dict) -> dict:
+    """The columns as the file's text: level names of the categoricals
+    (the label N or Y), whole numbers of DepTime and Distance."""
+    out = {}
+    for name, v in cols.items():
+        if name in AIRLINE_CATS:
+            dom = np.array(_airline_domain(name, AIRLINE_CATS[name]))
+            out[name] = dom[v]
+        elif name == AIRLINE_Y:
+            out[name] = np.array(["N", "Y"])[v]
+        else:
+            out[name] = v.astype(np.int64).astype(str)
+    return out
+
+
+def airline_csv_bytes(text: dict) -> bytes:
+    """A CSV file of the text columns, with a header."""
+    rows = map(",".join, zip(*(v.tolist() for v in text.values())))
+    return (",".join(text) + "\n" + "\n".join(rows) + "\n").encode()
+
+
+def columns_alike(what: str, a, b) -> None:
+    """Two frames of the port on the card alike column by column: type,
+    domain, and the tensors' bits (codes, float32 bits, NaN positions)."""
+    if a.names != b.names or a.nrows != b.nrows:
+        raise AssertionError(f"{what}: {a.names} / {b.names}")
+    for n, u, v in zip(a.names, a.vecs, b.vecs):
+        x, y = u.data, v.data
+        if u.type is not v.type or u.domain != v.domain \
+                or x.dtype != y.dtype or not torch.equal(
+                    x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{what}: column {n} differs")
+
+
+def arrays_alike(what: str, fr, cols: dict) -> None:
+    """A frame of the airlines file equal to the arrays it was written
+    from: the categoricals' domains and codes, the numbers' values."""
+    for name, v in cols.items():
+        vec = fr.vec(name)
+        dom = ("N", "Y") if name == AIRLINE_Y else \
+            _airline_domain(name, AIRLINE_CATS[name]) \
+            if name in AIRLINE_CATS else None
+        if vec.domain != dom or not np.array_equal(vec.data.cpu().numpy(),
+                                                   v):
+            raise AssertionError(f"{what}: column {name} differs")
+
+
+def ingest_write(tmp: str, cols: dict) -> dict:
+    """16a: the file written once as CSV and as gzip at level 1."""
+    import gzip
+    t0 = time.perf_counter()
+    data = airline_csv_bytes(airline_text_columns(cols))
+    csv_path = os.path.join(tmp, "train-1m.csv")
+    with open(csv_path, "wb") as fh:
+        fh.write(data)
+    t1 = time.perf_counter()
+    gz_path = csv_path + ".gz"
+    with open(gz_path, "wb") as fh:
+        fh.write(gzip.compress(data, compresslevel=1))
+    out = dict(csv_bytes=len(data), gz_bytes=os.path.getsize(gz_path),
+               write_s=t1 - t0, gzip_s=time.perf_counter() - t1,
+               csv=csv_path, gz=gz_path)
+    print(f"16a {len(cols[AIRLINE_Y])} rows: CSV {out['csv_bytes']} bytes "
+          f"({out['write_s']:.2f} s), gzip level 1 {out['gz_bytes']} bytes "
+          f"({out['gzip_s']:.2f} s)")
+    return out
+
+
+def ingest_import(files: dict) -> tuple:
+    """16b and 16c: the gzip file on the streaming route (every column
+    lazy until first used), the CSV on the native route; then every column
+    built on the card and equal to the other route's."""
+    from h2o3_tpu_torch.frame import parse
+    prev = os.environ.get("H2O3TPU_INGEST_STREAMING")
+    os.environ["H2O3TPU_INGEST_STREAMING"] = "auto"
+    try:
+        n0 = parse.routes["streaming"]
+        t0 = time.perf_counter()
+        fs = parse.import_file(files["gz"], key="airlines_streamed")
+        stream_s = time.perf_counter() - t0
+        if parse.routes["streaming"] != n0 + 1:
+            raise AssertionError("16b: the gzip file was not streamed")
+    finally:
+        if prev is None:
+            os.environ.pop("H2O3TPU_INGEST_STREAMING")
+        else:
+            os.environ["H2O3TPU_INGEST_STREAMING"] = prev
+    st = dict(fs._ingest_stats)
+    lazy = not any(v.device_resident for v in fs.vecs)
+    codecs = {n: v.compressed.codec for n, v in zip(fs.names, fs.vecs)}
+    n = fs.nrows
+    print(f"16b streamed import of the gzip file: {stream_s:.3f} s, "
+          f"{n / stream_s:.6g} rows/s, {files['gz_bytes'] / stream_s / 1e6:.2f}"
+          f" compressed MB/s; {st}; codecs {codecs}; every column lazy "
+          f"{lazy}")
+    if not lazy or st["rows"] != n or st["restarts"] != 0:
+        raise AssertionError("16b: the streamed frame is not as expected")
+    n0 = parse.routes["native"]
+    t0 = time.perf_counter()
+    fe = parse.import_file(files["csv"], key="airlines_eager")
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if parse.routes["native"] != n0 + 1:
+        raise AssertionError("16c: the CSV did not take the native route")
+    t0 = time.perf_counter()
+    for v in fs.vecs:
+        v.data
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    payload = sum(v.compressed.nbytes for v in fs.vecs)
+    columns_alike("16c streamed against eager", fs, fe)
+    print(f"16c eager import of the CSV on the native route: {eager_s:.3f} "
+          f"s, {n / eager_s:.6g} rows/s; the streamed columns built on the "
+          f"card in {decode_s:.4f} s ({payload} payload bytes copied, "
+          f"{payload / n:.1f} a row); every column equal bit for bit")
+    return fs, fe, dict(stream_s=stream_s, rows_per_s=n / stream_s,
+                        gz_mb_per_s=files["gz_bytes"] / stream_s / 1e6,
+                        eager_s=eager_s, decode_s=decode_s,
+                        payload_bytes=payload, stats=st, codecs=codecs)
+
+
+def ingest_models(fs, fe) -> tuple:
+    """16d: phase 7's GBM at 20 trees on the streamed frame (profiled on 2
+    trees, timed, held to the plan: every level fixed) and on the eager
+    frame, bit for bit; a binomial GLM on each, bit for bit."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.glm import GLM
+
+    def fit(frame, nt=INGEST_GBM["ntrees"]):
+        return lambda: GBM(**dict(INGEST_GBM, ntrees=nt)).train(
+            x=AIRLINE_X, y=AIRLINE_Y, training_frame=frame)
+
+    fit(fs, 2)()
+    ms, res = timed_fit(
+        f"16d GBM on the streamed {fs.nrows} x {len(AIRLINE_X)}",
+        fit(fs), fs.nrows * INGEST_GBM["ntrees"], "rows*trees",
+        before_timed=reset_kernel_counts, sample=("2 trees", fit(fs, 2)))
+    plan, trees = model_plan([ms])
+    res.update(hold_launches("16d GBM", plan, trees))
+    if plan.get("global", 0):
+        raise AssertionError(f"16d: the plan takes the global kernel {plan}")
+    me = fit(fe)()
+    same = _heaps_bitwise(ms, me)
+    auc = ms.training_metrics.auc
+    t0 = time.perf_counter()
+    gs = GLM(**INGEST_GLM).train(x=AIRLINE_X, y=AIRLINE_Y,
+                                 training_frame=fs)
+    torch.cuda.synchronize()
+    glm_s = time.perf_counter() - t0
+    ge = GLM(**INGEST_GLM).train(x=AIRLINE_X, y=AIRLINE_Y,
+                                 training_frame=fe)
+    glm_same = torch.equal(gs.output["beta"], ge.output["beta"]) and \
+        torch.equal(gs.predict(fs).vec("pY").data,
+                    ge.predict(fe).vec("pY").data)
+    print(f"  trees streamed against eager bit for bit {same}; training "
+          f"AUC {auc:.6f}; GLM (alpha 0.5, lambda 1e-5) {glm_s:.3f} s, "
+          f"coefficients and predictions bit for bit {glm_same}, AUC "
+          f"{gs.training_metrics.auc:.6f}")
+    if not (same and glm_same and auc > 0.6):
+        raise AssertionError("16d: the streamed frame's models differ")
+    res.update(trees_bitwise=same, train_auc=auc, glm_s=glm_s,
+               glm_bitwise=glm_same)
+    return me, res
+
+
+def ingest_cleaner(fs, fe, me, tmp: str) -> dict:
+    """16e: the streamed, the eager and a third frame in the DKV under a
+    budget below their bytes: one sweep drops the streamed frame's views
+    (the allocator gets those bytes back) and spills the eager frame, the
+    coldest uncompressed one; ``DKV.get`` faults it back in, equal to the
+    eager frame, and phase 7's GBM on it equals 16d's bit for bit."""
+    import gc
+
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.utils.cleaner import (CLEANER, SwappedFrame,
+                                              disable_cleaner, enable_cleaner)
+    from h2o3_tpu_torch.utils.memory import MEMORY
+    from h2o3_tpu_torch.utils.registry import DKV
+    third = airlines_frame(airlines_arrays(fs.nrows // 2, 33), "cuda")
+    ice = os.path.join(tmp, "ice")
+    DKV.clear()
+    enable_cleaner(1 << 62, ice_root=ice)
+    # put in this order, the eager frame is the coldest and the streamed
+    # the warmest (by idle streak, then by the LRU clock)
+    for key, frame in (("airlines_eager", fe), ("airlines_third", third),
+                       ("airlines_streamed", fs)):
+        DKV.put(key, frame)
+    view_bytes = sum(v.data.numel() * v.data.element_size() for v in fs.vecs)
+    payload = fs.nbytes - view_bytes
+    budget = payload + third.nbytes + fe.nbytes // 2
+    before = CLEANER.stats()
+    del third
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    enable_cleaner(budget, ice_root=ice)
+    t0 = time.perf_counter()
+    spilled = CLEANER.sweep()
+    spill_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    fall = alloc0 - torch.cuda.memory_allocated()
+    after = CLEANER.stats()
+    freed = after["view_drop_bytes"] - before["view_drop_bytes"]
+    with DKV._lock:
+        stub = DKV._store.get("airlines_eager")
+    print(f"16e sweep under a budget of {budget} bytes: {spill_s:.3f} s; "
+          f"views dropped {after['view_drops'] - before['view_drops']} "
+          f"({freed} bytes; the allocator's bytes in use fell {fall}); "
+          f"spilled {spilled}, {getattr(stub, 'disk_bytes', 0)} bytes on "
+          "disk")
+    # the caching allocator hands out a large block whole where the rest
+    # would be under 1 MiB, so a tensor may hold up to 1 MiB more
+    if freed != view_bytes or not 0 <= fall - freed <= fs.ncols << 20 \
+            or spilled != ["airlines_eager"] \
+            or not isinstance(stub, SwappedFrame):
+        raise AssertionError("16e: the sweep did not drop the views and "
+                             "spill the eager frame")
+    t0 = time.perf_counter()
+    back = DKV.get("airlines_eager")
+    torch.cuda.synchronize()
+    fault_s = time.perf_counter() - t0
+    columns_alike("16e faulted-in against eager", back, fe)
+    mb = GBM(**INGEST_GBM).train(x=AIRLINE_X, y=AIRLINE_Y,
+                                 training_frame=back)
+    same = _heaps_bitwise(mb, me)
+    summary = MEMORY.summary(top_n=5)
+    dev = summary["device"]
+    print(f"  fault-in {fault_s:.3f} s; GBM on the faulted-in frame bit for "
+          f"bit 16d's {same}; Cleaner {CLEANER.stats()}; memory meter: "
+          f"device {dev['source']} {dev['bytes_in_use']} bytes in use, keyed "
+          f"{summary['dkv']}, top {summary['top_keys']}")
+    if not same:
+        raise AssertionError("16e: the faulted-in frame's GBM differs")
+    # the meter's own count against the allocator: removing the faulted-in
+    # frame, which only the DKV now holds, takes its keyed bytes off the
+    # meter's frame total and gives them back to the allocator (up to the
+    # 1 MiB block rounding a column)
+    keyed = dict((k["key"], k["bytes"]) for k in summary["top_keys"])
+    del back, mb
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    frames0 = MEMORY.summary()["dkv"]["by_kind"].get("frame", 0)
+    DKV.remove("airlines_eager")
+    gc.collect()
+    torch.cuda.synchronize()
+    meter_fall = frames0 - MEMORY.summary()["dkv"]["by_kind"].get("frame", 0)
+    alloc_fall = alloc0 - torch.cuda.memory_allocated()
+    print(f"  removing the faulted-in frame: the meter's frame bytes fell "
+          f"{meter_fall} (keyed {keyed.get('airlines_eager')}), the "
+          f"allocator's bytes in use {alloc_fall}")
+    if meter_fall != keyed.get("airlines_eager") \
+            or not 0 <= alloc_fall - meter_fall <= fe.ncols << 20:
+        raise AssertionError("16e: the memory meter's keyed bytes disagree "
+                             "with the allocator")
+    disable_cleaner()
+    for k in ("airlines_streamed", "airlines_third"):
+        DKV.remove(k)
+    return dict(budget=budget, spill_s=spill_s, fault_s=fault_s,
+                view_bytes=view_bytes, freed=freed, allocator_fall=fall,
+                disk_bytes=stub.disk_bytes, spilled=spilled,
+                gbm_bitwise=same, cleaner=CLEANER.stats(),
+                device_bytes=dev["bytes_in_use"], keyed=summary["dkv"],
+                meter_fall=meter_fall, allocator_fall_on_remove=alloc_fall)
+
+
+#: the fake S3's credentials (the SigV4 signature it checks)
+FAKE_S3_KEYS = ("AKIDSMOKE", "smoke-secret")
+
+
+def fake_s3():
+    """An S3 of GET and PUT on 127.0.0.1 that checks every request's AWS
+    Signature V4 (as ``tests/test_persist_cloud.py``'s); returns the
+    server, serving on a daemon thread."""
+    import hashlib
+    import hmac
+    import threading
+    import urllib.parse
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    store: dict = {}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _signed(self, method: str, payload: bytes) -> bool:
+            auth = self.headers.get("Authorization", "")
+            amz = self.headers.get("x-amz-date", "")
+            ph = hashlib.sha256(payload).hexdigest()
+            if self.headers.get("x-amz-content-sha256") != ph \
+                    or "/" not in auth:
+                return False
+            region = auth.split("/")[2]
+            path = urllib.parse.urlparse(self.path).path
+            canonical = "\n".join([
+                method, urllib.parse.quote(path), "",
+                f"host:{self.headers['Host']}\nx-amz-content-sha256:{ph}\n"
+                f"x-amz-date:{amz}\n",
+                "host;x-amz-content-sha256;x-amz-date", ph])
+            scope = f"{amz[:8]}/{region}/s3/aws4_request"
+            to_sign = "\n".join(["AWS4-HMAC-SHA256", amz, scope,
+                                 hashlib.sha256(canonical.encode())
+                                 .hexdigest()])
+
+            def hm(k, m):
+                return hmac.new(k, m.encode(), hashlib.sha256).digest()
+
+            k = hm(hm(hm(hm(b"AWS4" + FAKE_S3_KEYS[1].encode(), amz[:8]),
+                         region), "s3"), "aws4_request")
+            want = hmac.new(k, to_sign.encode(), hashlib.sha256).hexdigest()
+            return f"Signature={want}" in auth
+
+        def _reply(self, code: int, body: bytes = b"") -> None:
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            data = store.get(urllib.parse.urlparse(self.path).path)
+            if not self._signed("GET", b""):
+                self._reply(403)
+            elif data is None:
+                self._reply(404)
+            else:
+                self._reply(200, data)
+
+        def do_PUT(self):
+            data = self.rfile.read(int(self.headers.get("Content-Length")
+                                       or 0))
+            if not self._signed("PUT", data):
+                self._reply(403)
+                return
+            store[urllib.parse.urlparse(self.path).path] = data
+            self._reply(200)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def write_avro(path: str, text: dict, codec: str, block: int = 10_000):
+    """An Avro object container of the text columns (the categoricals as
+    strings, the numbers as longs) in blocks of ``block`` rows."""
+    import zlib
+
+    def zz(n: int) -> bytes:
+        n = (n << 1) ^ (n >> 63)
+        out = bytearray()
+        while True:
+            b, n = n & 0x7F, n >> 7
+            out.append(b | 0x80 if n else b)
+            if not n:
+                return bytes(out)
+
+    def blob(b: bytes) -> bytes:
+        return zz(len(b)) + b
+
+    nums = ("DepTime", "Distance")
+    fields = [{"name": n, "type": "long" if n in nums else "string"}
+              for n in text]
+    schema = {"type": "record", "name": "flight", "fields": fields}
+    enc = {}
+    for n, v in text.items():
+        if n in nums:
+            enc[n] = [zz(int(x)) for x in v.tolist()]
+        else:
+            lut = {lvl: blob(lvl.encode()) for lvl in np.unique(v).tolist()}
+            enc[n] = [lut[x] for x in v.tolist()]
+    rows = [b"".join(r) for r in zip(*enc.values())]
+    sync = b"\x5a" * 16
+    meta = {"avro.schema": json.dumps(schema).encode(),
+            "avro.codec": codec.encode()}
+    with open(path, "wb") as f:
+        f.write(b"Obj\x01" + zz(len(meta)))
+        for k, v in meta.items():
+            f.write(blob(k.encode()) + blob(v))
+        f.write(zz(0) + sync)
+        for s in range(0, len(rows), block):
+            body = b"".join(rows[s:s + block])
+            if codec == "deflate":
+                c = zlib.compressobj(6, zlib.DEFLATED, -15)
+                body = c.compress(body) + c.flush()
+            f.write(zz(len(rows[s:s + block])) + blob(body) + sync)
+
+
+def write_xlsx(path: str, text: dict) -> None:
+    """A one-sheet .xlsx of the text columns: the categoricals as shared
+    strings, the numbers as numbers, the first row the header."""
+    import zipfile
+    nums = ("DepTime", "Distance")
+    names = list(text)
+    shared = sorted({s for n in names if n not in nums
+                     for s in np.unique(text[n]).tolist()} | set(names))
+    idx = {s: i for i, s in enumerate(shared)}
+    letters = [chr(65 + j) for j in range(len(names))]
+    body = ["<row r=\"1\">" + "".join(
+        f'<c r="{c}1" t="s"><v>{idx[n]}</v></c>'
+        for c, n in zip(letters, names)) + "</row>"]
+    cols = [text[n].tolist() for n in names]
+    for i, vals in enumerate(zip(*cols), start=2):
+        cells = "".join(
+            f'<c r="{c}{i}"><v>{v}</v></c>' if n in nums else
+            f'<c r="{c}{i}" t="s"><v>{idx[v]}</v></c>'
+            for c, n, v in zip(letters, names, vals))
+        body.append(f'<row r="{i}">{cells}</row>')
+    ns = 'xmlns="http://schemas.openxmlformats.org/spreadsheetml/2006/main"'
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("xl/worksheets/sheet1.xml",
+                   f"<worksheet {ns}><sheetData>{''.join(body)}"
+                   "</sheetData></worksheet>")
+        z.writestr("xl/sharedStrings.xml", f"<sst {ns}>" + "".join(
+            f"<si><t>{s}</t></si>" for s in shared) + "</sst>")
+
+
+def ingest_formats(cols: dict, tmp: str) -> dict:
+    """16f: the first FORMAT_ROWS rows through every other way in and out
+    (XLSX the first XLSX_ROWS), each held to the CSV import of the same
+    rows (:func:`frames_alike`; SVMLight's columns by value, as its
+    features are numbers)."""
+    import sqlite3
+
+    from h2o3_tpu_torch import (export_file, import_file, import_sql_table,
+                                load_frame, save_frame)
+    from h2o3_tpu_torch.frame.parse import import_svmlight
+    from h2o3_tpu_torch.utils.registry import DKV
+    text = {n: v[:FORMAT_ROWS] for n, v in airline_text_columns(cols).items()}
+    p = lambda name: os.path.join(tmp, name)  # noqa: E731
+    with open(p("head.csv"), "wb") as fh:
+        fh.write(airline_csv_bytes(text))
+    ref = import_file(p("head.csv"))
+    out, skipped = {}, []
+
+    def check(name, fn, compare=frames_alike):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        compare(f"16f {name}", got[ref.names] if name != "svmlight"
+                else got, ref)
+        out[name] = dict(seconds=s, rows_per_s=ref.nrows / s)
+        print(f"16f {name}: {s:.3f} s, {ref.nrows / s:.6g} rows/s, equal "
+              "to the CSV import")
+
+    for codec in ("null", "deflate"):
+        write_avro(p(f"h_{codec}.avro"), text, codec)
+        check(f"avro_{codec}", lambda: import_file(p(f"h_{codec}.avro")))
+    nums = ("DepTime", "Distance")
+    arff = ["@relation airlines"] + [
+        f"@attribute {n} " + ("numeric" if n in nums else
+                              "{" + ",".join(np.unique(v).tolist()) + "}")
+        for n, v in text.items()] + ["@data"]
+    with open(p("h.arff"), "w") as fh:
+        fh.write("\n".join(arff) + "\n")
+        fh.write(airline_csv_bytes(text).decode().split("\n", 1)[1])
+    check("arff", lambda: import_file(p("h.arff")))
+    codes = [ref.vec(n).to_numpy() for n in ref.names]
+    lines = [f"{y} " + " ".join(f"{j + 1}:{int(v)}" for j, v in
+                                enumerate(row) if v)
+             for y, *row in zip(codes[-1], *codes[:-1])]
+    with open(p("h.svmlight"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+    def svm_alike(what, got, want):
+        for j, n in enumerate([want.names[-1]] + want.names[:-1]):
+            if not np.array_equal(got.vec(f"C{j}").to_numpy(),
+                                  want.vec(n).to_numpy().astype(np.float32)):
+                raise AssertionError(f"{what}: C{j} is not {n}")
+
+    check("svmlight", lambda: import_svmlight(p("h.svmlight"), sparse=False),
+          svm_alike)
+    con = sqlite3.connect(p("h.db"))
+    con.execute("CREATE TABLE flights (" + ", ".join(
+        f"{n} {'INTEGER' if n in nums else 'TEXT'}" for n in text) + ")")
+    con.executemany(f"INSERT INTO flights VALUES ({','.join('?' * 9)})",
+                    zip(*[v.astype(np.int64).tolist() if n in nums
+                          else v.tolist() for n, v in text.items()]))
+    con.commit()
+    con.close()
+    check("sql", lambda: import_sql_table(f"sqlite:{p('h.db')}", "flights"))
+    check("snapshot", lambda: load_frame(save_frame(ref, p("snap"))))
+    check("export_csv", lambda: import_file(export_file(ref, p("out.csv"))))
+    srv = fake_s3()
+    env = {"H2O3TPU_S3_ENDPOINT": f"http://127.0.0.1:{srv.server_address[1]}",
+           "AWS_ACCESS_KEY_ID": FAKE_S3_KEYS[0],
+           "AWS_SECRET_ACCESS_KEY": FAKE_S3_KEYS[1]}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        uri = "s3://benchm-ml/airlines/train-100k.csv"
+        check("s3", lambda: import_file(export_file(ref, uri)))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        import pyarrow as pa
+        import pyarrow.orc as orc
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        skipped.append(f"parquet, orc: pyarrow does not import ({e})")
+    else:
+        table = pa.table({n: pa.array(v.astype(np.int64) if n in nums
+                                      else v) for n, v in text.items()})
+        pq.write_table(table, p("h.parquet"))
+        check("parquet", lambda: import_file(p("h.parquet")))
+        orc.write_table(table, p("h.orc"))
+        check("orc", lambda: import_file(p("h.orc")))
+    small = {n: v[:XLSX_ROWS] for n, v in text.items()}
+    with open(p("small.csv"), "wb") as fh:
+        fh.write(airline_csv_bytes(small))
+    ref = import_file(p("small.csv"))
+    write_xlsx(p("small.xlsx"), small)
+    check("xlsx", lambda: import_file(p("small.xlsx")))
+    for why in skipped:
+        print(f"16f not run: {why}")
+    DKV.clear()
+    return dict(formats=out, not_run=skipped)
+
+
+def ingest_kernel_times(rows: int) -> dict:
+    """The kernel at 16d's level shapes: 8 features, 65 int8 bins,
+    ``rows`` rows, levels 0-5 (1 to 16 histogrammed nodes), each beside
+    its bound, its plain version and one ``index_add_``; held against the
+    plain version at level 5."""
+    F, Bt = len(AIRLINE_X), NBINS + 1
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    binned_T, _, g, h, w = hist_inputs(rows, F, Bt, 1, torch.int8, gen)
+    layouts = [(level, *level_nodes(rows, level, gen))
+               for level in range(DEPTH)]
+    err = check_call((binned_T, layouts[-1][2], g, h, w), layouts[-1][1], Bt,
+                     f"16 F={F} level {DEPTH - 1} R={rows}")[1]
+    times = time_levels(f"16 F={F}", binned_T, g, h, w, Bt, layouts)
+    del binned_T, g, h, w, layouts
+    torch.cuda.empty_cache()
+    return dict(err=err, times=times)
+
+
+def phase_data_plane(rows: int = INGEST_ROWS) -> dict:
+    """Phase 16: benchm-ml's airlines file in through the streaming route,
+    trained on, spilled by the Cleaner and faulted back, and out and in
+    again through every other format (see the module's docstring)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="h2o3_ingest_")
+    out = {"rows": rows, "card": card_name()}
+    try:
+        cols = airlines_arrays(rows, 31)
+        files = ingest_write(tmp, cols)
+        out["write"] = {k: v for k, v in files.items()
+                        if k not in ("csv", "gz")}
+        fs, fe, out["import"] = ingest_import(files)
+        arrays_alike("16c eager against the written arrays", fe, cols)
+        me, out["gbm"] = ingest_models(fs, fe)
+        out["cleaner"] = ingest_cleaner(fs, fe, me, tmp)
+        del fs, fe, me
+        drop_models()
+        torch.cuda.empty_cache()
+        out.update(ingest_formats(cols, tmp))
+        out["kernel_times"] = ingest_kernel_times(rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -5857,6 +6467,8 @@ def main() -> int:
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
+    data_plane = phase_data_plane()
+    drop_models()
     glm = phase_glm(glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
     binned_T, _, g, h, w = hist_inputs(AIRLINE_ROWS, len(AIRLINE_X),
@@ -5962,6 +6574,13 @@ def main() -> int:
         mg["launches"], air_err, air_times, path="munge_gbm",
         node_totals=mg["node_totals"], launches_by_shape=mg["by_shape"],
         timed_at="the airlines GBM's levels (phase 7), not this path's fit"))
+    # phase 16: the GBM on the streamed airlines file (8 features, 1M rows),
+    # timed at its own level shapes
+    dg = data_plane["gbm"]
+    kernels.append(kernel_entry(
+        dg["launches"], data_plane["kernel_times"]["err"],
+        data_plane["kernel_times"]["times"], path="ingest_gbm",
+        node_totals=dg["node_totals"]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -5977,6 +6596,9 @@ def main() -> int:
     print(json.dumps({"text": {k: v for k, v in text.items()
                                if k != "kernel_times"}}, default=float))
     print(json.dumps({"munge": munging}, default=float))
+    print(json.dumps({"data_plane": {k: v for k, v in data_plane.items()
+                                     if k != "kernel_times"}},
+                     default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

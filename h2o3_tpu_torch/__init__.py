@@ -40,12 +40,22 @@ scikit-learn. The text path: :func:`import_file` parses delimited text
 transform string columns on the host, :class:`Word2Vec` trains word
 vectors on the card and :class:`Grep` searches text; a GBM takes an
 uploaded custom distribution and every builder an uploaded custom metric
-(:mod:`h2o3_tpu_torch.utils.udf`). The builders of the later slices are
-exported here.
+(:mod:`h2o3_tpu_torch.utils.udf`). The data plane: :func:`import_file`
+also streams large or gzipped CSV into compressed columns
+(:mod:`h2o3_tpu_torch.ingest`), reads Parquet, ORC, ARFF, SVMLight, Avro
+and XLSX and ``s3://``/``gs://``/``hdfs://`` URIs
+(:mod:`h2o3_tpu_torch.persist.cloud`); :func:`import_sql_table` and
+:func:`import_sql_select` read SQL; :func:`export_file`,
+:func:`save_frame` and :func:`load_frame` write and read frames; the
+memory meter (:mod:`h2o3_tpu_torch.utils.memory`) counts the DKV's bytes
+and the Cleaner (:mod:`h2o3_tpu_torch.utils.cleaner`) spills cold values
+to disk under a budget. The builders of the later slices are exported
+here.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device
 from h2o3_tpu_torch.frame.parse import import_file, parse_raw, upload_file
+from h2o3_tpu_torch.frame.sql import import_sql_select, import_sql_table
 from h2o3_tpu_torch.models.aggregator import Aggregator
 from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.gam import GAM
@@ -58,8 +68,11 @@ from h2o3_tpu_torch.models.psvm import PSVM
 from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoder import TargetEncoder
 from h2o3_tpu_torch.models.word2vec import Word2Vec
+from h2o3_tpu_torch.persist.frame_io import export_file, load_frame, save_frame
 
 __all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "Infogram", "IsotonicRegression", "ModelSelection", "RuleFit",
-           "TargetEncoder", "Word2Vec", "fairness_metrics", "import_file",
-           "parse_raw", "resolve_device", "set_device", "upload_file"]
+           "TargetEncoder", "Word2Vec", "export_file", "fairness_metrics",
+           "import_file", "import_sql_select", "import_sql_table",
+           "load_frame", "parse_raw", "resolve_device", "save_frame",
+           "set_device", "upload_file"]

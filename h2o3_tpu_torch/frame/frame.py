@@ -5,8 +5,10 @@ All on-device columns of a Frame live on one device and carry no padding;
 host-resident string columns sit beside them. :meth:`Frame.from_pandas`
 and :meth:`Frame.to_pandas` convert from and to pandas; the munging
 methods (sort, group_by, merge, ...) call :mod:`h2o3_tpu_torch.rapids`.
-The reference's mesh views, DKV registration, Cleaner and compression are
-left out.
+Columns of the streaming parse keep compressed host payloads whose
+tensors are built on first use; :attr:`Frame.nbytes` and
+:meth:`Frame.drop_device_views` serve the memory meter and the Cleaner.
+The reference's mesh views are left out: one card has no mesh.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ class Frame:
             raise ValueError(f"duplicate column names: {names}")
         if len({v.nrows for v in vecs}) > 1:
             raise ValueError("vecs disagree on nrows")
-        if len({v.device for v in vecs if v.data is not None}) > 1:
+        if len({v.device for v in vecs if v.device is not None}) > 1:
             raise ValueError("vecs live on different devices")
         self.names: list[str] = list(names)
         self.vecs: list[Vec] = list(vecs)
@@ -130,12 +132,23 @@ class Frame:
     def device(self) -> torch.device:
         """The device of the on-device columns (the CPU for a frame of
         host columns alone)."""
-        return next((v.device for v in self.vecs if v.data is not None),
+        return next((v.device for v in self.vecs if v.device is not None),
                     torch.device("cpu"))
 
     @property
     def types(self) -> dict[str, str]:
         return {n: str(v.type) for n, v in zip(self.names, self.vecs)}
+
+    @property
+    def nbytes(self) -> int:
+        """Summed resident bytes of the columns (tensors that exist,
+        compressed payloads, host values); builds no view."""
+        return sum(v.nbytes for v in self.vecs)
+
+    def drop_device_views(self) -> int:
+        """Let every compressed column's derived tensor go (the Cleaner's
+        first tier); returns the bytes freed."""
+        return sum(v.drop_device() for v in self.vecs)
 
     @property
     def shape(self) -> tuple[int, int]:

@@ -1,25 +1,35 @@
-"""Parsing local delimited text into Frames — the port of
-``h2o3_tpu/frame/parse.py`` for ``csv``/``txt``/``data`` files.
+"""File import into Frames — the port of ``h2o3_tpu/frame/parse.py``.
 
-:func:`import_file` takes the reference's two routes. With the default
-``header``, no ``na_strings`` and a one-character separator, the native
-chunk-parallel tokenizer (:mod:`h2o3_tpu_torch.frame.native_csv`, built
-from ``native/csv_parser.cpp`` on first use) parses the bytes; otherwise,
-or where the tokenizer declines the file (a quoted header), pandas reads
-it and :meth:`Frame.from_pandas` guesses the types. Either way the frame
-goes into the port's DKV under its key. Where the reference leaves
-``col_types`` unapplied, the port applies them: a column typed
-``"string"`` stays a host STR column, ``"enum"`` is categorical and
-``"numeric"`` reads tokens that are not numbers as missing. Duplicate
-header names take pandas' suffixes on both routes (``x``, ``x.1``).
+:func:`import_file` routes a path or URI as the reference does:
 
-:class:`RawFile` holds uploaded bytes under a DKV key (the zip that
-``utils/udf.py`` loads a user's function from, or a file parsed on
-demand); :func:`parse_raw` parses CSV text in memory through pandas.
+- ``s3://``, ``gs://`` and ``hdfs://`` URIs are fetched to a temporary file
+  through :data:`h2o3_tpu_torch.persist.cloud.MANAGER` and parsed as local
+  files; ``file://`` is a local path; ``http(s)://`` passes the scheme
+  check and then fails the readability check with ``FileNotFoundError``,
+  as in the JAX package (neither fetches over HTTP).
+- Delimited text goes to the streaming chunked parse
+  (:mod:`h2o3_tpu_torch.ingest.pipeline`, inside a Job) when
+  ``H2O3TPU_INGEST_STREAMING`` asks for it (``auto``: gzip files and files
+  over ``H2O3TPU_INGEST_STREAM_MIN_BYTES``); otherwise, with the default
+  ``header``, no ``na_strings`` and a one-character separator, the native
+  chunk-parallel tokenizer (:mod:`h2o3_tpu_torch.frame.native_csv`, built
+  from ``native/csv_parser.cpp`` on first use) parses the bytes, and pandas
+  elsewhere. Where the reference's eager path leaves ``col_types``
+  unapplied, the port applies them: ``"string"`` keeps a host STR column,
+  ``"enum"`` is categorical and ``"numeric"`` reads tokens that are not
+  numbers as missing. Duplicate header names take pandas' suffixes on
+  every route (``x``, ``x.1``).
+- Parquet and ORC are read with ``pyarrow`` (imported at the call) and
+  typed as the reference's ``pd.read_parquet`` → ``Frame.from_pandas``
+  types them; ARFF keeps its declared nominal domains; SVMLight files of
+  up to ``_SVMLIGHT_DENSE_MAX_COLS`` columns are dense (``C0`` the label),
+  wider ones a :class:`~h2o3_tpu_torch.frame.sparse.SparseFrame`; Avro and
+  XLSX go through :mod:`h2o3_tpu_torch.frame.binfmt`.
 
-Refused by name, and left for a later slice: URIs and cloud schemes,
-Parquet, ORC, ARFF, SVMLight, Avro and XLSX, and the streaming ``ingest/``
-path that the reference picks by ``H2O3TPU_INGEST_STREAMING``.
+Every frame goes into the port's DKV under its key. :class:`RawFile` holds
+uploaded bytes under a DKV key (the zip ``utils/udf.py`` loads a user's
+function from, or a file parsed on demand); :func:`parse_raw` parses CSV
+text in memory through pandas.
 """
 
 from __future__ import annotations
@@ -36,14 +46,16 @@ from h2o3_tpu_torch.frame import native_csv
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec, _guess_type
+from h2o3_tpu_torch.persist.frame_io import CLOUD_SCHEMES
 from h2o3_tpu_torch.utils.registry import DKV
 
-#: the extensions this slice parses
+#: the extensions the native tokenizer parses
 TEXT_EXTS = ("csv", "txt", "data")
-#: formats the reference parses that this slice refuses, by extension
-_REFUSED_EXTS = {"parquet": "Parquet", "pq": "Parquet", "orc": "ORC",
-                 "arff": "ARFF", "svmlight": "SVMLight", "svm": "SVMLight",
-                 "avro": "Avro", "xlsx": "XLSX", "xls": "XLSX"}
+#: extensions the streaming pipeline parses (delimited text, and gzip)
+_STREAMABLE_EXTS = TEXT_EXTS + ("gz",)
+#: widths beyond this stay a SparseFrame (reference: CXI chunks stay
+#: sparse)
+_SVMLIGHT_DENSE_MAX_COLS = 1000
 #: h2o-py's col_types names, by the type they ask for
 _COL_TYPES = {"string": VecType.STR, "str": VecType.STR,
               "enum": VecType.CAT, "cat": VecType.CAT,
@@ -53,29 +65,32 @@ _COL_TYPES = {"string": VecType.STR, "str": VecType.STR,
 
 #: how many parses took each route (the chip smoke run checks the native
 #: route ran)
-routes = {"native": 0, "pandas": 0}
+routes = {"native": 0, "pandas": 0, "streaming": 0}
 #: seconds of the last parse's steps: read, tokenize, upload
 last_timing: dict = {}
 
 
-def _stream_requested(path: str, ext: str) -> bool:
-    """Whether the reference's ``_stream_mode`` would send this file to
-    the streaming pipeline (``H2O3TPU_INGEST_STREAMING``: 1 for every
-    text file, auto for gzip files and files over
-    ``H2O3TPU_INGEST_STREAM_MIN_BYTES``)."""
+def _stream_mode(path: str, ext: str) -> bool:
+    """Whether this import takes the streaming pipeline, by
+    ``H2O3TPU_INGEST_STREAMING``: ``0`` or unset never, ``1`` every
+    streamable file, ``auto`` gzip files (by their magic bytes) and files
+    of at least ``H2O3TPU_INGEST_STREAM_MIN_BYTES`` (64 MiB)."""
     mode = os.environ.get("H2O3TPU_INGEST_STREAMING", "0").strip().lower()
-    if mode in ("", "0", "off", "false") or ext not in TEXT_EXTS + ("gz",):
+    if mode in ("", "0", "off", "false") or ext not in _STREAMABLE_EXTS:
         return False
     if mode in ("1", "on", "true", "force"):
         return True
     if mode != "auto":
         return False
-    with open(path, "rb") as fh:
-        if ext == "gz" or fh.read(2) == b"\x1f\x8b":
-            return True
+    from h2o3_tpu_torch.frame.binfmt import is_gzipped
+    if ext == "gz" or is_gzipped(path):
+        return True
     floor = int(os.environ.get("H2O3TPU_INGEST_STREAM_MIN_BYTES",
                                str(64 << 20)))
-    return os.path.getsize(path) >= floor
+    try:
+        return os.path.getsize(path) >= floor
+    except OSError:
+        return False
 
 
 def _check_readable(path: str) -> None:
@@ -120,39 +135,71 @@ def dedupe_names(names: list[str]) -> list[str]:
 def import_file(path: str, key: str | None = None, header: int | None = 0,
                 col_types: dict | None = None,
                 na_strings: list[str] | None = None, sep: str | None = None,
-                device: str | torch.device | None = None) -> Frame:
-    """Parse a local delimited text file into a Frame on ``device`` and
-    put it into the DKV (reference: ``h2o.import_file`` → ``POST
-    /3/Parse``)."""
+                device: str | torch.device | None = None):
+    """Parse a file or a cloud URI into a Frame on ``device`` and put it
+    into the DKV (reference: ``h2o.import_file`` → ``POST /3/Parse``)."""
     dev = resolve_device(device)
     if "://" in path:
         scheme = path.split("://", 1)[0].lower()
-        if scheme != "file":
-            raise NotImplementedError(
-                f"import_file: {scheme!r} URIs are not parsed by the port "
-                "yet (persist backends: ROADMAP queue A)")
-        path = path.split("://", 1)[1]
+        if scheme in CLOUD_SCHEMES:
+            from h2o3_tpu_torch.persist.cloud import MANAGER
+            tmp = MANAGER.fetch_to_temp(path)
+            try:
+                return import_file(tmp, key=key or _key_from_path(path),
+                                   header=header, col_types=col_types,
+                                   na_strings=na_strings, sep=sep,
+                                   device=dev)
+            finally:
+                os.unlink(tmp)
+        if scheme not in ("http", "https", "file"):
+            raise ValueError(f"unknown URI scheme {scheme!r}")
+        if scheme == "file":
+            path = path.split("://", 1)[1]
     _check_readable(path)
     ext = os.path.splitext(path)[1].lower().lstrip(".")
-    if ext in _REFUSED_EXTS:
-        raise NotImplementedError(
-            f"import_file: {_REFUSED_EXTS[ext]} files are not parsed by the "
-            "port yet (binfmt: ROADMAP queue A)")
-    if _stream_requested(path, ext):
-        raise NotImplementedError(
-            "import_file: the streaming ingest path (H2O3TPU_INGEST_"
-            "STREAMING) is not ported yet (ingest/: ROADMAP queue A)")
     key = key or _key_from_path(path)
-    forced = _col_types(col_types)
-    frame = None
-    if ext in TEXT_EXTS and na_strings is None and header == 0 \
-            and (sep is None or len(sep) == 1):
-        frame = _parse_csv_native(path, sep or ",", key, forced, dev)
-    if frame is None:
-        frame = _parse_pandas(path, key, header, forced, na_strings, sep,
-                              dev)
+    if _stream_mode(path, ext):
+        return _stream(path, key, header, col_types, na_strings, sep, dev)
+    if ext in ("parquet", "pq", "orc"):
+        frame = _parse_arrow(path, ext, key, dev)
+    elif ext in ("svmlight", "svm"):
+        frame = _parse_svmlight(path, key, dev)
+    elif ext == "arff":
+        frame = _parse_arff(path, key, dev)
+    elif ext == "avro":
+        from h2o3_tpu_torch.frame.binfmt import parse_avro
+        return parse_avro(path, key, device=dev)
+    elif ext in ("xlsx", "xls"):
+        from h2o3_tpu_torch.frame.binfmt import parse_xlsx
+        return parse_xlsx(path, key, device=dev)
+    else:
+        forced = _col_types(col_types)
+        frame = None
+        if ext in TEXT_EXTS and na_strings is None and header == 0 \
+                and (sep is None or len(sep) == 1):
+            frame = _parse_csv_native(path, sep or ",", key, forced, dev)
+        if frame is None:
+            frame = _parse_pandas(path, key, header, forced, na_strings, sep,
+                                  dev)
     DKV.put(frame.key, frame)
     return frame
+
+
+def _stream(path: str, key: str, header, col_types, na_strings, sep, dev):
+    """The streaming parse inside a Job; a cancelled parse raises."""
+    from h2o3_tpu_torch.ingest.pipeline import stream_import
+    from h2o3_tpu_torch.models.job import Job
+    job = Job(f"Parse {os.path.basename(path)}")
+    job.run(lambda j: stream_import(path, key=key, header=header,
+                                    col_types=col_types,
+                                    na_strings=na_strings, sep=sep, job=j,
+                                    device=dev))
+    if job.exception is not None:
+        raise job.exception
+    if job.result is None:
+        raise ValueError(f"parse of {path!r} was cancelled (job {job.key})")
+    routes["streaming"] += 1
+    return job.result
 
 
 def _parse_csv_native(path: str, sep: str, key: str,
@@ -289,6 +336,129 @@ def parse_raw(text: str, key: str | None = None,
     if key:
         DKV.put(key, frame)
     return frame
+
+
+def _parse_arrow(path: str, ext: str, key: str, dev) -> Frame:
+    """Parquet or ORC through pyarrow, typed as the reference's
+    ``pd.read_parquet`` (or ``pyarrow.orc`` → ``to_pandas``) →
+    ``Frame.from_pandas`` types them: dictionary and string columns
+    categorical with sorted domains, integers with nulls as float32 with
+    NaN, booleans INT 0/1 (with nulls categorical ``False``/``True``, as
+    pandas' object column), timestamps TIME, other numbers float32."""
+    if ext == "orc":
+        import pyarrow.orc as orc
+        table = orc.ORCFile(path).read()
+    else:
+        import pyarrow.parquet as pq
+        table = pq.read_table(path)
+    cols: dict[str, np.ndarray] = {}
+    types: dict[str, VecType] = {}
+    times: dict[str, np.ndarray] = {}
+    names = [str(n) for n in table.column_names]
+    for name, col in zip(names, table.columns):
+        typ = col.type
+        if hasattr(typ, "value_type"):         # dictionary-encoded
+            col = col.cast(typ.value_type)
+            typ = col.type
+        vals = col.to_numpy(zero_copy_only=False)
+        kind = vals.dtype.kind
+        if kind == "M":
+            times[name] = vals
+        elif kind == "b":
+            cols[name] = vals.astype(np.float32)
+            types[name] = VecType.INT
+        elif kind in "OUS":
+            cols[name] = np.asarray(vals, dtype=object)
+        else:
+            cols[name] = vals.astype(np.float32)
+    fr = Frame.from_arrays(cols, types=types, device=dev)
+    vecs = [Vec.from_numpy(times[n], type=VecType.TIME, device=dev)
+            if n in times else fr.vec(n) for n in names]
+    return Frame(names, vecs, key=key)
+
+
+def _parse_arff(path: str, key: str, dev) -> Frame:
+    """ARFF (reference: ``water/parser/ARFFParser.java``): ``@attribute``
+    lines declare each column's name and type (numeric, a nominal
+    ``{a,b,...}`` or string); the ``@data`` rows are CSV read by pandas as
+    the reference reads them (``?`` missing). A declared nominal domain is
+    kept whole, levels no row uses included."""
+    import pandas as pd
+    names: list[str] = []
+    kinds: list[tuple[str, tuple[str, ...] | None]] = []
+    data_lines: list[str] = []
+    in_data = False
+    with open(path) as f:
+        for line in f:
+            st = line.strip()
+            if not st or st.startswith("%"):
+                continue
+            low = st.lower()
+            if in_data:
+                data_lines.append(st)
+            elif low.startswith("@attribute"):
+                rest = st.split(None, 2)[1:]
+                names.append(rest[0].strip("'\""))
+                typ = rest[1] if len(rest) > 1 else "numeric"
+                if typ.startswith("{"):
+                    kinds.append(("nominal", tuple(
+                        v.strip().strip("'\"")
+                        for v in typ.strip("{}").split(","))))
+                elif typ.lower() in ("numeric", "real", "integer"):
+                    kinds.append(("numeric", None))
+                else:
+                    kinds.append(("string", None))
+            elif low.startswith("@data"):
+                in_data = True
+    df = pd.read_csv(io.StringIO("\n".join(data_lines)), header=None,
+                     names=names, na_values=["?"], skipinitialspace=True)
+    vecs = []
+    for name, (kind, dom) in zip(names, kinds):
+        col = df[name]
+        if kind == "nominal":
+            lut = {lvl: i for i, lvl in enumerate(dom)}
+            codes = np.array([lut.get(str(v).strip("'\""), -1)
+                              if not pd.isna(v) else -1
+                              for v in col.astype("object")], np.int32)
+            vecs.append(Vec.from_numpy(codes, VecType.CAT, domain=dom,
+                                       device=dev))
+        elif kind == "numeric":
+            vecs.append(Vec.from_numpy(col.to_numpy(np.float32), device=dev))
+        else:
+            vecs.append(Vec.from_numpy(col.astype(str).to_numpy(),
+                                       VecType.STR, device=dev))
+    return Frame(names, vecs, key=key)
+
+
+def _parse_svmlight(path: str, key: str, dev):
+    """SVMLight (reference: ``water/parser/SVMLightParser.java``): a file
+    of up to ``_SVMLIGHT_DENSE_MAX_COLS`` feature columns is dense, the
+    label ``C0`` and the features ``C1``, ``C2``, ...; a wider one stays a
+    :class:`~h2o3_tpu_torch.frame.sparse.SparseFrame`."""
+    from h2o3_tpu_torch.frame.sparse import (parse_svmlight_sparse,
+                                             read_svmlight)
+    labels, rows, cols, vals, ncols = read_svmlight(path)
+    if ncols > _SVMLIGHT_DENSE_MAX_COLS:
+        return parse_svmlight_sparse(path, key=key, device=dev)
+    X = np.zeros((len(labels), ncols), np.float64)
+    np.add.at(X, (rows, cols), vals)
+    X = X.astype(np.float32)
+    arrays = {"C0": labels.astype(np.float32)}
+    for j in range(ncols):
+        arrays[f"C{j + 1}"] = X[:, j]
+    return Frame.from_arrays(arrays, key=key, device=dev)
+
+
+def import_svmlight(path: str, key: str | None = None, sparse: bool = True,
+                    device: str | torch.device | None = None):
+    """SVMLight explicitly: ``sparse=True`` always gives a SparseFrame."""
+    from h2o3_tpu_torch.frame.sparse import parse_svmlight_sparse
+    key = key or _key_from_path(path)
+    dev = resolve_device(device)
+    fr = (parse_svmlight_sparse(path, key=key, device=dev) if sparse
+          else _parse_svmlight(path, key, dev))
+    DKV.put(key, fr)
+    return fr
 
 
 def _key_from_path(path: str) -> str:

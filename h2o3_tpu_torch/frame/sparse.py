@@ -124,14 +124,11 @@ class SparseFrame:
                 f" [{100 * self.density():.3f}%], dense={list(self.dense)})")
 
 
-def parse_svmlight_sparse(path: str, key: str | None = None,
-                          device: str | torch.device | None = None
-                          ) -> SparseFrame:
-    """SVMLight → SparseFrame without densifying (reference:
-    SVMLightParser fills CXI chunks). Lines are ``label [qid:n] idx:val
-    ...``; ``#`` starts a comment. Indices are one-based unless some index
-    is 0 (the "auto" rule of the common loaders); the width is the largest
-    index + 1. The response is named ``C0``, as on the dense route."""
+def read_svmlight(path: str):
+    """An SVMLight file's (labels, rows, cols, values, ncols). Lines are
+    ``label [qid:n] idx:val ...``; ``#`` starts a comment. Indices are
+    one-based unless some index is 0 (the "auto" rule of the common
+    loaders); the width is the largest index + 1."""
     labels, rows, cols, vals = [], [], [], []
     with open(path) as fh:
         for line in fh:
@@ -151,8 +148,18 @@ def parse_svmlight_sparse(path: str, key: str | None = None,
     if cols_a.size and cols_a.min() > 0:
         cols_a -= 1
     ncols = int(cols_a.max()) + 1 if cols_a.size else 0
-    X = SparseMatrix.from_scipy_like(np.asarray(rows, np.int64), cols_a,
-                                     np.asarray(vals, np.float64),
-                                     len(labels), ncols, device=device)
-    yv = Vec.from_numpy(np.asarray(labels, np.float32), device=device)
+    return (np.asarray(labels, np.float64), np.asarray(rows, np.int64),
+            cols_a, np.asarray(vals, np.float64), ncols)
+
+
+def parse_svmlight_sparse(path: str, key: str | None = None,
+                          device: str | torch.device | None = None
+                          ) -> SparseFrame:
+    """SVMLight → SparseFrame without densifying (reference:
+    SVMLightParser fills CXI chunks), read by :func:`read_svmlight`. The
+    response is named ``C0``, as on the dense route."""
+    labels, rows, cols_a, vals, ncols = read_svmlight(path)
+    X = SparseMatrix.from_scipy_like(rows, cols_a, vals, len(labels), ncols,
+                                     device=device)
+    yv = Vec.from_numpy(labels.astype(np.float32), device=device)
     return SparseFrame(X, {"C0": yv}, key=key)

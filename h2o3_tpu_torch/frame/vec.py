@@ -9,12 +9,21 @@ relative to ``time_offset`` on the device (epoch milliseconds overflow a
 float32 mantissa) and the exact float64 epoch milliseconds on the host.
 The element-wise operators (arithmetic, comparisons, ``& | ~``) give
 float32 NUM columns with NaN where an operand is missing, as the
-reference's do. The reference's mesh sharding and compression are left
-out.
+reference's do. The reference's mesh sharding is left out.
+
+A column of the streaming parse (:meth:`Vec.from_compressed`) keeps a
+compressed host payload (:mod:`h2o3_tpu_torch.ingest.encode`); its tensor
+is a derived view that ``data`` builds on first access, once, under the
+Vec's lock (two builds may read a column from two threads), by copying the
+narrow payload to the device and widening it there. :meth:`Vec.drop_device`
+lets the view go again (the Cleaner's cheapest eviction); a build that
+still holds the tensor keeps it alive until it lets go. ``nrows``,
+``device``, ``nbytes`` and ``to_numpy`` never build the view.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -31,8 +40,15 @@ class Vec:
     def __init__(self, data: torch.Tensor | None, type: VecType,
                  domain: tuple[str, ...] | None = None,
                  host_values: np.ndarray | None = None,
-                 time_offset: float = 0.0):
-        self.data = data        # [nrows] float32 (numeric) or int32 (codes)
+                 time_offset: float = 0.0, compressed=None,
+                 device: torch.device | None = None):
+        self._data = data       # [nrows] float32 (numeric) or int32 (codes)
+        # a compressed host payload (ingest/encode.CompressedChunk), with the
+        # device its view is built on; _data is then the derived view
+        self._compressed = compressed
+        self._device = device
+        self._view_lock = threading.Lock() if compressed is not None \
+            else None
         self.type = type
         self.domain = domain    # categorical level names, sorted
         # the values of a host-resident column (STR, UUID), with data None;
@@ -78,16 +94,79 @@ class Vec:
         """Wrap an existing device tensor."""
         return Vec(data, type, domain=domain)
 
+    @staticmethod
+    def from_compressed(chunk, type: VecType,
+                        domain: tuple[str, ...] | None = None,
+                        device: str | torch.device | None = None) -> "Vec":
+        """Wrap a compressed host payload; the tensor is built on
+        ``device`` at the first ``data`` access."""
+        return Vec(None, type, domain=domain, compressed=chunk,
+                   device=resolve_device(device))
+
+    @property
+    def data(self) -> torch.Tensor | None:
+        """The column's tensor. For a compressed Vec a derived view, built
+        on first access and kept until :meth:`drop_device`."""
+        arr = self._data    # a concurrent drop_device must not make this None
+        if arr is None and self._compressed is not None:
+            with self._view_lock:
+                arr = self._data
+                if arr is None:
+                    arr = self._compressed.to_tensor(self._device)
+                    self._data = arr
+        return arr
+
+    @data.setter
+    def data(self, value: torch.Tensor | None) -> None:
+        self._data = value
+
+    @property
+    def compressed(self):
+        """The compressed host payload, if the Vec has one."""
+        return self._compressed
+
+    @property
+    def device_resident(self) -> bool:
+        """Whether the tensor exists now (never builds it)."""
+        return self._data is not None
+
+    def drop_device(self) -> int:
+        """Let a compressed Vec's derived tensor go; returns its bytes (0
+        where there is nothing the payload can build again). A caller that
+        still holds the tensor keeps its memory until it lets go."""
+        if self._compressed is None:
+            return 0
+        with self._view_lock:
+            arr, self._data = self._data, None
+        return 0 if arr is None else arr.numel() * arr.element_size()
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes: the tensor if it exists now (never built for the
+        count), the compressed payload and the host values."""
+        arr = self._data
+        total = 0 if arr is None else arr.numel() * arr.element_size()
+        if self._compressed is not None:
+            total += int(self._compressed.nbytes)
+        if self.host_values is not None:
+            total += int(self.host_values.nbytes)
+        return total
+
     @property
     def nrows(self) -> int:
-        if self.data is None:
-            return len(self.host_values)
-        return self.data.shape[0]
+        if self._data is not None:
+            return self._data.shape[0]
+        if self._compressed is not None:
+            return self._compressed.nrows
+        return len(self.host_values)
 
     @property
     def device(self) -> torch.device | None:
-        """The tensor's device; None for a host-resident column."""
-        return None if self.data is None else self.data.device
+        """The tensor's device (a compressed Vec's, built or not); None
+        for a host-resident column."""
+        if self._data is not None:
+            return self._data.device
+        return self._device
 
     @property
     def is_categorical(self) -> bool:
@@ -103,7 +182,14 @@ class Vec:
 
     def rollups(self) -> Rollups:
         if self._rollups is None:
-            if self.data is None:
+            if self._data is None and self._compressed is not None:
+                # a transient tensor of the payload on the Vec's device, so
+                # the numbers equal the eager column's bit for bit; the
+                # view itself stays unbuilt
+                t = self._compressed.to_tensor(self._device)
+                self._rollups = (cat_rollups(t) if self.is_categorical
+                                 else numeric_rollups(t))
+            elif self.data is None:
                 # a host column: its count of missing values alone
                 na = int(sum(v is None for v in self.host_values))
                 nan = float("nan")
@@ -133,6 +219,9 @@ class Vec:
 
     def to_numpy(self) -> np.ndarray:
         """The column on the host (a TIME column: exact epoch ms)."""
+        if self._data is None and self._compressed is not None:
+            # a fresh copy: the identity codec decodes to its payload
+            return self._compressed.decode().copy()
         if self.data is None:
             return self.host_values
         if self.type is VecType.TIME and self.host_values is not None:

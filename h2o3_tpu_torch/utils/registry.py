@@ -6,11 +6,17 @@ frame, model, grid and segment-models object a user addresses by key; the
 port's store is a process-local name → object dict behind one lock, as the
 JAX package's is.
 
+Every ``put`` registers the key's bytes with the memory meter
+(:data:`h2o3_tpu_torch.utils.memory.MEMORY`) and, for frames and raw
+uploads, lets the Cleaner (:mod:`h2o3_tpu_torch.utils.cleaner`) sweep
+under its budget; ``get`` faults a spilled value back in and notes the
+access; ``remove`` and ``clear`` unregister and delete spilled snapshots.
+The meter and the Cleaner are imported at call time: they import this
+module. Lock order: the store's lock, then the meter's; the Cleaner's I/O
+lock is taken before the store's and never inside it.
+
 Left out, each with the part of the port that will bring it:
 
-- ``MEMORY`` metering of the bytes a key holds (``utils/memory.py``) and
-  the Cleaner's spill to disk, fault-in of swapped values and its LRU
-  sweep (``utils/cleaner.py``): the data plane's memory manager.
 - The mesh views a keyed frame registers (``{key}::mesh[...]``): one card
   has no mesh.
 - Telemetry counters (``DKV_PUTS``, ``DKV_KEYS``, ...) and the ops plane's
@@ -25,6 +31,10 @@ import contextlib
 import threading
 from typing import Any, Iterator
 
+#: the Cleaner's stubs of spilled values, and the values it may spill
+_STUBS = ("SwappedFrame", "SwappedValue")
+_SPILLABLE = ("Frame", "RawFile")
+
 
 class KeyedStore:
     """Name → object store (reference: the DKV singleton)."""
@@ -36,34 +46,84 @@ class KeyedStore:
     def put(self, key: str | None, value: Any) -> str | None:
         if key is None:
             return None
+        from h2o3_tpu_torch.utils.memory import MEMORY
         with self._lock:
+            old = self._store.get(key)
             self._store[key] = value
+            # inside the store's lock: a racing remove must not leave the
+            # meter counting a key the store no longer holds
+            MEMORY.register(key, value)
+        if old is not None and old is not value \
+                and type(old).__name__ in _STUBS:
+            # a put over a spilled key retires its snapshot
+            from h2o3_tpu_torch.utils.cleaner import CLEANER, discard_snapshot
+            discard_snapshot(old.path)
+            CLEANER.forget(key)
+        if type(value).__name__ in _SPILLABLE:
+            from h2o3_tpu_torch.utils.cleaner import CLEANER
+            CLEANER.touch(key)
+            CLEANER.sweep(protect=key)
         return key
 
     def replace_if(self, key: str, expected: Any, value: Any) -> bool:
         """Atomic compare-and-swap: install ``value`` only while the store
-        still holds ``expected`` (by identity)."""
+        still holds ``expected`` (by identity). It registers the bytes but
+        runs no sweep: the Cleaner's spill and fault-in call it holding
+        their I/O lock, and sweep themselves outside the store's lock."""
+        from h2o3_tpu_torch.utils.memory import MEMORY
         with self._lock:
             if self._store.get(key) is not expected:
                 return False
             self._store[key] = value
+            MEMORY.register(key, value)
         return True
+
+    def _resolve(self, key: str, value: Any) -> Any:
+        """A spilled value faulted back in; a live frame or upload touched
+        on the LRU clock."""
+        tname = type(value).__name__
+        if tname in _STUBS:
+            from h2o3_tpu_torch.utils.cleaner import CLEANER
+            return (CLEANER.resolve(key, value) if tname == "SwappedFrame"
+                    else CLEANER.resolve_value(key, value))
+        if tname in _SPILLABLE:
+            from h2o3_tpu_torch.utils.cleaner import CLEANER
+            if CLEANER.budget is not None:
+                CLEANER.touch(key)
+        return value
 
     def get(self, key: str, default: Any = None) -> Any:
         with self._lock:
-            return self._store.get(key, default)
+            v = self._store.get(key, default)
+        if v is None:
+            return v
+        from h2o3_tpu_torch.utils.memory import MEMORY
+        MEMORY.note_access(key)    # ends the key's idle streak
+        return self._resolve(key, v)
 
     def __getitem__(self, key: str) -> Any:
         with self._lock:
-            return self._store[key]
+            v = self._store[key]
+        from h2o3_tpu_torch.utils.memory import MEMORY
+        MEMORY.note_access(key)
+        return self._resolve(key, v)
 
     def remove(self, key: str, *, only_if: Any = None) -> Any:
-        """Remove ``key`` and return its value (None if absent); with
-        ``only_if``, only while the store still holds that exact object."""
+        """Remove ``key`` and return its value (None if absent or
+        spilled); with ``only_if``, only while the store still holds that
+        exact object. A spilled key's snapshot is deleted."""
+        from h2o3_tpu_torch.utils.cleaner import CLEANER, discard_snapshot
+        from h2o3_tpu_torch.utils.memory import MEMORY
         with self._lock:
             if only_if is not None and self._store.get(key) is not only_if:
                 return None
-            return self._store.pop(key, None)
+            v = self._store.pop(key, None)
+            MEMORY.unregister(key)
+        CLEANER.forget(key)
+        if type(v).__name__ in _STUBS:
+            discard_snapshot(v.path)
+            return None
+        return v
 
     def keys(self) -> list[str]:
         with self._lock:
@@ -82,8 +142,16 @@ class KeyedStore:
         return iter(self.keys())
 
     def clear(self) -> None:
+        from h2o3_tpu_torch.utils.cleaner import CLEANER, discard_snapshot
+        from h2o3_tpu_torch.utils.memory import MEMORY
         with self._lock:
+            items = list(self._store.values())
             self._store.clear()
+            MEMORY.clear()
+        for v in items:
+            if type(v).__name__ in _STUBS:
+                discard_snapshot(v.path)
+        CLEANER.forget_all()
 
 
 class KeyLocks:

@@ -96,3 +96,15 @@ def test_the_probe_covers_the_text_path_and_udfs():
             "h2o3_tpu_torch.models.word2vec",
             "h2o3_tpu_torch.models.grep_algo",
             "h2o3_tpu_torch.utils.udf"} <= set(_port_modules())
+
+
+def test_the_probe_covers_the_data_plane():
+    """The streaming ingest, the binary formats, SQL, the persist backends
+    and snapshots, the memory meter and the Cleaner are among the modules
+    the probe imports."""
+    assert {"h2o3_tpu_torch.ingest", "h2o3_tpu_torch.ingest.encode",
+            "h2o3_tpu_torch.ingest.pipeline", "h2o3_tpu_torch.frame.binfmt",
+            "h2o3_tpu_torch.frame.sql", "h2o3_tpu_torch.persist.cloud",
+            "h2o3_tpu_torch.persist.frame_io", "h2o3_tpu_torch.utils.memory",
+            "h2o3_tpu_torch.utils.cleaner"} <= set(_port_modules())
+

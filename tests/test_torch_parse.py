@@ -8,7 +8,8 @@ values equal (numbers exactly in float32). ``col_types`` are compared with
 what the reference leaves them (it does not apply them): a column typed
 "string" is the port's STR column of the reference's categorical labels.
 Also ``RawFile``, ``parse_raw``, ``Frame.from_pandas``/``to_pandas``, the
-header ``NA,x,x`` and the refused formats."""
+header ``NA,x,x``, one small file of each binary format and the URI,
+streaming and bad-path routes."""
 
 import io
 
@@ -197,25 +198,66 @@ def test_header_na_and_duplicate_names(tmp_path):
         assert parse.dedupe_names(names) == want
 
 
+def _write_format(tmp_path, name):
+    """A two-row file of one column ``x`` (SVMLight: the label ``C0`` and
+    one feature) in the format its extension names."""
+    p = str(tmp_path / name)
+    ext = name.rsplit(".", 1)[1]
+    if ext in ("parquet", "orc"):
+        import pyarrow as pa
+        table = pa.table({"x": pa.array([1.0, 2.5])})
+        if ext == "orc":
+            import pyarrow.orc as orc
+            orc.write_table(table, p)
+        else:
+            import pyarrow.parquet as pq
+            pq.write_table(table, p)
+    elif ext == "arff":
+        _write(tmp_path, name, "@relation r\n@attribute x numeric\n"
+                               "@data\n1\n2.5\n")
+    elif ext == "svmlight":
+        _write(tmp_path, name, "1 1:2.5\n0 1:-1\n")
+    elif ext == "avro":
+        from dataplane_pair import write_avro
+        write_avro(p, {"type": "record", "name": "R", "fields": [
+            {"name": "x", "type": "double"}]}, [{"x": 1.0}, {"x": 2.5}])
+    else:
+        from dataplane_pair import write_xlsx
+        write_xlsx(p, ["x"], [[1.0], [2.5]])
+    return p
+
+
 @pytest.mark.parametrize("name,what", [("a.parquet", "Parquet"),
                                        ("a.orc", "ORC"), ("a.arff", "ARFF"),
                                        ("a.svmlight", "SVMLight"),
                                        ("a.avro", "Avro"), ("a.xlsx", "XLSX")])
 def test_refused_formats_raise_by_name(tmp_path, name, what):
-    p = _write(tmp_path, name, "x\n1\n")
-    with pytest.raises(NotImplementedError, match=what):
-        parse.import_file(p)
+    """Each format the reference parses (``what``) parses in the port to
+    the reference's frame, under the reference's key."""
+    p = _write_format(tmp_path, name)
+    pf = parse.import_file(p)
+    jf = jparse.import_file(p)
+    _same_frame(jf, pf)
+    assert pf.key == jf.key == name.replace(".", "_") + ".hex"
+    assert DKV.get(pf.key) is pf
 
 
 def test_refused_uris_streaming_and_bad_paths(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="'s3' URIs"):
+    """A cloud URI without its endpoint's credentials raises the
+    reference's guidance; H2O3TPU_INGEST_STREAMING=1 streams a text file
+    into the frame the eager route gives; ``file://`` and bad paths
+    behave as the reference's."""
+    monkeypatch.delenv("AWS_ACCESS_KEY_ID", raising=False)
+    with pytest.raises(ValueError, match="S3 credentials missing"):
         parse.import_file("s3://bucket/a.csv")
     p = _write(tmp_path, "s.csv", "x\n1\n")
     monkeypatch.setenv("H2O3TPU_INGEST_STREAMING", "1")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        parse.import_file(p)
+    streamed = parse.import_file(p)
+    assert streamed._ingest_stats["rows"] == 1
     monkeypatch.delenv("H2O3TPU_INGEST_STREAMING")
-    assert parse.import_file("file://" + p).nrows == 1
+    eager = parse.import_file("file://" + p)
+    assert eager.nrows == 1
+    _same_frame(eager, streamed)
     with pytest.raises(FileNotFoundError):
         parse.import_file(str(tmp_path / "absent.csv"))
     with pytest.raises(IsADirectoryError):
