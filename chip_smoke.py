@@ -32,7 +32,7 @@ Phases, each of which fails the run on error:
 3. small models trained on the CPU (plain path) and on the card (kernels),
    which must agree on every split, on the training metric and on the
    margins: a 100k-row binomial GBM, multinomial GBM (K = 3) and XGBoost
-   (256 bins), sampling off, and XGBoost at 4.5M rows (1 tree, depth 4),
+   (256 bins), sampling off, and XGBoost at 4.5M rows (1 tree, depth 3),
    whose levels run the fixed kernel at 15 bits a value; then a 200k-row
    GBM of depth 12, whose levels of 32 to 1024 nodes run the global
    kernel, held to the metric and to the first tree's leaves on the rows
@@ -108,8 +108,8 @@ Phases, each of which fails the run on error:
    device ops; (f) calibration (Platt and isotonic) from a 1M-row frame,
    cal_p1 within 1e-6 of the CPU's; (g) the isolation forest and the
    extended one (extension 0 and 27) fitted and scored on phase 4's
-   frame, the bytes a fit copies to the host counted, and 200k-row fits
-   (the extended ones' 50k) equal bit for bit to the CPU's;
+   frame, the bytes a fit copies to the host counted, and 25k-row fits
+   equal bit for bit to the CPU's;
 10. DeepLearning and the dense unsupervised builders (no kernel of their
    own: torch operations), each timed after a warm run under
    torch.profiler (DeepLearning's: one epoch of its first 2,000 rows),
@@ -119,7 +119,7 @@ Phases, each of which fails the run on error:
    frame (60,000 x 784, labels 0-9): bench_dl itself (hidden [50, 50], B
    128, 3 epochs), H2O's defaults (hidden [200, 200], B 32, 1 epoch),
    MaxoutWithDropout with momentum SGD and Nesterov, and the autoencoder
-   (hidden [50], Tanh, 3 epochs) with its anomaly scores; one host sync
+   (hidden [50], Tanh, 1 epoch) with its anomaly scores; one host sync
    inside a fit; CPU against card on 2,000 rows, one epoch, streams drawn
    on the host; (e) KMeans on phase 4's frame (k 10, Furthest, 10
    iterations) and estimate_k on its first 1M rows; (f) PCA (k 10,
@@ -244,6 +244,29 @@ Phases, each of which fails the run on error:
    ``s3://`` URI (an in-process S3 on 127.0.0.1), Parquet and ORC on the
    first 100,000 rows, and XLSX on the first 10,000, each held to the CSV
    import of the same rows; (g) the kernel at (d)'s level shapes.
+17. persistence and genmodel on phase 4's frame and model (no kernel of
+   their own; the GBMs launch the histogram kernels, held to the plan of
+   the trees they grow): (a) ``save_model`` and ``load_model`` of the main
+   path's GBM, whose predictions on the 11M rows are bit for bit the live
+   model's, back in the DKV; (b) ``write_mojo``, ``MojoModel.load`` and
+   ``import_mojo`` of that GBM and of phase 8a's GLM, predicting bit for
+   bit on the card; (c) the generated numpy scorer (the POJO) on the
+   first 100k rows against ``predict`` (rtol 1e-5, atol 1e-6) and
+   ``model.testJavaScoring`` through the Rapids engine; (d) the C++ MOJO
+   scorer built from ``native/mojo_scorer.cpp`` on the first 100k rows
+   written by ``export_file`` (every row within those tolerances of
+   ``predict``, or at a split threshold whose float64 reading routes it
+   otherwise, and then equal to the float64 walk of the same text); (e)
+   the GBM on the first 1M rows with ``auto_recovery_dir`` and a snapshot
+   every 5 trees, cancelled through its Job once the first has landed and
+   resumed: launches held to the plan of the 15 trees it grows, trees bit
+   for bit an uninterrupted fit's, the snapshot removed; (f) a 3-point
+   GBM grid on those rows stopped at ``max_models=2`` and resumed, one
+   model built, the three bit for bit an uninterrupted grid's; (g) the
+   seven real H2O-3 MOJOs of ``tests/data/ref_mojo`` imported with
+   ``device="cuda"`` and scoring ``prostate.csv``: a float64 walk on the
+   host whose scores are copied to the frame's device, the copy onto the
+   card equal to the copy onto the CPU (no work on the card).
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -253,8 +276,9 @@ levels it takes); the last line is
 line, phase 9's the ``tree_family`` line, phase 10's the
 ``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
 12's the ``cv_explain`` line, phase 13's the ``orchestration`` line,
-phase 14's the ``text`` line, phase 15's the ``munge`` line and phase
-16's the ``data_plane`` line before the ``kernels`` line. Without a CUDA
+phase 14's the ``text`` line, phase 15's the ``munge`` line, phase
+16's the ``data_plane`` line and phase 17's the ``persist`` line before
+the ``kernels`` line (which has a ``recovery_gbm`` object for 17e). Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -284,7 +308,8 @@ XGB_TREES, XGB_BINS = 10, 256
 # the DRF path at DRF's defaults (50 trees, depth 14, mtries sqrt(28))
 DRF_TREES, DRF_DEPTH, DRF_MTRIES = 50, 14, 5
 #: phase 3's XGBoost at a size where the fixed kernel keeps 15 bits a value
-QBITS15_ROWS, QBITS15_DEPTH = 4_500_000, 4
+#: (depth cut from 4: ROADMAP.md "Reduced checks")
+QBITS15_ROWS, QBITS15_DEPTH = 4_500_000, 3
 #: its trees (cut from 2: ROADMAP.md "Reduced checks")
 QBITS15_TREES = 1
 #: 16-byte float reductions into global memory per second at random
@@ -994,7 +1019,7 @@ def cross_device(what: str, cols: dict, make, metric: str,
 def phase_cross_device() -> None:
     """Phase 3: small binomial GBM, multinomial GBM (K = 3) and XGBoost
     (256 bins) on the CPU and on the card, sampling off; XGBoost at 4.5M
-    rows, where the fixed kernel keeps 15 bits a value at levels 0-3; then
+    rows, where the fixed kernel keeps 15 bits a value at levels 0-2; then
     a deep GBM (depth 12, levels of up to 1024 nodes) whose deep levels run
     the global kernel on the card."""
     from h2o3_tpu_torch.models.gbm import GBM
@@ -2445,9 +2470,9 @@ DART = dict(booster="dart", max_depth=DEPTH, max_bin=XGB_BINS, eta=0.3,
 #: "Reduced checks"), of TreeSHAP and of calibration
 CROSS_ROWS, SHAP_ROWS, SHAP_CROSS_ROWS, CAL_ROWS = (100_000, 1_000_000,
                                                     10_000, 1_000_000)
-#: rows of the isolation forests' CPU-against-card fits (cut from 200k:
-#: ROADMAP.md "Reduced checks")
-ISO_CROSS_ROWS = 50_000
+#: rows of the isolation forests' CPU-against-card fits (cut from 200k,
+#: then from 50k: ROADMAP.md "Reduced checks")
+ISO_CROSS_ROWS = 25_000
 #: the isolation forests: (name, builder parameters, trees)
 ISO_CASES = (("IF", dict(ntrees=50, sample_size=256, max_depth=8), 50),
              ("EIF extension 0", dict(ntrees=100, extension_level=0), 100),
@@ -2703,7 +2728,7 @@ def tree_family_isofor(fr) -> dict:
     """(g) The isolation forests on phase 4's frame, fit (timed; its
     device-to-host bytes counted under the profiler, held to ntrees x 256
     x 28 x 4 plus a few kB) and scored (timed; profiled on 1M rows); then
-    fitted on its first 50k rows on the card and on the CPU: equal bit for
+    fitted on its first 25k rows on the card and on the CPU: equal bit for
     bit (the entries that differ printed), scores within 1e-6 x max(1,
     |score|)."""
     from h2o3_tpu_torch.models.isofor import (ExtendedIsolationForest,
@@ -2961,8 +2986,9 @@ DL_CASES = (
     ("c MaxoutWithDropout, momentum SGD, Nesterov",
      dict(hidden=[50, 50], activation="MaxoutWithDropout",
           adaptive_rate=False, epochs=1, seed=7)),
+    # 1 epoch, not h2o-py's 3 (ROADMAP.md "Reduced checks")
     ("d AutoEncoder", dict(autoencoder=True, hidden=[50], activation="Tanh",
-                           epochs=3, seed=7)),
+                           epochs=1, seed=7)),
 )
 #: rows of the CPU heads of the unsupervised checks; estimate_k's rows and
 #: the proximal GLRM's (airlines) rows, and its CPU head
@@ -4448,7 +4474,8 @@ GRID_HYPER = {"max_depth": [3, 5, 7, 9], "learn_rate": [0.05, 0.1, 0.2],
               "sample_rate": [0.6, 0.8, 1.0],
               "col_sample_rate": [0.4, 0.7, 1.0]}
 GRID_CRITERIA = dict(strategy="RandomDiscrete", max_models=6, seed=42)
-GRID_FIXED = dict(ntrees=50, seed=1, nfolds=0)
+#: 25 trees, not AutoML's 50 (ROADMAP.md "Reduced checks")
+GRID_FIXED = dict(ntrees=25, seed=1, nfolds=0)
 #: the deepest tree of 65 bins whose every level runs the fixed kernel:
 #: its last level histograms 2^(depth-2) nodes, below the 64 at which
 #: ``_KERNEL_SWITCH`` takes the global kernel
@@ -4646,7 +4673,7 @@ def automl_part(fr1m) -> dict:
 
 def grid_part(fr1m) -> dict:
     """13b: AutoML's GBM grid, RandomDiscrete (search seed 42, 6 of its
-    108 points, builder seed 1, 50 trees, no CV) on 13a's rows, once at
+    108 points, builder seed 1, 25 trees, no CV) on 13a's rows, once at
     parallelism 1 and once at 2 (two builds in flight, each on a stream of
     its own): both timed, their launches held to the plan, the same model
     ids, the models of max_depth 7 or less (every level on the fixed
@@ -6403,6 +6430,364 @@ def phase_data_plane(rows: int = INGEST_ROWS) -> dict:
     return out
 
 
+# -- phase 17: persistence and genmodel ---------------------------------------
+
+#: 17c's and 17d's rows (the head of phase 4's frame)
+PERSIST_HEAD = 100_000
+#: 17e's and 17f's rows, and 17e's snapshot cadence (trees)
+RECOVERY_ROWS, RECOVERY_EVERY = 1_000_000, 5
+#: 17f's grid: three points of 5 trees
+GRID17_HYPER = {"max_depth": [3, 4, 5]}
+GRID17_FIXED = dict(ntrees=5, nbins=NBINS, learn_rate=0.1, seed=1)
+#: the real H2O-3 MOJOs of the repository, scored on prostate.csv
+REF_MOJO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "ref_mojo")
+REF_MOJOS = ("gbm_variable_importance", "glm_model", "kmeans_model",
+             "ensemble_binomial", "ensemble_multinomial",
+             "xgboost_prostate_age", "xgboost_multinomial")
+#: tests/test_mojo_native.py's tolerances (the POJO's and the C++
+#: scorer's float64 walks against the card's float32 predictions)
+NATIVE_RTOL, NATIVE_ATOL = 1e-5, 1e-6
+
+
+def _preds_bitwise(a, b) -> bool:
+    return a.names == b.names and all(
+        torch.equal(u.data, v.data) for u, v in zip(a.vecs, b.vecs))
+
+
+def _timed(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def persist_binary(model, fr, tmp: str, card: str) -> dict:
+    """17a: ``save_model`` and ``load_model`` of the main path's GBM; the
+    loaded model predicts the 11M rows bit for bit, from the DKV."""
+    from h2o3_tpu_torch import load_model, save_model
+    from h2o3_tpu_torch.utils.registry import DKV
+    path = os.path.join(tmp, "gbm.bin")
+    _, save_s = _timed(lambda: save_model(model, path))
+    nbytes = os.path.getsize(path)
+    DKV.remove(model.key)
+    back, load_s = _timed(lambda: load_model(path))
+    same = _preds_bitwise(back.predict(fr), model.predict(fr))
+    in_dkv = DKV.get(model.key) is back
+    on_card = all(t.leaf.is_cuda for t in back.output["trees"]) and \
+        back.output["edges"].is_cuda
+    print(f"17a save_model {nbytes} bytes {save_s:.4f} s, load_model "
+          f"{load_s:.4f} s; predict on {fr.nrows} rows bit for bit {same}, "
+          f"in the DKV {in_dkv}, trees on the card {on_card} [{card}]")
+    if not (same and in_dkv and on_card
+            and back.artifact_file_bytes == nbytes):
+        raise AssertionError("17a: the loaded model differs")
+    return dict(bytes=nbytes, save_s=save_s, load_s=load_s, bitwise=same)
+
+
+def persist_mojo(what: str, model, fr, tmp: str, card: str) -> tuple:
+    """17b: ``write_mojo``, ``MojoModel.load`` and ``import_mojo`` of a
+    model; both loads predict the frame bit for bit on the card."""
+    from h2o3_tpu_torch.genmodel import MojoModel, import_mojo, write_mojo
+    path = os.path.join(tmp, f"{what}.mojo")
+    _, write_s = _timed(lambda: write_mojo(model, path))
+    nbytes = os.path.getsize(path)
+    mojo, load_s = _timed(lambda: MojoModel.load(path))
+    generic, import_s = _timed(lambda: import_mojo(path))
+    want = model.predict(fr)
+    same = _preds_bitwise(mojo.predict(fr), want)
+    same_generic = _preds_bitwise(generic.predict(fr), want)
+    inner = mojo._inner
+    ported = type(inner) is type(model) and all(
+        v.is_cuda for v in inner.output.values()
+        if isinstance(v, torch.Tensor))
+    print(f"17b {what} MOJO {nbytes} bytes: write_mojo {write_s:.4f} s, "
+          f"MojoModel.load {load_s:.4f} s, import_mojo {import_s:.4f} s; "
+          f"predict on {fr.nrows} rows bit for bit {same} (MojoModel) "
+          f"{same_generic} (Generic), the port's {type(inner).__name__} on "
+          f"the card {ported} [{card}]")
+    if not (same and same_generic and ported):
+        raise AssertionError(f"17b: the {what} MOJO's model differs")
+    return dict(bytes=nbytes, write_s=write_s, load_s=load_s,
+                import_s=import_s, bitwise=same), path
+
+
+def _x_matrix(fr, cols) -> np.ndarray:
+    return np.stack([fr.vec(c).data.cpu().numpy().astype(np.float64)
+                     for c in cols], axis=1)
+
+
+def persist_pojo(model, fr, card: str) -> dict:
+    """17c: the generated scorer on the first 100k rows against
+    ``predict``, and ``model.testJavaScoring`` through the engine."""
+    from h2o3_tpu_torch.genmodel.codegen import generate_pojo
+    from h2o3_tpu_torch.rapids import exec as rx
+    from h2o3_tpu_torch.utils.registry import DKV
+    src, gen_s = _timed(lambda: generate_pojo(model))
+    ns: dict = {}
+    exec(compile(src, "<pojo>", "exec"), ns)
+    hd = head(fr, PERSIST_HEAD)
+    X = _x_matrix(hd, model.output["x_cols"])
+    t0 = time.perf_counter()
+    got = ns["score_batch"](X)[:, 1]
+    score_s = time.perf_counter() - t0
+    want = model.predict(hd).vecs[-1].data.cpu().numpy()
+    err = float(np.max(np.abs(got - want)))
+    ok = bool(np.allclose(got, want, rtol=NATIVE_RTOL, atol=NATIVE_ATOL))
+    DKV.put("persist_model", model)
+    DKV.put("persist_head", hd)
+    java, java_s = _timed(lambda: rx.rapids(
+        "(model.testJavaScoring persist_model persist_head 'predict' "
+        f"{NATIVE_RTOL})"))
+    print(f"17c POJO {len(src)} bytes of source in {gen_s:.4f} s; "
+          f"score_batch on {PERSIST_HEAD} rows {score_s:.3f} s, max |diff| "
+          f"{err:.3g} against predict (rtol {NATIVE_RTOL}, atol "
+          f"{NATIVE_ATOL}) {ok}; model.testJavaScoring {java} in "
+          f"{java_s:.3f} s [{card}]")
+    if not (ok and java == 1.0):
+        raise AssertionError("17c: the POJO disagrees with predict")
+    return dict(source_bytes=len(src), generate_s=gen_s, score_s=score_s,
+                max_abs_err=err, test_java_scoring=java)
+
+
+def _threshold_ties(model, X32: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Which of ``rows`` hold a float32 value equal to a split threshold
+    of the model on its feature."""
+    feats, vals = [], []
+    for t in model.output["trees"]:
+        split = t.is_split.cpu().numpy()
+        feats.append(t.feat.cpu().numpy()[split])
+        vals.append(t.thresh_val.cpu().numpy()[split])
+    feats, vals = np.concatenate(feats), np.concatenate(vals)
+    return np.array([bool(np.any(X32[r, feats] == vals)) for r in rows],
+                    bool)
+
+
+def persist_native(model, fr, tmp: str, mojo_path: str, card: str) -> dict:
+    """17d: the C++ scorer, built from ``native/mojo_scorer.cpp``, on the
+    first 100k rows written by ``export_file``, scoring the GBM's MOJO."""
+    import pandas as pd
+    from h2o3_tpu_torch.genmodel import native_scorer
+    from h2o3_tpu_torch.genmodel.codegen import generate_pojo
+    from h2o3_tpu_torch.persist.frame_io import export_file
+    t0 = time.perf_counter()
+    exe = native_scorer.executable()
+    build_s = time.perf_counter() - t0
+    x_cols = model.output["x_cols"]
+    hd = head(fr, PERSIST_HEAD).subframe(x_cols)
+    csv = os.path.join(tmp, "head.csv")
+    _, export_s = _timed(lambda: export_file(hd, csv))
+    t0 = time.perf_counter()
+    rows = native_scorer.score_csv(mojo_path, csv)
+    score_s = time.perf_counter() - t0
+    got = np.array([float(r[2]) for r in rows])
+    want = model.predict(hd).vecs[-1].data.cpu().numpy()
+    # the CSV holds float32's shortest decimal forms, which the scorer
+    # reads as float64: a value equal to a split threshold may route the
+    # other way. Every row must agree with predict, or hold such a tie and
+    # agree with the generated scorer's float64 walk of the same text
+    X64 = pd.read_csv(csv, float_precision="round_trip")[x_cols].to_numpy(
+        np.float64)
+    ns: dict = {}
+    exec(compile(generate_pojo(model), "<pojo>", "exec"), ns)
+    walk = ns["score_batch"](X64)[:, 1]
+    close = np.isclose(got, want, rtol=NATIVE_RTOL, atol=NATIVE_ATOL)
+    off = np.nonzero(~close)[0]
+    ties = _threshold_ties(model, _x_matrix(hd, x_cols).astype(np.float32),
+                           off)
+    # (the scorer prints 9 significant digits)
+    walked = bool(np.allclose(got, walk, rtol=1e-8, atol=1e-12))
+    err = float(np.max(np.abs(got[close] - want[close]))) \
+        if close.any() else 0.0
+    print(f"17d C++ scorer built in {build_s:.2f} s "
+          f"(g++ {native_scorer.build_info['seconds']:.2f} s, {exe.name}); "
+          f"export_file of {PERSIST_HEAD} rows {export_s:.3f} s "
+          f"({os.path.getsize(csv)} bytes), scored in {score_s:.3f} s; "
+          f"{int(close.sum())} rows within rtol {NATIVE_RTOL} atol "
+          f"{NATIVE_ATOL} of predict (max |diff| {err:.3g}), {len(off)} at "
+          f"a threshold tie; equal to the float64 walk of the CSV {walked} "
+          f"[{card}]")
+    if len(rows) != PERSIST_HEAD or not walked or not ties.all():
+        raise AssertionError("17d: the C++ scorer disagrees")
+    return dict(build_s=build_s, gxx_s=native_scorer.build_info["seconds"],
+                export_s=export_s, csv_bytes=os.path.getsize(csv),
+                score_s=score_s, rows_close=int(close.sum()),
+                threshold_ties=int(len(off)), max_abs_err=err)
+
+
+def persist_recovery(fr, tmp: str, card: str) -> dict:
+    """17e: the main path's GBM on the first 1M rows with
+    ``auto_recovery_dir``, cancelled through its Job once its first
+    snapshot (5 trees) has landed, then resumed: its launches held to the
+    plan of the trees it grows, its trees bit for bit an uninterrupted
+    fit's, its snapshot gone once DONE."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.persist import recovery
+    sub = head(fr, RECOVERY_ROWS)
+    rdir = os.path.join(tmp, "rec")
+    prev = os.environ.get("H2O3TPU_CHECKPOINT_EVERY")
+    os.environ["H2O3TPU_CHECKPOINT_EVERY"] = str(RECOVERY_EVERY)
+    real = recovery.BuildRecovery.snapshot
+    landed = []
+    try:
+        clean, clean_s = _timed(lambda: GBM(**MAIN_GBM).train(
+            y="y", training_frame=sub))
+        b = GBM(auto_recovery_dir=rdir, **MAIN_GBM)
+
+        def snapshot(self, model, progress, target):
+            real(self, model, progress, target)
+            landed.append(progress)
+            b.job.cancel()
+
+        recovery.BuildRecovery.snapshot = snapshot
+        try:
+            cut, cut_s = _timed(lambda: b.train(y="y", training_frame=sub))
+        finally:
+            recovery.BuildRecovery.snapshot = real
+        status = b.job.status
+        snap = os.path.join(rdir, recovery.BuildRecovery.MODEL)
+        snap_bytes = os.path.getsize(snap)
+        reset_kernel_counts()
+        resumed, resume_s = _timed(lambda: GBM(
+            auto_recovery_dir=rdir, **MAIN_GBM).train(y="y",
+                                                      training_frame=sub))
+        by_kernel, totals = kernel_counts()
+    finally:
+        if prev is None:
+            os.environ.pop("H2O3TPU_CHECKPOINT_EVERY", None)
+        else:
+            os.environ["H2O3TPU_CHECKPOINT_EVERY"] = prev
+    grown = NTREES - landed[0]
+    plan = planned_launches(grown, DEPTH, NBINS + 1, 1)
+    same = _heaps_bitwise(clean, resumed)
+    removed = not os.path.exists(snap)
+    print(f"17e GBM on {RECOVERY_ROWS} rows, {NTREES} trees: uninterrupted "
+          f"{clean_s:.3f} s; with auto_recovery_dir cancelled through its "
+          f"Job after the snapshot at {landed} trees ({snap_bytes} bytes; "
+          f"{status}, {cut_s:.3f} s); resumed {resume_s:.3f} s growing "
+          f"{grown} trees, kernel launches {by_kernel} (plan {plan}), node "
+          f"totals {totals}; trees bit for bit {same}; snapshot removed "
+          f"{removed} [{card}]")
+    if not (status == "CANCELLED" and cut is None and landed[:1] ==
+            [RECOVERY_EVERY] and by_kernel == plan and totals == grown
+            and same and removed):
+        raise AssertionError("17e: the resumed build differs")
+    return dict(clean_s=clean_s, cancelled_s=cut_s, resume_s=resume_s,
+                snapshot_bytes=snap_bytes, trees_resumed=grown,
+                by_kernel=by_kernel, launches=sum(by_kernel.values()),
+                node_totals=totals, bitwise=same)
+
+
+def persist_grid(fr, tmp: str, card: str) -> dict:
+    """17f: a 3-point GBM grid on the first 1M rows stopped at
+    ``max_models=2``, then resumed: one model built, the three equal an
+    uninterrupted grid's bit for bit."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.orchestration import GridSearch
+    sub = head(fr, RECOVERY_ROWS)
+    rdir = os.path.join(tmp, "grid")
+
+    def grid(**kw):
+        return GridSearch(GBM, GRID17_HYPER, grid_id="p17",
+                          **kw, **GRID17_FIXED).train(y="y",
+                                                      training_frame=sub)
+
+    first, first_s = _timed(lambda: grid(recovery_dir=rdir,
+                                         search_criteria={"max_models": 2}))
+    built = []
+    real = GBM.train
+
+    def counted(self, *a, **k):
+        built.append(self.params["max_depth"])
+        return real(self, *a, **k)
+
+    GBM.train = counted
+    try:
+        resumed, resume_s = _timed(lambda: grid(recovery_dir=rdir))
+    finally:
+        GBM.train = real
+    whole, whole_s = _timed(lambda: grid())
+    same = resumed.model_ids == whole.model_ids and all(
+        _heaps_bitwise(a, b) for a, b in zip(resumed.models, whole.models))
+    print(f"17f grid of {len(whole.models)} GBMs on {RECOVERY_ROWS} rows: "
+          f"stopped at {len(first.models)} models {first_s:.3f} s, resumed "
+          f"{resume_s:.3f} s building {built}, uninterrupted {whole_s:.3f} "
+          f"s; the three bit for bit {same} [{card}]")
+    if not (len(first.models) == 2 and len(built) == 1
+            and len(resumed.models) == 3 and same):
+        raise AssertionError("17f: the resumed grid differs")
+    return dict(first_s=first_s, resume_s=resume_s, whole_s=whole_s,
+                built_on_resume=len(built), bitwise=same)
+
+
+def persist_ref_mojos(card: str) -> dict:
+    """17g: the real H2O-3 MOJOs imported with ``device="cuda"``. Their
+    trees and networks are walked on the host in float64 (as the JAX
+    package's reader does; ROADMAP queue B), and the scores are copied to
+    the scored frame's device: this checks that the copy onto the card
+    equals the one onto the CPU, not work done on the card."""
+    from h2o3_tpu_torch import import_file, import_mojo
+    path = os.path.join(REF_MOJO_DIR, "prostate.csv")
+    on_card = import_file(path, device="cuda")
+    on_cpu = import_file(path, device="cpu")
+    out = {}
+    for name in REF_MOJOS:
+        model, load_s = _timed(lambda: import_mojo(
+            os.path.join(REF_MOJO_DIR, f"{name}.zip"), device="cuda"))
+        raw, score_s = _timed(lambda: model._score_raw(on_card))
+        same = raw.is_cuda and torch.equal(raw.cpu(),
+                                           model._score_raw(on_cpu))
+        finite = bool(torch.isfinite(raw).all())
+        out[name] = dict(load_s=load_s, score_s=score_s, bitwise=same)
+        print(f"17g {name} ({model.output['source_algo']}): import "
+              f"{load_s:.3f} s, {on_card.nrows} rows walked on the host in "
+              f"float64 and copied to the card {score_s:.4f} s, equal to "
+              f"the copy onto the CPU {same}, finite {finite}")
+        if not (same and finite):
+            raise AssertionError(f"17g: {name} scores otherwise on the card")
+    return out
+
+
+def phase_persist(fr) -> dict:
+    """Phase 17: persistence and genmodel on phase 4's frame (see the
+    module's docstring)."""
+    import shutil
+    import tempfile
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.glm import GLM
+    t_phase = time.perf_counter()
+    card = card_name()
+    tmp = tempfile.mkdtemp(prefix="h2o3_persist_")
+    out = {"card": card}
+    try:
+        gbm, out["gbm_train_s"] = _timed(lambda: GBM(**MAIN_GBM).train(
+            y="y", training_frame=fr))
+        out["17a_binary"] = persist_binary(gbm, fr, tmp, card)
+        out["17b_mojo_gbm"], gbm_mojo = persist_mojo("gbm", gbm, fr, tmp,
+                                                     card)
+        gf = Frame.from_arrays(glm_bench_cols(GLM_ROWS), device="cuda")
+        glm = GLM(family="binomial", lambda_=1e-4, max_iterations=30).train(
+            y=GLM_Y, training_frame=gf)
+        out["17b_mojo_glm"], _ = persist_mojo("glm", glm, gf, tmp, card)
+        del gf, glm
+        out["17c_pojo"] = persist_pojo(gbm, fr, card)
+        out["17d_native"] = persist_native(gbm, fr, tmp, gbm_mojo, card)
+        del gbm
+        drop_models()
+        out["17e_recovery"] = persist_recovery(fr, tmp, card)
+        drop_models()
+        out["17f_grid"] = persist_grid(fr, tmp, card)
+        drop_models()
+        out["17g_ref_mojos"] = persist_ref_mojos(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -6464,6 +6849,8 @@ def main() -> int:
     text = phase_text(fr)
     drop_models()
     munging = phase_munge(air_fr)
+    drop_models()
+    persist = phase_persist(fr)
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
@@ -6581,6 +6968,15 @@ def main() -> int:
         dg["launches"], data_plane["kernel_times"]["err"],
         data_plane["kernel_times"]["times"], path="ingest_gbm",
         node_totals=dg["node_totals"]))
+    # phase 17: the resumed GBM's launches (1M x 28, levels 0-5), timed at
+    # 13a's level shapes, which are its own
+    rg = persist["17e_recovery"]
+    gbm65 = orchestration["13e_kernel_times"]["gbm_65"]
+    kernels.append(kernel_entry(
+        rg["launches"], gbm65["err"], gbm65["times"][:DEPTH],
+        path="recovery_gbm", node_totals=rg["node_totals"],
+        timed_at="13a's GBM levels 0-5 at 1M x 28 (phase 13e), this "
+                 "path's level shapes"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -6599,6 +6995,7 @@ def main() -> int:
     print(json.dumps({"data_plane": {k: v for k, v in data_plane.items()
                                      if k != "kernel_times"}},
                      default=float))
+    print(json.dumps({"persist": persist}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

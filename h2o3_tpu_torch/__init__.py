@@ -49,13 +49,24 @@ and XLSX and ``s3://``/``gs://``/``hdfs://`` URIs
 :func:`save_frame` and :func:`load_frame` write and read frames; the
 memory meter (:mod:`h2o3_tpu_torch.utils.memory`) counts the DKV's bytes
 and the Cleaner (:mod:`h2o3_tpu_torch.utils.cleaner`) spills cold values
-to disk under a budget. The builders of the later slices are exported
+to disk under a budget. Persistence and genmodel: :func:`save_model` and
+:func:`load_model` write and read binary models (the card's tensors kept
+on the host in the file), ``auto_recovery_dir`` snapshots a long GBM,
+XGBoost or DeepLearning build and resumes it, and a grid's
+``recovery_dir`` resumes a stopped search
+(:mod:`h2o3_tpu_torch.persist.recovery`); ``write_mojo`` and
+:func:`import_mojo` move models through MOJOs in the JAX package's format
+both ways and read real H2O-3 MOJO zips
+(:mod:`h2o3_tpu_torch.genmodel`), with pipelines, PrintMojo, the
+generated numpy scorer (the POJO) and the C++ scorer of
+``native/mojo_scorer.cpp``. The builders of the later slices are exported
 here.
 """
 
 from h2o3_tpu_torch.device import resolve_device, set_device
 from h2o3_tpu_torch.frame.parse import import_file, parse_raw, upload_file
 from h2o3_tpu_torch.frame.sql import import_sql_select, import_sql_table
+from h2o3_tpu_torch.genmodel.generic import import_mojo
 from h2o3_tpu_torch.models.aggregator import Aggregator
 from h2o3_tpu_torch.models.coxph import CoxPH
 from h2o3_tpu_torch.models.gam import GAM
@@ -69,10 +80,12 @@ from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoder import TargetEncoder
 from h2o3_tpu_torch.models.word2vec import Word2Vec
 from h2o3_tpu_torch.persist.frame_io import export_file, load_frame, save_frame
+from h2o3_tpu_torch.persist.model_io import load_model, save_model
 
 __all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "Infogram", "IsotonicRegression", "ModelSelection", "RuleFit",
            "TargetEncoder", "Word2Vec", "export_file", "fairness_metrics",
-           "import_file", "import_sql_select", "import_sql_table",
-           "load_frame", "parse_raw", "resolve_device", "save_frame",
-           "set_device", "upload_file"]
+           "import_file", "import_mojo", "import_sql_select",
+           "import_sql_table", "load_frame", "load_model", "parse_raw",
+           "resolve_device", "save_frame", "save_model", "set_device",
+           "upload_file"]

@@ -20,8 +20,11 @@ JAX package's ``jax.random`` streams cannot be reproduced, so a fit is
 held to the reference by its metric; tests inject the weights, the
 permutation (:func:`_permutation`) and the masks. The epoch loop never
 waits for the device: the per-epoch losses and the sample count stay on it
-and are fetched once, after the last epoch. The reference's elastic
-local-SGD needs the multi-GPU layer and raises.
+and are fetched once, after the last epoch. With ``auto_recovery_dir`` a
+snapshot of the weights (with ``epochs_done``) is written every
+``H2O3TPU_CHECKPOINT_EVERY`` epochs, and a resumed build trains the
+remaining epochs. The reference's elastic local-SGD needs the multi-GPU
+layer and raises.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.models.data_info import DataInfo, response_as_float
 from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
+from h2o3_tpu_torch.persist.recovery import checkpoint_every
 
 #: the seed of a fit whose ``seed`` is unset (the reference's)
 DEFAULT_SEED = 5318008
@@ -361,6 +365,9 @@ class DeepLearning(ModelBuilder):
             raise NotImplementedError("score_each_iteration is not applied: "
                                       "the loss is recorded each epoch")
 
+    def supports_auto_recovery(self) -> bool:
+        return True     # a snapshot every H2O3TPU_CHECKPOINT_EVERY epochs
+
     def _validate(self, frame, x, y):
         if not self.params.get("autoencoder"):
             super()._validate(frame, x, y)
@@ -403,6 +410,7 @@ class DeepLearning(ModelBuilder):
         seed = seed if seed >= 0 else DEFAULT_SEED
         cp = self._resolve_checkpoint()
         samples0 = 0.0
+        done_ep = 0
         if cp is not None:
             # continue the same topology from the prior weights (reference
             # DeepLearning.java:348); the stream moves on with the samples
@@ -411,6 +419,9 @@ class DeepLearning(ModelBuilder):
                                  "hidden/activation are immutable across "
                                  "resume")
             samples0 = float(cp.output.get("samples_trained") or 0.0)
+            # an auto-recovery snapshot carries the epochs it trained: the
+            # resumed build trains the rest of them
+            done_ep = int(cp.output.get("epochs_done") or 0)
             gen = torch.Generator(device=dev).manual_seed(
                 (seed * 1_000_003 + 1 + int(samples0)) % (1 << 62))
             Ws = [w_.detach().to(dev).clone() for w_ in cp.output["net"].W]
@@ -445,10 +456,26 @@ class DeepLearning(ModelBuilder):
         B = min(max(int(p["mini_batch_size"]), 1), n)
         nb = n // B
         used = nb * B
-        n_epochs = max(int(np.ceil(float(p["epochs"]))), 1)
+        n_epochs = max(max(int(np.ceil(float(p["epochs"]))), 1) - done_ep, 0)
         # filled on the device: a copy from the host would wait for it
         samples = torch.full((), samples0, dtype=torch.float32, device=dev)
         epoch_losses = []
+        every = checkpoint_every() \
+            if getattr(self, "_build_recovery", None) is not None else 0
+
+        def snapshot(epochs_now: int) -> None:
+            net_now = MLP([w_.detach().clone() for w_ in net.W],
+                          [b_.detach().clone() for b_ in net.b], act)
+            self._snapshot(DeepLearningModel(
+                key=f"{self.model_id or self.algo}_autockpt", params=p,
+                response_column=None if autoenc else y,
+                response_domain=domain,
+                output=dict(net=net_now, act=act, sizes=sizes,
+                            score_history=[],
+                            samples_trained=float(samples.item()),
+                            epochs_done=done_ep + epochs_now),
+                data_info=di), done_ep + epochs_now, done_ep + n_epochs)
+
         for ep in range(n_epochs):
             perm = _permutation(n, gen, dev)[:used]
             Xb = X[perm].view(nb, B, K)
@@ -458,6 +485,8 @@ class DeepLearning(ModelBuilder):
                                           loss, nclasses, cfg)
             epoch_losses.append(mloss)
             job.update((ep + 1) / n_epochs, f"epoch {ep + 1}/{n_epochs}")
+            if every and (ep + 1) % every == 0 and ep + 1 < n_epochs:
+                snapshot(ep + 1)
         # the one fetch of the fit: every epoch's loss and the sample count
         fetched = torch.stack(epoch_losses + [samples]).cpu().tolist()
         score_history = [{"epoch": i + 1, "train_loss": v}

@@ -61,6 +61,7 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
                                         predict_raw)
 from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
                                          compute_bin_edges)
+from h2o3_tpu_torch.persist.recovery import checkpoint_every
 from h2o3_tpu_torch.utils.registry import DKV
 from h2o3_tpu_torch.utils.udf import linkinv, resolve_distribution
 
@@ -808,6 +809,15 @@ class GBM(SharedTreeBuilder):
     STOPPING_METRICS = ("AUTO", "deviance", "logloss", "MSE", "RMSE", "AUC",
                         "misclassification")
 
+    def supports_auto_recovery(self) -> bool:
+        return True     # snapshots in _grow_with_stopping
+
+    def _retag_model(self, m: GBMModel) -> GBMModel:
+        """A snapshot carries the builder's model class, so that a resume
+        passes the checkpoint's algo check; a subclass that grows its
+        models here re-classes them."""
+        return m
+
     @classmethod
     def defaults(cls) -> dict:
         return dict(super().defaults(), learn_rate=0.1, distribution="AUTO",
@@ -923,7 +933,7 @@ class GBM(SharedTreeBuilder):
 
     def _grow_with_stopping(self, job: Job, grow_round, binned, yc, w, Fcur,
                             done: int, ntrees: int, dist: str, nclass: int,
-                            lr: float, valid=None):
+                            lr: float, valid=None, partial=None):
         """Grow rounds ``done`` .. ``ntrees`` - 1, ``grow_round(m, Fcur) ->
         (trees, row_leaf)`` each (one tree, or K class trees and their
         [K, rows] leaves), scoring every round on the card: the training
@@ -935,7 +945,10 @@ class GBM(SharedTreeBuilder):
         dropped and the margins refolded over the kept ones. Returns the
         kept rounds and the final margins, and leaves the series for the
         scoring history and the count of rounds grown (kept or not) in
-        ``_rounds_grown``."""
+        ``_rounds_grown``. With ``auto_recovery_dir``, ``partial(rounds)``
+        makes the model of the rounds so far, snapshotted every
+        ``H2O3TPU_CHECKPOINT_EVERY`` rounds (with ``stopping_rounds`` at
+        the ends of chunks, after the stopping rule has kept its rounds)."""
         p = self.params
         sr = int(p.get("stopping_rounds") or 0)
         sdist = "multinomial" if nclass > 1 else dist
@@ -963,6 +976,9 @@ class GBM(SharedTreeBuilder):
                               else torch.stack(leaves, dim=1))
 
         self._rounds_grown = 0
+        every = checkpoint_every() if partial is not None and \
+            getattr(self, "_build_recovery", None) is not None else 0
+        last_snap = 0
         for s0 in range(done, ntrees, per):
             F_start = Fcur
             chunk = []
@@ -981,6 +997,10 @@ class GBM(SharedTreeBuilder):
                                                     self._custom_link))
                 job.update(0.1 + 0.8 * (m + 1 - done) / max(M, 1),
                            f"{m + 1}/{ntrees} trees")
+                if every and sr == 0 and \
+                        self._rounds_grown - last_snap >= every:
+                    last_snap = self._rounds_grown
+                    self._snapshot(partial(kept + chunk), m + 1, ntrees)
             stop_at = None
             if sr > 0:
                 fetched = torch.stack(pending_t + pending_v).double().cpu()
@@ -1007,6 +1027,9 @@ class GBM(SharedTreeBuilder):
             kept += chunk
             if stop_at is not None:
                 break
+            if every and sr > 0 and len(kept) - last_snap >= every:
+                last_snap = len(kept)
+                self._snapshot(partial(kept), done + len(kept), ntrees)
         if pending_t:
             # without stopping: the whole series in one fetch, at the end
             fetched = torch.stack(pending_t + pending_v).double().cpu()
@@ -1106,10 +1129,32 @@ class GBM(SharedTreeBuilder):
                                        cat_feats=cat_feats)
             return [tree], row_leaf
 
+        response_domain = yvec.domain if yvec.is_categorical else None
+
+        def custom_output() -> dict:
+            # read when a model is made: the first gradients decide
+            # whether the custom distribution runs batched
+            return {} if custom is None else dict(
+                custom_link=custom.link_name,
+                custom_vectorized=custom.vectorized)
+
+        def partial(rounds) -> GBMModel:
+            # a resumable model of the rounds so far, under a key of its
+            # own (a snapshot never takes the final model's key)
+            grown = trees + [r[0] for r in rounds]
+            return self._retag_model(GBMModel(
+                key=f"{self.model_id or self.algo}_autockpt",
+                params=self.params, response_column=y,
+                response_domain=response_domain,
+                output=dict(trees=grown, edges=edges, f0=f0, learn_rate=lr,
+                            distribution=dist, x_cols=list(x),
+                            feat_domains=domains, ntrees=len(grown),
+                            **custom_output(), **self._cat_output())))
+
         job.update(0.1, f"growing {ntrees - done} trees")
         rounds, Fcur = self._grow_with_stopping(
             job, grow_round, binned, yc, w, Fcur, done, ntrees, dist, 0, lr,
-            valid)
+            valid, partial)
         trees += [r[0] for r in rounds]
         # final margins double as training predictions (skips the re-score)
         if dist == "bernoulli":
@@ -1121,17 +1166,13 @@ class GBM(SharedTreeBuilder):
             self._last_train_raw = linkinv(custom.link_name, Fcur)
         else:
             self._last_train_raw = Fcur
-        extra = {} if custom is None else dict(
-            custom_link=custom.link_name,
-            custom_vectorized=custom.vectorized)
         model = GBMModel(
             key=make_model_key(self.algo, self.model_id), params=self.params,
-            response_column=y,
-            response_domain=yvec.domain if yvec.is_categorical else None,
+            response_column=y, response_domain=response_domain,
             output=dict(trees=trees, edges=edges, f0=f0, learn_rate=lr,
                         distribution=dist, x_cols=list(x),
                         feat_domains=domains, ntrees=len(trees),
-                        **extra, **self._cat_output()))
+                        **custom_output(), **self._cat_output()))
         self._maybe_calibrate(model)
         return model
 
@@ -1191,10 +1232,22 @@ class GBM(SharedTreeBuilder):
                 wt, params, fmask, col_rate, gen, reach=reach,
                 cat_feats=cat_feats)
 
+        def partial(rounds) -> GBMModel:
+            grown = [list(ts) + [r[k] for r in rounds]
+                     for k, ts in enumerate(trees_multi)]
+            return self._retag_model(GBMModel(
+                key=f"{self.model_id or self.algo}_autockpt",
+                params=self.params, response_column=y,
+                response_domain=yvec.domain,
+                output=dict(trees_multi=grown, edges=edges, f0_multi=f0,
+                            learn_rate=lr, distribution="multinomial",
+                            x_cols=list(x), feat_domains=domains,
+                            ntrees=len(grown[0]), **self._cat_output())))
+
         job.update(0.1, f"growing {(ntrees - done) * K} trees")
         rounds, Fcur = self._grow_with_stopping(
             job, grow_round, binned, yc, w, Fcur, done, ntrees,
-            "multinomial", K, lr, valid)
+            "multinomial", K, lr, valid, partial)
         for r in rounds:
             for k in range(K):
                 trees_multi[k].append(r[k])

@@ -119,6 +119,22 @@ class Model:
             self.response_domain if self.is_classifier else None)
         return compute_metrics(self._score_raw(frame), y, valid, self.nclasses)
 
+    def download_mojo(self, path: str) -> str:
+        """Export a portable scoring artifact (h2o-py: ``download_mojo``)."""
+        from h2o3_tpu_torch.genmodel.mojo import write_mojo
+        return write_mojo(self, path)
+
+    def download_pojo(self, path: str) -> str:
+        """Export standalone numpy scoring source (h2o-py:
+        ``download_pojo``)."""
+        from h2o3_tpu_torch.genmodel.codegen import download_pojo
+        return download_pojo(self, path)
+
+    def save(self, path: str) -> str:
+        """Binary model save (h2o-py: ``h2o.save_model``)."""
+        from h2o3_tpu_torch.persist.model_io import save_model
+        return save_model(self, path)
+
     def __repr__(self) -> str:
         lines = [f"{type(self).__name__}(key={self.key!r})"]
         if self.training_metrics:
@@ -182,7 +198,20 @@ class ModelBuilder:
                     keep_cross_validation_predictions=False,
                     # a callable (preds, y, w) -> value, or the reference
                     # "python:KEY=module.Class" of an uploaded UDF
-                    custom_metric_func=None)
+                    custom_metric_func=None,
+                    # the snapshot directory of a long build (reference
+                    # -auto_recovery_dir): builders that snapshot write a
+                    # partial model every H2O3TPU_CHECKPOINT_EVERY trees or
+                    # epochs, and a train() with the same dir and params
+                    # resumes from it through checkpoint=
+                    auto_recovery_dir=None)
+
+    def supports_auto_recovery(self) -> bool:
+        """Whether this builder writes snapshots under
+        ``auto_recovery_dir`` (GBM and XGBoost gbtree every few trees,
+        DeepLearning every few epochs). The others ignore the directory
+        and advertise nothing, as the reference's do."""
+        return False
 
     def _resolve_checkpoint(self) -> Model | None:
         """The ``checkpoint`` parameter as a Model of the port (reference:
@@ -255,7 +284,10 @@ class ModelBuilder:
                                               device=frame.device)
         nfolds = self._check_folds(frame)
         self._begin_fit(x, y, validation_frame)
+        resumed = self._begin_recovery(frame.device)
         self.job = Job(f"{self.algo} on {frame.key or 'frame'}")
+        self.job.auto_recovery_dir = (self._build_recovery.dir
+                                      if self._build_recovery else None)
         t0 = time.time()
 
         def fit(job: Job) -> Model:
@@ -295,10 +327,48 @@ class ModelBuilder:
             DKV.put(model.key, model)
             return model
 
-        self.model = self.job.run(fit).result
+        try:
+            self.model = self.job.run(fit).result
+        finally:
+            if resumed is not None:
+                # the snapshot has served: out of the DKV and the params
+                DKV.remove(resumed)
+                self.params["checkpoint"] = None
+                self._checkpoint_model = None
         if self.job.status == Job.FAILED:
             raise self.job.exception
+        if self.job.status == Job.DONE and self._build_recovery is not None:
+            # only a finished build retires its snapshot: a cancelled one
+            # keeps it, so that a rerun resumes where it stopped
+            self._build_recovery.complete()
         return self.model
+
+    def _begin_recovery(self, device: torch.device) -> str | None:
+        """Open ``auto_recovery_dir`` for a builder that snapshots, and
+        resume from its snapshot, loaded onto the training frame's
+        ``device``, when it matches these params and no explicit
+        ``checkpoint`` was given. Returns the key of the snapshot
+        resumed from (which ``load_model`` put into the DKV), or None."""
+        self._build_recovery = None
+        rdir = self.params.get("auto_recovery_dir")
+        if not rdir or not self.supports_auto_recovery():
+            return None
+        from h2o3_tpu_torch.persist.recovery import BuildRecovery
+        self._build_recovery = BuildRecovery(str(rdir))
+        if self.params.get("checkpoint") is not None:
+            return None
+        snap = self._build_recovery.load_snapshot(self.params, device)
+        if snap is None:
+            return None
+        self.params["checkpoint"] = snap
+        return snap.key
+
+    def _snapshot(self, partial, progress: int, target: int) -> None:
+        """Write ``partial`` (a model of the rounds so far) to the build's
+        recovery directory; nothing without ``auto_recovery_dir``."""
+        rec = getattr(self, "_build_recovery", None)
+        if rec is not None:
+            rec.snapshot(partial, progress=progress, target=target)
 
     def train_segments(self, segments: list[str], y: str,
                        training_frame: Frame, x: list[str] | None = None,

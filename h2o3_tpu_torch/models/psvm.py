@@ -31,19 +31,19 @@ SCORE_BLOCK_ELEMS = 1 << 26
 
 
 @full_fp32()
-def _icf(X, y, rank: int, gamma: float, keep=None):
+def _icf(X, y, rank: int, gamma: float):
     """Pivoted incomplete Cholesky of Q = diag(y) K diag(y), ``rank``
     columns (reference ``IncompleteCholeskyFactorization.java``): the
     greedy pivot is the largest diagonal residual; the RBF diagonal starts
-    at 1. Rows outside ``keep`` never pivot, nor do exhausted ones
-    (residual below 1e-8): their rank columns stay 0."""
+    at 1. A row pivots at most once, and an exhausted one (residual below
+    1e-8) never: its rank columns stay 0. The rows out of the fit were
+    gathered away before."""
     n = X.shape[0]
     dev = X.device
     norms = (X * X).sum(1)
     Ht = torch.zeros((rank, n), dtype=torch.float32, device=dev)
     diag = torch.ones(n, dtype=torch.float32, device=dev)
-    dead = torch.zeros(n, dtype=torch.bool, device=dev) if keep is None \
-        else ~keep
+    dead = torch.zeros(n, dtype=torch.bool, device=dev)
     for j in range(rank):
         cand = torch.where(dead | (diag < 1e-8), -torch.inf, diag)
         q = torch.argmax(cand).reshape(1)
@@ -198,12 +198,18 @@ class PSVM(ModelBuilder):
         if not yvec.is_categorical or len(yvec.domain) != 2:
             raise ValueError("PSVM supports only binomial classification")
         ycode = yvec.data.float()
-        ypm = torch.where(ycode > 0, 1.0, -1.0)        # {-1, +1}
-        keep = (weights > 0) & (ycode >= 0)
-        # rows out of the fit: zero feature rows and a box of C = 0, so
-        # their alpha stays 0
-        X = torch.where(keep[:, None], X, 0.0)
+        # rows out of the fit (weight 0, as a CV fold's holdout, or an NA
+        # response) are gathered away before the ICF and the IPM, so the
+        # fit and its rank sqrt(n) are those of the kept rows alone (the
+        # JAX package keeps them in at a box of C = 1e-12, which leaves a
+        # fold fit with a third of its rows out nearly all support vectors)
+        keep = torch.nonzero((weights > 0) & (ycode >= 0)).squeeze(1)
+        X = X[keep]
+        ypm = torch.where(ycode[keep] > 0, 1.0, -1.0)  # {-1, +1}
         n = X.shape[0]
+        if n == 0:
+            raise ValueError("PSVM has no rows to fit (every weight is 0 "
+                             "or every response NA)")
 
         gamma = float(p["gamma"])
         if gamma <= 0:
@@ -212,13 +218,11 @@ class PSVM(ModelBuilder):
         rank = int(np.sqrt(n)) if rr <= 0 else int(rr * n)
         rank = max(1, min(rank, n))
 
-        H = _icf(X, ypm, rank, gamma, keep)
-        H = torch.where(keep[:, None], H, 0.0)
+        H = _icf(X, ypm, rank, gamma)
 
         c_pos = float(p["hyper_param"]) * float(p["positive_weight"])
         c_neg = float(p["hyper_param"]) * float(p["negative_weight"])
-        c_vec = torch.where(ypm > 0, c_pos, c_neg) * keep.float()
-        c_vec = torch.clamp(c_vec, min=1e-12)
+        c_vec = torch.clamp(torch.where(ypm > 0, c_pos, c_neg), min=1e-12)
 
         # InitTask: la = xi = c/10, x = 0, nu = 0
         xv = torch.zeros(n, dtype=torch.float32, device=X.device)

@@ -92,6 +92,15 @@ class XGBoost(GBM):
                     params.setdefault(target, v)
         super().__init__(**params)
 
+    def supports_auto_recovery(self) -> bool:
+        # DART neither checkpoints nor resumes (its prior trees' weights
+        # are renormalised each round); gbtree shares GBM's snapshots
+        return str(self.params.get("booster") or "gbtree").lower() != "dart"
+
+    def _retag_model(self, m: GBMModel) -> XGBoostModel:
+        m.__class__ = XGBoostModel
+        return m
+
     def _effective_col_rate(self) -> float:
         # by-node sampling folds into the per-level rate; derived here so
         # the stored params keep the user's values

@@ -10,14 +10,19 @@ package's, and the RandomDiscrete walk draws from
 ``np.random.default_rng(seed)`` as it does, so both packages visit the
 same combos in the same order. Builds overlap on host threads, each on a
 CUDA stream of its own (``parallelism``; :mod:`~h2o3_tpu_torch.
-orchestration.parallel_build`). ``recovery_dir`` waits for the persist
-slice and is refused by :class:`~h2o3_tpu_torch.persist.recovery.Recovery`.
+orchestration.parallel_build`). With ``recovery_dir`` the search is
+resumable (reference ``Recovery<Grid>``): each model is saved as it is
+built (:class:`~h2o3_tpu_torch.persist.recovery.Recovery`), and a search
+over the same directory that a budget or a crash stopped loads those
+models, counts them against ``max_models`` and builds only the points not
+yet built, at any ``parallelism``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import itertools
+import threading
 import time
 from typing import Any, Sequence
 
@@ -154,9 +159,19 @@ class GridSearch:
         t0 = time.time()
         models: list[Model] = []
         failures: list[tuple[dict, str]] = []
+        recovery = None
         if self.recovery_dir:
             from h2o3_tpu_torch.persist.recovery import Recovery
-            Recovery(self.recovery_dir)
+            recovery = Recovery(self.recovery_dir)
+            if recovery.resuming:
+                # onto the frame's device, beside the models built now
+                models.extend(recovery.built_models(
+                    device=training_frame.device
+                    if training_frame is not None else None))
+            recovery.begin({"grid_id": self.grid_id,
+                            "hyper_params": self.hyper_params,
+                            "search_criteria": self.search_criteria})
+        saving = threading.Lock()
 
         from h2o3_tpu_torch.orchestration.parallel_build import \
             windowed_parallel
@@ -181,18 +196,30 @@ class GridSearch:
                 x=x, y=y, training_frame=training_frame,
                 validation_frame=validation_frame, **kw)
             m.output["hyper_values"] = combo
+            if recovery is not None:
+                # saved as soon as it is built: a crash keeps it
+                with saving:
+                    recovery.model_built(combo, m)
             return m
+
+        def fresh_combos():
+            for combo in self._combos():
+                if recovery is None or not recovery.is_done(combo):
+                    yield combo
 
         # a failed build does not use up the model budget (reference
         # GridSearch keeps walking the space)
-        results, _ = windowed_parallel(
-            self._combos(), self.parallelism, can_submit, build_one,
+        results, exhausted = windowed_parallel(
+            fresh_combos(), self.parallelism, can_submit, build_one,
             scheduler=scheduler, job_meta=lambda combo: meta)
         for combo, m, exc in results:
             if exc is not None:
                 failures.append((combo, f"{type(exc).__name__}: {exc}"))
                 continue
             models.append(m)
+        if recovery is not None and exhausted:
+            # a budget stop leaves the search resumable
+            recovery.done()
         self.grid = Grid(self.grid_id, models, failures,
                          metric=self.search_criteria.get("sort_metric"))
         return self.grid

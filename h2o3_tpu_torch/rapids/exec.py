@@ -8,9 +8,10 @@ ops), and this module evaluates it eagerly with :mod:`h2o3_tpu_torch.rapids`
 on the frames' device. Session temps live in the port's DKV
 (``h2o3_tpu_torch/utils/registry.py``) until removed.
 
-Refused by name: ``model.testJavaScoring`` (it scores through the generated
-scorer of ``genmodel/codegen.py``, which the port has not yet), and
-``setTimeZone`` (the time zone is fixed to UTC, as in the reference).
+``model.testJavaScoring`` scores the frame through the model's generated
+standalone source (:mod:`~h2o3_tpu_torch.genmodel.codegen`) and compares it
+with ``predict``. Refused by name: ``setTimeZone`` (the time zone is fixed
+to UTC, as in the reference).
 """
 
 from __future__ import annotations
@@ -694,9 +695,32 @@ def _eval(node, s: Session):
                                 favorable_class=str(args[4])
                                 if len(args) > 4 else None)
     if op == "model.testJavaScoring":
-        raise NotImplementedError(
-            "model.testJavaScoring scores through the generated scorer of "
-            "genmodel/codegen.py, which h2o3_tpu_torch has not ported yet")
+        # AstTestJavaScoring: the reference checks in-cluster scoring
+        # against the generated POJO; here against the generated numpy
+        # scorer (genmodel/codegen.py), equal within eps
+        from h2o3_tpu_torch.genmodel.codegen import generate_pojo
+        model = args[0] if not isinstance(args[0], str) else DKV[args[0]]
+        fr = args[1] if isinstance(args[1], Frame) else DKV[str(args[1])]
+        eps = float(args[3]) if len(args) > 3 else 1e-6
+        ns: dict = {}
+        exec(compile(generate_pojo(model), "<pojo>", "exec"), ns)
+        cols = []
+        for c in model.output["x_cols"]:
+            v = fr.vec(c)
+            x = np.asarray(v.to_numpy(), np.float64)
+            if v.is_categorical:
+                x = np.where(x < 0, np.nan, x)
+            cols.append(x)
+        got = np.asarray(ns["score_batch"](np.stack(cols, axis=1)))
+        ours = model.predict(fr)
+        if model.is_classifier:
+            a = np.stack([np.asarray(ours.vec(nm).to_numpy())
+                          for nm in ours.names[1:]], axis=1)
+            b = got[:, 1:] if got.shape[1] == a.shape[1] + 1 else got
+        else:
+            a = np.asarray(ours.vec("predict").to_numpy())
+            b = got[:, 0] if got.ndim == 2 else got
+        return float(np.allclose(a, b, atol=eps, rtol=eps))
     if op == "ls":                                 # AstLs → key listing
         keys = DKV.keys()
         return Frame(["key"], [Vec.from_numpy(

@@ -24,9 +24,10 @@ predictions are held to the reference's (``SAME_AS_REFERENCE``): at rtol
 1e-4 and 1e-5 of the largest prediction where both packages fit alike
 (DeepLearning on one minibatch of every row, its initial weights injected
 into both), RuleFit at rtol 2e-3 and 5e-3 (its L1 GLM is not unique).
-DRF (bootstrap draws from each package's stream) and PSVM (a chaotic
-float32 IPM) are held by metric over three seeds or frames
-(``BY_METRIC``). The uplift DRF's CV fails in the reference and is
+DRF (bootstrap draws from each package's stream) is held to the
+reference by metric over three seeds, and PSVM (a chaotic float32 IPM,
+whose folds the port fits on the kept rows alone) to per-fold fits on a
+frame of those rows, over three frames (``BY_METRIC``). The uplift DRF's CV fails in the reference and is
 refused by name in the port.
 """
 
@@ -436,13 +437,37 @@ BY_METRIC = {
     # the bootstrap draws: tests/test_torch_drf.py's tolerances for
     # forests (AUC within 0.015, MSE within 5%); measured 0.0022 and 0.65%
     "drf": ("seed", (1, 2, 3)),
-    # the float32 IPM is chaotic from its first step
-    # (tests/test_torch_psvm.py), the more so with a third of the rows at
-    # a box of C = 1e-12 in every fold fit: over the three frames the CV
-    # AUCs differ by 0.0106 on average (at most 0.017) and the holdout
-    # decisions' signs agree on 96.7% of rows or more
+    # held to per-fold fits on the kept rows alone, not to the reference:
+    # the port gathers a fold's holdout rows out of the fit, where the JAX
+    # package keeps them in at a box of C = 1e-12 (its CV AUC 0.22-0.23).
+    # The per-fold fits standardise by their own rows, the CV fits by the
+    # whole frame's: over the three frames the CV AUCs differ from theirs
+    # by at most 0.0085 and the holdout decisions' signs agree on 97.5% of
+    # rows or more
     "psvm": ("frame", (3, 4, 5)),
 }
+
+
+def _kept_rows_holdout(mod, cls, params, y, cols) -> np.ndarray:
+    """p1 of each row from a fit on the other Modulo folds' rows alone
+    (a frame of those rows), 3 folds."""
+    folds = np.arange(N) % 3
+    out = np.zeros(N)
+    for k in range(3):
+        part = lambda m: Frame.from_arrays({c: np.asarray(v)[m]
+                                            for c, v in cols.items()})
+        fm = _builder("h2o3_tpu_torch", mod, cls)(**params).train(
+            x=["x0", "x1"], y=y, training_frame=part(folds != k))
+        out[folds == k] = fm._score_raw(part(folds == k))[:, 1].numpy()
+    return out
+
+
+def _auc(p: np.ndarray, y: np.ndarray) -> float:
+    order = np.argsort(p)
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    npos = int(y.sum())
+    return (ranks[y].sum() - npos * (npos + 1) / 2) / (npos * (len(p) - npos))
 
 
 @pytest.mark.parametrize("case", list(BY_METRIC))
@@ -457,23 +482,25 @@ def test_random_builders_cross_validate_like_the_reference(case):
             kw["seed"] = s
         pm = _builder("h2o3_tpu_torch", mod, cls)(**kw).train(
             x=["x0", "x1"], y=y, training_frame=Frame.from_arrays(cols))
-        jm = _builder("h2o3_tpu", mod, cls)(**kw).train(
-            x=["x0", "x1"], y=y, training_frame=JFrame.from_arrays(cols))
         got.append((pm.cross_validation_metrics.auc,
                     pm.cross_validation_metrics.mse))
+        if case == "psvm":
+            kept = _kept_rows_holdout(mod, cls, params, y, cols)
+            pp = pm.cv_holdout_predictions.numpy()[:, 1]
+            assert np.mean((kept > 0.5) == (pp > 0.5)) >= 0.95, s
+            ref.append((_auc(kept, np.asarray(cols[y]) == "yes"), np.nan))
+            continue
+        jm = _builder("h2o3_tpu", mod, cls)(**kw).train(
+            x=["x0", "x1"], y=y, training_frame=JFrame.from_arrays(cols))
         ref.append((jm.cross_validation_metrics.auc,
                     jm.cross_validation_metrics.mse))
-        if case == "psvm":
-            jp = np.asarray(jm.cv_holdout_predictions)[:N, 1]
-            pp = pm.cv_holdout_predictions.numpy()[:, 1]
-            assert np.mean((jp > 0.5) == (pp > 0.5)) >= 0.95, s
     got, ref = np.array(got), np.array(ref)
     if case == "drf":
         assert abs(got[:, 0].mean() - ref[:, 0].mean()) < 0.015
         np.testing.assert_allclose(got[:, 1].mean(), ref[:, 1].mean(),
                                    rtol=0.05)
     else:
-        assert np.abs(got[:, 0] - ref[:, 0]).mean() < 0.02
+        assert np.abs(got[:, 0] - ref[:, 0]).max() < 0.02
 
 
 def test_coxph_cross_validates_through_its_own_train():

@@ -5,7 +5,9 @@ Cartesian and RandomDiscrete walks give the same combos in the same order
 larger than the budget; model ids are equal (``md5(combo_key)``); a grid
 at sample rates 1.0 is held to the reference's models; a failed build
 does not use up the budget; parallelism 1 and 2 give the same models bit
-for bit; the grid is in the DKV; ``recovery_dir`` is refused by name.
+for bit; the grid is in the DKV; with ``recovery_dir`` a budget-stopped
+RandomDiscrete grid resumes with the reference's model ids and combos,
+building only the points not yet built.
 
 Row counts are multiples of 64 (no pad rows in the reference's frames).
 Tolerances are tests/test_torch_gbm.py's: probabilities at atol 1e-5,
@@ -166,8 +168,27 @@ def test_parallelism_two_gives_the_same_models_bit_for_bit():
         assert a.training_metrics.auc == b.training_metrics.auc
 
 
-def test_recovery_dir_is_refused_by_name(tmp_path):
+def test_recovery_dir_resumes_a_stopped_grid(tmp_path):
     pf = Frame.from_arrays(grid_cols(64))
-    with pytest.raises(NotImplementedError, match="recovery_dir"):
-        GridSearch(GBM, HYPER, recovery_dir=str(tmp_path), ntrees=1).train(
-            y="y", training_frame=pf)
+    crit = dict(strategy="RandomDiscrete", seed=3)
+    rdir = str(tmp_path / "rec")
+    first = GridSearch(GBM, HYPER, grid_id="gr", recovery_dir=rdir,
+                       search_criteria=dict(crit, max_models=2),
+                       ntrees=1).train(y="y", training_frame=pf)
+    assert len(first.models) == 2
+    DKV.clear()
+    resumed = GridSearch(GBM, HYPER, grid_id="gr", recovery_dir=rdir,
+                         search_criteria=crit, ntrees=1).train(
+                             y="y", training_frame=pf)
+    ref = JGridSearch(JGBM, HYPER, grid_id="gr", search_criteria=crit,
+                      ntrees=1).train(y="y",
+                                      training_frame=JFrame.from_arrays(
+                                          grid_cols(64)))
+    assert resumed.model_ids == [m.key for m in ref.models]
+    assert resumed.model_ids[:2] == first.model_ids
+    assert [m.output["hyper_values"] for m in resumed.models] == \
+        [m.output["hyper_values"] for m in ref.models]
+    for a, b in zip(first.models, resumed.models[:2]):
+        for ta, tb in zip(a.output["trees"], b.output["trees"]):
+            for f in HEAP_FIELDS:
+                assert torch.equal(getattr(ta, f), getattr(tb, f))

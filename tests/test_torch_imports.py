@@ -108,3 +108,15 @@ def test_the_probe_covers_the_data_plane():
             "h2o3_tpu_torch.persist.frame_io", "h2o3_tpu_torch.utils.memory",
             "h2o3_tpu_torch.utils.cleaner"} <= set(_port_modules())
 
+
+
+def test_the_probe_covers_persistence_and_genmodel():
+    """Binary models, recovery, and every genmodel module (MOJOs, Generic,
+    the real H2O-3 readers, tools, pipelines, the POJO and the C++
+    scorer's loader) are among the modules the probe imports."""
+    assert {"h2o3_tpu_torch.persist.model_io",
+            "h2o3_tpu_torch.persist.recovery",
+            *(f"h2o3_tpu_torch.genmodel.{m}" for m in (
+                "mojo", "generic", "mojo_ref", "mojo_ref2", "tools",
+                "pipeline", "codegen", "native_scorer", "treeshap"))} \
+        <= set(_port_modules())

@@ -3,7 +3,12 @@ reference (``h2o3_tpu/models/psvm.py``) on the same numpy-seeded frames:
 two noisy classes in five numeric features and a categorical one, a few
 missing values, rows excluded by zero weight. Row counts are multiples of
 64, so that the reference's padded frame has as many rows as the port's
-(its rank sqrt(n) and its barrier's 2n read the padded count).
+(its rank sqrt(n) and its barrier's 2n read the padded count). Whole fits
+are compared on the first 576 rows of weight 1: the port gathers rows at
+weight 0 out of the fit, where the reference keeps them in the IPM at a
+box of C = 1e-12 (ROADMAP queue C), so the two fit other problems on a
+frame with such rows; a fit with rows at weight 0 is held to the port's
+fit on the kept rows alone, bit for bit, under one standardisation.
 
 Tolerances: the ICF factor, one IPM step and the decision function at
 rtol 1e-4 with an absolute floor of 1e-4 x each output's largest entry
@@ -14,10 +19,10 @@ chaotic from its first step (at x = 0 the dual step size is a minimum over
 rows of quotients of 1e8-sized terms that cancel, so one rounding moves
 it by 5%), and a fit's alphas are not identifiable at a rank-sqrt(n)
 factor; the mean |training AUC difference| over the seeds within 1e-3 at
-the defaults and 5e-3 at C 0.5 with class weights and 60 iterations (on
-one of whose seeds the reference's IPM stalls at a surrogate gap of 180
-where the port's reaches 1e-3 at 200), and the decisions' signs alike on
-99% of rows at the defaults.
+the defaults and 5e-3 at C 0.5 with class weights and 60 iterations, and
+the decisions' signs alike on 99% of rows at the defaults (on the frames
+of weight-1 rows the AUCs measured equal and the signs alike on every
+row).
 """
 
 import dataclasses
@@ -61,6 +66,14 @@ def svm_cols(n=N, seed=0):
     return cols
 
 
+def kept_cols(seed: int, n: int = 576) -> dict:
+    """The first ``n`` rows of weight 1 of :func:`svm_cols` (``n`` a
+    multiple of 64: no pad rows in the reference)."""
+    cols = svm_cols(seed=seed)
+    rows = np.nonzero(cols["w"] > 0)[0][:n]
+    return {k: v[rows] for k, v in cols.items()}
+
+
 def _close(a, b, rtol):
     b = np.asarray(b, np.float64)
     np.testing.assert_allclose(np.asarray(a, np.float64), b, rtol=rtol,
@@ -68,37 +81,42 @@ def _close(a, b, rtol):
 
 
 def design(seed=1, n=N, p=6):
+    """The kept rows of a draw with about 5% of its rows out of the fit,
+    gathered away first, as the port's fit does."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, p)).astype(np.float32)
     y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
     keep = rng.random(n) > 0.05
-    X[~keep] = 0.0
-    return X, y, keep
+    return X[keep], y[keep]
+
+
+def _ref_icf(X, y):
+    return np.asarray(jpsvm._icf(jnp.asarray(X), jnp.asarray(y), 25, 1 / 6,
+                                 jnp.ones(len(y), bool)))
 
 
 def test_icf_matches_reference():
-    X, y, keep = design()
-    want = np.asarray(jpsvm._icf(jnp.asarray(X), jnp.asarray(y), 25, 1 / 6,
-                                 jnp.asarray(keep)))
-    got = ppsvm._icf(torch.from_numpy(X), torch.from_numpy(y), 25, 1 / 6,
-                     torch.from_numpy(keep)).numpy()
+    X, y = design()
+    want = _ref_icf(X, y)
+    got = ppsvm._icf(torch.from_numpy(X), torch.from_numpy(y), 25,
+                     1 / 6).numpy()
     _close(got, want, 1e-4)
 
 
 def test_ipm_step_matches_reference():
-    X, y, keep = design()
-    H = np.asarray(jpsvm._icf(jnp.asarray(X), jnp.asarray(y), 25, 1 / 6,
-                              jnp.asarray(keep)))
+    X, y = design()
+    H = _ref_icf(X, y)
+    n = len(y)
     rng = np.random.default_rng(3)
-    c = np.where(keep, 1.0, 1e-12).astype(np.float32)
-    x = (rng.uniform(0, 1, N) * c).astype(np.float32)
-    xi = rng.uniform(0.05, 0.2, N).astype(np.float32)
-    la = rng.uniform(0.05, 0.2, N).astype(np.float32)
+    c = np.ones(n, np.float32)
+    x = rng.uniform(0, 1, n).astype(np.float32)
+    xi = rng.uniform(0.05, 0.2, n).astype(np.float32)
+    la = rng.uniform(0.05, 0.2, n).astype(np.float32)
     args = (H, y, c, x, xi, la)
     want = jpsvm._ipm_step(*(jnp.asarray(a) for a in args), jnp.float32(0.1),
-                           jnp.float32(20.0 * N))
+                           jnp.float32(20.0 * n))
     got = ppsvm._ipm_step(*(torch.from_numpy(np.array(a)) for a in args),
-                          torch.tensor(0.1), 20.0 * N)
+                          torch.tensor(0.1), 20.0 * n)
     for a, b in zip(got, want):
         _close(a.numpy(), b, 1e-4)
 
@@ -131,7 +149,7 @@ def fits():
     x = [f"x{i}" for i in range(5)] + ["c"]
     for case, kw in CASES.items():
         for seed in range(3):
-            cols = svm_cols(seed=seed)
+            cols = kept_cols(seed)
             jm = jpsvm.PSVM(weights_column="w", **kw).train(
                 x=x, y="y", training_frame=JFrame.from_arrays(cols))
             pm = ppsvm.PSVM(weights_column="w", **kw).train(
@@ -153,7 +171,7 @@ def test_fit_matches_reference_by_metric(fits, case, auc_tol):
         assert pp.names == jp.names
         if case == "defaults":
             agree = (np.sign(pm.decision_function(fr).numpy()) == np.sign(
-                np.asarray(jm.decision_function(jfr))[:N])).mean()
+                np.asarray(jm.decision_function(jfr))[:fr.nrows])).mean()
             assert agree >= 0.99, (seed, agree)
     assert np.mean(diffs) <= auc_tol, diffs
 
@@ -167,7 +185,35 @@ def test_reference_model_scores_alike_through_convert(fits):
                             device="cpu")
     fr, jfr = Frame.from_arrays(cols), JFrame.from_arrays(cols)
     _close(pm.decision_function(fr).numpy(),
-           np.asarray(jm.decision_function(jfr))[:N], 1e-4)
+           np.asarray(jm.decision_function(jfr))[:fr.nrows], 1e-4)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_rows_at_weight_0_are_out_of_the_fit(monkeypatch, case):
+    """A fit on a frame whose rows at weight 0 (5%) are kept in it equals
+    the fit on a frame of the kept rows alone, bit for bit: the same
+    support vectors, coefficients, rho and rank sqrt(kept rows). Both
+    standardise by the whole frame's DataInfo (a fit on fewer rows would
+    standardise by their own rollups)."""
+    x = [f"x{i}" for i in range(5)] + ["c"]
+    cols = svm_cols(seed=1)
+    keep = cols["w"] > 0
+    fr = Frame.from_arrays(cols)
+    di = ppsvm.DataInfo.make(fr, x, standardize=True)
+    monkeypatch.setattr(ppsvm.DataInfo, "make",
+                        staticmethod(lambda *a, **k: di))
+    whole = ppsvm.PSVM(weights_column="w", **CASES[case]).train(
+        x=x, y="y", training_frame=fr)
+    alone = ppsvm.PSVM(**CASES[case]).train(
+        x=x, y="y", training_frame=Frame.from_arrays(
+            {k: v[keep] for k, v in cols.items()}))
+    assert whole.output["rank"] == alone.output["rank"] == \
+        int(np.sqrt(keep.sum()))
+    for k in ("sv_x", "sv_coef", "sv_norms"):
+        assert torch.equal(whole.output[k], alone.output[k]), k
+    assert whole.output["rho"] == alone.output["rho"]
+    assert torch.equal(whole.decision_function(fr),
+                       alone.decision_function(fr))
 
 
 def test_refusals():
@@ -187,11 +233,10 @@ def test_a_failed_smw_factorisation_gives_nan_like_the_reference():
     """An indefinite I + H'DH (the IPM's float32 can round there) gives
     NaN, as the reference's Cholesky does, and the fit's loop then keeps
     its last finite iterate; no exception, no host sync."""
-    X, y, keep = design()
-    H = np.asarray(jpsvm._icf(jnp.asarray(X), jnp.asarray(y), 25, 1 / 6,
-                              jnp.asarray(keep)))
-    d = np.full(N, -10.0, np.float32)
-    b = np.ones(N, np.float32)
+    X, y = design()
+    H = _ref_icf(X, y)
+    d = np.full(len(y), -10.0, np.float32)
+    b = np.ones(len(y), np.float32)
     want = np.asarray(jpsvm._smw_partial(H, d, b))
     got = ppsvm._smw_partial(*(torch.from_numpy(np.array(a))
                                for a in (H, d, b))).numpy()

@@ -214,13 +214,12 @@ EXPRS = [(f"({op} (cols fr 'a') (cols fr 'b'))", 1e-6 if op == "^" else 0)
 ]
 #: ops refused by name, with the exception and message each raises
 REFUSED = {
-    "model.testJavaScoring": (NotImplementedError, "genmodel/codegen.py"),
     "setTimeZone": (ValueError, "UTC"),
 }
 SESSION_OPS = {"tmp=", "assign", "rm", "h2o.rm", "colnames=", "rename"}
 MODEL_OPS = {"PermutationVarImp", "makeLeaderboard", "model.reset.threshold",
              "segment_models_as_frame", "result", "transform",
-             "fairnessMetrics"}
+             "fairnessMetrics", "model.testJavaScoring"}
 
 
 def _heads(expr: str) -> set:

@@ -1,7 +1,7 @@
 """The model prims of the Rapids engine (``h2o3_tpu_torch/rapids/exec.py``:
 ``makeLeaderboard``, ``model.reset.threshold``, ``PermutationVarImp``,
 ``result``, ``transform``, ``fairnessMetrics``,
-``segment_models_as_frame``) against the JAX package's, on JAX-trained
+``segment_models_as_frame``, ``model.testJavaScoring``) against the JAX package's, on JAX-trained
 models (a GBM with group splits, a GLM, ModelSelection, a TargetEncoder)
 carried into the port with ``convert``; the same Rapids strings through
 both engines. Probabilities and metrics within rtol 1e-5, fairness
@@ -108,6 +108,17 @@ def test_reset_threshold_changes_predictions(keyed_models):
     assert list(pp.vec("predict").labels()) == \
         ["yes" if q >= 0.6 else "no" for q in p1]
     assert px.rapids("(model.reset.threshold rm_gbm 0.5)") == 0.6
+
+
+@pytest.mark.parametrize("model,eps", [("rm_gbm", "1e-5"),
+                                       ("rm_gbm", "1e-9")])
+def test_test_java_scoring(keyed_models, model, eps):
+    """The generated standalone scorer against ``predict``, within eps:
+    both engines agree (a float64 scorer against float32 predictions
+    differs past 1e-9)."""
+    expr = f"(model.testJavaScoring {model} rmfr 'predict' {eps})"
+    assert px.rapids(expr) == jx.rapids(expr) == \
+        (1.0 if eps == "1e-5" else 0.0)
 
 
 def test_permutation_varimp(keyed_models):
