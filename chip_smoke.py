@@ -161,10 +161,10 @@ Phases, each of which fails the run on error:
 13. the DKV and orchestration (no kernel of their own; every GBM and
    XGBoost they build launches the histogram kernels, held to the plan of
    the grown trees): (a) AutoML as H2O-3's AutoML docs' Python example
-   (``max_models=20, seed=1``, cut to 10 models; nfolds 5, parallelism 2)
-   on the first 1M rows of phase 4's frame: GLM, three XGBoosts, five
-   GBMs and the lr-annealed GBM (60 fits) and two ensembles, 12
-   leaderboard rows; timed once with its host syncs, peak memory and each
+   (``max_models=20, seed=1``, cut to 6 models; nfolds 5, parallelism 2)
+   on the first 1M rows of phase 4's frame: GLM, three XGBoosts, the first
+   GBM and the lr-annealed GBM (36 fits) and two ensembles, 8 leaderboard
+   rows; timed once with its host syncs, peak memory and each
    step's seconds, profiled on one fold of one step, the leader's CV AUC
    that of its kept out-of-fold predictions, and on the first 2k rows
    the CPU's AutoML (its GLM step) against the card's; (b) AutoML's GBM grid
@@ -267,6 +267,26 @@ Phases, each of which fails the run on error:
    ``device="cuda"`` and scoring ``prostate.csv``: a float64 walk on the
    host whose scores are copied to the frame's device, the copy onto the
    card equal to the copy onto the CPU (no work on the card).
+18. the serving tier and the REST surface (no kernel of their own:
+   scoring replays CUDA graphs of the models' torch scoring; the GBM
+   trained through REST launches the histogram kernels, held to the plan
+   of its trees): (a) the port's ``H2OServer`` on a free port, phase 4's
+   frame in its DKV, and the main path's GBM trained through ``POST
+   /3/ModelBuilders/gbm`` with the job polled, its trees bit for bit a
+   direct fit's; (b) phase 8a's GLM (bench_glm, 1M x 12) trained through
+   REST, its coefficients bit for bit a direct fit's; (c) both models
+   served through ``POST /3/Score`` by 8 client threads of 250 requests
+   each, of 1-64 rows gathered from the frames (sizes and rows from seed
+   181), every response bit for bit the rows of ``predict`` on the whole
+   frame, every scorer a CUDA graph (``mode == "graph"``), with p50 and
+   p99 latency, requests/s, rows/s, buckets captured, cache hits and
+   misses and the seconds of a capture; (d) a residency budget above each
+   model's bytes and below their sum: one eviction, one 503 with
+   ``Retry-After`` while the resident model's batch is in flight, and a
+   burst at priority 0 under ``slo_ms`` that sheds; then every model's
+   residency dropped and the graphs' memory given back; (e) a
+   ``ReplicaPool`` of 2 replicas on two scheduler streams scoring 18c's
+   first 400 requests, bit for bit.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -277,8 +297,9 @@ line, phase 9's the ``tree_family`` line, phase 10's the
 ``dl_unsupervised`` line, phase 11's the ``builders`` line, phase
 12's the ``cv_explain`` line, phase 13's the ``orchestration`` line,
 phase 14's the ``text`` line, phase 15's the ``munge`` line, phase
-16's the ``data_plane`` line and phase 17's the ``persist`` line before
-the ``kernels`` line (which has a ``recovery_gbm`` object for 17e). Without a CUDA
+16's the ``data_plane`` line, phase 17's the ``persist`` line and phase
+18's the ``serving`` line before the ``kernels`` line (which has a
+``recovery_gbm`` object for 17e and a ``rest_gbm`` object for 18a). Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
 """
@@ -4457,10 +4478,15 @@ def phase_cv_explain(fr, air_fr, air_vf) -> dict:
 # -- phase 13: the DKV and orchestration ---------------------------------
 
 #: 13a: H2O-3's AutoML docs' Python example, ``H2OAutoML(max_models=20,
-#: seed=1)``, cut to 10 models (ROADMAP.md "Reduced checks"); the JAX
-#: package's defaults otherwise (nfolds 5, parallelism 2, sort by AUC)
+#: seed=1)``, cut to 6 models (ROADMAP.md "Reduced checks": 10 until phase
+#: 18 was paid for); the JAX package's defaults otherwise (nfolds 5,
+#: parallelism 2, sort by AUC)
 AML_ROWS = 1_000_000
-AML = dict(max_models=10, seed=1)
+AML = dict(max_models=6, seed=1)
+#: what the budget of ``AML`` takes: GLM, the three XGBoosts, the first GBM
+#: (depth 6) and its lr-annealed step, 5 folds each, then the two ensembles
+AML_ALGOS = ["glm"] + ["xgboost"] * 3 + ["gbm"] * 2
+AML_FITS = 6 * len(AML_ALGOS)
 #: 13a's CPU head: the plan's first step alone, GLM, at 2 folds on 2,000
 #: rows (PR 12 ran GLM, GBM and the ensembles at 3 folds on 5,000:
 #: ROADMAP.md "Reduced checks")
@@ -4559,10 +4585,10 @@ def events_ok(what: str, aml) -> None:
 
 
 def automl_part(fr1m) -> dict:
-    """13a: AutoML(max_models=10, seed=1) at nfolds 5 and parallelism 2 on
+    """13a: AutoML(max_models=6, seed=1) at nfolds 5 and parallelism 2 on
     the first 1M rows of phase 4's frame: the budget takes GLM, the three
-    XGBoosts, the five GBMs and the lr-annealed GBM, 60 fits, then the
-    BestOfFamily and AllModels ensembles: 12 leaderboard rows. Timed once,
+    XGBoosts, the first GBM and its lr-annealed step, 36 fits, then the
+    BestOfFamily and AllModels ensembles: 8 leaderboard rows. Timed once,
     its launches by kernel held to the plan of the grown trees, its host
     syncs and peak memory; profiled on one fold of the GBM step def_1 (10
     of its trees). The leader's CV AUC is the one its kept out-of-fold predictions give
@@ -4590,7 +4616,8 @@ def automl_part(fr1m) -> dict:
     SLICE_STATS.reset()
     with count_shapes() as shapes:
         aml, res = timed_fit(
-            f"13a AutoML max_models=10 seed=1 on {AML_ROWS} x {NFEAT}",
+            f"13a AutoML max_models={AML['max_models']} seed=1 on "
+            f"{AML_ROWS} x {NFEAT}",
             lambda: run(fr1m, **AML), AML_ROWS, "rows",
             before_timed=lambda: (reset_kernel_counts(), shapes.clear()),
             sample=(f"one fold of the GBM step def_1, {AML_PROFILE_TREES} "
@@ -4615,9 +4642,8 @@ def automl_part(fr1m) -> dict:
           f"{SLICE_STATS.snapshot()['slices']}")
     for r in table[1]:
         print("   ", r[0], " ".join(f"{v:.6f}" for v in r[1:]))
-    want_algos = sorted(["glm"] + ["xgboost"] * 3 + ["gbm"] * 6
-                        + ["stackedensemble"] * 2)
-    if len(rows) != 12 or fits != 60 or \
+    want_algos = sorted(AML_ALGOS + ["stackedensemble"] * 2)
+    if len(rows) != len(want_algos) or fits != AML_FITS or \
             sorted(m.algo for m in models) != want_algos:
         raise AssertionError(f"13a: {len(rows)} rows, {fits} fits, "
                              f"{sorted(m.algo for m in models)}")
@@ -6788,6 +6814,374 @@ def phase_persist(fr) -> dict:
     return out
 
 
+# -- phase 18: the serving tier and the REST surface -------------------------
+
+#: 18c's traffic: h2o-py's ``predict`` on a few rows, or the REST scoring
+#: servlet under concurrent callers: 8 client threads of 250 requests, each
+#: of 1-64 rows gathered from the frames, sizes and rows from this seed
+SERVE_SEED = 181
+SERVE_THREADS, SERVE_REQUESTS, SERVE_MAX_ROWS = 8, 250, 64
+#: 8a's bench_glm, trained through REST in 18b
+SERVE_GLM = dict(family="binomial", lambda_=1e-4, max_iterations=30)
+#: 18d's burst: threads x requests of 4 rows at priority 0 under slo_ms
+SHED_THREADS, SHED_REQUESTS, SHED_SLO_MS = 16, 4, 1.0
+#: 18e: the first requests of 18c's plan replayed through 2 replicas
+REPLICA_REQUESTS = 400
+#: the memory allowed to stay allocated after every model's residency is
+#: dropped (the caching allocator's rounding; cuBLAS's workspaces are
+#: cleared before the reading)
+GRAPH_SLACK_BYTES = 8 << 20
+
+
+def serve_plan(models: dict, seed: int = SERVE_SEED) -> list:
+    """The requests of 18c: (thread, model key, row indices), thread t
+    sending its requests in turn to the models of ``models`` ({key:
+    number of rows of its frame}), each of 1 to ``SERVE_MAX_ROWS`` rows."""
+    rng = np.random.default_rng(seed)
+    keys = list(models)
+    plan = []
+    for t in range(SERVE_THREADS):
+        for i in range(SERVE_REQUESTS):
+            key = keys[(t + i) % len(keys)]
+            n = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+            plan.append((t, key, rng.integers(0, models[key], size=n)))
+    return plan
+
+
+def serve_run(url: str, plan: list, payloads: dict, want: dict,
+              threads: int = SERVE_THREADS) -> dict:
+    """Send ``plan``'s requests from ``threads`` client threads through
+    ``H2OClient.score`` (rows as lists in the model's column order, from
+    ``payloads``: :func:`serve_payloads`), and hold every response's
+    probabilities and labels to ``want`` (the rows of ``predict`` on the
+    whole frame) bit for bit. Returns the latencies, wall seconds and the
+    replicas that answered."""
+    import threading
+    from h2o3_tpu_torch.api import H2OClient
+    lat = [[] for _ in range(threads)]
+    bad, errs, replicas = [], [], set()
+    mine = [[r for r in plan if r[0] % threads == t] for t in range(threads)]
+
+    def work(t):
+        client = H2OClient(url)
+        try:
+            for _, key, idx in mine[t]:
+                cols, uniq, X = payloads[key]
+                rows = X[np.searchsorted(uniq, idx)].tolist()
+                t0 = time.perf_counter()
+                out = client.score(key, rows, columns=cols)
+                lat[t].append(time.perf_counter() - t0)
+                probs, labels = want[key]
+                pcol = [c for c in out["predictions"] if c != "predict"][-1]
+                got = np.float32(out["predictions"][pcol])
+                if not (np.array_equal(got, probs[idx]) and
+                        out["predictions"]["predict"] ==
+                        labels[idx].tolist()):
+                    bad.append((key, len(idx)))
+                if "replica" in out:
+                    replicas.add(out["replica"])
+        except Exception as e:   # noqa: BLE001 — reported and failed below
+            errs.append(repr(e))
+
+    ths = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errs or bad or any(th.is_alive() for th in ths):
+        raise AssertionError(f"serving: {len(errs)} errors {errs[:3]}, "
+                             f"{len(bad)} responses not predict's bits "
+                             f"{bad[:5]}")
+    flat = np.concatenate([np.asarray(x) for x in lat])
+    return dict(latencies=flat, wall=wall, replicas=sorted(replicas))
+
+
+def serve_want(model, frame) -> tuple:
+    """(probability of the last class, labels) of ``predict`` on the whole
+    frame, on the host."""
+    pred = model.predict(frame)
+    return (pred.vecs[-1].to_numpy(),
+            np.asarray(pred.vec("predict").labels(), dtype=object))
+
+
+def serve_payloads(model, frame, uniq: np.ndarray) -> tuple:
+    """(the model's serving columns, the sorted frame rows ``uniq`` that
+    the plan takes, those rows of those columns gathered on the card and
+    fetched to the host)."""
+    from h2o3_tpu_torch.serving import serving_schema
+    cols = serving_schema(model).names
+    idx = torch.as_tensor(uniq, device=frame.device)
+    X = torch.stack([frame.vec(c).data[idx] for c in cols], 1).cpu().numpy()
+    return cols, uniq, X
+
+
+def serve_shed(url: str, key: str, X: np.ndarray, cols: list) -> dict:
+    """18d's burst: SHED_THREADS clients send SHED_REQUESTS requests of 4
+    rows each at priority 0 with ``slo_ms`` SHED_SLO_MS; returns the 503s
+    they got, with their Retry-After."""
+    import threading
+    import urllib.error
+    import urllib.request
+    codes, retry = [], []
+
+    def work(t):
+        for i in range(SHED_REQUESTS):
+            body = json.dumps({"rows": X[4 * (t + i):4 * (t + i) + 4].tolist(),
+                               "columns": cols, "priority": 0,
+                               "slo_ms": SHED_SLO_MS}).encode()
+            req = urllib.request.Request(
+                f"{url}/3/Score/{key}", data=body, method="POST",
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req) as r:
+                    codes.append(r.status)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+                retry.append(e.headers.get("Retry-After"))
+                e.read()
+
+    ths = [threading.Thread(target=work, args=(t,))
+           for t in range(SHED_THREADS)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=120)
+    return dict(codes=codes, retry_after=retry)
+
+
+def serve_residency(url: str, keys: tuple, payloads: dict) -> dict:
+    """18d: a residency budget above each model's bytes and below their
+    sum: admitting the second evicts the first; with the resident model's
+    batch held in flight (a 0.5 s window, one request queued), admitting the
+    other is a 503 with ``Retry-After``; then the SLO burst."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from h2o3_tpu_torch.api import H2OClient
+    from h2o3_tpu_torch.serving import SCORING
+    from h2o3_tpu_torch.utils.memory import value_kind_bytes
+    from h2o3_tpu_torch.utils.registry import DKV
+    client = H2OClient(url)
+    a, b = keys
+    sizes = {k: value_kind_bytes(DKV[k])[1] for k in keys}
+    for k in keys:
+        client.serving_evict(k)
+    SCORING.budget_bytes = max(sizes.values()) + 64
+    out = dict(model_bytes=sizes, budget_bytes=SCORING.budget_bytes)
+
+    def score(k, n=4):
+        cols, _, X = payloads[k]
+        return client.score(k, X[:n].tolist(), columns=cols)
+
+    score(a)
+    ev0 = SCORING.stats()["evictions"]
+    score(b)                                    # evicts a
+    st = SCORING.stats()
+    if st["evictions"] != ev0 + 1 or \
+            [r["model"] for r in st["resident"]] != [b]:
+        raise AssertionError(f"18d: no eviction: {st['resident']}")
+    out["evicted"] = a
+    client.serving_evict(b)
+    os.environ["H2O3TPU_SCORE_WINDOW_MS"] = "500"
+    try:
+        held = threading.Thread(target=score, args=(b,))
+        held.start()                            # b's batch held 0.5 s
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 10:
+            e = SCORING._resident.get(b)
+            if e is not None and e.busy():
+                break
+            time.sleep(0.005)
+        cols, _, X = payloads[a]
+        req = urllib.request.Request(
+            f"{url}/3/Score/{a}", method="POST",
+            data=json.dumps({"rows": X[:4].tolist(),
+                             "columns": cols}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req).read()
+            raise AssertionError("18d: admitting past a busy model served")
+        except urllib.error.HTTPError as err:
+            out["busy_code"] = err.code
+            out["busy_retry_after"] = err.headers.get("Retry-After")
+            err.read()
+        held.join(timeout=30)
+    finally:
+        del os.environ["H2O3TPU_SCORE_WINDOW_MS"]
+    if out["busy_code"] != 503 or not out["busy_retry_after"]:
+        raise AssertionError(f"18d: {out['busy_code']} without Retry-After")
+    client.serving_evict(b)
+    SCORING.budget_bytes = None
+    cols, _, X = payloads[a]
+    shed = serve_shed(url, a, X, cols)
+    st = SCORING.stats()
+    out.update(burst_requests=len(shed["codes"]),
+               burst_503=shed["codes"].count(503),
+               burst_retry_after=sorted(set(shed["retry_after"]) - {None}),
+               shed=st["shed"], shed_total=st["shed_total"])
+    if st["shed_total"] < 1 or not shed["codes"].count(503) or \
+            set(shed["codes"]) - {200, 503}:
+        raise AssertionError(f"18d: no shed under the burst: {out}")
+    return out
+
+
+def phase_serving(fr) -> dict:
+    """Phase 18: the serving tier and the REST surface on phase 4's frame
+    (see the module's docstring)."""
+    from h2o3_tpu_torch.api import H2OClient, H2OServer
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.orchestration.scheduler import MeshScheduler
+    from h2o3_tpu_torch.serving import SCORING
+    from h2o3_tpu_torch.utils.registry import DKV
+    t_phase = time.perf_counter()
+    card = card_name()
+    out = {"card": card}
+    SCORING.reset()
+    srv = H2OServer(port=0).start()
+    try:
+        client = H2OClient(srv.url)
+        DKV.put("higgs_11m", fr)
+        # 18a: the main path's GBM through POST /3/ModelBuilders/gbm
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        client.train("gbm", "higgs_11m", y="y", model_id="rest_gbm",
+                     **MAIN_GBM)
+        rest_s = time.perf_counter() - t0
+        plan = planned_launches(NTREES, DEPTH, NBINS + 1, 1)
+        launches = hold_launches("18a", plan, NTREES)
+        gbm = DKV["rest_gbm"]
+        direct = GBM(**MAIN_GBM).train(y="y", training_frame=fr)
+        if not _heaps_bitwise(gbm, direct):
+            raise AssertionError("18a: the REST GBM's trees are not the "
+                                 "direct fit's")
+        del direct
+        out["18a_rest_gbm"] = dict(seconds=rest_s, **launches,
+                                   trees_bitwise=True)
+        print(f"18a GBM through REST {ROWS} x {NFEAT}: {rest_s:.2f} s (job "
+              "polled), trees bit for bit the direct fit's")
+        # 18b: 8a's bench_glm through REST
+        gf = Frame.from_arrays(glm_bench_cols(GLM_ROWS), device="cuda")
+        DKV.put("bench_glm_1m", gf)
+        t0 = time.perf_counter()
+        client.train("glm", "bench_glm_1m", y=GLM_Y, model_id="rest_glm",
+                     **SERVE_GLM)
+        glm_s = time.perf_counter() - t0
+        glm = DKV["rest_glm"]
+        direct = GLM(**SERVE_GLM).train(y=GLM_Y, training_frame=gf)
+        if not torch.equal(glm.output["beta"], direct.output["beta"]):
+            raise AssertionError("18b: the REST GLM's coefficients are not "
+                                 "the direct fit's")
+        del direct
+        out["18b_rest_glm"] = dict(seconds=glm_s, coef_bitwise=True)
+        print(f"18b GLM through REST {GLM_ROWS} x {GLM_FEAT}: {glm_s:.2f} s, "
+              "coefficients bit for bit the direct fit's")
+        # 18c: 2,000 requests of 1-64 rows on 8 client threads
+        frames = {"rest_gbm": (gbm, fr), "rest_glm": (glm, gf)}
+        plan = serve_plan({k: f.nrows for k, (_, f) in frames.items()})
+        want, payloads = {}, {}
+        for key, (m, f) in frames.items():
+            want[key] = serve_want(m, f)
+            idx = np.unique(np.concatenate([r[2] for r in plan
+                                            if r[1] == key]))
+            payloads[key] = serve_payloads(m, f, idx)
+        torch.cuda.synchronize()
+        gc_collect()
+        base_alloc = torch.cuda.memory_allocated()
+        run = serve_run(srv.url, plan, payloads, want)
+        st = SCORING.stats()
+        modes = st["modes"]
+        lat = run["latencies"]
+        rows = sum(len(r[2]) for r in plan)
+        captures = [r["capture_s"] for ms in modes.values() for r in ms]
+        res = dict(requests=len(plan), rows=rows, wall_s=run["wall"],
+                   p50_ms=float(np.percentile(lat, 50) * 1e3),
+                   p99_ms=float(np.percentile(lat, 99) * 1e3),
+                   requests_per_s=len(plan) / run["wall"],
+                   rows_per_s=rows / run["wall"],
+                   buckets=st["cache"]["signatures"],
+                   hits=st["cache"]["hits"], misses=st["cache"]["misses"],
+                   capture_s_mean=float(np.mean(captures)),
+                   capture_s_max=float(np.max(captures)),
+                   modes={k: sorted({r["mode"] for r in v})
+                          for k, v in modes.items()},
+                   # a dispatch's wall (copy in, replay, copy out; the SLO
+                   # controller's EMA): the device's part of a request
+                   dispatch_ms={r["model"]: r["slo"]["ema_dispatch_ms"]
+                                for r in st["resident"]})
+        print(f"18c {len(plan)} requests ({rows} rows) on {SERVE_THREADS} "
+              f"threads in {run['wall']:.2f} s: p50 {res['p50_ms']:.2f} ms, "
+              f"p99 {res['p99_ms']:.2f} ms, {res['requests_per_s']:.1f} "
+              f"requests/s, {res['rows_per_s']:.0f} rows/s; {res['buckets']} "
+              f"buckets captured, {res['hits']} hits, {res['misses']} misses; "
+              f"a capture {res['capture_s_mean']:.3f} s on average "
+              f"({res['capture_s_max']:.3f} s at most); modes {res['modes']};"
+              f" a dispatch's wall (EMA) {res['dispatch_ms']} ms [{card}]")
+        if any(ms != ["graph"] for ms in res["modes"].values()) or \
+                set(res["modes"]) != set(frames):
+            raise AssertionError(f"18c: not every scorer is a graph: {modes}")
+        res["graph_bytes"] = torch.cuda.memory_allocated() - base_alloc
+        out["18c_serving"] = res
+        # 18d: residency, a 503 with Retry-After, and shedding
+        out["18d_residency"] = serve_residency(
+            srv.url, ("rest_glm", "rest_gbm"), payloads)
+        print(f"18d evicted {out['18d_residency']['evicted']} under a "
+              f"{out['18d_residency']['budget_bytes']}-byte budget; a busy "
+              f"model's admission: {out['18d_residency']['busy_code']} "
+              f"Retry-After {out['18d_residency']['busy_retry_after']}; "
+              f"burst: {out['18d_residency']['burst_503']} of "
+              f"{out['18d_residency']['burst_requests']} shed "
+              f"({out['18d_residency']['shed']})")
+        # 18e: two replicas on two scheduler streams, the same bits
+        SCORING.reset()
+        gc_collect()
+        freed = torch.cuda.memory_allocated() - base_alloc
+        if freed > GRAPH_SLACK_BYTES:
+            raise AssertionError(f"18e: {freed} bytes stay allocated after "
+                                 "every model's residency was dropped")
+        SCORING.configure_replicas(2, scheduler=MeshScheduler(slices=2))
+        rep = serve_run(srv.url, plan[:REPLICA_REQUESTS], payloads, want)
+        st = SCORING.stats()
+        reps = st["replicas"]["replicas"]
+        rmodes = sorted({m["mode"] for r in SCORING.pool.replicas
+                         for ms in r.cache.modes().values() for m in ms})
+        out["18e_replicas"] = dict(
+            requests=REPLICA_REQUESTS, answered_by=rep["replicas"],
+            wall_s=rep["wall"], modes=rmodes,
+            streams=[r["slice"] for r in reps],
+            dispatches=[r["dispatches"] for r in reps],
+            left_allocated_after_reset=freed)
+        print(f"18e {REPLICA_REQUESTS} requests through 2 replicas on "
+              f"streams {out['18e_replicas']['streams']}: answered by "
+              f"{rep['replicas']}, dispatches "
+              f"{out['18e_replicas']['dispatches']}, every response "
+              f"predict's bits, modes {rmodes}")
+        if len(reps) != 2 or rmodes != ["graph"]:
+            raise AssertionError(f"18e: {out['18e_replicas']}")
+    finally:
+        SCORING.reset()
+        srv.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def gc_collect() -> None:
+    """Drop unreachable graphs and their pools before reading the
+    allocator, and the cuBLAS workspaces (one a stream that ran a matrix
+    product, held by cuBLAS's handles, not by any graph)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -6851,6 +7245,8 @@ def main() -> int:
     munging = phase_munge(air_fr)
     drop_models()
     persist = phase_persist(fr)
+    drop_models()
+    serving = phase_serving(fr)
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
@@ -6977,6 +7373,12 @@ def main() -> int:
         path="recovery_gbm", node_totals=rg["node_totals"],
         timed_at="13a's GBM levels 0-5 at 1M x 28 (phase 13e), this "
                  "path's level shapes"))
+    # phase 18: the GBM trained through REST (the main path's fit: its
+    # level shapes, timed in phase 5)
+    sg = serving["18a_rest_gbm"]
+    kernels.append(kernel_entry(
+        sg["launches"], max_err["binomial"], times, path="rest_gbm",
+        node_totals=sg["node_totals"], timed_at=main_levels))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -6996,6 +7398,7 @@ def main() -> int:
                                      if k != "kernel_times"}},
                      default=float))
     print(json.dumps({"persist": persist}, default=float))
+    print(json.dumps({"serving": serving}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,9 +59,16 @@ XGBoost or DeepLearning build and resumes it, and a grid's
 both ways and read real H2O-3 MOJO zips
 (:mod:`h2o3_tpu_torch.genmodel`), with pipelines, PrintMojo, the
 generated numpy scorer (the POJO) and the C++ scorer of
-``native/mojo_scorer.cpp``. The builders of the later slices are exported
-here.
+``native/mojo_scorer.cpp``. Serving and REST: :mod:`h2o3_tpu_torch.serving`
+scores row payloads in micro-batches through one CUDA graph per model and
+batch bucket, with byte-accounted residency, SLO shedding and replicas on
+scheduler streams; :mod:`h2o3_tpu_torch.api` is the V3 REST server (the
+JAX package's route table), its client and the Flow page, and
+:func:`init`/:func:`connect` open a session as h2o-py's do. The builders
+of the later slices are exported here.
 """
+
+__version__ = "0.1.0"
 
 from h2o3_tpu_torch.device import resolve_device, set_device
 from h2o3_tpu_torch.frame.parse import import_file, parse_raw, upload_file
@@ -81,6 +88,8 @@ from h2o3_tpu_torch.models.target_encoder import TargetEncoder
 from h2o3_tpu_torch.models.word2vec import Word2Vec
 from h2o3_tpu_torch.persist.frame_io import export_file, load_frame, save_frame
 from h2o3_tpu_torch.persist.model_io import load_model, save_model
+from h2o3_tpu_torch.session import (cluster, connect, connection, init,
+                                    shutdown)
 
 __all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "Infogram", "IsotonicRegression", "ModelSelection", "RuleFit",
@@ -88,4 +97,5 @@ __all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "import_file", "import_mojo", "import_sql_select",
            "import_sql_table", "load_frame", "load_model", "parse_raw",
            "resolve_device", "save_frame", "save_model", "set_device",
-           "upload_file"]
+           "upload_file", "init", "connect", "connection", "cluster",
+           "shutdown", "__version__"]

@@ -17,8 +17,10 @@ pooled into one metrics pass (``cross_validation_metrics``), kept with
 (``cv_metrics_summary``). A finished model is put into the DKV
 (``utils/registry.py``) under its key, and a build holds the write lock on
 its ``model_id`` from its first fit to that put; ``checkpoint=`` takes a
-Model or the key of one in the DKV. The reference's auto-recovery,
-telemetry and mesh slices are left out.
+Model or the key of one in the DKV. ``train`` reports
+``model_build_start`` and ``model_build_end`` to the Extensions SPI
+(:mod:`h2o3_tpu_torch.utils.extensions`). The reference's telemetry and
+mesh slices are left out.
 """
 
 from __future__ import annotations
@@ -206,6 +208,13 @@ class ModelBuilder:
                     # resumes from it through checkpoint=
                     auto_recovery_dir=None)
 
+    def validate_request(self) -> None:
+        """Fail-fast validation the REST layer runs BEFORE starting the
+        background job (reference ``ModelBuilder.validate_request``): raise
+        ``ValueError`` for a request no build could ever satisfy. The
+        port's builders refuse unknown and unapplied parameters in
+        ``__init__`` already, so the base has nothing more to check."""
+
     def supports_auto_recovery(self) -> bool:
         """Whether this builder writes snapshots under
         ``auto_recovery_dir`` (GBM and XGBoost gbtree every few trees,
@@ -298,6 +307,9 @@ class ModelBuilder:
                 return locked_fit(job)
 
         def locked_fit(job: Job) -> Model:
+            from h2o3_tpu_torch.utils import extensions as _ext
+            _ext.report("model_build_start", algo=self.algo, job=job.key,
+                        frame=frame.key)
             model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
             w_metrics = self._metrics_weights
@@ -325,8 +337,14 @@ class ModelBuilder:
                 model.cross_validation_metrics = self._cross_validate(
                     job, frame, x, y, w_metrics, nfolds, model)
             DKV.put(model.key, model)
+            _ext.report("model_build_end", algo=self.algo, model=model.key,
+                        job=job.key)
             return model
 
+        if getattr(self, "_cancel_requested_early", False):
+            # a REST cancel raced the job's creation (api/server.py
+            # _run_build_job): honour it before the build starts
+            self.job.cancel()
         try:
             self.model = self.job.run(fit).result
         finally:

@@ -141,11 +141,17 @@ class MeshScheduler:
             caller.wait_stream(stream)
 
     @contextlib.contextmanager
-    def lease(self, rows: int | None = None, algo: str | None = None):
+    def lease(self, rows: int | None = None, algo: str | None = None,
+              small: bool | None = None):
         """Take a stream (waiting until one is free, in bounded waits that
         re-check), run the body on it, and give it back. With one slice the
         stream is shared and the lease never waits. Every build takes one
-        stream, whatever its ``rows`` and ``algo``."""
+        stream, whatever its ``rows`` and ``algo``. ``small=True`` is the
+        reference's one-slice policy forced outright (a serving replica
+        holds one slice for its lifetime, whatever its rows): here every
+        lease is already one stream, so it asks for nothing more, and with
+        one slice it shares the stream as the reference's one-slice layout
+        does."""
         pool = self._pool
         t0 = time.monotonic()
         if self.n <= 1:

@@ -1,0 +1,94 @@
+"""h2o.init / connect / cluster — the client-session entry points — the port
+of ``h2o3_tpu/session.py``.
+
+Reference: ``h2o-py/h2o/h2o.py`` — ``h2o.init()`` starts-or-attaches a local
+node and keeps a module-level connection; ``h2o.connect()`` attaches to a
+running cluster; ``h2o.cluster()`` exposes status/shutdown.
+
+Here ``init`` boots the in-process REST server (the "node" is this process
+and its card) and returns a client bound to it; ``connect`` attaches to any
+running server of the port or of the JAX package. The multi-host arguments
+of the JAX package's ``init`` (``coordinator_address``, ``num_processes``,
+``process_id``) belong to the multi-GPU slice and are refused by name; the
+persistent XLA compile cache it enables has no counterpart yet (the
+observability slice ports ``utils/compile_cache.py``).
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:   # lazy at runtime: api.server imports __version__
+    from h2o3_tpu_torch.api.client import H2OClient
+
+_server = None
+_client = None
+
+
+def init(port: int = 54321, strict_port: bool = False,
+         coordinator_address: str | None = None,
+         num_processes: int | None = None,
+         process_id: int | None = None) -> "H2OClient":
+    """Start (once) an in-process server and bind the module client
+    (h2o-py: ``h2o.init``). Falls back to an ephemeral port unless
+    ``strict_port``. A process-spanning cloud (``coordinator_address``,
+    ``num_processes``, ``process_id``) is not ported yet and raises."""
+    multi = {k: v for k, v in (("coordinator_address", coordinator_address),
+                               ("num_processes", num_processes),
+                               ("process_id", process_id)) if v is not None}
+    if multi:
+        raise NotImplementedError(
+            f"init({', '.join(sorted(multi))}=...): a multi-process cloud "
+            "belongs to the multi-GPU slice, which is not ported yet")
+    from h2o3_tpu_torch.api.client import H2OClient
+    from h2o3_tpu_torch.api.server import H2OServer, install_log_ring
+    install_log_ring()   # session startup: /3/Logs serves from here on
+    global _server, _client
+    if _client is not None:
+        return _client
+    try:
+        _server = H2OServer(port=port).start()
+    except OSError:
+        if strict_port:
+            raise
+        _server = H2OServer(port=0).start()
+    _client = H2OClient(_server.url)
+    return _client
+
+
+def connect(url: str) -> "H2OClient":
+    """Attach to a running server (h2o-py: ``h2o.connect``)."""
+    from h2o3_tpu_torch.api.client import H2OClient
+    global _client
+    _client = H2OClient(url)
+    _client.cloud_status()      # fail fast on a dead address
+    return _client
+
+
+def cluster() -> dict:
+    """Cluster status (h2o-py: ``h2o.cluster().show_status()``)."""
+    if _client is None:
+        raise RuntimeError(
+            "not connected: call h2o3_tpu_torch.init() or connect()")
+    return _client.cloud_status()
+
+
+def shutdown() -> None:
+    """Stop the in-process server and drop the connection.
+
+    When this process OWNS the server, stop it directly — issuing the REST
+    /3/Shutdown as well would race two teardowns of the same socketserver
+    from different threads."""
+    global _server, _client
+    if _server is not None:
+        _server.stop()
+    elif _client is not None:
+        try:
+            _client.shutdown()
+        except Exception:    # noqa: BLE001 — server may already be gone
+            pass
+    _server = _client = None
+
+
+def connection():
+    return _client
