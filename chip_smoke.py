@@ -172,8 +172,8 @@ Phases, each of which fails the run on error:
    same model ids, the models whose every level runs the fixed kernel bit
    for bit; (c) AutoML with target encoding and the lr-annealed step on
    the first 1M rows of phase 7's frame, its tree models scoring through
-   the encoder; (d) a GBM per carrier (``train_segments``, 22 segments)
-   on those rows, every model in the DKV, and on 10k rows the CPU's
+   the encoder; (d) a GBM (10 trees) per carrier (``train_segments``, 22
+   segments) on those rows, every model in the DKV, and on 10k rows the CPU's
    segment models (5 trees) alike at every split but the CPU's exact
    ties; (e) the
    kernels timed at 13a's level shapes.
@@ -185,7 +185,7 @@ Phases, each of which fails the run on error:
    in), written as a CSV; (b) ``import_file`` with the titles typed
    string, on the native tokenizer; (c) ``tolower``, ``tokenize(" ")``
    and Word2Vec at the tutorial's settings (100 dimensions, window 5,
-   min_word_freq 5, SGNS with 5 negatives, B 1024, no subsampling, 5
+   min_word_freq 5, SGNS with 5 negatives, B 1024, no subsampling, 3
    epochs), timed with tokens/s and pairs/s, a profiled like part of 500
    steps, one HSM epoch over the same pairs and the synonyms of three
    topic words; (d) ``transform(..., "AVERAGE")``; (e) a multinomial GBM
@@ -287,6 +287,33 @@ Phases, each of which fails the run on error:
    residency dropped and the graphs' memory given back; (e) a
    ``ReplicaPool`` of 2 replicas on two scheduler streams scoring 18c's
    first 400 requests, bit for bit.
+19. observability and ops (no kernel of their own; the GBMs trained here
+   launch the histogram kernels): (a) the port's ``H2OServer`` with a
+   0.5 s health sweep, and the main path's GBM on phase 4's first 1M rows
+   (13a's row count) trained through ``POST /3/ModelBuilders/gbm`` under
+   a caller's ``traceparent``: one trace under the caller's id, request
+   → job → ``gbm:fit`` → ``gbm:chunk``, exported as Chrome JSON; a
+   ``/3/Profiler/capture`` around a 5-tree fit of the frame holding
+   ``fixed_hist_kernel`` events as many as that fit launched it (the plan
+   of its levels and one node total a tree) and ``record_function``
+   events named after the spans; ``/3/Compute`` listing the GBM's sites
+   and the scorer's with signatures, samples and achieved bytes/s, a
+   utilization in (0, 1] against the H100 row, the grow site's bytes the
+   script's own bound bytes of that fit's levels; ``/metrics`` parsed as
+   Prometheus text, the GBM build and chunk counters moved; (b) the fit
+   again with everything on (under a trace) and with ``H2O3TPU_COSTS_OFF``
+   and ``H2O3TPU_TRACE_OFF``: trees bit for bit, equal launches, equal
+   host syncs, both wall times; (c) the health sweep healthy, then
+   unhealthy with a ``dispatch_retry_exhaustion`` finding once a GBM's
+   chunk dispatch exhausts its retry budget under ``inject_faults`` (every
+   ``gbm_chunk`` dispatch dropped), one open incident with its context,
+   the diagnostic bundle's members with a planted ``*_API_KEY`` redacted, and the
+   incident resolved by the sweep once the fault cleared; (d) with
+   ``H2O3TPU_REMEDIATE=act``: a QPS quota of 2 answering the third post
+   with 429 and ``Retry-After``, scoring under ``tenant_scope`` charging
+   device-seconds, a ``serving_shed_rate`` incident widening the resident
+   model's admission target 50 → 75 and its rollback restoring 50, and
+   ``/3/TimeSeries`` holding the flight recorder's series.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -4510,8 +4537,9 @@ FIXED_DEPTH_65 = 7
 TE_AML = dict(max_models=5, nfolds=0, seed=7,
               include_algos=["GBM", "STACKEDENSEMBLE"],
               preprocessing=["target_encoding"], exploitation_ratio=0.2)
-#: 13d: one GBM per carrier (H2O-3's train_segments)
-SEG_GBM = dict(ntrees=20, max_depth=5, seed=1)
+#: 13d: one GBM per carrier (H2O-3's train_segments), at 10 trees, not 20
+#: (ROADMAP.md "Reduced checks")
+SEG_GBM = dict(ntrees=10, max_depth=5, seed=1)
 SEG_COL = "UniqueCarrier"
 SEG_CPU_ROWS = 10_000
 #: 13d's CPU head grows the segment models' first trees only
@@ -4790,7 +4818,7 @@ def te_automl_part(air1m) -> dict:
 
 
 def segments_part(air1m) -> dict:
-    """13d: ``train_segments(GBM(ntrees=20, max_depth=5, seed=1),
+    """13d: ``train_segments(GBM(ntrees=10, max_depth=5, seed=1),
     ["UniqueCarrier"])`` on the first 1M rows of phase 7's frame: a model
     per carrier, every status SUCCEEDED, each model found through the DKV,
     launches held to the plan. On the first 10k rows, the CPU's segment
@@ -4921,10 +4949,10 @@ TEXT_MIN_LEN, TEXT_MAX_LEN = 4, 12
 TEXT_TOPIC_WORDS, TEXT_TOPIC_SHARE = 40, 0.35
 TEXT_SEED = 61
 #: the tutorial's Word2Vec (H2OWord2vecEstimator(sent_sample_rate=0.0,
-#: epochs=10) at h2o-py's other defaults), epochs halved (ROADMAP.md
-#: "Reduced checks")
+#: epochs=10) at h2o-py's other defaults), at 3 epochs (ROADMAP.md
+#: "Reduced checks": 5 until phase 19)
 W2V = dict(vec_size=100, window_size=5, min_word_freq=5, negative_samples=5,
-           mini_batch_size=1024, sent_sample_rate=0.0, epochs=5,
+           mini_batch_size=1024, sent_sample_rate=0.0, epochs=3,
            init_learning_rate=0.025, seed=7)
 #: the warm-up fit's titles (one epoch) and the profiled like part's steps
 W2V_WARM_TITLES, W2V_PROFILE_STEPS = 20_000, 500
@@ -5482,7 +5510,7 @@ def phase_text(fr) -> dict:
     """Phase 14: H2O-3's Word2Vec tutorial at full width — a 150,000-title
     CSV made from a seed, ``import_file`` with the titles typed string
     (the native tokenizer), ``tolower``, ``tokenize(" ")``, Word2Vec (100
-    dimensions, SGNS, 5 epochs), ``transform(..., "AVERAGE")``, and a
+    dimensions, SGNS, 3 epochs), ``transform(..., "AVERAGE")``, and a
     6-class GBM on the averages with a validation split; then the CPU
     against the card on 2,000 titles, the uploaded UDFs on phase 4's
     frame, and the kernel at the GBM's level shapes."""
@@ -7169,6 +7197,481 @@ def phase_serving(fr) -> dict:
     return out
 
 
+# -- phase 19: observability and ops -----------------------------------------
+
+#: 19a's caller trace id (the ``traceparent`` the request carries)
+OBS_TRACE = "19" * 16
+#: 19a's profiled fit: trees of the main path's shape, inside a capture
+#: window of this many ms (the fit took 1.06 s through REST, polling
+#: included, on an NVIDIA H100 80GB HBM3 at 700 W)
+OBS_CAPTURE_TREES = 5
+OBS_CAPTURE_MS = 2500
+#: 19c's failing fit (every chunk dispatch dropped) and 19d's scoring rows
+OBS_FAULT_ROWS = 100_000
+OBS_SCORE_ROWS = 64
+#: the diagnostic bundle's members (the reference's ``diagnostic_bundle``)
+BUNDLE_MEMBERS = ("actions.json", "compute.json", "config.json",
+                  "hardware.json", "health.json", "incidents.json",
+                  "logs.txt", "memory.json", "metrics.json", "metrics.prom",
+                  "timeseries.json", "traces.json")
+
+
+def _prometheus(text: str) -> dict:
+    """The samples of a Prometheus/OpenMetrics exposition, parsed line by
+    line: ``{(name, ((label, value), ...)): value}``; raises on a line
+    that is neither a comment nor a sample, or on a missing ``# EOF``."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? '
+                        r'([-+]?(?:[0-9.eE+-]+|NaN|Inf))$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    if not text.endswith("# EOF\n"):
+        raise AssertionError("19a: /metrics does not end with # EOF")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = sample.match(line)
+        if m is None:
+            raise AssertionError(f"19a: not a Prometheus sample: {line!r}")
+        out[(m.group(1), tuple(label.findall(m.group(3) or "")))] = \
+            float(m.group(4))
+    return out
+
+
+def _obs_post(url: str, path: str, params: dict, headers: dict) -> tuple:
+    """(status, headers, JSON body or None) of one form POST."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, data=urllib.parse.urlencode(params).encode(),
+        method="POST", headers={
+            "Content-Type": "application/x-www-form-urlencoded", **headers})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = r.read()
+            return r.status, dict(r.headers), (json.loads(body)
+                                               if body[:1] == b"{" else body)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), None
+
+
+def _obs_job(client, job: str) -> dict:
+    """Poll a REST job to its end; raise unless it is DONE."""
+    for _ in range(6000):
+        st = client.job(job)
+        if st["status"] not in ("RUNNING", "CREATED"):
+            break
+        time.sleep(0.01)
+    if st["status"] != "DONE":
+        raise AssertionError(f"19: job {job} ended {st['status']}: "
+                             f"{st.get('exception')}")
+    return st
+
+
+def obs_trace_and_profile(url: str, client, fr1m) -> dict:
+    """19a: the traced REST build, the profiler capture around a 5-tree
+    fit, ``/3/Compute`` and ``/metrics``."""
+    import gzip
+    import threading
+
+    from h2o3_tpu_torch.ops.hist import hist_bytes
+    from h2o3_tpu_torch.utils import tracing as _tr
+    from h2o3_tpu_torch.utils.profiling import PROFILER, kernel_events
+    from h2o3_tpu_torch.utils.registry import DKV
+    out = {}
+    before = _prometheus(client.metrics_text())
+    tp = f"00-{OBS_TRACE}-{'ab' * 8}-01"
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    code, hdrs, body = _obs_post(url, "/3/ModelBuilders/gbm", dict(
+        training_frame="higgs_1m", response_column="y",
+        model_id="observed_gbm", **MAIN_GBM), {"traceparent": tp})
+    if code != 200 or hdrs.get("traceparent", "").split("-")[1] != OBS_TRACE:
+        raise AssertionError(f"19a: POST answered {code}, traceparent "
+                             f"{hdrs.get('traceparent')}")
+    _obs_job(client, body["job"]["key"]["name"])
+    out["rest_s"] = time.perf_counter() - t0
+    plan = planned_launches(NTREES, DEPTH, NBINS + 1, 1)
+    out.update(hold_launches("19a", plan, NTREES))
+    for _ in range(500):
+        trace = client.trace(OBS_TRACE)
+        if not trace.get("in_progress"):
+            break
+        time.sleep(0.01)
+    spans = {sp["span_id"]: sp for sp in trace["spans"]}
+    roots = [sp for sp in spans.values() if sp["parent_id"] not in spans]
+    chunks = [sp for sp in spans.values() if sp["name"] == "gbm:chunk"]
+    if len(roots) != 1 or not chunks:
+        raise AssertionError(f"19a: {len(roots)} roots, {len(chunks)} "
+                             "chunk spans in the caller's trace")
+    chain, sp = [], chunks[0]
+    while sp is not None:
+        chain.append((sp["kind"], sp["name"]))
+        sp = spans.get(sp["parent_id"])
+    chain.reverse()
+    kinds = [k for k, _ in chain]
+    if kinds[0] != "server" or kinds[1] != "job" or \
+            [n for _, n in chain[-2:]] != ["gbm:fit", "gbm:chunk"]:
+        raise AssertionError(f"19a: the chunk's chain is {chain}")
+    export = client.trace_export(OBS_TRACE)
+    xs = [e for e in export["traceEvents"] if e["ph"] == "X"]
+    if len(xs) != len(spans):
+        raise AssertionError("19a: the Chrome export lost spans")
+    out["trace"] = dict(spans=len(spans), chain=[n for _, n in chain],
+                        critical_path=[c["name"] for c in
+                                       trace["critical_path"]])
+    print(f"19a GBM through REST {AML_ROWS} x {NFEAT} under traceparent: "
+          f"{out['rest_s']:.2f} s; trace of {len(spans)} spans, chain "
+          f"{' -> '.join(out['trace']['chain'])}")
+    # the profiler capture around a 5-tree fit started through REST while
+    # the capture's window is open
+    cap: dict = {}
+
+    def capture():
+        cap["resp"] = _obs_post(
+            url, f"/3/Profiler/capture?duration_ms={OBS_CAPTURE_MS}", {}, {})
+    reset_kernel_counts()
+    th = threading.Thread(target=capture)
+    th.start()
+    # the window is open once the profiler runs and spans are annotated
+    for _ in range(6000):
+        if _tr.SPAN_HOOK is not None:
+            break
+        time.sleep(0.005)
+    small = dict(MAIN_GBM, ntrees=OBS_CAPTURE_TREES)
+    t0 = time.perf_counter()
+    client.train("gbm", "higgs_1m", y="y", model_id="profiled_gbm", **small)
+    fit_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    th.join(timeout=120)
+    by_kernel, totals = kernel_counts()
+    code, _, rec = cap.get("resp", (None, None, None))
+    if code != 200:
+        raise AssertionError(f"19a: the capture answered {code}")
+    raw, _ = PROFILER.artifact_bytes(rec["capture_id"])
+    events = json.loads(gzip.decompress(raw))["traceEvents"]
+    hist = [e for e in kernel_events({"traceEvents": events})
+            if "fixed_hist_kernel" in e["name"]]
+    want = planned_launches(OBS_CAPTURE_TREES, DEPTH, NBINS + 1, 1)["fixed"] \
+        + OBS_CAPTURE_TREES
+    if by_kernel.get("fixed", 0) + totals != want or len(hist) != want:
+        raise AssertionError(f"19a: the capture holds {len(hist)} "
+                             f"fixed_hist_kernel events, the fit launched "
+                             f"{by_kernel} + {totals} node totals, planned "
+                             f"{want}")
+    annotated = {e["name"] for e in events
+                 if e.get("cat") == "user_annotation"}
+    if not {"gbm:fit", "gbm:chunk"} <= annotated:
+        raise AssertionError(f"19a: span names missing from the capture: "
+                             f"{sorted(annotated)[:20]}")
+    out["capture"] = dict(fixed_hist_kernel_events=len(hist), planned=want,
+                          kernel_events=len(kernel_events(
+                              {"traceEvents": events})),
+                          fit_s=fit_s, bytes=rec["bytes"],
+                          annotations=sorted(n for n in annotated
+                                             if n.startswith("gbm:")))
+    print(f"19a capture around a {OBS_CAPTURE_TREES}-tree fit "
+          f"({fit_s:.2f} s): {len(hist)} fixed_hist_kernel events as "
+          f"launched ({want}), {out['capture']['kernel_events']} kernel "
+          f"events, span names {out['capture']['annotations']}")
+    # a few rows scored, so the scorer's site is in the table
+    X = np.stack([fr1m.vec(f"x{i}").data[:OBS_SCORE_ROWS].cpu().numpy()
+                  for i in range(NFEAT)], 1)
+    client.score("observed_gbm", [{f"x{i}": float(v) for i, v in
+                                   enumerate(row)} for row in X])
+    torch.cuda.synchronize()
+    comp = client.compute()
+    sites = {r["site"]: r for r in comp["sites"]}
+    for site in ("gbm:boost_scan", "gbm:grow_batched", "score:gbm"):
+        if site not in sites or not sites[site]["signatures"]:
+            raise AssertionError(f"19a: /3/Compute lacks {site}: "
+                                 f"{sorted(sites)}")
+    loops = comp["loops"]
+    for loop in ("gbm_chunk", "gbm_grow", "scoring"):
+        st = loops.get(loop) or {}
+        util = st.get("utilization")
+        if not st.get("samples") or not st.get("achieved_bytes_per_sec") \
+                or util is None or not 0.0 < util <= 1.0:
+            raise AssertionError(f"19a: /3/Compute's {loop} row: {st}")
+    if comp["peak"]["name"] != "NVIDIA H100 80GB HBM3":
+        raise AssertionError(f"19a: peak row {comp['peak']}")
+    levels = [hist_bytes(AML_ROWS, NFEAT, max(1, 2 ** (d - 1)), NBINS + 1, 1)
+              for d in range(DEPTH)]
+    totals_b = AML_ROWS * 16 + 2 ** DEPTH * 12
+    grow = [sg for sg in sites["gbm:grow_batched"]["signatures"]
+            if sg["signature"]["args"][0]["shape"] == [AML_ROWS, NFEAT]]
+    if not grow or grow[0]["bytes"] != sum(levels) + totals_b:
+        raise AssertionError(f"19a: the grow site's bytes "
+                             f"{grow[0]['bytes'] if grow else None}, the "
+                             f"bound's {sum(levels) + totals_b}")
+    out["compute"] = dict(
+        sites=sorted(sites), level0_bytes=levels[0],
+        grow_bytes=grow[0]["bytes"],
+        loops={k: {kk: loops[k].get(kk) for kk in (
+            "samples", "utilization", "achieved_bytes_per_sec",
+            "achieved_flops_per_sec", "roofline")}
+            for k in ("gbm_chunk", "gbm_grow", "scoring")})
+    print(f"19a /3/Compute: {len(sites)} sites; "
+          + "; ".join(f"{k} util {v['utilization']:.3g}, "
+                      f"{v['achieved_bytes_per_sec'] / 1e9:.2f} GB/s "
+                      f"({v['samples']} samples)"
+                      for k, v in out["compute"]["loops"].items())
+          + f"; the grow site's level-0 bytes {levels[0]} as the bound's")
+    after = _prometheus(client.metrics_text())
+    key = ("h2o3_model_builds_total", (("algo", "gbm"),))
+    chunk = ("h2o3_iteration_seconds_count", (("loop", "gbm_chunk"),))
+    built = after.get(key, 0) - before.get(key, 0)
+    if built != 2 or after.get(chunk, 0) - before.get(chunk, 0) < 2:
+        raise AssertionError(f"19a: builds moved {built}, chunks "
+                             f"{after.get(chunk, 0) - before.get(chunk, 0)}")
+    out["metrics"] = dict(samples=len(after), builds_moved=built)
+    print(f"19a /metrics: {len(after)} samples parsed, gbm builds +{built}")
+    DKV.remove("profiled_gbm")
+    return out
+
+
+def obs_overhead(fr1m) -> dict:
+    """19b: the fit with every hook on (under a trace) and with costs and
+    tracing off: the same trees, launches and host syncs."""
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.utils.tracing import TRACER
+    runs = {}
+    for mode in ("on", "off"):
+        env = {} if mode == "on" else {"H2O3TPU_COSTS_OFF": "1",
+                                       "H2O3TPU_TRACE_OFF": "1"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            reset_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with TRACER.span("19b", root=True):
+                m, syncs = count_syncs(lambda: GBM(**MAIN_GBM).train(
+                    y="y", training_frame=fr1m))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        runs.setdefault(mode, []).append(dict(
+            model=m, wall=wall, syncs=syncs, launches=kernel_counts()))
+    on, off = runs["on"][-1], runs["off"][0]
+    if not _heaps_bitwise(on["model"], off["model"]) or \
+            on["launches"] != off["launches"] or on["syncs"] != off["syncs"]:
+        raise AssertionError(f"19b: hooks on {on['launches']} "
+                             f"{on['syncs']}, off {off['launches']} "
+                             f"{off['syncs']}")
+    out = dict(wall_on_s=on["wall"],
+               wall_off_s=off["wall"], syncs=sum(on["syncs"].values()),
+               launches=on["launches"][0], trees_bitwise=True)
+    print(f"19b the fit with every hook on {out['wall_on_s']:.3f} s, "
+          f"with costs and tracing off "
+          f"{off['wall']:.3f} s: trees bit for bit, launches "
+          f"{on['launches'][0]}, {out['syncs']} host syncs each")
+    return out
+
+
+def obs_health(url: str, client) -> dict:
+    """19c: the health sweep pages on an exhausted retry budget; the
+    incident, its context, the bundle; resolution once the fault clears."""
+    import io
+    import tarfile
+
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.ops.map_reduce import DispatchFailed
+    from h2o3_tpu_torch.utils.timeline import inject_faults
+    from h2o3_tpu_torch.utils.costs import COSTS
+    from h2o3_tpu_torch.utils.flight import FLIGHT
+    t0 = time.perf_counter()
+    # what the sweep reads after 19a-b: the meter has rated their loops
+    # against the dense bf16 peak (the memory-bound tree engine reads far
+    # below the MFU floor) and the recorder has watched the host's RSS
+    # grow with the phase's frames; both are cleared for the check
+    before = client.health()
+    out = {"before": dict(status=before["status"], findings=[
+        (f["rule"], f["observed"], f["threshold"])
+        for f in before["findings"]])}
+    COSTS.clear()
+    FLIGHT.reset()
+    for _ in range(100):
+        v = client.health()
+        if v["status"] == "healthy" and not client.incidents(state="open"):
+            break
+        time.sleep(0.1)
+    if v["status"] != "healthy":
+        raise AssertionError(f"19c: health reads {v['status']}: "
+                             f"{v['findings']}")
+    rng = np.random.default_rng(19)
+    X = rng.normal(size=(OBS_FAULT_ROWS, 4)).astype(np.float32)
+    small = Frame.from_arrays({**{f"x{i}": X[:, i] for i in range(4)},
+                               "y": (X[:, 0] > 0).astype(np.float32)},
+                              device="cuda")
+    # every drop at the chunk's site: a global drop rate would also drop
+    # the REST accept loop's and the sweep's own fault points, which raise
+    # out of their loops
+    with inject_faults(site_rates={"gbm_chunk": {"drop_rate": 1.0}}):
+        try:
+            GBM(ntrees=2, max_depth=3, seed=1).train(y="y",
+                                                     training_frame=small)
+        except DispatchFailed as e:
+            out["attempts"] = len(e.history)
+        else:
+            raise AssertionError("19c: the dropped dispatches did not "
+                                 "exhaust the retry budget")
+    t_fault = time.perf_counter()
+    for _ in range(100):
+        v = client.health()
+        if v["status"] == "unhealthy":
+            break
+        time.sleep(0.1)
+    finding = [f for f in v["findings"]
+               if f["rule"] == "dispatch_retry_exhaustion"]
+    opened = client.incidents(state="open")
+    if v["status"] != "unhealthy" or not finding or \
+            [r["rule"] for r in opened] != ["dispatch_retry_exhaustion"]:
+        raise AssertionError(f"19c: health {v['status']}, findings "
+                             f"{v['findings']}, open {opened}")
+    ctx = client.incident(opened[0]["id"])["context"]
+    if not ctx.get("logs") or not ctx.get("compute") or \
+            not ctx.get("memory"):
+        raise AssertionError(f"19c: the incident's context: {sorted(ctx)}")
+    out["paged_s"] = time.perf_counter() - t_fault
+    os.environ["H2O3TPU_PLANTED_API_KEY"] = "never-in-a-bundle"
+    try:
+        code, _, body = _obs_post(url, "/3/Diagnostics/bundle", {}, {})
+    finally:
+        os.environ.pop("H2O3TPU_PLANTED_API_KEY", None)
+    with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+        members = {m.name.split("/", 1)[1]: tar.extractfile(m).read()
+                   for m in tar.getmembers()}
+    cfg = json.loads(members.get("config.json", b"{}"))
+    if code != 200 or tuple(sorted(members)) != BUNDLE_MEMBERS or \
+            cfg.get("H2O3TPU_PLANTED_API_KEY") != "[redacted]" or \
+            b"never-in-a-bundle" in b"".join(members.values()):
+        raise AssertionError(f"19c: bundle {code}, members "
+                             f"{sorted(members)}")
+    for _ in range(100):
+        if not client.incidents(state="open"):
+            break
+        time.sleep(0.1)
+    if client.incidents(state="open"):
+        raise AssertionError("19c: the incident did not resolve")
+    out.update(resolved_s=time.perf_counter() - t_fault,
+               bundle_members=len(members), seconds=time.perf_counter() - t0)
+    print(f"19c before: {out['before']}; the meter cleared: healthy, then "
+          f"unhealthy {out['paged_s']:.2f} s after "
+          f"{out['attempts']} dropped attempts (dispatch_retry_exhaustion),"
+          f" one incident with its context, a bundle of {len(members)} "
+          f"members with the planted key redacted, resolved "
+          f"{out['resolved_s']:.2f} s after the fault")
+    return out
+
+
+def obs_ops(url: str, client, fr1m) -> dict:
+    """19d: tenant quotas, device-seconds, serving relief and its
+    rollback, the flight recorder's series."""
+    from h2o3_tpu_torch.ops_plane import QUOTAS
+    from h2o3_tpu_torch.ops_plane.tenancy import tenant_scope
+    from h2o3_tpu_torch.serving import SCORING
+    from h2o3_tpu_torch.utils.incidents import INCIDENTS
+    out = {}
+    client.set_quota("team-a", qps=2)
+    codes = [_obs_post(url, "/3/PostFile?destination_frame=q.raw",
+                       {"x": "1"}, {"X-H2O3-Tenant": "team-a"})
+             for _ in range(3)]
+    if [c[0] for c in codes] != [200, 200, 429] or \
+            int(codes[2][1].get("Retry-After", 0)) < 1:
+        raise AssertionError(f"19d: quota answers {[c[0] for c in codes]}")
+    X = np.stack([fr1m.vec(f"x{i}").data[:OBS_SCORE_ROWS].cpu().numpy()
+                  for i in range(NFEAT)], 1)
+    rows = [{f"x{i}": float(v) for i, v in enumerate(r)} for r in X]
+    # priority 9 is never shed: the model's first dispatch captured its
+    # graphs, which the SLO's estimate still carries
+    with tenant_scope("team-b"):
+        SCORING.score("observed_gbm", rows, priority=9, slo_ms=50)
+    used = QUOTAS.usage("team-b")["device_seconds_total"]
+    if not used > 0:
+        raise AssertionError("19d: no device-seconds charged")
+    iid = INCIDENTS.open("serving_shed_rate", "serving", "degraded",
+                         "19d shed", 0.4, 0.05)
+    aid = INCIDENTS.get(iid)["action_id"]
+    act = next(a for a in client.ops()["actions"] if a["id"] == aid)
+
+    def target():
+        return next(r["slo"]["target_ms"] for r in SCORING.stats()[
+            "resident"] if r["model"] == "observed_gbm")
+    widened = target()
+    rolled = client.rollback_action(aid)
+    restored = target()
+    INCIDENTS.resolve("serving_shed_rate")
+    if (act["action"], act["outcome"], widened, rolled, restored) != \
+            ("serving_relief", "applied", 75.0, True, 50.0):
+        raise AssertionError(f"19d: {act}, target {widened} -> {restored}")
+    ts = client.timeseries()
+    names = {r["name"] for r in ts["series"]}
+    if not ts["running"] or "derived.host_rss_bytes" not in names or \
+            not any(n.startswith("h2o3_requests") for n in names):
+        raise AssertionError(f"19d: /3/TimeSeries: {sorted(names)[:10]}")
+    out.update(quota_codes=[c[0] for c in codes],
+               retry_after=codes[2][1].get("Retry-After"),
+               device_seconds=used, relief=[50.0, widened, restored],
+               series=len(names))
+    print(f"19d quota answers {out['quota_codes']} (Retry-After "
+          f"{out['retry_after']}), team-b charged {used:.6f} device-s, "
+          f"serving relief {out['relief']}, {len(names)} retained series")
+    return out
+
+
+def phase_observability(fr) -> dict:
+    """Phase 19: observability and ops on phase 4's first 1M rows (see
+    the module's docstring)."""
+    from h2o3_tpu_torch.api import H2OClient, H2OServer
+    from h2o3_tpu_torch.ops_plane import ACTIONS, ENGINE, QUOTAS
+    from h2o3_tpu_torch.serving import SCORING
+    from h2o3_tpu_torch.utils.costs import COSTS
+    from h2o3_tpu_torch.utils.health import HEALTH
+    from h2o3_tpu_torch.utils.incidents import INCIDENTS
+    from h2o3_tpu_torch.utils.registry import DKV
+    t_phase = time.perf_counter()
+    card = card_name()
+    out = {"card": card}
+    env = {"H2O3TPU_HEALTH_INTERVAL_SECS": "0.5", "H2O3TPU_REMEDIATE": "act"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    for reg in (QUOTAS, ACTIONS, ENGINE, INCIDENTS, HEALTH):
+        reg.reset()
+    COSTS.clear()
+    SCORING.reset()
+    fr1m = head(fr, AML_ROWS)
+    DKV.put("higgs_1m", fr1m)
+    srv = H2OServer(port=0).start()
+    try:
+        client = H2OClient(srv.url)
+        out["19a_trace_profile_compute"] = obs_trace_and_profile(
+            srv.url, client, fr1m)
+        out["19b_overhead"] = obs_overhead(fr1m)
+        out["19c_health"] = obs_health(srv.url, client)
+        out["19d_ops"] = obs_ops(srv.url, client, fr1m)
+    finally:
+        srv.stop()
+        SCORING.reset()
+        for reg in (QUOTAS, ACTIONS, ENGINE, INCIDENTS, HEALTH):
+            reg.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def gc_collect() -> None:
     """Drop unreachable graphs and their pools before reading the
     allocator, and the cuBLAS workspaces (one a stream that ran a matrix
@@ -7247,6 +7750,8 @@ def main() -> int:
     persist = phase_persist(fr)
     drop_models()
     serving = phase_serving(fr)
+    drop_models()
+    observability = phase_observability(fr)
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
@@ -7379,6 +7884,14 @@ def main() -> int:
     kernels.append(kernel_entry(
         sg["launches"], max_err["binomial"], times, path="rest_gbm",
         node_totals=sg["node_totals"], timed_at=main_levels))
+    # phase 19: the GBM trained through REST under a trace (1M x 28, 13a's
+    # level shapes, timed in phase 13e)
+    og = observability["19a_trace_profile_compute"]
+    kernels.append(kernel_entry(
+        og["launches"], gbm65["err"], gbm65["times"][:DEPTH],
+        path="observed_gbm", node_totals=og["node_totals"],
+        timed_at="13a's GBM levels 0-5 at 1M x 28 (phase 13e), this "
+                 "path's level shapes"))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -7399,6 +7912,7 @@ def main() -> int:
                      default=float))
     print(json.dumps({"persist": persist}, default=float))
     print(json.dumps({"serving": serving}, default=float))
+    print(json.dumps({"observability": observability}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

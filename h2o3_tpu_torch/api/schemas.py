@@ -6,12 +6,8 @@ annotations) and ``water/api/schemas3/*.java`` (FrameV3, ModelSchemaV3,
 JobV3, CloudV3 …). The wire format keys (``__meta.schema_type``, field names)
 follow the reference so existing h2o-py response parsing recognizes them.
 Tensors are fetched to numpy before serialisation; the histograms of
-``ColV3`` are counted on the column's device. Left out until the
-observability and ops slice, whose routes answer 501 in
-:mod:`h2o3_tpu_torch.api.server`: ``compute_v3``, ``health_v3``,
-``incidents_v3``, ``incident_v3``, ``timeseries_v3``, ``ops_v3`` and
-``trace_v3``; CloudV3's ``workers`` (elastic membership, multi-GPU) is
-empty.
+``ColV3`` are counted on the column's device. CloudV3's ``workers``
+(elastic membership, multi-GPU) is empty.
 """
 
 from __future__ import annotations
@@ -111,6 +107,59 @@ def memory_v3(summary: dict) -> dict:
     view — budget, spill/fault-in/view-drop counters, ice_root contents
     (utils/cleaner.py; docs/INGEST.md)."""
     return {**_meta("MemoryV3"), **_clean(summary)}
+
+
+def compute_v3(snapshot: dict) -> dict:
+    """``GET /3/Compute`` — the compute observatory (utils/costs.py): per
+    logical site the recorded signatures (shapes/dtypes/statics),
+    capture seconds, the cost functions' FLOPs/bytes, and recompile
+    events with signature diffs; per loop the achieved FLOP/s / bytes/s,
+    arithmetic intensity, and utilization against the card's peak row
+    (utilization and roofline are null off the card — on the CPU
+    included)."""
+    return {**_meta("ComputeV3"), **_clean(snapshot)}
+
+
+def health_v3(verdict: dict) -> dict:
+    """``GET /3/Health`` — the health evaluator's subsystem-scored verdict
+    (utils/health.py): overall + per-subsystem ``healthy`` / ``degraded``
+    / ``unhealthy``, every finding carrying the tripping rule, the
+    observed value, and the threshold; plus the rule catalog with its env
+    knobs and the currently-open incident rules
+    (docs/OBSERVABILITY.md "Health & incidents")."""
+    return {**_meta("HealthV3"), **_clean(verdict)}
+
+
+def incidents_v3(summaries: list) -> dict:
+    """``GET /3/Incidents`` — the bounded incident ring, newest first:
+    rule / subsystem / severity / status / observed vs threshold /
+    repeats / timestamps (contexts served per-incident by
+    ``GET /3/Incidents/{id}``)."""
+    return {**_meta("IncidentsV3"), "incidents": _clean(summaries)}
+
+
+def timeseries_v3(payload: dict) -> dict:
+    """``GET /3/TimeSeries`` — the flight recorder (utils/flight.py):
+    matching retained series, each with its raw ``[t, value]`` tail and
+    min/max/mean/last rollup windows, plus the recorder's stats
+    (running / interval / retention / dropped-series counters)
+    (docs/OBSERVABILITY.md "Flight recorder & post-mortems")."""
+    return {**_meta("TimeSeriesV3"), **_clean(payload)}
+
+
+def ops_v3(payload: dict) -> dict:
+    """``GET/POST /3/Ops`` — the ops plane: remediation policy view
+    (mode/map/bounds), the append-only action log, per-tenant usage, and
+    the configured quotas (docs/OPERATIONS.md is the operator catalog)."""
+    return {**_meta("OpsV3"), **_clean(payload)}
+
+
+def incident_v3(record: dict) -> dict:
+    """``GET /3/Incidents/{id}`` — one incident with its trip-time
+    correlated context: recent trace ids, log-ring tail, memory top-keys,
+    compute loop rows, the rule's observed-value series, and (for
+    profiled compute incidents) the profiler capture id."""
+    return {**_meta("IncidentV3"), **_clean(record)}
 
 
 def _column_histogram(vec, r, nbins: int = 20) -> dict:
@@ -476,8 +525,7 @@ def job_v3(job_id: str, job) -> dict:
          "workers_ejected": int(getattr(job, "workers_ejected", 0) or 0),
          "exception": None,
          "warnings": None,
-         # the trace the job's execution reports into (tracing belongs to
-         # the observability slice: None)
+         # the trace the job's execution reports into
          "trace_id": getattr(job, "trace_id", None),
          "dest": {"name": getattr(job, "dest_key", None) or job_id}}
     if job.status == "FAILED" and job.exception is not None:
@@ -508,3 +556,19 @@ def serving_v3(stats: dict) -> dict:
     (stream leases, busy and queue-wait seconds, scale events), memory
     watermarks."""
     return {**_meta("ServingV3"), **_clean(stats)}
+
+
+def trace_v3(trace: dict) -> dict:
+    """One completed trace (``GET /3/Traces/{id}``): flat span list, the
+    nested span tree, and the computed critical path — the chain of spans
+    that determined the request's wall time."""
+    from h2o3_tpu_torch.utils import tracing
+    return {**_meta("TraceV3"),
+            "trace_id": trace["trace_id"], "name": trace["name"],
+            "start_ns": trace["start_ns"], "dur_ns": trace["dur_ns"],
+            "nspans": trace["nspans"], "dropped": trace.get("dropped", 0),
+            "status": trace["status"],
+            "in_progress": bool(trace.get("in_progress")),
+            "spans": trace.get("spans", []),
+            "tree": tracing.span_tree(trace),
+            "critical_path": tracing.critical_path(trace)}

@@ -11,25 +11,24 @@ path uses (reference: ``Job.start`` → F/J pool), so clients poll ``/3/Jobs``
 exactly like against the reference server. The route table is the JAX
 package's, path for path; the handlers call the port's modules.
 
-Routes whose handler needs a module of the observability and ops slice
-(``utils/timeline``, ``profiling``, ``costs``, ``health``, ``incidents``,
-``flight``, ``telemetry``, ``tracing``, ``ops_plane/``) are in the table and
-answer HTTP 501 naming the missing module (:data:`NOT_PORTED`). Left out
-with them: the per-route request metrics, the ``traceparent`` header and
-span of each request, the tenant quotas of ``ops_plane/tenancy.py``, and
-the health sweep, flight recorder, black-box watchdog and remediation
-engine that the reference's :meth:`H2OServer.start` starts. ``/3/Logs``
-is served from a log ring on the ``h2o3_tpu_torch`` logger
-(:func:`install_log_ring`).
+Every request runs under a root span (an incoming W3C ``traceparent``
+joins the caller's trace, and the response carries the root's
+``traceparent`` back) and is counted per route pattern
+(``h2o3_requests_total``, ``h2o3_request_duration_seconds``). With
+``ops_plane/`` loaded, a POST to a metered route is admitted against the
+``X-H2O3-Tenant``'s quota (429 + ``Retry-After`` over it).
+:meth:`H2OServer.start` installs the log ring behind ``/3/Logs``
+(``utils/telemetry.py``) and starts the health sweep, the flight recorder,
+the black-box watchdog and the remediation engine, as the reference's does.
 """
 
 from __future__ import annotations
 
-import collections
 import json
 import logging
 import re
 import threading
+import time
 import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -39,65 +38,18 @@ from h2o3_tpu_torch.api import schemas
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.job import Job, JobCancelled
 from h2o3_tpu_torch.models.model_base import Model
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils import tracing as _tr
 from h2o3_tpu_torch.utils.registry import DKV, LOCKS
 
 _LOG = logging.getLogger("h2o3_tpu_torch")
 
-# -- the log ring behind /3/Logs (the reference keeps it in
-#    utils/telemetry.py, which the observability slice ports) ---------------
 
-#: H2O's log line format: ``MM-dd HH:mm:ss.SSS pid thread LEVEL logger: msg``
-#: (reference: ``water/util/Log.java`` ``logHeader``).
-LOG_FORMAT = ("%(asctime)s.%(msecs)03d %(process)d %(threadName)s "
-              "%(levelname)-5s %(name)s: %(message)s")
-LOG_DATEFMT = "%m-%d %H:%M:%S"
-LOG_RING_SIZE = 2048
-
-#: reference log *files* → minimum level served (``water/util/Log.java``
-#: writes one file per level; ``h2o-py``'s ``get_log`` names one of these)
-LOG_FILES = {"trace": 0, "debug": logging.DEBUG, "default": logging.INFO,
-             "info": logging.INFO, "httpd": logging.INFO,
-             "stdout": logging.INFO, "stderr": logging.WARNING,
-             "warn": logging.WARNING, "error": logging.ERROR,
-             "fatal": logging.CRITICAL}
-
-
-class LogRing(logging.Handler):
-    """Fixed-size ring of formatted log records (reference: the in-memory
-    tail ``LogsHandler`` serves per level-file)."""
-
-    def __init__(self, capacity: int = LOG_RING_SIZE):
-        super().__init__()
-        self.buffer: collections.deque = collections.deque(maxlen=capacity)
-        self.setFormatter(logging.Formatter(LOG_FORMAT, LOG_DATEFMT))
-
-    def emit(self, record: logging.LogRecord) -> None:
-        try:
-            text = self.format(record)
-            if "\n" in text:
-                # one record = one ring line: multi-line payloads fold onto
-                # the header line, so every served line keeps the H2O format
-                text = " | ".join(
-                    ln.rstrip() for ln in text.splitlines() if ln.strip())
-            self.buffer.append((record.levelno, text))
-        except Exception:   # noqa: BLE001 — logging must never raise
-            self.handleError(record)
-
-    def lines(self, min_level: int = 0) -> list[str]:
-        return [line for lv, line in list(self.buffer) if lv >= min_level]
-
-
-def install_log_ring(capacity: int = LOG_RING_SIZE) -> LogRing:
-    """Idempotently attach the ring to the ``h2o3_tpu_torch`` logger."""
-    logger = logging.getLogger("h2o3_tpu_torch")
-    for h in logger.handlers:
-        if isinstance(h, LogRing):
-            return h
-    ring = LogRing(capacity)
-    logger.addHandler(ring)
-    if logger.level == logging.NOTSET:
-        logger.setLevel(logging.INFO)
-    return ring
+def _route_label_of(pat: str) -> str:
+    """Metric label for a route regex: regex classes become placeholders and
+    escaped literals unescape, so ``/3/WaterMeterCpuTicks/\\d+`` labels as
+    ``/3/WaterMeterCpuTicks/{n}`` (not the mangled ``.../d+``)."""
+    return pat.replace(r"\d+", "{n}").replace("\\", "")
 
 
 _ALGOS = None
@@ -195,6 +147,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, *a):   # route logs to our logger, not stderr
         pass
+
+    def send_response(self, code, message=None):
+        self._last_status = code
+        super().send_response(code, message)
+        span = getattr(self, "_trace_span", None)
+        if span is not None:
+            self.send_header("traceparent",
+                             _tr.format_traceparent(span.context))
 
     def _reply(self, obj, code: int = 200):
         meta = obj.get("__meta") if isinstance(obj, dict) else None
@@ -369,12 +329,108 @@ class _Handler(BaseHTTPRequestHandler):
     #: paths reachable without credentials (the login flow itself)
     _AUTH_EXEMPT = {"/login", "/logout"}
 
+    #: high-frequency read endpoints whose solo traces would churn the
+    #: completed-trace ring (h2o-py polls /3/Jobs ~2×/s during builds,
+    #: Prometheus scrapes /metrics, Flow refreshes /): their root spans
+    #: still propagate context and return a traceparent, but the finished
+    #: trace is discarded — unless the caller sent a traceparent, which is
+    #: an explicit request to record the call in the caller's trace
+    _TRACE_NOISE = re.compile(
+        r"/(?:flow/.*|metrics|3/(?:Jobs(?:/[^/]+)?|Ping|Cloud|About|"
+        r"Logs(?:/.*)?|Memory|Metrics|TimeSeries|Compute|Score|Timeline|"
+        r"JStack|"
+        r"WaterMeter[^/]*(?:/\d+)?|Health|Incidents(?:/[^/]+)?|Ops|"
+        r"Traces(?:/.*)?)|99/(?:AutoML|Leaderboards)/[^/]+)?")
+
+    #: endpoints that do real work — the ones tenant quotas meter
+    #: (monitoring GETs and session plumbing are never shed: an operator
+    #: must be able to LOOK at an over-quota tenant's usage)
+    _METERED = re.compile(
+        r"/3/(?:Score/[^/]+|Parse|PostFile(?:\.bin)?|"
+        r"Predictions/models/[^/]+/frames/[^/]+)|"
+        r"/4/Predictions/models/[^/]+/frames/[^/]+|"
+        r"/(?:3|99)/ModelBuilders/[^/]+")
+
     def _route(self, method: str):
         path = urllib.parse.urlparse(self.path).path
+        t0 = time.perf_counter()
+        self._last_status = 0
+        self._route_label = None
+        # root span per request; an incoming W3C traceparent joins the
+        # caller's trace (and its span becomes our root's parent)
+        parent = _tr.parse_traceparent(self.headers.get("traceparent"))
+        ephemeral = (parent is None and method == "GET"
+                     and re.fullmatch(self._TRACE_NOISE, path) is not None)
+        with _tr.TRACER.span(f"{method} {path}", kind="server", root=True,
+                             parent=parent, ephemeral=ephemeral,
+                             attrs={"method": method}) as span:
+            self._trace_span = span
+            try:
+                self._dispatch(method, path)
+            finally:
+                # per-route request count/status/latency — labelled by ROUTE
+                # PATTERN (bounded cardinality), never by the raw path
+                route = self._route_label or "(unmatched)"
+                if span is not None:
+                    # rename to the matched pattern so trace listings stay
+                    # readable; raw path survives as an attr for debugging
+                    if self._route_label:
+                        span.set_attrs(path=path)
+                        span.name = f"{method} {self._route_label}"
+                    span.set_attrs(http_status=self._last_status)
+                    if self._last_status >= 500:
+                        span.set_status("error")
+                    if parent is None and route in ("(unmatched)",
+                                                    "(unauthorized)"):
+                        # only known-after-routing noise: a scanner hitting
+                        # unknown paths (or failing auth) must not churn
+                        # the completed-trace ring either
+                        _tr.TRACER.make_ephemeral(span.trace_id)
+                _tm.REQUESTS.labels(route=route, method=method,
+                                    status=str(self._last_status)).inc()
+                _tm.REQUEST_SECONDS.labels(
+                    route=route, method=method).observe(
+                    time.perf_counter() - t0)
+
+    def _dispatch(self, method: str, path: str):
         if path not in self._AUTH_EXEMPT and not self._check_auth():
+            self._route_label = "(unauthorized)"
             return
         try:
-            self._run_routes(method, path)
+            import sys as _sys
+            ten = _sys.modules.get("h2o3_tpu_torch.ops_plane.tenancy")
+            if ten is None:
+                # multi-tenancy not loaded (embedded/library use): zero
+                # overhead, exactly the pre-ops-plane dispatch
+                self._run_routes(method, path)
+                return
+            raw = self.headers.get("X-H2O3-Tenant")
+            if raw is None:
+                q = urllib.parse.urlparse(self.path).query
+                raw = {k: v[0] for k, v in
+                       urllib.parse.parse_qs(q).items()}.get("tenant")
+            try:
+                tenant = ten.sanitize_tenant(raw)
+            except ValueError as e:
+                self._error(400, str(e))
+                return
+            with ten.tenant_scope(tenant):
+                if method == "POST" \
+                        and re.fullmatch(self._METERED, path) is not None:
+                    try:
+                        ten.QUOTAS.admit(tenant)
+                    except ten.QuotaExceeded as e:
+                        # over-quota is 429 + Retry-After — shed loudly,
+                        # never dropped (reference: the 503 shed contract
+                        # of r_score, but quota is the CALLER'S budget,
+                        # not the server's capacity)
+                        retry_s = max(int(e.retry_after_s + 0.999), 1)
+                        self._error(429, str(e), headers={
+                            "Retry-After": str(retry_s),
+                            "X-Retry-After-Ms":
+                                str(int(e.retry_after_s * 1000))})
+                        return
+                self._run_routes(method, path)
         except PayloadTooLarge as e:
             self._error(413, str(e))
         except KeyError as e:
@@ -386,6 +442,7 @@ class _Handler(BaseHTTPRequestHandler):
         for pat, m, fn in _ROUTES:
             match = re.fullmatch(pat, path)
             if match and m == method:
+                self._route_label = _route_label_of(pat)
                 fn(self, *match.groups())
                 return
         # extension-contributed routes (reference RestApiExtension SPI)
@@ -393,6 +450,7 @@ class _Handler(BaseHTTPRequestHandler):
         for pat, m, fn in _ext.rest_routes():
             match = re.fullmatch(pat, path)
             if match and m == method:
+                self._route_label = _route_label_of(pat)
                 fn(self, *match.groups())
                 return
         self._error(404, f"no route for {method} {path}")
@@ -662,13 +720,20 @@ class _Handler(BaseHTTPRequestHandler):
 
         def run_job(j: Job):
             def mirror_inner_cancel():
-                # the build terminated on a cancel — the REST job must read
-                # CANCELLED (not DONE), whether train() returned a partial
-                # model or raised (the port's Job keeps a cancelled build's
-                # result; job deadlines belong to the ops slice)
+                # the build terminated on its deadline/cancel — the REST
+                # job must read CANCELLED (not DONE) and carry the deadline
+                # evidence, whether train() returned a partial model or
+                # raised JobCancelled (builders that keep no partial model)
                 inner = getattr(builder, "job", None)
                 if inner is None or inner.status != Job.CANCELLED:
                     return
+                j.keep_partial()
+                if inner.deadline_exceeded:
+                    # one locked transition: a poller must never observe
+                    # the flag without its progress_msg
+                    with j._lock:
+                        j.deadline_exceeded = True
+                        j.progress_msg = inner.progress_msg
                 j.cancel()
 
             # one combined acquisition — two separate with-statements would
@@ -1087,6 +1152,46 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def r_timeline(self):
+        from h2o3_tpu_torch.utils.timeline import TIMELINE
+        self._reply({"__meta": {"schema_type": "TimelineV3"},
+                     "events": TIMELINE.snapshot()})
+
+    def r_jstack(self):
+        from h2o3_tpu_torch.utils.timeline import jstack
+        self._reply({"__meta": {"schema_type": "JStackV3"},
+                     "traces": jstack()})
+
+    def r_profiler(self):
+        # reference: ProfileCollectorTask samples stacks `depth` times,
+        # excluding the collector thread itself — a profile dominated by the
+        # sampling loop would show no real work
+        import time as _t
+        from h2o3_tpu_torch.utils.timeline import jstack
+        p = self._params()
+        samples = max(1, min(int(p.get("depth", 5)), 50))
+        me = {threading.get_ident()}
+        counts: dict[str, int] = {}
+        for _ in range(samples):
+            for tr in jstack(exclude=me):
+                counts[tr["stack"]] = counts.get(tr["stack"], 0) + 1
+            _t.sleep(0.01)
+        entries = sorted(counts.items(), key=lambda kv: -kv[1])
+        self._reply({"__meta": {"schema_type": "ProfilerV3"},
+                     "stacktraces": [s for s, _ in entries],
+                     "counts": [c for _, c in entries]})
+
+    def r_cpu_ticks(self):
+        from h2o3_tpu_torch.utils.timeline import cpu_ticks
+        self._reply({"__meta": {"schema_type": "WaterMeterCpuTicksV3"},
+                     "cpu_ticks": cpu_ticks()})
+
+    def r_io_meter(self):
+        from h2o3_tpu_torch.utils.timeline import io_stats
+        self._reply({"__meta": {"schema_type": "WaterMeterIoV3"},
+                     "persist_stats": io_stats()})
+
+
     def r_logs(self):
         """``GET /3/Logs[?level=...]`` — the whole LogRing, optionally
         filtered by minimum severity. ``level`` accepts the reference's
@@ -1095,19 +1200,19 @@ class _Handler(BaseHTTPRequestHandler):
         level; absent = unfiltered (every ring line)."""
         p = self._params()
         level = p.get("level")
-        ring = install_log_ring()
+        ring = _tm.install_log_ring()
         if level is None:
             self._reply({"__meta": {"schema_type": "LogsV3"},
                          "nodeidx": 0, "name": "unfiltered",
                          "log": "\n".join(ring.lines())})
             return
-        min_level = LOG_FILES.get(str(level).lower())
+        min_level = _tm.LOG_FILES.get(str(level).lower())
         if min_level is None:
             try:
                 min_level = int(level)
             except ValueError:
                 raise KeyError(f"unknown log level {level!r}; one of "
-                               f"{sorted(LOG_FILES)} or a numeric "
+                               f"{sorted(_tm.LOG_FILES)} or a numeric "
                                "logging level") from None
         self._reply({"__meta": {"schema_type": "LogsV3"},
                      "nodeidx": 0, "name": str(level),
@@ -1118,11 +1223,11 @@ class _Handler(BaseHTTPRequestHandler):
         route h2o-py's ``h2o.cluster().get_log`` requests). Backed by the
         LogRing on the ``h2o3_tpu_torch`` logger; the reference's per-level
         log *files* map to a minimum-level filter over the ring."""
-        ring = install_log_ring()     # idempotent; survives cold fetches
-        min_level = LOG_FILES.get(name.lower())
+        ring = _tm.install_log_ring()     # idempotent; survives cold fetches
+        min_level = _tm.LOG_FILES.get(name.lower())
         if min_level is None:
             raise KeyError(f"unknown log file {name!r}; one of "
-                           f"{sorted(LOG_FILES)}")
+                           f"{sorted(_tm.LOG_FILES)}")
         self._reply({"__meta": {"schema_type": "LogsV3"},
                      "nodeidx": int(node),
                      "name": name,
@@ -1143,6 +1248,247 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(schemas.memory_v3(MEMORY.summary(top_n=top)))
 
     # -- the parity sweep: the routes the real h2o-py client traffics
+    #    (reference registrations: water/api/RegisterV3Api.java) -------------
+
+    def r_compute(self):
+        """``GET /3/Compute`` — the compute observatory: per-site
+        signatures / capture seconds / the cost functions' FLOPs + bytes,
+        recompile events with signature diffs, and per-loop achieved
+        throughput + utilization against the card's peak row (null off
+        the card)."""
+        from h2o3_tpu_torch.utils.costs import COSTS
+        self._reply(schemas.compute_v3(COSTS.snapshot()))
+
+    def r_profiler_capture(self):
+        """``POST /3/Profiler/capture[?duration_ms=N]`` — a bounded
+        ``torch.profiler`` window (CPU and, on a card, CUDA activity) with
+        span-derived ``record_function`` names; returns the capture record
+        (download the Chrome trace via
+        ``/3/Profiler/captures/{id}/download``). A concurrent capture gets
+        a structured 409 — the profiler is process-global."""
+        from h2o3_tpu_torch.utils.profiling import PROFILER, CaptureBusy
+        p = self._params()
+        try:
+            duration_ms = int(p.get("duration_ms", 500))
+        except ValueError:
+            raise KeyError(f"duration_ms must be an integer, got "
+                           f"{p.get('duration_ms')!r}") from None
+        try:
+            rec = PROFILER.capture(duration_ms=duration_ms)
+        except CaptureBusy as e:
+            self._error(409, str(e), headers={"Retry-After": "1"})
+            return
+        self._reply({"__meta": {"schema_type": "ProfilerCaptureV3"}, **rec})
+
+    def r_profiler_captures(self):
+        """Capture registry: the last few capture records, oldest first."""
+        from h2o3_tpu_torch.utils.profiling import PROFILER
+        self._reply({"__meta": {"schema_type": "ProfilerCapturesV3"},
+                     "captures": PROFILER.list_captures()})
+
+    def r_profiler_capture_download(self, capture_id):
+        """The capture's artifact (gzip Chrome trace JSON) — save and open
+        in Perfetto or chrome://tracing."""
+        from h2o3_tpu_torch.utils.profiling import PROFILER
+        body, fname = PROFILER.artifact_bytes(capture_id)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/gzip")
+        self.send_header("Content-Disposition",
+                         f'attachment; filename="{fname}"')
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    # -- ops plane (utils/health.py + utils/incidents.py — the reference's
+    #    cloud_healthy consensus + `h2o logs download` analog) --------------
+
+    def r_health(self):
+        """``GET /3/Health`` — the health evaluator's subsystem-scored
+        verdict: healthy/degraded/unhealthy per subsystem (elastic,
+        serving, memory, compute, dispatch) with the tripping rule,
+        observed value, and threshold in every finding. Served from the
+        background sweep when it runs, evaluated inline otherwise
+        (docs/OBSERVABILITY.md "Health & incidents")."""
+        from h2o3_tpu_torch.utils.health import HEALTH
+        self._reply(schemas.health_v3(HEALTH.verdict()))
+
+    def r_incidents(self):
+        """``GET /3/Incidents[?state=open|resolved]`` — the bounded
+        incident ring, newest first (one open incident per rule; repeats
+        fold in). Records carry ``resolved_at`` and, when the remediation
+        engine acted, the ``action_id``. Contexts are served per-incident
+        by ``GET /3/Incidents/{id}``."""
+        from h2o3_tpu_torch.utils.incidents import INCIDENTS
+        state = self._params().get("state") or None
+        try:
+            rows = INCIDENTS.list(state=state)
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        self._reply(schemas.incidents_v3(rows))
+
+    def r_ops(self):
+        """``GET /3/Ops`` — the self-driving ops plane in one view: the
+        remediation policy (mode, rule→action map, bounds, cooldown), the
+        append-only action log, and per-tenant usage + configured quotas
+        (docs/OPERATIONS.md is the operator catalog)."""
+        from h2o3_tpu_torch.ops_plane import ACTIONS, ENGINE, QUOTAS
+        self._reply(schemas.ops_v3({
+            "remediation": ENGINE.policy_view(),
+            "actions": ACTIONS.list(),
+            "tenants": QUOTAS.usage_all(),
+            "quotas": QUOTAS.quotas()}))
+
+    def r_ops_post(self):
+        """``POST /3/Ops`` — quota CRUD + action rollback:
+
+        - ``tenant`` (+ optional ``qps``/``device_seconds``/``bytes``)
+          installs that tenant's budgets (omitted dimension = unlimited);
+        - ``remove_quota=<tenant>`` drops a tenant's budgets;
+        - ``rollback=<action_id>`` undoes a recorded action by token.
+        """
+        from h2o3_tpu_torch.ops_plane import ACTIONS, QUOTAS
+        p = self._params()
+        if p.get("rollback"):
+            ok = ACTIONS.rollback(str(p["rollback"]))
+            self._reply(schemas.ops_v3(
+                {"rolled_back": ok, "action_id": p["rollback"],
+                 "actions": ACTIONS.list()}))
+            return
+        if p.get("remove_quota"):
+            try:
+                removed = QUOTAS.remove_quota(str(p["remove_quota"]))
+            except ValueError as e:
+                self._error(400, str(e))
+                return
+            self._reply(schemas.ops_v3({"removed": removed,
+                                        "quotas": QUOTAS.quotas()}))
+            return
+        if not p.get("tenant"):
+            self._error(400, "POST /3/Ops needs tenant (quota CRUD), "
+                             "remove_quota, or rollback")
+            return
+        try:
+            rec = QUOTAS.set_quota(
+                p["tenant"],
+                qps=float(p["qps"]) if p.get("qps") is not None else None,
+                device_seconds=(float(p["device_seconds"])
+                                if p.get("device_seconds") is not None
+                                else None),
+                bytes=(int(float(p["bytes"]))
+                       if p.get("bytes") is not None else None))
+        except ValueError as e:
+            self._error(400, str(e))
+            return
+        self._reply(schemas.ops_v3({"quota": rec,
+                                    "quotas": QUOTAS.quotas()}))
+
+    def r_incident(self, incident_id):
+        """``GET /3/Incidents/{id}`` — one incident with the correlated
+        context captured at trip time: trace ids, log tail, memory
+        top-keys, compute loop rows, and the rule's observed series."""
+        from h2o3_tpu_torch.utils.incidents import INCIDENTS
+        self._reply(schemas.incident_v3(INCIDENTS.get(incident_id)))
+
+    def r_diagnostics_bundle(self):
+        """``POST /3/Diagnostics/bundle`` (GET also served for plain
+        browser/curl downloads) — the ``h2o logs download`` analog: one
+        gzip tar with all four pillar snapshots (metrics, traces, memory,
+        compute), the health verdict, the incident ring, the log ring,
+        the hardware fingerprint, and the secrets-redacted config dump."""
+        from h2o3_tpu_torch.utils.health import diagnostic_bundle
+        body, fname = diagnostic_bundle()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/gzip")
+        self.send_header("Content-Disposition",
+                         f'attachment; filename="{fname}"')
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def r_metrics_json(self):
+        """JSON metrics snapshot — flat {name, type, labels, value} rows
+        (TwoDimTable-friendly; the Python client's ``client.metrics()``)."""
+        self._reply({"__meta": {"schema_type": "MetricsV3"},
+                     "metrics": _tm.METRICS.snapshot()})
+
+    def r_timeseries(self):
+        """``GET /3/TimeSeries?name=&labels=&since=`` — the flight
+        recorder's retained series (utils/flight.py): per series the raw
+        ``(t, value)`` tail and the min/max/mean/last rollup windows.
+        ``name`` matches exactly or as a prefix, ``labels`` is
+        ``k=v,k2=v2`` (subset match), ``since`` is epoch seconds
+        (docs/OBSERVABILITY.md "Flight recorder & post-mortems")."""
+        from h2o3_tpu_torch.utils.flight import FLIGHT
+        p = self._params()
+        labels = None
+        if p.get("labels"):
+            labels = {}
+            for part in str(p["labels"]).split(","):
+                if "=" not in part:
+                    self._error(400, f"labels must be k=v,k2=v2 pairs, "
+                                     f"got {part!r}")
+                    return
+                k, _, v = part.partition("=")
+                labels[k.strip()] = v.strip()
+        since = None
+        if p.get("since") is not None:
+            try:
+                since = float(p["since"])
+            except ValueError:
+                self._error(400, f"since must be epoch seconds, "
+                                 f"got {p['since']!r}")
+                return
+        series = FLIGHT.query(name=p.get("name") or None, labels=labels,
+                              since=since)
+        stats = FLIGHT.stats()
+        # stats counts retained series under "series"; the payload key
+        # of that name is the series list itself
+        stats["series_retained"] = stats.pop("series")
+        self._reply(schemas.timeseries_v3({"series": series, **stats}))
+
+    def r_metrics_text(self):
+        """Prometheus/OpenMetrics exposition at ``/metrics`` — point a
+        Prometheus scrape job at this path (docs/OBSERVABILITY.md). The
+        render itself is timed (``h2o3_metrics_scrape_seconds``) — the
+        observers are observed too."""
+        t0 = time.perf_counter()
+        body = _tm.METRICS.to_openmetrics().encode()
+        _tm.SCRAPE_SECONDS.observe(time.perf_counter() - t0)
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "application/openmetrics-text; version=1.0.0; "
+                         "charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    # -- distributed tracing (reference analog: water/api/TimelineHandler —
+    #    the cluster-wide causally-ordered event snapshot; here per-request
+    #    span trees, see docs/OBSERVABILITY.md "Tracing") --------------------
+
+    def r_traces(self):
+        """Completed traces, newest first (summaries; span lists via
+        ``/3/Traces/{trace_id}``)."""
+        self._reply({"__meta": {"schema_type": "TracesV3"},
+                     "traces": _tr.TRACER.list_traces()})
+
+    def r_trace(self, trace_id):
+        """One trace: flat spans + nested tree + computed critical path."""
+        try:
+            trace = _tr.TRACER.get_trace(trace_id)
+        except KeyError:
+            raise KeyError(f"no trace {trace_id!r} (completed-trace ring "
+                           f"holds the last {_tr.TRACE_RING_SIZE})")
+        self._reply(schemas.trace_v3(trace))
+
+    def r_trace_export(self, trace_id):
+        """Chrome trace-event JSON — save and open in Perfetto
+        (https://ui.perfetto.dev) or chrome://tracing."""
+        trace = _tr.TRACER.get_trace(trace_id)
+        self._reply(_tr.to_chrome_trace(trace))
+
+    # -- round-2 parity sweep: the routes the real h2o-py client traffics
     #    (reference registrations: water/api/RegisterV3Api.java) -------------
 
     def r_ping(self):
@@ -1746,29 +2092,6 @@ class _Handler(BaseHTTPRequestHandler):
                      "table": [{"collective_ms": dt}]})
 
 
-#: the modules of the observability and ops slice, not ported yet, whose
-#: routes answer 501 (each route of the table below that names one)
-NOT_PORTED = ("utils/timeline.py", "utils/profiling.py", "utils/costs.py",
-              "utils/health.py", "utils/incidents.py", "utils/flight.py",
-              "utils/telemetry.py", "utils/tracing.py", "ops_plane/")
-
-
-def _not_ported(module: str):
-    """A route handler answering HTTP 501 Not Implemented, naming the
-    module of the observability and ops slice that its reference handler
-    needs (no data is served in its place)."""
-    assert module in NOT_PORTED, module
-
-    def handler(self, *_groups):
-        self._error(501, f"{self.command} {urllib.parse.urlparse(self.path).path}"
-                         f" needs h2o3_tpu/{module}, which is not ported to "
-                         "h2o3_tpu_torch yet (the observability and ops "
-                         "slice)")
-    handler.__doc__ = f"Not ported: needs ``{module}`` (HTTP 501)."
-    handler.not_ported = module
-    return handler
-
-
 _ROUTES = [
     (r"/3/Cloud", "GET", _Handler.r_cloud),
     (r"/3/About", "GET", _Handler.r_about),
@@ -1803,32 +2126,32 @@ _ROUTES = [
     (r"/3/PutKey", "POST", _Handler.r_putkey),
     (r"/3/Shutdown", "POST", _Handler.r_shutdown),
     (r"/3/GarbageCollect", "POST", _Handler.r_gc),
-    (r"/3/Timeline", "GET", _not_ported("utils/timeline.py")),
-    (r"/3/JStack", "GET", _not_ported("utils/timeline.py")),
-    (r"/3/Profiler", "GET", _not_ported("utils/timeline.py")),
-    (r"/3/WaterMeterCpuTicks/\d+", "GET", _not_ported("utils/timeline.py")),
-    (r"/3/WaterMeterIo", "GET", _not_ported("utils/timeline.py")),
+    (r"/3/Timeline", "GET", _Handler.r_timeline),
+    (r"/3/JStack", "GET", _Handler.r_jstack),
+    (r"/3/Profiler", "GET", _Handler.r_profiler),
+    (r"/3/WaterMeterCpuTicks/\d+", "GET", _Handler.r_cpu_ticks),
+    (r"/3/WaterMeterIo", "GET", _Handler.r_io_meter),
     (r"/3/Logs", "GET", _Handler.r_logs),
     (r"/3/Logs/nodes/(-?\d+)/files/([^/]+)", "GET", _Handler.r_logs_file),
     (r"/3/Memory", "GET", _Handler.r_memory),
-    (r"/3/Compute", "GET", _not_ported("utils/costs.py")),
-    (r"/3/Health", "GET", _not_ported("utils/health.py")),
-    (r"/3/Incidents", "GET", _not_ported("utils/incidents.py")),
-    (r"/3/Incidents/([^/]+)", "GET", _not_ported("utils/incidents.py")),
-    (r"/3/Ops", "GET", _not_ported("ops_plane/")),
-    (r"/3/Ops", "POST", _not_ported("ops_plane/")),
-    (r"/3/Diagnostics/bundle", "POST", _not_ported("utils/health.py")),
-    (r"/3/Diagnostics/bundle", "GET", _not_ported("utils/health.py")),
-    (r"/3/Profiler/capture", "POST", _not_ported("utils/profiling.py")),
-    (r"/3/Profiler/captures", "GET", _not_ported("utils/profiling.py")),
+    (r"/3/Compute", "GET", _Handler.r_compute),
+    (r"/3/Health", "GET", _Handler.r_health),
+    (r"/3/Incidents", "GET", _Handler.r_incidents),
+    (r"/3/Incidents/([^/]+)", "GET", _Handler.r_incident),
+    (r"/3/Ops", "GET", _Handler.r_ops),
+    (r"/3/Ops", "POST", _Handler.r_ops_post),
+    (r"/3/Diagnostics/bundle", "POST", _Handler.r_diagnostics_bundle),
+    (r"/3/Diagnostics/bundle", "GET", _Handler.r_diagnostics_bundle),
+    (r"/3/Profiler/capture", "POST", _Handler.r_profiler_capture),
+    (r"/3/Profiler/captures", "GET", _Handler.r_profiler_captures),
     (r"/3/Profiler/captures/([^/]+)/download", "GET",
-     _not_ported("utils/profiling.py")),
-    (r"/3/Metrics", "GET", _not_ported("utils/telemetry.py")),
-    (r"/3/TimeSeries", "GET", _not_ported("utils/flight.py")),
-    (r"/metrics", "GET", _not_ported("utils/telemetry.py")),
-    (r"/3/Traces", "GET", _not_ported("utils/tracing.py")),
-    (r"/3/Traces/([^/]+)", "GET", _not_ported("utils/tracing.py")),
-    (r"/3/Traces/([^/]+)/export", "GET", _not_ported("utils/tracing.py")),
+     _Handler.r_profiler_capture_download),
+    (r"/3/Metrics", "GET", _Handler.r_metrics_json),
+    (r"/3/TimeSeries", "GET", _Handler.r_timeseries),
+    (r"/metrics", "GET", _Handler.r_metrics_text),
+    (r"/3/Traces", "GET", _Handler.r_traces),
+    (r"/3/Traces/([^/]+)", "GET", _Handler.r_trace),
+    (r"/3/Traces/([^/]+)/export", "GET", _Handler.r_trace_export),
     (r"/", "GET", _Handler.r_flow),
     (r"/flow/index\.html", "GET", _Handler.r_flow),
     # the parity sweep (reference: RegisterV3Api.java)
@@ -1906,13 +2229,24 @@ _ROUTES = [
 ]
 
 
-class _HTTPServer(ThreadingHTTPServer):
-    """The threaded server with a listen backlog for bursts of concurrent
-    scoring clients: socketserver's default of 5 pending connections
-    resets the sixth connection of a burst before a handler thread can
-    accept it."""
+class _H2OHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that proves its accept loop is alive:
+    ``service_actions`` runs once per ``serve_forever`` poll (~0.5s), so
+    it is exactly the seam where an accept-loop wedge shows as heartbeat
+    silence — the black-box watchdog pages on it, and the chaos harness
+    can stall it (``rest.accept``) to rehearse the wedge. Its listen
+    backlog takes bursts of concurrent scoring clients: socketserver's
+    default of 5 pending connections resets the sixth connection of a
+    burst before a handler thread can accept it."""
 
     request_queue_size = 128
+
+    def service_actions(self):
+        from h2o3_tpu_torch.utils import blackbox as _bb
+        from h2o3_tpu_torch.utils import timeline as _tl
+        if _tl.FAULTS is not None:
+            _tl.FAULTS.maybe_fault("rest.accept")
+        _bb.BLACKBOX.beat("rest_accept")
 
 
 class H2OServer:
@@ -1932,7 +2266,7 @@ class H2OServer:
                  username: str | None = None, password: str | None = None,
                  authenticator=None, ssl_certfile: str | None = None,
                  ssl_keyfile: str | None = None):
-        self.httpd = _HTTPServer((host, port), _Handler)
+        self.httpd = _H2OHTTPServer((host, port), _Handler)
         self.httpd._session_id = f"_sid_{uuid.uuid4().hex[:10]}"
         self.httpd._session_props = {}
         self.httpd._rapids_sessions = {}
@@ -1969,12 +2303,40 @@ class H2OServer:
     def start(self) -> "H2OServer":
         # log ring first (reference: Log.init runs before the API is up), so
         # startup lines are the first thing /3/Logs serves
-        install_log_ring()
+        _tm.install_log_ring()
         # extension lifecycle (reference: ExtensionManager hooks run during
         # H2O.main before the REST API is declared up)
         from h2o3_tpu_torch.utils import extensions as _ext
         _ext.load_env_extensions()
         _ext.init_all()
+        # ops plane: the health evaluator sweeps the live registries on a
+        # bounded interval (reference: the heartbeat-driven cloud_healthy
+        # consensus). H2O3TPU_HEALTH_OFF=1 disables; /3/Health then
+        # evaluates inline per request or reports "disabled".
+        from h2o3_tpu_torch.utils.health import HEALTH
+        self._started_health = HEALTH.start()
+        # flight recorder: retained metric time series in fixed-memory
+        # rings (GET /3/TimeSeries; H2O3TPU_FLIGHT_OFF=1 disables) — the
+        # history the trend rules and post-mortems read
+        from h2o3_tpu_torch.utils.flight import FLIGHT
+        self._started_flight = FLIGHT.start()
+        # black-box watchdog: wedge/crash post-mortems straight to
+        # ice_root without REST. Watch the two loops that can wedge —
+        # the accept loop (service_actions beats ~2×/s) and the health
+        # sweep (beats once per interval). An orderly stop() disarms
+        # BEFORE shutdown, so clean exits never dump.
+        from h2o3_tpu_torch.utils.blackbox import BLACKBOX
+        self._armed_blackbox = BLACKBOX.arm()
+        if self._armed_blackbox:
+            BLACKBOX.watch("rest_accept", period_s=1.0)
+            if self._started_health:
+                BLACKBOX.watch("health_sweep", period_s=HEALTH.interval_s)
+        # remediation engine: subscribe to incident rising edges (the
+        # kill switch H2O3TPU_REMEDIATE — default `observe` — is resolved
+        # per incident, so installing here commits to nothing). Importing
+        # ops_plane also arms the tenancy hooks in dispatch/DKV/serving.
+        from h2o3_tpu_torch import ops_plane as _ops
+        _ops.install()
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
@@ -1984,6 +2346,24 @@ class H2OServer:
         return self
 
     def stop(self) -> None:
+        if getattr(self, "_armed_blackbox", False):
+            # disarm FIRST: this is the orderly-shutdown signal — once
+            # disarmed, neither the watchdog nor the exit hooks dump
+            from h2o3_tpu_torch.utils.blackbox import BLACKBOX
+            BLACKBOX.disarm()
+            BLACKBOX.unwatch("rest_accept")
+            BLACKBOX.unwatch("health_sweep")
+            self._armed_blackbox = False
+        if getattr(self, "_started_health", False):
+            # only the server that actually started the sweep stops it —
+            # a second embedded server must not kill the first one's
+            from h2o3_tpu_torch.utils.health import HEALTH
+            HEALTH.stop()
+            self._started_health = False
+        if getattr(self, "_started_flight", False):
+            from h2o3_tpu_torch.utils.flight import FLIGHT
+            FLIGHT.stop()
+            self._started_flight = False
         self.httpd.shutdown()
         self.httpd.server_close()
 

@@ -132,6 +132,23 @@ def dedupe_names(names: list[str]) -> list[str]:
     return header
 
 
+def _note_parse(frame, path: str | None = None, nbytes: int | None = None):
+    """Record parse throughput (``h2o3_parse_rows``/``_bytes``/``_chunks``)
+    for a finished parse; returns the frame."""
+    from h2o3_tpu_torch.utils import telemetry as _tm
+    if nbytes is None:
+        nbytes = 0
+        if path and "://" not in path:
+            try:
+                nbytes = os.path.getsize(path)
+            except OSError:
+                pass
+    _tm.PARSE_ROWS.inc(getattr(frame, "nrows", 0) or 0)
+    _tm.PARSE_BYTES.inc(nbytes or 0)
+    _tm.PARSE_CHUNKS.inc(len(getattr(frame, "vecs", None) or ()))
+    return frame
+
+
 def import_file(path: str, key: str | None = None, header: int | None = 0,
                 col_types: dict | None = None,
                 na_strings: list[str] | None = None, sep: str | None = None,
@@ -159,7 +176,8 @@ def import_file(path: str, key: str | None = None, header: int | None = 0,
     ext = os.path.splitext(path)[1].lower().lstrip(".")
     key = key or _key_from_path(path)
     if _stream_mode(path, ext):
-        return _stream(path, key, header, col_types, na_strings, sep, dev)
+        return _note_parse(_stream(path, key, header, col_types, na_strings,
+                                   sep, dev), path)
     if ext in ("parquet", "pq", "orc"):
         frame = _parse_arrow(path, ext, key, dev)
     elif ext in ("svmlight", "svm"):
@@ -168,10 +186,10 @@ def import_file(path: str, key: str | None = None, header: int | None = 0,
         frame = _parse_arff(path, key, dev)
     elif ext == "avro":
         from h2o3_tpu_torch.frame.binfmt import parse_avro
-        return parse_avro(path, key, device=dev)
+        return _note_parse(parse_avro(path, key, device=dev), path)
     elif ext in ("xlsx", "xls"):
         from h2o3_tpu_torch.frame.binfmt import parse_xlsx
-        return parse_xlsx(path, key, device=dev)
+        return _note_parse(parse_xlsx(path, key, device=dev), path)
     else:
         forced = _col_types(col_types)
         frame = None
@@ -182,7 +200,7 @@ def import_file(path: str, key: str | None = None, header: int | None = 0,
             frame = _parse_pandas(path, key, header, forced, na_strings, sep,
                                   dev)
     DKV.put(frame.key, frame)
-    return frame
+    return _note_parse(frame, path)
 
 
 def _stream(path: str, key: str, header, col_types, na_strings, sep, dev):
@@ -335,7 +353,7 @@ def parse_raw(text: str, key: str | None = None,
     frame = Frame.from_pandas(df, key=key, device=resolve_device(device))
     if key:
         DKV.put(key, frame)
-    return frame
+    return _note_parse(frame, nbytes=len(text))
 
 
 def _parse_arrow(path: str, ext: str, key: str, dev) -> Frame:

@@ -112,8 +112,12 @@ class Vec:
             with self._view_lock:
                 arr = self._data
                 if arr is None:
+                    from h2o3_tpu_torch.utils import telemetry as _tm
                     arr = self._compressed.to_tensor(self._device)
                     self._data = arr
+                    _tm.CHUNK_DECOMPRESS.inc()
+                    _tm.CHUNK_DECOMPRESS_BYTES.inc(
+                        arr.numel() * arr.element_size())
         return arr
 
     @data.setter

@@ -32,6 +32,7 @@ import zlib
 import numpy as np
 
 from h2o3_tpu_torch.frame.types import CAT_NA, VecType
+from h2o3_tpu_torch.utils import telemetry as _tm
 from h2o3_tpu_torch.ingest.encode import (CompressedChunk, concat_chunks,
                                           encode_codes, encode_numeric)
 
@@ -523,6 +524,7 @@ def stream_import(path: str, key: str | None = None, header: int | None = 0,
             for cname in err.columns:
                 forced[cname] = VecType.CAT
             stats.restarts += 1
+            _tm.INGEST_RESTARTS.inc()
             # rewind the aborted pass's accounting (its queued items died
             # with its stages)
             stats.rows = stats.chunks = 0
@@ -534,6 +536,12 @@ def stream_import(path: str, key: str | None = None, header: int | None = 0,
             raise err
         break
 
+    # throughput counters land ONCE per successful parse — per-chunk
+    # increments would double-count every promote-and-reparse restart
+    _tm.INGEST_CHUNKS.inc(stats.chunks)
+    _tm.INGEST_ROWS.inc(stats.rows)
+    _tm.INGEST_BYTES.inc(stats.bytes_in)
+    _tm.INGEST_ENCODED_BYTES.inc(stats.bytes_encoded)
     vecs = _assemble(columns, lazy, dev)
     fr = Frame([c.name for c in columns], vecs, key=key)
     fr._ingest_stats = stats.as_dict()

@@ -39,9 +39,35 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.models.data_info import DataInfo, response_as_float
-from h2o3_tpu_torch.models.job import Job
-from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
+from h2o3_tpu_torch.models.job import Job, JobCancelled
+from h2o3_tpu_torch.models.model_base import (Model, ModelBuilder,
+                                              make_model_key,
+                                              publish_dispatch_audit)
 from h2o3_tpu_torch.persist.recovery import checkpoint_every
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils.costs import accounted
+from h2o3_tpu_torch.utils.timeline import timed_event
+
+
+def _epoch_cost(args, statics) -> tuple[float, float]:
+    """One epoch of minibatch SGD on the [R, P] design through layers of
+    ``sizes``: 6 FLOP per weight and row (forward 2, backward 4); bytes are
+    the design and weights read once an epoch and each minibatch step's
+    weights, gradients and update state read and written once. The
+    activations' traffic is left out."""
+    X = args[0]
+    R = X.shape[0]
+    sizes = statics["sizes"]
+    nweights = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
+    steps = max(R // max(int(statics["batch"]), 1), 1)
+    return (6.0 * R * nweights,
+            float(X.numel() * 4 + R * 4 + steps * nweights * 4 * 6))
+
+
+#: an epoch of DeepLearning as a site of the compute observatory (the
+#: reference's ``dl:train_epochs`` program)
+_EPOCH_SITE = accounted("dl:train_epochs", _epoch_cost, loop="dl_epoch")
+
 
 #: the seed of a fit whose ``seed`` is unset (the reference's)
 DEFAULT_SEED = 5318008
@@ -477,18 +503,35 @@ class DeepLearning(ModelBuilder):
                 data_info=di), done_ep + epochs_now, done_ep + n_epochs)
 
         for ep in range(n_epochs):
-            perm = _permutation(n, gen, dev)[:used]
-            Xb = X[perm].view(nb, B, K)
-            yb = Xb if autoenc else yy[perm].view(nb, B)
-            wb = w[perm].view(nb, B)
-            samples, mloss = _epoch_steps(net, opt, Xb, yb, wb, gen, samples,
-                                          loss, nclasses, cfg)
+            with timed_event("iteration", "dl_epoch",
+                             observe=_tm.ITER_SECONDS.labels(
+                                 loop="dl_epoch")), \
+                    _EPOCH_SITE.dispatch((X, w), {"sizes": tuple(sizes),
+                                                  "batch": B}):
+                perm = _permutation(n, gen, dev)[:used]
+                Xb = X[perm].view(nb, B, K)
+                yb = Xb if autoenc else yy[perm].view(nb, B)
+                wb = w[perm].view(nb, B)
+                samples, mloss = _epoch_steps(net, opt, Xb, yb, wb, gen,
+                                              samples, loss, nclasses, cfg)
             epoch_losses.append(mloss)
-            job.update((ep + 1) / n_epochs, f"epoch {ep + 1}/{n_epochs}")
+            try:
+                job.update((ep + 1) / n_epochs, f"epoch {ep + 1}/{n_epochs}")
+            except JobCancelled:
+                if not job.deadline_exceeded:
+                    raise
+                # max_runtime_secs: keep the epochs trained so far
+                job.keep_partial()
+                break
             if every and (ep + 1) % every == 0 and ep + 1 < n_epochs:
                 snapshot(ep + 1)
         # the one fetch of the fit: every epoch's loss and the sample count
         fetched = torch.stack(epoch_losses + [samples]).cpu().tolist()
+        _EPOCH_SITE.settle()
+        publish_dispatch_audit(self, "dl_epoch",
+                               iterations=max(len(epoch_losses), 1),
+                               host_syncs=1,
+                               device_dispatches=len(epoch_losses))
         score_history = [{"epoch": i + 1, "train_loss": v}
                          for i, v in enumerate(fetched[:-1])]
         for prm in net.parameters():

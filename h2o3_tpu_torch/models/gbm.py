@@ -52,18 +52,39 @@ from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.genmodel.treeshap import ensemble_contributions
 from h2o3_tpu_torch.models.data_info import (remap_codes, response_adapted,
                                              response_as_float)
-from h2o3_tpu_torch.models.job import Job
-from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
+from h2o3_tpu_torch.models.job import Job, JobCancelled
+from h2o3_tpu_torch.models.model_base import (Model, ModelBuilder,
+                                              make_model_key,
+                                              publish_dispatch_audit)
 from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
                                         cat_bins_for_codes,
-                                        fold_binned, grow_tree,
+                                        fold_binned, grow_cost, grow_tree,
                                         grow_trees_batched, predict_binned,
                                         predict_raw)
+from h2o3_tpu_torch.ops.map_reduce import retrying
 from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
                                          compute_bin_edges)
 from h2o3_tpu_torch.persist.recovery import checkpoint_every
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils.costs import accounted
 from h2o3_tpu_torch.utils.registry import DKV
+from h2o3_tpu_torch.utils.timeline import timed_event
 from h2o3_tpu_torch.utils.udf import linkinv, resolve_distribution
+
+def _boost_scan_cost(args, statics) -> tuple[float, float]:
+    """A chunk's cost: its rounds' tree growths (:func:`grow_cost`; K class
+    trees a round for multinomial). The gradients, margins and metrics
+    around them are left out."""
+    binned = args[0]
+    c = grow_cost(binned.shape[0], binned.shape[1],
+                  max(int(statics["nclass"]), 1), statics["depth"],
+                  statics["nbins"], binned.element_size())
+    return (statics["rounds"] * c["flops"], statics["rounds"] * c["bytes"])
+
+
+#: a chunk of boosting rounds as a site of the compute observatory (the
+#: reference's ``gbm:boost_scan`` program)
+_BOOST_SCAN = accounted("gbm:boost_scan", _boost_scan_cost, loop="gbm_chunk")
 
 #: the GBM distributions the port trains
 DISTRIBUTIONS = ("bernoulli", "multinomial", "gaussian", "poisson", "gamma",
@@ -979,31 +1000,73 @@ class GBM(SharedTreeBuilder):
         every = checkpoint_every() if partial is not None and \
             getattr(self, "_build_recovery", None) is not None else 0
         last_snap = 0
+        deadline_stop = False
+        chunks = 0
         for s0 in range(done, ntrees, per):
-            F_start = Fcur
-            chunk = []
-            for m in range(s0, min(s0 + per, ntrees)):
-                trees, row_leaf = grow_round(m, Fcur)
-                chunk.append(trees)
-                self._rounds_grown += 1
-                Fcur = Fcur + lr * (row_leaf if nclass <= 1 else row_leaf.T)
-                pending_t.append(_metric_device(metric, sdist, Fcur, yc, w,
-                                                nclass, self._custom_link))
-                if valid is not None:
-                    Fval = step_valid(Fval, trees)
-                    pending_v.append(_metric_device(metric, sdist, Fval,
-                                                    valid[1], valid[2],
-                                                    nclass,
-                                                    self._custom_link))
-                job.update(0.1 + 0.8 * (m + 1 - done) / max(M, 1),
-                           f"{m + 1}/{ntrees} trees")
-                if every and sr == 0 and \
-                        self._rounds_grown - last_snap >= every:
-                    last_snap = self._rounds_grown
-                    self._snapshot(partial(kept + chunk), m + 1, ntrees)
+            if job.should_stop and job.deadline_exceeded:
+                # max_runtime_secs between chunks: the built rounds are
+                # kept, the job ends CANCELLED (an explicit cancel raises
+                # from job.update below, as before)
+                job.keep_partial()
+                break
+            F_start, Fval_start = Fcur, Fval
+
+            def grow_chunk(s0=s0, F_start=F_start, Fval_start=Fval_start):
+                # a function of the chunk's start margins, so a retried
+                # attempt repeats the first one exactly
+                nonlocal last_snap
+                F, Fv = F_start, Fval_start
+                chunk, pt, pv = [], [], []
+                stopped = False
+                for m in range(s0, min(s0 + per, ntrees)):
+                    trees, row_leaf = grow_round(m, F)
+                    chunk.append(trees)
+                    F = F + lr * (row_leaf if nclass <= 1 else row_leaf.T)
+                    pt.append(_metric_device(metric, sdist, F, yc, w,
+                                             nclass, self._custom_link))
+                    if valid is not None:
+                        Fv = step_valid(Fv, trees)
+                        pv.append(_metric_device(metric, sdist, Fv,
+                                                 valid[1], valid[2],
+                                                 nclass, self._custom_link))
+                    try:
+                        job.update(0.1 + 0.8 * (m + 1 - done) / max(M, 1),
+                                   f"{m + 1}/{ntrees} trees")
+                    except JobCancelled:
+                        if not job.deadline_exceeded:
+                            raise
+                        # the deadline tripped in update: keep what is
+                        # built and stop growing
+                        job.keep_partial()
+                        stopped = True
+                    grown = self._rounds_grown + len(chunk)
+                    if every and sr == 0 and grown - last_snap >= every:
+                        last_snap = grown
+                        self._snapshot(partial(kept + chunk), m + 1, ntrees)
+                    if stopped:
+                        break
+                return chunk, F, Fv, pt, pv, stopped
+
+            with timed_event("tree", f"{self.algo}:chunk",
+                             observe=_tm.ITER_SECONDS.labels(
+                                 loop=f"{self.algo}_chunk")), \
+                    _BOOST_SCAN.dispatch(
+                        (binned, yc, w),
+                        {"rounds": min(per, ntrees - s0), "nclass": nclass,
+                         "depth": depth, "nbins": nbins}):
+                # a transient dispatch failure (an injected drop, a
+                # transient runtime error) retries with backoff instead of
+                # killing the build
+                chunk, Fcur, Fval, pt, pv, deadline_stop = retrying(
+                    f"{self.algo}_chunk", grow_chunk)
+            chunks += 1
+            self._rounds_grown += len(chunk)
+            pending_t += pt
+            pending_v += pv
             stop_at = None
             if sr > 0:
                 fetched = torch.stack(pending_t + pending_v).double().cpu()
+                _BOOST_SCAN.settle()
                 ts = fetched[:len(pending_t)].tolist()
                 vs = fetched[len(pending_t):].tolist() if pending_v else None
                 pending_t, pending_v = [], []
@@ -1025,17 +1088,25 @@ class GBM(SharedTreeBuilder):
                     Fcur = self._refold(binned, chunk, nbins, lr, F_start,
                                         nclass)
             kept += chunk
-            if stop_at is not None:
+            if stop_at is not None or deadline_stop:
                 break
             if every and sr > 0 and len(kept) - last_snap >= every:
                 last_snap = len(kept)
                 self._snapshot(partial(kept), done + len(kept), ntrees)
+        fetches = chunks if sr > 0 else 0
         if pending_t:
             # without stopping: the whole series in one fetch, at the end
             fetched = torch.stack(pending_t + pending_v).double().cpu()
+            _BOOST_SCAN.settle()
+            fetches += 1
             tser = fetched[:len(pending_t)].tolist()
             vser = fetched[len(pending_t):].tolist()
         self._score_series = (metric, tser, vser or None)
+        # the loop's host syncs: one series fetch a chunk with stopping,
+        # one at the end without
+        publish_dispatch_audit(self, f"{self.algo}_round",
+                               iterations=max(len(kept), 1),
+                               host_syncs=fetches, device_dispatches=chunks)
         return kept, Fcur
 
     @staticmethod

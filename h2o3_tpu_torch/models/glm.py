@@ -41,8 +41,39 @@ from h2o3_tpu_torch.models.data_info import (DataInfo, expand_interactions,
 from h2o3_tpu_torch.models.distributions import get_family
 from h2o3_tpu_torch.models.glm_sparse import fit_sparse_glm, sparse_score
 from h2o3_tpu_torch.models.job import Job
-from h2o3_tpu_torch.models.model_base import Model, ModelBuilder, make_model_key
+from h2o3_tpu_torch.models.model_base import (Model, ModelBuilder,
+                                              make_model_key,
+                                              publish_dispatch_audit)
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils.costs import accounted
 from h2o3_tpu_torch.utils.registry import DKV
+from h2o3_tpu_torch.utils.timeline import timed_event
+
+
+def _irls_cost(args, statics) -> tuple[float, float]:
+    """One IRLS iteration on the [R, P] design: the weighted Gram
+    (2·R·P² FLOP), X'Wz (2·R·P) and the Cholesky solve (P³/3); bytes are
+    the design, response and weights read once and the [P+1, P+1] Gram
+    written once. The working response and the deviance are left out."""
+    X = args[0]
+    R, P = X.shape[0], X.shape[1] + 1
+    return (2.0 * R * P * P + 2.0 * R * P + P ** 3 / 3.0,
+            float(R * P * 4 + R * 8 + P * P * 4))
+
+
+def _multinomial_cost(args, statics) -> tuple[float, float]:
+    """One multinomial sweep: K class blocks, each an IRLS iteration's
+    cost (:func:`_irls_cost`) on the same design."""
+    flops, nbytes = _irls_cost(args, statics)
+    k = int(statics["nclasses"])
+    return k * flops, k * nbytes
+
+
+#: one IRLS iteration and one multinomial sweep as sites of the compute
+#: observatory (the reference's megastep programs)
+_IRLS_SITE = accounted("glm:irls_megastep", _irls_cost, loop="glm_irls")
+_MULTINOMIAL_SITE = accounted("glm:multinomial_megastep", _multinomial_cost,
+                              loop="glm_multinomial")
 
 #: elements of one row block of the Gram's product (256 MB in float32):
 #: the weighted block is the only temporary of the design's width
@@ -651,18 +682,27 @@ class GLM(ModelBuilder):
         dev_prev = torch.full((), float("inf"), device=X.device)
         dev, it_total, done = float("inf"), 0, False
         jitter = JITTER
+        fetches = 0
         while it_total < max_it and not done:
-            new_beta, dev_t, delta, info = _irls_step(
-                fam, X, yy, w, beta, lam, non_negative=nn, off=off,
-                jitter=jitter)
-            if bounds is not None:
-                # projected Newton: clip into the box, measure the step
-                # against the projected point
-                new_beta = torch.clamp(new_beta, bounds[0], bounds[1])
-                delta = (new_beta - beta).abs().max()
-            stop = (delta < beta_eps) | _plateau(dev_prev, dev_t, obj_eps)
+            with timed_event("iteration", "glm_irls",
+                             observe=_tm.ITER_SECONDS.labels(
+                                 loop="glm_irls")), \
+                    _IRLS_SITE.dispatch((X, w), {"family": fam.name}):
+                new_beta, dev_t, delta, info = _irls_step(
+                    fam, X, yy, w, beta, lam, non_negative=nn, off=off,
+                    jitter=jitter)
+                if bounds is not None:
+                    # projected Newton: clip into the box, measure the
+                    # step against the projected point
+                    new_beta = torch.clamp(new_beta, bounds[0], bounds[1])
+                    delta = (new_beta - beta).abs().max()
+                stop = (delta < beta_eps) | _plateau(dev_prev, dev_t,
+                                                     obj_eps)
+            # the iteration's one host fetch: its probe can be read after
             dev, stop_h, info_h = torch.stack(
                 [dev_t, stop.float(), info.float()]).tolist()
+            _IRLS_SITE.settle()
+            fetches += 1
             if info_h and jitter < MAX_JITTER:
                 jitter *= 10.0
                 continue
@@ -676,6 +716,8 @@ class GLM(ModelBuilder):
             job.update(it_total / max_it,
                        f"iter {it_total - 1} deviance {dev:.4f}")
         it = max(it_total - 1, 0)
+        publish_dispatch_audit(self, "glm_irls", iterations=max(it_total, 1),
+                               host_syncs=fetches, device_dispatches=fetches)
         if float(params["alpha"]) > 0 and lambda_ > 0:
             while True:
                 b_l1, info = self._admm_l1(fam, X, yy, w, beta, lambda_,
@@ -985,11 +1027,16 @@ class GLM(ModelBuilder):
         dev_prev = torch.full((), float("inf"), device=X.device)
         dev, it_total, done = float("inf"), 0, False
         while it_total < max_it and not done:
-            B, dev_t, info = _multinomial_step(K, X, yoh, w, B, lam, lam1,
-                                               nn)
-            stop = _plateau(dev_prev, dev_t, obj_eps)
+            with timed_event("iteration", "glm_multinomial",
+                             observe=_tm.ITER_SECONDS.labels(
+                                 loop="glm_multinomial")), \
+                    _MULTINOMIAL_SITE.dispatch((X, w), {"nclasses": K}):
+                B, dev_t, info = _multinomial_step(K, X, yoh, w, B, lam,
+                                                   lam1, nn)
+                stop = _plateau(dev_prev, dev_t, obj_eps)
             dev, stop_h, info_h = torch.stack(
                 [dev_t, stop.float(), info.float()]).tolist()
+            _MULTINOMIAL_SITE.settle()
             _check_factorised(info_h, f"multinomial sweep {it_total}")
             done = bool(stop_h)
             dev_prev = dev_t
@@ -997,6 +1044,10 @@ class GLM(ModelBuilder):
             job.update(it_total / max_it,
                        f"iter {it_total - 1} deviance {dev:.4f}")
         it = max(it_total - 1, 0)
+        publish_dispatch_audit(self, "glm_multinomial",
+                               iterations=max(it_total, 1),
+                               host_syncs=it_total,
+                               device_dispatches=it_total)
 
         b = B.cpu().double().numpy()
         coef = b.copy()

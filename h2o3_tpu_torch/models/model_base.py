@@ -19,7 +19,11 @@ pooled into one metrics pass (``cross_validation_metrics``), kept with
 its ``model_id`` from its first fit to that put; ``checkpoint=`` takes a
 Model or the key of one in the DKV. ``train`` reports
 ``model_build_start`` and ``model_build_end`` to the Extensions SPI
-(:mod:`h2o3_tpu_torch.utils.extensions`). The reference's telemetry and
+(:mod:`h2o3_tpu_torch.utils.extensions`). A build runs as a
+``<algo>:fit`` span and timeline event under the ``fit:<algo>`` cost scope,
+and counts into ``h2o3_model_builds_total`` and
+``h2o3_model_build_seconds``; ``max_runtime_secs`` is its job's deadline
+(builders that keep partial results stop and return them). The reference's
 mesh slices are left out.
 """
 
@@ -41,7 +45,28 @@ from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.metrics import (binomial_metrics,
                                            multinomial_metrics,
                                            regression_metrics)
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils.costs import COSTS
 from h2o3_tpu_torch.utils.registry import DKV, LOCKS
+from h2o3_tpu_torch.utils.timeline import timed_event
+
+
+def publish_dispatch_audit(builder, loop: str, iterations: int,
+                           host_syncs: int, device_dispatches: int) -> None:
+    """Record a convergence loop's host-sync economy: how many blocking
+    device→host fetches and dispatches the loop paid for how many logical
+    iterations. Feeds ``h2o3_dispatches_per_iteration{loop}`` and the
+    builder's ``_dispatch_audit``. Every count is one the loop kept on the
+    host."""
+    iters = max(int(iterations), 1)
+    audit = getattr(builder, "_dispatch_audit", None)
+    if audit is None:
+        audit = builder._dispatch_audit = {}
+    audit[loop] = dict(iterations=int(iterations),
+                       host_syncs=int(host_syncs),
+                       device_dispatches=int(device_dispatches),
+                       syncs_per_iteration=round(host_syncs / iters, 4))
+    _tm.DISPATCHES_PER_ITER.labels(loop=loop).set(host_syncs / iters)
 
 
 class Model:
@@ -184,6 +209,10 @@ class ModelBuilder:
             raise ValueError(f"{type(self).__name__}: unknown parameters "
                              f"{sorted(unknown)}; valid: {sorted(self.params)}")
         self.params.update(params)
+        if float(self.params.get("max_runtime_secs") or 0.0) < 0:
+            # hex.ModelBuilder.init: 0 means unlimited, below is an error
+            raise ValueError("max_runtime_secs must be >= 0 (0 for "
+                             "unlimited)")
         self.model_id = params.get("model_id")
         self.job: Job | None = None
         self.model: Model | None = None
@@ -198,6 +227,9 @@ class ModelBuilder:
                     fold_assignment="Modulo",
                     fold_column=None,  # per-row fold ids
                     keep_cross_validation_predictions=False,
+                    # the job's deadline: builders that keep partial
+                    # results stop and return them, the others cancel
+                    max_runtime_secs=0.0,
                     # a callable (preds, y, w) -> value, or the reference
                     # "python:KEY=module.Class" of an uploaded UDF
                     custom_metric_func=None,
@@ -294,7 +326,9 @@ class ModelBuilder:
         nfolds = self._check_folds(frame)
         self._begin_fit(x, y, validation_frame)
         resumed = self._begin_recovery(frame.device)
-        self.job = Job(f"{self.algo} on {frame.key or 'frame'}")
+        self.job = Job(f"{self.algo} on {frame.key or 'frame'}",
+                       max_runtime_secs=float(
+                           self.params.get("max_runtime_secs") or 0.0))
         self.job.auto_recovery_dir = (self._build_recovery.dir
                                       if self._build_recovery else None)
         t0 = time.time()
@@ -310,8 +344,15 @@ class ModelBuilder:
             from h2o3_tpu_torch.utils import extensions as _ext
             _ext.report("model_build_start", algo=self.algo, job=job.key,
                         frame=frame.key)
-            model = self._fit(job, frame, x, y, base_w)
+            # the build's span and timeline event, under the cost scope
+            # that credits its kernel builds to this algo
+            with timed_event("model", f"{self.algo}:fit"), \
+                    COSTS.scope(f"fit:{self.algo}"):
+                model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
+            _tm.MODEL_BUILDS.labels(algo=self.algo).inc()
+            _tm.MODEL_BUILD_SECONDS.labels(algo=self.algo).observe(
+                model.run_time_ms / 1000.0)
             w_metrics = self._metrics_weights
             if w_metrics is None:
                 w_metrics = base_w

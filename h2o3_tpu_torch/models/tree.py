@@ -20,6 +20,10 @@ interaction constraints narrow the features each branch may split on.
 
 Uses (g, h) gradient-pair stats with h = w for H2O GBM's mean-leaf
 semantics, exactly as the reference does.
+
+Each batched growth is the ``gbm:grow_batched`` site of the compute
+observatory (:mod:`h2o3_tpu_torch.utils.costs`), rated by
+:func:`grow_cost`.
 """
 
 from __future__ import annotations
@@ -29,7 +33,42 @@ import dataclasses
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.ops.hist import level_histograms, node_totals
+from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops,
+                                     level_histograms, node_totals)
+from h2o3_tpu_torch.utils.costs import accounted
+
+
+def grow_cost(R: int, F: int, K: int, depth: int, n_bins: int,
+              bin_bytes: int, w_per_class: bool = False) -> dict:
+    """FLOPs and bytes of growing K trees of ``depth`` on R rows and F
+    features, counted where the growth moves data: each level's histogram
+    (the kernel's bound bytes, :func:`~h2o3_tpu_torch.ops.hist.hist_bytes`,
+    for the nodes it histograms: 1 at level 0, 2^(d-1) at level d >= 1 by
+    sibling subtraction; three adds per row and feature, every row counted
+    active) and the final level's node totals (node ids, g, h and w read
+    once, the [K, 2^depth, 3] totals written once, three adds a row). The
+    split search and routing are left out. Returns ``flops``, ``bytes``
+    and ``level_bytes`` (one entry per histogram level)."""
+    Bt = n_bins + 1
+    levels = [hist_bytes(R, F, 1 if d == 0 else 2 ** (d - 1), Bt,
+                         bin_bytes, K, w_per_class) for d in range(depth)]
+    totals = (K * R * 12 + (K if w_per_class else 1) * R * 4
+              + K * (2 ** depth) * 3 * 4)
+    flops = depth * K * hist_flops(R, F) + 3 * K * R
+    return {"flops": float(flops), "bytes": float(sum(levels) + totals),
+            "level_bytes": levels}
+
+
+def _grow_site_cost(args, statics) -> tuple[float, float]:
+    binned, g, w = args
+    c = grow_cost(binned.shape[0], binned.shape[1], g.shape[0],
+                  statics["depth"], statics["n_bins"],
+                  binned.element_size(), w.dim() == 2)
+    return c["flops"], c["bytes"]
+
+
+#: the batched tree growth as a site of the compute observatory
+GROW_SITE = accounted("gbm:grow_batched", _grow_site_cost, loop="gbm_grow")
 
 
 @dataclasses.dataclass
@@ -261,6 +300,18 @@ def _grow_batched(binned, binned_T, edges, g, h, w, feat_mask, depth: int,
     device). Hyperparameters are Python floats: torch casts them to float32
     inside each float32 op, the rounding the reference's traced float32
     scalars get."""
+    with GROW_SITE.dispatch((binned, g, w),
+                            {"depth": depth, "n_bins": n_bins}):
+        return _grow_batched_body(
+            binned, binned_T, edges, g, h, w, feat_mask, depth, n_bins,
+            min_rows, reg_lambda, reg_alpha, gamma, min_split_improvement,
+            col_rate, generator, mono, reach, cat_feats)
+
+
+def _grow_batched_body(binned, binned_T, edges, g, h, w, feat_mask, depth,
+                       n_bins, min_rows, reg_lambda, reg_alpha, gamma,
+                       min_split_improvement, col_rate, generator, mono,
+                       reach, cat_feats):
     dev = g.device
     B = n_bins
     Bt = B + 1

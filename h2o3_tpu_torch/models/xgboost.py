@@ -27,6 +27,7 @@ import torch
 
 from h2o3_tpu_torch.models.gbm import (GBM, LOG_LINK, GBMModel,
                                        _grad_hess, _offset, sigmoid)
+from h2o3_tpu_torch.models.job import JobCancelled
 from h2o3_tpu_torch.models.model_base import make_model_key
 from h2o3_tpu_torch.models.tree import grow_tree
 
@@ -228,8 +229,14 @@ class XGBoost(GBM):
             wts.append(w_new)
             preds.append(pred)
             self.dart_drops.append(np.nonzero(drop)[0].tolist())
-            job.update(0.1 + 0.8 * (m + 1) / ntrees,
-                       f"DART tree {m + 1}/{ntrees} (dropped {k})")
+            try:
+                job.update(0.1 + 0.8 * (m + 1) / ntrees,
+                           f"DART tree {m + 1}/{ntrees} (dropped {k})")
+            except JobCancelled:
+                if not job.deadline_exceeded:
+                    raise
+                job.keep_partial()      # max_runtime_secs: keep the trees
+                break
             if sr > 0:                  # ScoreKeeper early stopping
                 score = self._stop_score(metric, dist, Fcur, yc, w, 0)
                 if score < best - tol * abs(best) or not np.isfinite(best):

@@ -2,7 +2,8 @@
 plain C interface, loaded with ctypes.
 
 Every ``csrc/*.cu`` source compiles, on first use and never at import, into
-one library under ``build/`` beside this package (listed in ``.gitignore``).
+one library under ``build/`` beside this package (listed in ``.gitignore``),
+or under the directory ``utils/compile_cache.enable`` names.
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded from the cache.
 """
@@ -79,12 +80,17 @@ def _digest(srcs: list[Path]) -> str:
 
 
 def build() -> Path:
-    """Compile the sources if no library for their hash exists; return it."""
+    """Compile the sources if no library for their hash exists; return it.
+    Each call is a hit or a miss of the build cache
+    (:mod:`h2o3_tpu_torch.utils.compile_cache`)."""
+    from h2o3_tpu_torch.utils import compile_cache
     srcs = _sources()
     target = BUILD_DIR / f"libh2o3_torch_{_digest(srcs)}.so"
     if target.is_file():
         build_info.update(path=str(target), seconds=0.0, log="")
+        compile_cache.note("hits")
         return target
+    compile_cache.note("misses")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]

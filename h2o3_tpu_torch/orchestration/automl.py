@@ -26,6 +26,7 @@ from h2o3_tpu_torch.models.model_base import Model
 from h2o3_tpu_torch.orchestration.grid import (GridSearch, default_metric,
                                                metric_higher_is_better)
 from h2o3_tpu_torch.orchestration.leaderboard import Leaderboard
+from h2o3_tpu_torch.utils.tracing import TRACER
 
 
 class EventLog:
@@ -162,6 +163,16 @@ class AutoML:
     def train(self, x: Sequence[str] | None = None, y: str | None = None,
               training_frame: Frame | None = None,
               leaderboard_frame: Frame | None = None) -> Model | None:
+        # one span for the whole run: every leaderboard build hangs
+        # underneath it, so the creating request's trace holds the tree
+        with TRACER.span(f"automl:{self.project_name}", kind="orchestration",
+                         attrs={"max_models": self.max_models,
+                                "parallelism": self.parallelism}):
+            return self._train(x, y, training_frame, leaderboard_frame)
+
+    def _train(self, x: Sequence[str] | None, y: str | None,
+               training_frame: Frame | None,
+               leaderboard_frame: Frame | None) -> Model | None:
         if y is None or training_frame is None:
             raise ValueError("y and training_frame are required")
         self._t0 = time.time()
@@ -241,8 +252,10 @@ class AutoML:
             t = time.time()
             fr_s, x_s = ((tree_frame, tree_x) if algo in tree_algos
                          else (training_frame, x))
-            m = cls(**{**params, **common}).train(x=x_s, y=y,
-                                                  training_frame=fr_s)
+            with TRACER.span(f"automl_step:{algo}", kind="build",
+                             attrs={"algo": algo}):
+                m = cls(**{**params, **common}).train(x=x_s, y=y,
+                                                      training_frame=fr_s)
             return m, algo, time.time() - t
 
         results, _ = windowed_parallel(

@@ -31,6 +31,7 @@ import numpy as np
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.model_base import Model, ModelBuilder
 from h2o3_tpu_torch.utils.registry import DKV
+from h2o3_tpu_torch.utils.tracing import TRACER
 
 
 def _metric_value(model: Model, metric: str | None, prefer_cv: bool) -> float:
@@ -153,6 +154,14 @@ class GridSearch:
 
     def train(self, x=None, y=None, training_frame: Frame | None = None,
               validation_frame: Frame | None = None, **kw) -> Grid:
+        # the whole search is one subtree in the caller's trace; each
+        # combo's build hangs its own span under it
+        with TRACER.span(f"grid:{self.grid_id}", kind="orchestration",
+                         attrs={"algo": self.builder_cls.algo}):
+            return self._train(x, y, training_frame, validation_frame, **kw)
+
+    def _train(self, x, y, training_frame: Frame | None,
+               validation_frame: Frame | None, **kw) -> Grid:
         max_models = int(self.search_criteria.get("max_models", 0) or 0)
         max_secs = float(self.search_criteria.get("max_runtime_secs", 0.0)
                          or 0.0)
@@ -192,9 +201,14 @@ class GridSearch:
             # the id comes from the combo, so it is the JAX package's too
             tag = hashlib.md5(combo_key(combo).encode()).hexdigest()[:8]
             params["model_id"] = f"{self.grid_id}_model_{tag}"
-            m = self.builder_cls(**params).train(
-                x=x, y=y, training_frame=training_frame,
-                validation_frame=validation_frame, **kw)
+            # a span per grid model (no-op outside an active trace)
+            with TRACER.span(f"grid_model:{self.builder_cls.algo}",
+                             kind="build",
+                             attrs={"grid": self.grid_id,
+                                    "model_id": params["model_id"]}):
+                m = self.builder_cls(**params).train(
+                    x=x, y=y, training_frame=training_frame,
+                    validation_frame=validation_frame, **kw)
             m.output["hyper_values"] = combo
             if recovery is not None:
                 # saved as soon as it is built: a crash keeps it

@@ -9,9 +9,10 @@ split search, the enqueue of its device ops) proceeds, and each build
 leases a CUDA stream of its own from the scheduler
 (:mod:`~h2o3_tpu_torch.orchestration.scheduler`). The GIL serialises the
 host enqueue, so the gain is bounded by the share of host time spent
-outside Python. The JAX package carried its tracing span into the pool
-threads; the port carries the submitter's ``contextvars`` the same way
-(tracing itself waits for the observability slice).
+outside Python. Each pool thread runs its build in a copy of the
+submitter's ``contextvars``: the active span (the grid's or the AutoML
+run's, so overlapped builds stay in the caller's trace, as the reference's
+``run_in_context`` keeps them), the tenant scope and the Job stack.
 """
 
 from __future__ import annotations

@@ -16,27 +16,32 @@ as the reference's one-slice layout is not.
 On the CPU (``set_device("cpu")``) a lease has no stream: there is no
 device queue to overlap. Left out: the ``H2O3TPU_MESH_SLICES`` and
 ``H2O3TPU_SLICE_ROWS_MAX`` overrides (they choose device sets that one card
-does not have), the re-homing of artifacts across slices, tracing spans
-and telemetry gauges. :data:`SLICE_STATS` keeps the process-wide
-utilization rollup (builds, busy and queue-wait seconds per stream).
+does not have) and the re-homing of artifacts across slices.
+:data:`SLICE_STATS` keeps the process-wide utilization rollup (builds, busy
+and queue-wait seconds per stream), and the ``h2o3_slice_*`` families
+carry the same numbers; a leased build runs as a ``mesh_slice:<label>``
+span.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 
 import torch
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils.tracing import TRACER
 
 class _SliceStats:
     """Process-wide utilization rollup: schedulers are per run, the view
     outlives them."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock(
+            "orchestration.scheduler._SliceStats._lock")
         self._count = 0
         self._per: dict[str, dict] = {}
 
@@ -78,10 +83,12 @@ class _StreamPool:
     one free list, so a stream is leased to one build at a time."""
 
     _registry: dict[tuple, "_StreamPool"] = {}
-    _registry_lock = threading.Lock()
+    _registry_lock = lockwitness.lock(
+        "orchestration.scheduler._LeaseState._registry_lock")
 
     def __init__(self, device: torch.device, n: int):
-        self.cv = threading.Condition()
+        self.cv = lockwitness.condition(
+            "orchestration.scheduler._LeaseState.cv")
         self.free = list(range(n))
         self.streams = ([torch.cuda.Stream(device=device) for _ in range(n)]
                         if device.type == "cuda" else [None] * n)
@@ -116,7 +123,8 @@ class MeshScheduler:
         self.n = max(int(slices or 1), 1)
         self.device = resolve_device()
         self._pool = _StreamPool.for_layout(self.device, self.n)
-        SLICE_STATS.configure(self.n)
+        # the gauge follows the merged process-wide layout
+        _tm.SLICE_COUNT.set(SLICE_STATS.configure(self.n))
 
     def free_count(self) -> int:
         """Streams not leased now (the one shared stream counts as free)."""
@@ -160,7 +168,10 @@ class MeshScheduler:
                 with self._on(pool.streams[0]):
                     yield SliceLease(pool.streams[0], -1, "full", 0.0)
             finally:
-                SLICE_STATS.record("full", time.monotonic() - t1, 0.0)
+                busy = time.monotonic() - t1
+                _tm.SLICE_BUSY.labels(slice="full").inc(busy)
+                _tm.SLICE_BUILDS.labels(slice="full").inc()
+                SLICE_STATS.record("full", busy, 0.0)
             return
         idx: int | None = None
         t1 = t0
@@ -170,11 +181,20 @@ class MeshScheduler:
                     pool.cv.wait(timeout=1.0)
                 idx = pool.free.pop(0)
             t1 = time.monotonic()
-            with self._on(pool.streams[idx]):
-                yield SliceLease(pool.streams[idx], idx, str(idx), t1 - t0)
+            wait_s = t1 - t0
+            _tm.SLICE_QUEUE_WAIT.observe(wait_s)
+            with self._on(pool.streams[idx]), \
+                    TRACER.span(f"mesh_slice:{idx}", kind="orchestration",
+                                attrs={"slice": str(idx),
+                                       "queue_wait_ms":
+                                           round(wait_s * 1e3, 3)}):
+                yield SliceLease(pool.streams[idx], idx, str(idx), wait_s)
         finally:
             if idx is not None:
-                SLICE_STATS.record(str(idx), time.monotonic() - t1, t1 - t0)
+                busy = time.monotonic() - t1
+                _tm.SLICE_BUSY.labels(slice=str(idx)).inc(busy)
+                _tm.SLICE_BUILDS.labels(slice=str(idx)).inc()
+                SLICE_STATS.record(str(idx), busy, t1 - t0)
                 with pool.cv:
                     pool.free.append(idx)
                     pool.cv.notify_all()

@@ -30,6 +30,7 @@ from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 _MAGIC = "h2o3_tpu-frame-v1"
 
@@ -69,6 +70,7 @@ def save_frame(frame: Frame, path: str) -> str:
     np.savez_compressed(os.path.join(path, "columns.npz"), **arrays)
     with open(os.path.join(path, "frame.json"), "w") as fh:
         json.dump(meta, fh)
+    _tm.PERSIST_WRITE_BYTES.labels(what="frame").inc(snapshot_bytes(path))
     return path
 
 
@@ -103,6 +105,7 @@ def load_frame(path: str, key: str | None = None,
     fr = Frame(meta["names"], vecs, key=key)
     if key:
         DKV.put(key, fr)
+    _tm.PERSIST_READ_BYTES.labels(what="frame").inc(snapshot_bytes(path))
     return fr
 
 
@@ -122,10 +125,16 @@ def export_file(frame: Frame, path: str, header: bool = True,
     text = csv_text(frame, header=header, sep=sep)
     if scheme in CLOUD_SCHEMES:
         from h2o3_tpu_torch.persist.cloud import MANAGER
-        MANAGER.put(path, text.encode())
+        data = text.encode()
+        MANAGER.put(path, data)
+        _tm.PERSIST_WRITE_BYTES.labels(what="csv").inc(len(data))
         return path
     with open(path, "w", newline="") as fh:
         fh.write(text)
+    try:
+        _tm.PERSIST_WRITE_BYTES.labels(what="csv").inc(os.path.getsize(path))
+    except OSError:
+        pass
     return path
 
 

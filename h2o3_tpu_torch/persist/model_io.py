@@ -11,9 +11,9 @@ whatever device the model was trained on.
 
 A binary model of the JAX package pickles that package's classes: the port
 refuses it by its magic line and points to the MOJO route
-(:mod:`h2o3_tpu_torch.genmodel.mojo`), which both packages read. The
-reference's persist byte counters (``PERSIST_WRITE_BYTES``,
-``PERSIST_READ_BYTES``) belong to the observability slice and are left out.
+(:mod:`h2o3_tpu_torch.genmodel.mojo`), which both packages read. Saves
+and loads count their file's bytes into ``h2o3_persist_write_bytes`` and
+``h2o3_persist_read_bytes`` (``what="model"``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 _MAGIC = b"h2o3_tpu_torch-model-v1\n"
 #: the JAX package's binary models start with this line
@@ -155,6 +156,8 @@ def save_model(model, path: str) -> str:
         fh.write(_MAGIC)
         pickle.dump(m, fh, protocol=pickle.HIGHEST_PROTOCOL)
     model.artifact_file_bytes = os.path.getsize(path)
+    _tm.PERSIST_WRITE_BYTES.labels(what="model").inc(
+        model.artifact_file_bytes)
     return path
 
 
@@ -175,6 +178,7 @@ def load_model(path: str, device: str | torch.device | None = None):
         m = pickle.load(fh)
     m = _to_device(m, dev, {})
     m.artifact_file_bytes = os.path.getsize(path)
+    _tm.PERSIST_READ_BYTES.labels(what="model").inc(m.artifact_file_bytes)
     from h2o3_tpu_torch.utils.registry import DKV
     DKV.put(m.key, m)
     return m

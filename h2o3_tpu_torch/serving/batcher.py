@@ -30,10 +30,12 @@ A replica seat dispatches on its replica's CUDA stream (the stream its
 scheduler lease holds); the scorer serialises replays, so two seats never
 replay one graph at once.
 
-Left out until the observability slice: the tracing of the batch leader's
-context (``score:batch`` / ``score:dispatch`` spans of
-``utils/tracing.py``), the batch-size histograms of ``utils/telemetry.py``
-and the named condition of ``utils/lockwitness.py``.
+The request that opens a fresh batch is its leader: its REST trace
+context is captured, and the worker adopts it for the batch, so the
+``score:batch`` span and a ``score:dispatch`` span a bucket land in the
+leader's trace. Each batch feeds ``h2o3_score_batch_size`` and
+``h2o3_score_batch_requests``; each request carries the batch's device
+seconds (the scorers' CUDA events) for its tenant's charge.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ import torch
 
 from h2o3_tpu_torch.serving.scorer import MAX_BUCKET
 from h2o3_tpu_torch.serving.slo import window_s_from_env
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
+from h2o3_tpu_torch.utils import tracing as _tr
 
 #: a caller never blocks longer than this on its slice (seconds)
 SCORE_TIMEOUT_S = float(os.environ.get("H2O3TPU_SCORE_TIMEOUT_S", "30"))
@@ -62,15 +67,16 @@ class Evicted(RuntimeError):
 class _Pending:
     """One request's seat in the batch: inputs, completion event, slice."""
 
-    __slots__ = ("num", "cat", "n", "event", "result", "error",
+    __slots__ = ("num", "cat", "n", "ctx", "event", "result", "error",
                  "batch_rows", "batch_requests", "priority", "t_enq",
-                 "queue_wait_s")
+                 "queue_wait_s", "device_s")
 
-    def __init__(self, num: np.ndarray, cat: np.ndarray, n: int,
+    def __init__(self, num: np.ndarray, cat: np.ndarray, n: int, ctx=None,
                  priority: int = 5):
         self.num = num
         self.cat = cat
         self.n = n
+        self.ctx = ctx     # the batch leader's retained trace context
         self.event = threading.Event()
         self.result: np.ndarray | None = None
         self.error: BaseException | None = None
@@ -79,6 +85,8 @@ class _Pending:
         self.priority = priority
         self.t_enq = time.monotonic()
         self.queue_wait_s: float | None = None
+        # the batch's seconds on the card (None where no event timed it)
+        self.device_s: float | None = None
 
 
 class ModelBatcher:
@@ -104,7 +112,8 @@ class ModelBatcher:
         self._replica = replica
         label = f"score-{entry.key}" if replica is None \
             else f"score-{entry.key}@{replica.label}"
-        self._cond = threading.Condition()
+        self._cond = lockwitness.condition(
+            "serving.batcher.ModelBatcher._cond")
         self._queue: list[_Pending] = []
         self._stopped = False
         self._dispatching = False    # a drained batch is on the device
@@ -128,7 +137,10 @@ class ModelBatcher:
                 # sheds by raising — the queue is untouched, the caller
                 # gets a 503 + Retry-After in microseconds, not a timeout
                 slo.admit(priority, sum(p.n for p in self._queue), n)
-            p = _Pending(num, cat, n, priority=priority)
+            # the request opening a fresh batch is its leader: capture the
+            # REST root context so the batch/dispatch spans land in a trace
+            ctx = _tr.TRACER.capture() if not self._queue else None
+            p = _Pending(num, cat, n, ctx, priority=priority)
             self._queue.append(p)
             self._cond.notify_all()
         if not p.event.wait(SCORE_TIMEOUT_S):
@@ -140,7 +152,10 @@ class ModelBatcher:
                     self._queue.remove(p)
                     withdrawn = True
                 except ValueError:
-                    withdrawn = False   # already drained
+                    withdrawn = False   # already drained: the dispatch owns
+                if withdrawn and p.ctx is not None:   # the ctx lifecycle
+                    _tr.TRACER.release(p.ctx)
+                    p.ctx = None
                 self._cond.notify_all()    # let the worker re-arm now
             # an eviction may have raced the timeout: stop() already failed
             # this pending with Evicted — surface THAT (a retryable
@@ -175,6 +190,9 @@ class ModelBatcher:
 
     @staticmethod
     def _fail(p: _Pending, err: BaseException) -> None:
+        if p.ctx is not None:
+            _tr.TRACER.release(p.ctx)
+            p.ctx = None
         p.error = err
         p.event.set()
 
@@ -233,10 +251,17 @@ class ModelBatcher:
         t_start = time.monotonic()
         for p in batch:
             p.queue_wait_s = max(t_start - p.t_enq, 0.0)
+        leader_ctx = next((p.ctx for p in batch if p.ctx is not None), None)
         try:
-            results = self._score_slices(batch, total)
+            with _tr.TRACER.adopt(leader_ctx, "score:batch", kind="serving",
+                                  attrs={"model": entry.key,
+                                         "requests": len(batch),
+                                         "rows": total}) as bspan:
+                results, device_s = self._score_slices(batch, total, bspan)
         except Exception as e:   # noqa: BLE001 — every waiter must wake
             for p in batch:
+                if p.ctx is leader_ctx:
+                    p.ctx = None     # adopt() released the retention already
                 self._fail(p, e)
             return
         wall = time.monotonic() - t_start
@@ -246,17 +271,23 @@ class ModelBatcher:
         if self._replica is not None:
             self._replica.record_dispatch(
                 wall, total, max(p.queue_wait_s or 0.0 for p in batch))
+        _tm.SCORE_BATCH_SIZE.observe(total)
+        _tm.SCORE_BATCH_REQUESTS.observe(len(batch))
         for p, res in zip(batch, results):
+            p.ctx = None             # retention released by adopt()
             p.result = res
             p.batch_rows = total
             p.batch_requests = len(batch)
+            p.device_s = device_s
             p.event.set()
 
-    def _score_slices(self, batch: list[_Pending],
-                      total: int) -> list[np.ndarray]:
+    def _score_slices(self, batch: list[_Pending], total: int,
+                      bspan) -> tuple[list[np.ndarray], float | None]:
         """Fuse the batch into bucket-padded arrays, dispatch (slicing into
-        max-bucket chunks when oversized), hand each request its rows. A
-        replica seat captures and replays on its replica's stream."""
+        max-bucket chunks when oversized), hand each request its rows; also
+        returns the dispatches' seconds on the card (None where no event
+        timed them). A replica seat captures and replays on its replica's
+        stream."""
         entry = self._entry
         num = np.concatenate([p.num for p in batch], axis=0) \
             if len(batch) > 1 else batch[0].num
@@ -266,6 +297,7 @@ class ModelBatcher:
         stream_cm = (torch.cuda.stream(stream) if stream is not None
                      else contextlib.nullcontext())
         outs: list[np.ndarray] = []
+        device_s: float | None = None
         start = 0
         with stream_cm:
             while start < total:
@@ -278,7 +310,15 @@ class ModelBatcher:
                 pnum[:n] = num[start:start + n]
                 pcat[:n] = cat[start:start + n]
                 scorer = self._cache.get(entry.model, entry.schema, bucket)
-                raw = scorer.score(pnum, pcat)
+                if bspan is not None:
+                    with _tr.TRACER.span("score:dispatch", kind="dispatch",
+                                         attrs={"bucket": bucket, "rows": n,
+                                                "mode": scorer.mode}):
+                        raw, dt = scorer.score_timed(pnum, pcat)
+                else:
+                    raw, dt = scorer.score_timed(pnum, pcat)
+                if dt is not None:
+                    device_s = (device_s or 0.0) + dt
                 outs.append(raw[:n])
                 start += n
         full = outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
@@ -286,4 +326,4 @@ class ModelBatcher:
         for p in batch:
             results.append(full[off:off + p.n])
             off += p.n
-        return results
+        return results, device_s

@@ -21,16 +21,14 @@ inside someone's latency budget.
 
 Scaling: the pool scales UP when the queue-wait EMA eats more than a
 quarter of the SLO budget AND the compute observatory still shows
-headroom, and scales DOWN when queue wait is negligible. The observatory
-(``utils/costs.py``) belongs to the observability slice and is not ported:
-its utilization reads as unknown, which the reference also reads as
-headroom (its CPU-backend case). Replica count never exceeds the
-scheduler's stream count and never drops below one. Leases release on
-``stop()``/``shutdown()``.
-
-Left out until the observability slice: the precompile, scale-event and
-replica-count telemetry of ``utils/telemetry.py`` and the named locks of
-``utils/lockwitness.py``.
+headroom — the scoring loop's utilization against the card's peak row
+(``utils/costs.py``; off the card it is unknown, which reads as headroom,
+as the reference reads an unknown backend) — and scales DOWN when queue
+wait is negligible. Replica count never exceeds the scheduler's stream
+count and never drops below one. Leases release on
+``stop()``/``shutdown()``. Pre-captures, scale events and the replica
+count feed ``h2o3_score_precompile_total``,
+``h2o3_score_scale_events_total`` and ``h2o3_score_replicas``.
 """
 
 from __future__ import annotations
@@ -42,6 +40,8 @@ import time
 
 import torch
 
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 from h2o3_tpu_torch.serving.scorer import MAX_BUCKET, MIN_BUCKET, ScorerCache
 
 #: seconds between scale decisions — the pool must not thrash a lease
@@ -106,7 +106,7 @@ class ScoringReplica:
         self.devices: tuple = ()
         self.slice_label: str | None = None
         self._batchers: dict[str, object] = {}     # model key -> ModelBatcher
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("serving.replicas.ScoringReplica._lock")
         self._stop = threading.Event()
         self._ready = threading.Event()
         self._lease_error: BaseException | None = None
@@ -241,6 +241,7 @@ class ScoringReplica:
                                                       False):
                         return
                     try:
+                        _tm.SCORE_PRECOMPILE.labels(event="scheduled").inc()
                         if self.stream is not None:
                             with torch.cuda.stream(self.stream):
                                 self.cache.get(entry.model, entry.schema, b)
@@ -248,9 +249,11 @@ class ScoringReplica:
                             self.cache.get(entry.model, entry.schema, b)
                         with self._lock:
                             self.precaptured += 1
+                        _tm.SCORE_PRECOMPILE.labels(event="compiled").inc()
                     except Exception:   # noqa: BLE001 — speculative: never fatal
                         with self._lock:
                             self.precapture_failed += 1
+                        _tm.SCORE_PRECOMPILE.labels(event="failed").inc()
             finally:
                 if getattr(entry, "stopped", False):
                     # an eviction raced the warm-up: a capture that was
@@ -319,7 +322,7 @@ class ReplicaPool:
             n = min(n, scheduler.n)
         self.min_replicas = 1
         self.max_replicas = max(cap, 1)
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("serving.replicas.ReplicaPool._lock")
         self._next_rid = 0
         self._shutdown = False
         self._replicas: list[ScoringReplica] = []
@@ -337,6 +340,7 @@ class ReplicaPool:
                 rep.stop()
             self._replicas.clear()
             raise
+        self._export()
 
     # -- membership ----------------------------------------------------------
 
@@ -379,11 +383,12 @@ class ReplicaPool:
 
     def mfu_headroom(self) -> bool:
         """True while the compute observatory shows the scoring loop
-        under the MFU ceiling. The observatory (``utils/costs.py``) is
-        not ported yet, so utilization is unknown, and unknown reads as
+        under the MFU ceiling (its utilization against the card's peak
+        row). Off the card utilization is unknown, and unknown reads as
         headroom, as the reference reads an unknown backend: there is no
         roofline to be against."""
-        util = None     # COSTS.snapshot()["loops"]["scoring"]["utilization"]
+        from h2o3_tpu_torch.utils.costs import COSTS
+        util = COSTS.loops().get("scoring", {}).get("utilization")
         return util is None or util < mfu_ceiling_from_env()
 
     def maybe_scale(self, slo_ms: float | None,
@@ -448,9 +453,16 @@ class ReplicaPool:
                 # thread forever — the no-leaked-streams contract
                 rep.stop()
                 return None
+            _tm.SCORE_SCALE_EVENTS.labels(direction="up").inc()
+            self._export()
             return "up"
         victim.stop()
+        _tm.SCORE_SCALE_EVENTS.labels(direction="down").inc()
+        self._export()
         return "down"
+
+    def _export(self) -> None:
+        _tm.SCORE_REPLICAS.set(len(self.replicas))
 
     # -- fan-out helpers (service eviction paths) ----------------------------
 
@@ -472,6 +484,7 @@ class ReplicaPool:
             reps, self._replicas = self._replicas, []
         for rep in reps:
             rep.stop()
+        self._export()
 
     def snapshot(self) -> dict:
         reps = self.replicas

@@ -30,16 +30,20 @@ outside the cache lock. A model whose ``_score_raw`` cannot be captured
 :meth:`ScorerCache.stats` counts it. On the CPU (which the tests ask for)
 there is nothing to capture and every scorer is ``"eager"``.
 
-Left out until the observability slice: the reference's cost-observatory
-hooks (``COSTS.scope``, ``record_compile``, ``record_eager_fallback``,
-``observe``, ``cost_of`` of ``utils/costs.py``), the scorer-cache
-telemetry counters (``utils/telemetry.py``) and the named locks of
-``utils/lockwitness.py``.
+Each scorer is a ``score:<algo>`` site of the compute observatory
+(``utils/costs.py``): a capture is recorded with its seconds
+(``record_compile``, under ``COSTS.scope``), a model that scores eagerly
+with ``record_eager_fallback``, and every ``H2O3TPU_COSTS_SAMPLE``-th
+replay is observed at the time two CUDA events around it measured, read
+after the copy out that the scorer waits on anyway; FLOPs and bytes come
+from :func:`~h2o3_tpu_torch.utils.costs.cost_of`. The cache counts its
+hits, misses and evictions into ``h2o3_scorer_cache_total``.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 
@@ -48,6 +52,9 @@ import torch
 
 from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.serving.schema import ServingSchema
+from h2o3_tpu_torch.utils import costs as _costs
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 #: requests larger than the max bucket are scored in max-bucket slices
 MAX_BUCKET = int(os.environ.get("H2O3TPU_SCORE_MAX_BUCKET", "4096"))
@@ -110,8 +117,9 @@ class CompiledScorer:
     """One signature's scorer: ``score(num, cat)`` over padded host arrays
     returns host predictions ([bucket] or [bucket, K])."""
 
-    __slots__ = ("bucket", "mode", "device", "error", "capture_s",
-                 "_fn", "_graph", "_num", "_cat", "_out")
+    __slots__ = ("bucket", "mode", "device", "error", "capture_s", "site",
+                 "_fn", "_graph", "_num", "_cat", "_out", "_ncalls",
+                 "_flops", "_bytes")
 
     def __init__(self, model, schema: ServingSchema, bucket: int,
                  device: torch.device | None = None, pool=None):
@@ -133,18 +141,38 @@ class CompiledScorer:
         self._cat = torch.full((bucket, len(schema.cat_cols)), -1,
                                dtype=torch.int32, device=dev)
         self.mode = "eager"
+        self._ncalls = 0
+        site = self.site = f"score:{getattr(model, 'algo', 'model')}"
+        n_num, n_cat = len(schema.num_cols), len(schema.cat_cols)
+        self._flops, self._bytes = _costs.cost_of(model, bucket, n_num, n_cat)
+        signature = {"args": [{"shape": [bucket, n_num], "dtype": "float32"},
+                              {"shape": [bucket, n_cat], "dtype": "int32"}],
+                     "statics": {"model": str(getattr(model, "key", None)),
+                                 "bucket": str(bucket)}}
         if dev.type != "cuda":
-            return          # the CPU runs the model's ops as they come
+            # the CPU runs the model's ops as they come: nothing captured
+            if _costs.enabled():
+                _costs.COSTS.record_eager_fallback(site, loop="scoring")
+            return
         try:
-            t0 = time.perf_counter()
-            self._capture(raw_fn, dev, pool)
-            self.capture_s = time.perf_counter() - t0
+            # captured under the site's scope: its seconds, FLOPs and
+            # signature show in /3/Compute beside the training loops
+            with _costs.COSTS.scope(site):
+                t0 = time.perf_counter()
+                self._capture(raw_fn, dev, pool)
+                self.capture_s = time.perf_counter() - t0
             self.mode = "graph"
+            if _costs.enabled():
+                _costs.COSTS.record_compile(site, signature, self.capture_s,
+                                            self._flops, self._bytes,
+                                            loop="scoring")
         except Exception as e:   # noqa: BLE001 — a sync or a data shape
             # inside _score_raw: scored eagerly, never quietly (mode,
             # error and ScorerCache.stats say so)
             self._graph = self._out = None
             self.error = f"{type(e).__name__}: {e}"
+            if _costs.enabled():
+                _costs.COSTS.record_eager_fallback(site, loop="scoring")
 
     def _capture(self, raw_fn, dev: torch.device, pool) -> None:
         with _DEVICE_LOCK:
@@ -166,7 +194,24 @@ class CompiledScorer:
             self._graph, self._out = graph, out
 
     def score(self, num: np.ndarray, cat: np.ndarray) -> np.ndarray:
+        return self.score_timed(num, cat)[0]
+
+    def score_timed(self, num: np.ndarray, cat: np.ndarray
+                    ) -> tuple[np.ndarray, float | None]:
+        """(predictions, seconds on the card). On a card two CUDA events
+        bracket the copy in and the replay — when costs are on or the ops
+        plane meters tenants — and are read after the copy out, which
+        waits for them anyway; None otherwise."""
+        n, self._ncalls = self._ncalls, self._ncalls + 1
+        timed = self.device.type == "cuda" and (
+            _costs.enabled()
+            or "h2o3_tpu_torch.ops_plane.tenancy" in sys.modules)
         with _DEVICE_LOCK:
+            if timed:
+                stream = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
             self._num.copy_(torch.from_numpy(np.ascontiguousarray(num)))
             self._cat.copy_(torch.from_numpy(np.ascontiguousarray(cat)))
             if self._graph is not None:
@@ -174,9 +219,19 @@ class CompiledScorer:
                 out = self._out
             else:
                 out = self._fn(self._num, self._cat)
+            if timed:
+                end.record(stream)
             # the copy to the host waits for the replay on this stream (a
             # new host tensor; on the CPU ``out`` is new every call)
-            return out.detach().cpu().numpy()
+            host = out.detach().cpu().numpy()
+        device_s = start.elapsed_time(end) / 1e3 if timed else None
+        if device_s is not None and _costs.enabled() \
+                and n % _costs.sample_every() == 0:
+            # this scorer's OWN cost: several buckets and models share the
+            # score:<algo> site
+            _costs.COSTS.observe(self.site, device_s, flops=self._flops,
+                                 nbytes=self._bytes)
+        return host, device_s
 
 
 class ScorerCache:
@@ -185,7 +240,7 @@ class ScorerCache:
     graphs' memory pool)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("serving.scorer.ScorerCache._lock")
         # (model key, id(model), n_num, n_cat, dtype, bucket) -> scorer
         self._entries: dict[tuple, CompiledScorer] = {}
         # (model key, id(model)) -> the graphs' memory pool of that model
@@ -249,6 +304,7 @@ class ScorerCache:
             entry = self._entries.get(sig)
             if entry is not None:
                 self.hits += 1
+                _tm.SCORER_CACHE.labels(event="hit").inc()
                 return entry
         # capture OUTSIDE the cache lock: a cold signature must not stall
         # warm-signature scorers for the time a warm-up and capture take
@@ -258,6 +314,7 @@ class ScorerCache:
         with self._lock:
             won = self._entries.setdefault(sig, entry)
             self.misses += 1
+        _tm.SCORER_CACHE.labels(event="miss").inc()
         return won
 
     def drop_model(self, model) -> int:
@@ -270,7 +327,9 @@ class ScorerCache:
             for s in victims:
                 del self._entries[s]
             self._pools.pop(token, None)
-            return len(victims)
+        if victims:
+            _tm.SCORER_CACHE.labels(event="evict").inc(len(victims))
+        return len(victims)
 
     def modes(self) -> dict:
         """Each signature's mode by model key and bucket, with the capture

@@ -32,29 +32,38 @@ bit for bit. With ``H2O3TPU_SCORE_REPLICAS`` > 0 (or
 across a :class:`~h2o3_tpu_torch.serving.replicas.ReplicaPool` of
 stream-leased replicas instead of one in-process seat.
 
-Left out until the observability and ops slice: the request, latency,
-window, queue-wait, shed and residency metrics of ``utils/telemetry.py``,
-the per-tenant device-seconds charge of ``ops_plane/tenancy.py`` and the
-named locks of ``utils/lockwitness.py``. The shed counts stay in
-:meth:`ScoringService.stats`.
+Every request counts into ``h2o3_score_requests_total{algo,status}`` and
+``h2o3_score_seconds``; sheds into ``h2o3_score_shed_total``, the collect
+window, queue wait and residency into their gauges and histogram. With the
+ops plane loaded, a request charges its tenant's device-seconds: its share
+(by rows) of the batch's time on the card, read from the CUDA events
+around the batch's dispatch (the wall time of the dispatch on the CPU).
 """
 
 from __future__ import annotations
 
 import os
-import threading
+import sys
 import time
 
 from h2o3_tpu_torch.serving.batcher import Evicted, ModelBatcher
 from h2o3_tpu_torch.serving.schema import NotServable, serving_schema
 from h2o3_tpu_torch.serving.scorer import ScorerCache
 from h2o3_tpu_torch.serving.slo import SLOController, Shed, clamp_priority
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 from h2o3_tpu_torch.utils.memory import MEMORY, value_kind_bytes
 from h2o3_tpu_torch.utils.registry import DKV
 
 #: requests between opportunistic replica scale checks (cheap, but not
 #: free — snapshot reads under locks)
 _SCALE_CHECK_EVERY = 32
+
+
+def _tenancy_mod():
+    """The ops plane's tenancy module ONLY if something already imported it
+    — the scoring hot path must not be what pulls in multi-tenancy."""
+    return sys.modules.get("h2o3_tpu_torch.ops_plane.tenancy")
 
 
 class ServiceUnavailable(RuntimeError):
@@ -122,7 +131,7 @@ class ScoringService:
         #: residency budget in artifact bytes; None = unlimited (no eviction)
         self.budget_bytes = budget_bytes if budget_bytes is not None else (
             int(env) if env else None)
-        self._lock = threading.RLock()
+        self._lock = lockwitness.rlock("serving.service.ScoringService._lock")
         self._resident: dict[str, _Resident] = {}
         self.cache = ScorerCache()
         self.evictions = 0
@@ -257,48 +266,72 @@ class ScoringService:
             # rows that could never score
             raise ValueError("rows must be a non-empty JSON array")
         pr = clamp_priority(priority)
-        entry = self._admit(model_key)
+        try:
+            entry = self._admit(model_key)
+        except Exception:
+            _tm.SCORE_REQUESTS.labels(algo="unknown", status="error").inc()
+            raise
         if slo_ms is not None:
             entry.slo.set_target(slo_ms)
+        algo = getattr(entry.model, "algo", "model")
         replica = None
         # an eviction can race the window between _admit releasing the
         # service lock and submit() enqueueing (budgeted admit of another
         # model, or a key re-put): transient — re-admit once rather than
         # surfacing a server error
-        for attempt in (0, 1):
-            num, cat = entry.schema.adapt_rows(rows, columns)
-            try:
-                pending, replica = entry.submit(num, cat, len(rows), pr)
-                break
-            except Shed as e:
-                # the admission estimator turned this request away before
-                # it entered the queue: accounted, retryable
-                self._count_shed(e.reason, pr)
-                raise ServiceUnavailable(
-                    str(e), retry_after_ms=e.retry_after_ms) from None
-            except TimeoutError as e:
-                # a queue that never drained within the wait ceiling is a
-                # load condition: retryable 503, not a server fault
-                self._count_shed("timeout", pr)
-                raise ServiceUnavailable(str(e)) from None
-            except Evicted:
-                if attempt:
-                    self._count_shed("evicted", pr)
+        try:
+            for attempt in (0, 1):
+                num, cat = entry.schema.adapt_rows(rows, columns)
+                try:
+                    pending, replica = entry.submit(num, cat, len(rows), pr)
+                    break
+                except Shed as e:
+                    # the admission estimator turned this request away
+                    # before it entered the queue: accounted, retryable
+                    self._count_shed(e.reason, pr)
                     raise ServiceUnavailable(
-                        f"{model_key!r} keeps losing residency under "
-                        "the budget; retry shortly")
-                with self._lock:
-                    # a stopped batcher can never serve again: drop the
-                    # entry if it somehow remained resident, so the
-                    # re-admit below builds a fresh one
-                    if self._resident.get(model_key) is entry:
-                        self._evict_locked(entry)
-                entry = self._admit(model_key)
-        out = _finalize(entry.model, pending.result, len(rows))
+                        str(e), retry_after_ms=e.retry_after_ms) from None
+                except TimeoutError as e:
+                    # a queue that never drained within the wait ceiling
+                    # is a load condition: retryable 503, not a fault
+                    self._count_shed("timeout", pr)
+                    raise ServiceUnavailable(str(e)) from None
+                except Evicted:
+                    if attempt:
+                        self._count_shed("evicted", pr)
+                        raise ServiceUnavailable(
+                            f"{model_key!r} keeps losing residency under "
+                            "the budget; retry shortly")
+                    with self._lock:
+                        # a stopped batcher can never serve again: drop
+                        # the entry if it somehow remained resident, so
+                        # the re-admit below builds a fresh one
+                        if self._resident.get(model_key) is entry:
+                            self._evict_locked(entry)
+                    entry = self._admit(model_key)
+            out = _finalize(entry.model, pending.result, len(rows))
+        except Exception:
+            _tm.SCORE_REQUESTS.labels(algo=algo, status="error").inc()
+            raise
         latency = time.perf_counter() - t0
         entry.slo.record_latency(latency)
-        if pending.queue_wait_s is not None and entry.pool is not None:
-            entry.pool.observe_wait(pending.queue_wait_s)
+        # the label's cardinality is bounded by residency (the budget's LRU)
+        _tm.SCORE_WINDOW_MS.labels(model=model_key).set(
+            entry.slo.current_window_s() * 1e3)
+        if pending.queue_wait_s is not None:
+            _tm.SCORE_QUEUE_WAIT.observe(pending.queue_wait_s)
+            if entry.pool is not None:
+                entry.pool.observe_wait(pending.queue_wait_s)
+        _tm.SCORE_REQUESTS.labels(algo=algo, status="ok").inc()
+        _tm.SCORE_SECONDS.labels(algo=algo).observe(latency)
+        ten = _tenancy_mod()
+        if ten is not None:
+            busy = pending.device_s
+            if busy is None:
+                busy = latency - (pending.queue_wait_s or 0.0)
+            share = max(busy, 0.0) * (
+                len(rows) / max(pending.batch_rows or 0, len(rows)))
+            ten.QUOTAS.charge_device_seconds(ten.current_tenant(), share)
         if entry.pool is not None and entry.requests % _SCALE_CHECK_EVERY == 0:
             with self._lock:
                 residents = list(self._resident.values())
@@ -316,6 +349,7 @@ class ScoringService:
         with self._lock:
             k = (reason, priority)
             self._shed[k] = self._shed.get(k, 0) + 1
+        _tm.SCORE_SHED.labels(reason=reason, priority=str(priority)).inc()
 
     # -- residency / admission ----------------------------------------------
 
@@ -324,7 +358,7 @@ class ScoringService:
         # DKV.get can fault a spilled model in from disk — a full snapshot
         # load plus device transfer — so it must run BEFORE the service
         # lock, or every warm-path scorer of every other model stalls
-        # behind one cold fault-in (DLK002)
+        # behind one cold fault-in
         current = DKV.get(model_key)
         with self._lock:
             entry = self._resident.get(model_key)
@@ -361,6 +395,7 @@ class ScoringService:
                               pool=pool)
             self._resident[model_key] = entry
             entry.requests += 1
+            self._export_locked()
         if pool is not None:
             # speculative bucket pre-capture at admission: every replica
             # warms the power-of-two buckets in the background, so
@@ -408,6 +443,12 @@ class ScoringService:
         entry.stop()
         self.cache.drop_model(entry.model)
         self.evictions += 1
+        self._export_locked()
+
+    def _export_locked(self) -> None:
+        _tm.SCORE_RESIDENT_MODELS.set(len(self._resident))
+        _tm.SCORE_RESIDENT_BYTES.set(
+            sum(e.nbytes for e in self._resident.values()))
 
     def evict(self, model_key: str) -> bool:
         """Explicit eviction (REST DELETE + tests)."""
@@ -466,6 +507,7 @@ class ScoringService:
             self._admission_base.clear()
             pool, self.pool = self.pool, None
             self._pool_checked = False
+            self._export_locked()
         if pool is not None:
             pool.shutdown()
 

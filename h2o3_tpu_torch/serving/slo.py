@@ -38,17 +38,17 @@ Controller algorithm (docs/SERVING.md "SLO & replicas"):
   accounted (``ScoringService.stats()["shed"]``) instead of surfacing
   as an in-queue timeout minutes later.
 
-Left out until the observability slice: the named locks of
-``utils/lockwitness.py`` (plain ``threading`` locks here) and the
-telemetry registry's rejected-sample counter (``METRICS.reject``; a
-non-finite latency is dropped and counted in ``LatencyRing.rejected``).
+A non-finite latency is dropped, counted in ``LatencyRing.rejected`` and
+in the telemetry registry's ``h2o3_telemetry_rejected_total``
+(``where="latency_ring"``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-import threading
+
+from h2o3_tpu_torch.utils import lockwitness
 
 #: priority scale: 0 (shed first) .. 9 (effectively never shed)
 MIN_PRIORITY, MAX_PRIORITY, DEFAULT_PRIORITY = 0, 9, 5
@@ -114,7 +114,7 @@ class LatencyRing:
         self._buf: list[float] = [0.0] * self._size
         self._next = 0
         self._count = 0
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("serving.slo.LatencyRing._lock")
         self.rejected = 0
 
     def record(self, latency_s: float) -> None:
@@ -125,6 +125,8 @@ class LatencyRing:
             # window off garbage); drop and account instead
             with self._lock:
                 self.rejected += 1
+            from h2o3_tpu_torch.utils.telemetry import METRICS
+            METRICS.reject("latency_ring")
             return
         with self._lock:
             self._buf[self._next] = v
@@ -164,7 +166,7 @@ class SLOController:
             max_bucket = MAX_BUCKET
         self.base_window_s = float(base_window_s)
         self.max_bucket = int(max_bucket)
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("serving.slo.SLOController._lock")
         self._slo_ms = float(slo_ms) if slo_ms else None
         self._window = self.base_window_s
         self._ring = LatencyRing()

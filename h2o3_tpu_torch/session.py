@@ -9,9 +9,9 @@ Here ``init`` boots the in-process REST server (the "node" is this process
 and its card) and returns a client bound to it; ``connect`` attaches to any
 running server of the port or of the JAX package. The multi-host arguments
 of the JAX package's ``init`` (``coordinator_address``, ``num_processes``,
-``process_id``) belong to the multi-GPU slice and are refused by name; the
-persistent XLA compile cache it enables has no counterpart yet (the
-observability slice ports ``utils/compile_cache.py``).
+``process_id``) belong to the multi-GPU slice and are refused by name.
+``init`` enables the kernel-build cache (``utils/compile_cache.py``,
+``H2O3TPU_COMPILE_CACHE``) where the reference enables its XLA cache.
 """
 
 from __future__ import annotations
@@ -41,8 +41,12 @@ def init(port: int = 54321, strict_port: bool = False,
             f"init({', '.join(sorted(multi))}=...): a multi-process cloud "
             "belongs to the multi-GPU slice, which is not ported yet")
     from h2o3_tpu_torch.api.client import H2OClient
-    from h2o3_tpu_torch.api.server import H2OServer, install_log_ring
+    from h2o3_tpu_torch.api.server import H2OServer
+    from h2o3_tpu_torch.utils import compile_cache
+    from h2o3_tpu_torch.utils.telemetry import install_log_ring
     install_log_ring()   # session startup: /3/Logs serves from here on
+    # the kernel-build cache (H2O3TPU_COMPILE_CACHE=1|path)
+    compile_cache.enable()
     global _server, _client
     if _client is not None:
         return _client

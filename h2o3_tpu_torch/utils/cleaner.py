@@ -34,9 +34,11 @@ import contextlib
 import os
 import shutil
 import tempfile
-import threading
 import time
 import uuid
+
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 from h2o3_tpu_torch.utils.registry import DKV
 
@@ -94,11 +96,11 @@ class Cleaner:
         self.ice_root = ice_root or os.path.join(
             tempfile.gettempdir(), "h2o3_tpu_ice")
         # the LRU clock, written from every DKV put/get/remove thread
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("utils.cleaner.Cleaner._lock")
         self._touch: dict[str, float] = {}
         # serializes the sweep's snapshot writes against fault-in reads;
         # re-entrant because a fault-in's own DKV.put sweeps again
-        self._io_lock = threading.RLock()
+        self._io_lock = lockwitness.rlock("utils.cleaner.Cleaner._io_lock")
         # spill and restore counts (the ``spill`` view of the summary)
         self._spills = 0
         self._spill_bytes = 0
@@ -208,6 +210,8 @@ class Cleaner:
                 with self._lock:
                     self._view_drops += 1
                     self._view_drop_bytes += freed
+                _tm.CHUNK_VIEW_DROPS.inc()
+                _tm.CHUNK_VIEW_DROP_BYTES.inc(freed)
                 MEMORY.register(k, v)   # count the slimmer frame
         if total <= self.budget:
             return []
@@ -291,11 +295,15 @@ class Cleaner:
         with self._lock:
             self._spills += 1
             self._spill_bytes += nbytes
+        _tm.SPILLS.labels(kind=kind).inc()
+        _tm.SPILL_BYTES.labels(kind=kind).inc(nbytes)
 
     def _note_restore(self, kind: str, nbytes: int) -> None:
         with self._lock:
             self._restores += 1
             self._restore_bytes += nbytes
+        _tm.SPILL_RESTORES.labels(kind=kind).inc()
+        _tm.SPILL_RESTORE_BYTES.labels(kind=kind).inc(nbytes)
 
     def _resolve_loop(self, key: str, stub, live_type, load, kind: str):
         """Shared fault-in driver: load the snapshot under the IO lock,

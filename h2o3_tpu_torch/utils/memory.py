@@ -20,18 +20,21 @@ size floor, for ``H2O3TPU_LEAK_SWEEPS`` sweeps.
 
 The port's tensors carry no padding, so a device byte is counted once per
 unpadded tensor: its numbers are smaller than the JAX package's, which
-counts each column at its padded length. The reference's telemetry gauges
-belong to the observability slice; the same numbers are in
-:meth:`MemoryMeter.summary`.
+counts each column at its padded length. The meter publishes the
+reference's gauges (``h2o3_dkv_bytes{kind}``, ``h2o3_host_rss_bytes``,
+``h2o3_device_bytes_in_use`` and their peaks), the same numbers
+:meth:`MemoryMeter.summary` serves.
 """
 
 from __future__ import annotations
 
 import os
-import threading
 
 import numpy as np
 import torch
+
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 #: consecutive sweeps of growth / idleness before a key is flagged
 LEAK_SWEEPS = int(os.environ.get("H2O3TPU_LEAK_SWEEPS", "4"))
@@ -280,7 +283,7 @@ class MemoryMeter:
     sweeps."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockwitness.lock("utils.memory.MemoryMeter._lock")
         # key -> (kind, bytes, host_bytes)
         self._keyed: dict[str, tuple[str, int, int]] = {}
         self._by_kind: dict[str, int] = {}
@@ -288,6 +291,7 @@ class MemoryMeter:
         self._accessed: set[str] = set()
         self._host_peak = 0
         self._device_peak = 0
+        self._exported_kinds: set[str] = set()
         self.detector = LeakDetector()
 
     def register(self, key: str, value) -> None:
@@ -296,11 +300,13 @@ class MemoryMeter:
         with self._lock:
             self._set_locked(key, kind, nbytes, host)
             self._accessed.add(key)
+            self._export_locked()
 
     def unregister(self, key: str) -> None:
         with self._lock:
             self._drop_locked(key)
             self._accessed.discard(key)
+            self._export_locked()
 
     def clear(self) -> None:
         with self._lock:
@@ -309,6 +315,20 @@ class MemoryMeter:
             self._host_total = 0
             self._accessed.clear()
             self.detector.reset()
+            self._export_locked()
+
+    def _export_locked(self) -> None:
+        """Push per-kind totals into the ``h2o3_dkv_bytes`` gauges while
+        holding the meter's lock, so a later total is never published
+        before an earlier one; kinds exported before but absent now are
+        written as 0."""
+        totals = dict(self._by_kind)
+        stale = self._exported_kinds - set(totals)
+        self._exported_kinds |= set(totals)
+        for kind, total in totals.items():
+            _tm.DKV_BYTES.labels(kind=kind).set(max(total, 0))
+        for kind in stale:
+            _tm.DKV_BYTES.labels(kind=kind).set(0)
 
     def note_access(self, key: str) -> None:
         """A DKV get touched the key: its idle streak ends at the next
@@ -345,17 +365,29 @@ class MemoryMeter:
                 for kind, nbytes, host in fresh.values():
                     self._by_kind[kind] = self._by_kind.get(kind, 0) + nbytes
                     self._host_total += host
+                self._export_locked()
 
     def sample(self, rss: int | None = None,
                dev: int | None = None) -> tuple[int, int]:
-        """(host RSS, device bytes in use), raising the monotonic peaks."""
+        """(host RSS, device bytes in use), raising the monotonic peaks.
+        On a card the device bytes are the allocator's counters
+        (:func:`fast_device_bytes`): a build samples twice, and
+        ``device_stats``' ``mem_get_info`` costs milliseconds a call."""
         if rss is None:
             rss = host_stats()["rss_bytes"]
         if dev is None:
-            dev = device_stats()["bytes_in_use"]
+            fast = fast_device_bytes()
+            dev = fast[0] if fast is not None else \
+                device_stats()["bytes_in_use"]
+        # peaks raised AND published under the lock, so the monotonic
+        # gauges never visibly decrease
         with self._lock:
             self._host_peak = max(self._host_peak, rss)
             self._device_peak = max(self._device_peak, dev)
+            _tm.HOST_RSS_BYTES.set(rss)
+            _tm.DEVICE_BYTES.set(dev)
+            _tm.HOST_RSS_PEAK_BYTES.set(self._host_peak)
+            _tm.DEVICE_PEAK_BYTES.set(self._device_peak)
         return rss, dev
 
     @property

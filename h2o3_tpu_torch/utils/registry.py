@@ -15,32 +15,40 @@ The meter and the Cleaner are imported at call time: they import this
 module. Lock order: the store's lock, then the meter's; the Cleaner's I/O
 lock is taken before the store's and never inside it.
 
-Left out, each with the part of the port that will bring it:
-
-- The mesh views a keyed frame registers (``{key}::mesh[...]``): one card
-  has no mesh.
-- Telemetry counters (``DKV_PUTS``, ``DKV_KEYS``, ...) and the ops plane's
-  per-tenant key tagging: observability and ops.
-- The lock-order witness (``utils/lockwitness.py``): plain ``threading``
-  locks stand in for its named locks.
+Every operation counts into ``h2o3_dkv_puts``/``_gets``/``_removes`` and
+sets ``h2o3_dkv_keys``; with the ops plane loaded, a put tags the key to the
+request's tenant (its byte ledger) and a remove untags it. The locks are
+the reference's named ones (``utils/lockwitness.py``). Left out: the mesh
+views a keyed frame registers (``{key}::mesh[...]``): one card has no
+mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Any, Iterator
+
+from h2o3_tpu_torch.utils import lockwitness
+from h2o3_tpu_torch.utils import telemetry as _tm
 
 #: the Cleaner's stubs of spilled values, and the values it may spill
 _STUBS = ("SwappedFrame", "SwappedValue")
 _SPILLABLE = ("Frame", "RawFile")
 
 
+def _tenancy():
+    """The ops plane's tenancy module ONLY if already imported — processes
+    that tag nothing do not pay its import on the DKV's hot path."""
+    return sys.modules.get("h2o3_tpu_torch.ops_plane.tenancy")
+
+
 class KeyedStore:
     """Name → object store (reference: the DKV singleton)."""
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = lockwitness.rlock("utils.registry.KeyedStore._lock")
         self._store: dict[str, Any] = {}
 
     def put(self, key: str | None, value: Any) -> str | None:
@@ -50,9 +58,17 @@ class KeyedStore:
         with self._lock:
             old = self._store.get(key)
             self._store[key] = value
+            n = len(self._store)
             # inside the store's lock: a racing remove must not leave the
             # meter counting a key the store no longer holds
             MEMORY.register(key, value)
+        _tm.DKV_PUTS.inc()
+        _tm.DKV_KEYS.set(n)
+        ten = _tenancy()
+        if ten is not None:
+            # the byte ledger attributes this key to whoever the request
+            # context says is putting it
+            ten.QUOTAS.tag_key(key)
         if old is not None and old is not value \
                 and type(old).__name__ in _STUBS:
             # a put over a spilled key retires its snapshot
@@ -75,7 +91,10 @@ class KeyedStore:
             if self._store.get(key) is not expected:
                 return False
             self._store[key] = value
+            n = len(self._store)
             MEMORY.register(key, value)
+        _tm.DKV_PUTS.inc()
+        _tm.DKV_KEYS.set(n)
         return True
 
     def _resolve(self, key: str, value: Any) -> Any:
@@ -95,6 +114,7 @@ class KeyedStore:
     def get(self, key: str, default: Any = None) -> Any:
         with self._lock:
             v = self._store.get(key, default)
+        _tm.DKV_GETS.inc()
         if v is None:
             return v
         from h2o3_tpu_torch.utils.memory import MEMORY
@@ -104,6 +124,7 @@ class KeyedStore:
     def __getitem__(self, key: str) -> Any:
         with self._lock:
             v = self._store[key]
+        _tm.DKV_GETS.inc()
         from h2o3_tpu_torch.utils.memory import MEMORY
         MEMORY.note_access(key)
         return self._resolve(key, v)
@@ -118,7 +139,13 @@ class KeyedStore:
             if only_if is not None and self._store.get(key) is not only_if:
                 return None
             v = self._store.pop(key, None)
+            n = len(self._store)
             MEMORY.unregister(key)
+        _tm.DKV_REMOVES.inc()
+        _tm.DKV_KEYS.set(n)
+        ten = _tenancy()
+        if ten is not None:
+            ten.QUOTAS.untag_key(key)
         CLEANER.forget(key)
         if type(v).__name__ in _STUBS:
             discard_snapshot(v.path)
@@ -148,6 +175,8 @@ class KeyedStore:
             items = list(self._store.values())
             self._store.clear()
             MEMORY.clear()
+        _tm.DKV_REMOVES.inc(len(items))
+        _tm.DKV_KEYS.set(0)
         for v in items:
             if type(v).__name__ in _STUBS:
                 discard_snapshot(v.path)
@@ -169,7 +198,8 @@ class KeyLocks:
     """
 
     def __init__(self):
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = lockwitness.condition(
+            "utils.registry.KeyLocks._cond", lock=threading.Lock())
         # key -> [readers, writer thread ident | None, writer depth]
         self._state: dict[str, list] = {}
 

@@ -242,7 +242,7 @@ def test_max_iterations_rules(cols):
     (dict(fold_column="c1", nfolds=3), ValueError, "fold_column"),
     (dict(nfolds=3, keep_cross_validation_predictions=True,
           checkpoint="glm_1"), NotImplementedError, "checkpoint"),
-    (dict(max_runtime_secs=10.0), ValueError, "max_runtime_secs"),
+    (dict(max_runtime_secs=-1.0), ValueError, "max_runtime_secs"),
     (dict(custom_metric_func="python:k=m.C"), KeyError, "UDF key 'k'"),
     (dict(solver="L_BFGS"), NotImplementedError, "L_BFGS"),
     (dict(checkpoint="glm_1"), NotImplementedError, "checkpoint"),

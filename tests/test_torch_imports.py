@@ -120,3 +120,16 @@ def test_the_probe_covers_persistence_and_genmodel():
                 "mojo", "generic", "mojo_ref", "mojo_ref2", "tools",
                 "pipeline", "codegen", "native_scorer", "treeshap"))} \
         <= set(_port_modules())
+
+
+#: the observability and ops slice's modules, held to the list above
+OPS_MODULES = ["h2o3_tpu_torch.utils." + m for m in (
+    "lockwitness", "telemetry", "tracing", "timeline", "costs",
+    "compile_cache", "profiling", "incidents", "flight", "health",
+    "blackbox")] + ["h2o3_tpu_torch.ops_plane." + m for m in (
+        "actions", "remediate", "tenancy")] + [
+    "h2o3_tpu_torch.ops_plane", "h2o3_tpu_torch.ops.map_reduce"]
+
+
+def test_the_observability_modules_are_among_the_imported():
+    assert set(OPS_MODULES) <= set(_port_modules())

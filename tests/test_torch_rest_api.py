@@ -8,8 +8,8 @@ the scenarios of ``tests/test_rest_api.py``, ``test_rest_errors.py``,
 - Errors come back as structured ``H2OErrorV3`` JSON: 404 for unknown keys
   and routes, 400 for requests no build can satisfy, 413 for oversized
   bodies, and the server keeps serving.
-- The routes of the observability and ops slice answer 501 naming the
-  module they need; the list is pinned here (``NOT_PORTED_ROUTES``).
+- The routes of the observability and ops slice are served; both
+  servers' answers on them are compared in ``test_torch_rest_parity.py``.
 - Auth: Basic, form login with a session cookie, logout, and an LDAP
   simple bind (the reference's fake LDAP server), as the reference's.
 """
@@ -31,32 +31,6 @@ from h2o3_tpu_torch.api import H2OClient, H2OServer
 from h2o3_tpu_torch.api import server as pserver
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.utils.registry import DKV
-
-#: (path pattern, method, missing module) of every route that answers 501
-NOT_PORTED_ROUTES = [
-    (r"/3/Timeline", "GET", "utils/timeline.py"),
-    (r"/3/JStack", "GET", "utils/timeline.py"),
-    (r"/3/Profiler", "GET", "utils/timeline.py"),
-    (r"/3/WaterMeterCpuTicks/\d+", "GET", "utils/timeline.py"),
-    (r"/3/WaterMeterIo", "GET", "utils/timeline.py"),
-    (r"/3/Compute", "GET", "utils/costs.py"),
-    (r"/3/Health", "GET", "utils/health.py"),
-    (r"/3/Incidents", "GET", "utils/incidents.py"),
-    (r"/3/Incidents/([^/]+)", "GET", "utils/incidents.py"),
-    (r"/3/Ops", "GET", "ops_plane/"),
-    (r"/3/Ops", "POST", "ops_plane/"),
-    (r"/3/Diagnostics/bundle", "POST", "utils/health.py"),
-    (r"/3/Diagnostics/bundle", "GET", "utils/health.py"),
-    (r"/3/Profiler/capture", "POST", "utils/profiling.py"),
-    (r"/3/Profiler/captures", "GET", "utils/profiling.py"),
-    (r"/3/Profiler/captures/([^/]+)/download", "GET", "utils/profiling.py"),
-    (r"/3/Metrics", "GET", "utils/telemetry.py"),
-    (r"/3/TimeSeries", "GET", "utils/flight.py"),
-    (r"/metrics", "GET", "utils/telemetry.py"),
-    (r"/3/Traces", "GET", "utils/tracing.py"),
-    (r"/3/Traces/([^/]+)", "GET", "utils/tracing.py"),
-    (r"/3/Traces/([^/]+)/export", "GET", "utils/tracing.py"),
-]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -301,26 +275,6 @@ def test_concurrent_job_cancellation(server, rng):
     assert st in ("CANCELLED", "DONE")   # DONE if it outran the cancel
     c.request("POST", f"/3/Jobs/{job_key}/cancel", {})
     assert c.cloud_status()["cloud_healthy"]
-
-
-# -- the routes of the observability and ops slice -----------------------------
-
-def test_the_not_ported_routes_are_pinned():
-    got = [(pat, m, fn.not_ported) for pat, m, fn in pserver._ROUTES
-           if hasattr(fn, "not_ported")]
-    assert got == NOT_PORTED_ROUTES
-    assert {mod for _, _, mod in got} == set(pserver.NOT_PORTED)
-
-
-@pytest.mark.parametrize("pat,method,module", NOT_PORTED_ROUTES)
-def test_not_ported_routes_answer_501_naming_the_module(server, pat, method,
-                                                        module):
-    path = pat.replace(r"\d+", "3").replace("([^/]+)", "abc")
-    code, body = _err(server, path, {} if method == "POST" else None,
-                      method=method)
-    assert code == 501
-    assert body["__meta"]["schema_type"] == "H2OErrorV3"
-    assert f"h2o3_tpu/{module}" in body["msg"] and "not ported" in body["msg"]
 
 
 def test_memory_and_logs_are_served(client):

@@ -6,6 +6,12 @@ both. A GBM trained through the JAX server's ``/3/ModelBuilders`` is
 carried into the port under the same key; its ``/3/Score`` predictions
 from both servers agree at rtol 1e-5 / atol 1e-6 with the same labels.
 
+The routes of the observability and ops slice (metrics, traces, the
+timeline, the profiler, compute, health, incidents, the bundle, time
+series, the ops plane) are compared by what both must agree on: a JSON
+payload's keys and schema name, a tarball's members, an exposition's
+family types, and the status and content type of every answer.
+
 The port's ``GET /3/Score`` adds each scorer's ``modes`` (``"graph"`` or
 ``"eager"``); its keys are otherwise the reference's. The reference's server is fed JAX frames and models
 only; both servers are stopped at the end of the module.
@@ -204,3 +210,95 @@ def test_scoring_through_both_servers_agrees(servers):
     assert pst["__meta"]["schema_name"] == wst["__meta"]["schema_name"]
     assert [r["model"] for r in pst["resident"]] == [key]
     assert pst["modes"][key][0]["mode"] == "eager"
+
+
+#: the routes of the observability and ops slice: (method, path, params).
+#: ``{trace}`` is a trace both servers recorded under one caller's
+#: ``traceparent``.
+OPS_ROUTES = [
+    ("GET", "/3/Timeline", None),
+    ("GET", "/3/JStack", None),
+    ("GET", "/3/Profiler?depth=1", None),
+    ("GET", "/3/WaterMeterCpuTicks/0", None),
+    ("GET", "/3/WaterMeterIo", None),
+    ("GET", "/3/Compute", None),
+    ("GET", "/3/Health", None),
+    ("GET", "/3/Incidents", None),
+    ("GET", "/3/Incidents?state=resolved", None),
+    ("GET", "/3/Incidents?state=bogus", None),
+    ("GET", "/3/Incidents/nope", None),
+    ("GET", "/3/Ops", None),
+    ("POST", "/3/Ops", {"tenant": "team-p", "qps": 5}),
+    ("POST", "/3/Ops", {"remove_quota": "team-p"}),
+    ("POST", "/3/Ops", {"rollback": "act_nope"}),
+    ("POST", "/3/Ops", {}),
+    ("POST", "/3/Diagnostics/bundle", {}),
+    ("GET", "/3/Diagnostics/bundle", None),
+    ("POST", "/3/Profiler/capture?duration_ms=10", {}),
+    ("POST", "/3/Profiler/capture?duration_ms=soon", {}),
+    ("GET", "/3/Profiler/captures", None),
+    ("GET", "/3/Profiler/captures/cap_nope/download", None),
+    ("GET", "/3/Metrics", None),
+    ("GET", "/metrics", None),
+    ("GET", "/3/TimeSeries", None),
+    ("GET", "/3/TimeSeries?labels=bad", None),
+    ("GET", "/3/TimeSeries?since=later", None),
+    ("GET", "/3/Traces", None),
+    ("GET", "/3/Traces/{trace}", None),
+    ("GET", "/3/Traces/{trace}/export", None),
+    ("GET", "/3/Traces/nope", None),
+]
+
+_TRACEPARENT = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
+
+
+def _raw(url, method, path, data=None, headers=None):
+    """(status, content type, body bytes) of one request."""
+    body = None
+    hdrs = dict(headers or {})
+    if data is not None:
+        body = urllib.parse.urlencode(data).encode()
+        hdrs["Content-Type"] = "application/x-www-form-urlencoded"
+    req = urllib.request.Request(url + path, data=body, method=method,
+                                 headers=hdrs)
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _shape(ctype: str, body: bytes):
+    """What both servers must agree on: a JSON payload's top-level keys and
+    schema name; a tarball's member names; an exposition's family types."""
+    if "json" in ctype:
+        obj = json.loads(body)
+        return sorted(obj), (obj.get("__meta") or {}).get("schema_name")
+    if "gzip" in ctype:
+        import io
+        import tarfile
+        with tarfile.open(fileobj=io.BytesIO(body), mode="r:gz") as tar:
+            return sorted(m.name for m in tar.getmembers())
+    text = body.decode()
+    return (text.endswith("# EOF\n"),
+            {ln for ln in text.splitlines() if ln.startswith("# TYPE")
+             and not ln.startswith(("# TYPE h2o3_incidents ",
+                                    "# TYPE h2o3_ops_"))})
+
+
+@pytest.mark.parametrize("method,path,params", OPS_ROUTES,
+                         ids=[f"{m} {p}" for m, p, _ in OPS_ROUTES])
+def test_both_servers_answer_the_observability_routes(servers, method, path,
+                                                      params):
+    jurl, purl, _, _ = servers
+    if "{trace}" in path:
+        # one caller's trace, recorded by each server under its id
+        for url in (jurl, purl):
+            _raw(url, "POST", "/3/LogAndEcho", {"message": "traced"},
+                 headers={"traceparent": _TRACEPARENT})
+        path = path.replace("{trace}", _TRACEPARENT.split("-")[1])
+    want = _raw(jurl, method, path, params)
+    got = _raw(purl, method, path, params)
+    assert got[0] == want[0], (got[0], want[0], got[2][:300])
+    assert got[1].split(";")[0] == want[1].split(";")[0]
+    assert _shape(got[1], got[2]) == _shape(want[1], want[2])

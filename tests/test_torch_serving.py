@@ -402,9 +402,8 @@ class TestRestSurface:
         return H2OClient(server.url)
 
     def test_rest_score_stress(self, frame, gbm, client):
-        """Thread-pool clients on the real endpoint: correct slices (the
-        reference's trace and metrics checks wait for the observability
-        slice)."""
+        """Thread-pool clients on the real endpoint: correct slices, a
+        connected root→batch→dispatch trace, metrics recorded."""
         rows = _rows(frame, 4)
         client.score(gbm.key, rows)                   # warm
         nthreads = 8
@@ -430,6 +429,15 @@ class TestRestSurface:
         for i, out in enumerate(outs):
             got = np.asarray(out["predictions"]["pyes"], np.float32)
             assert np.array_equal(got, all_p[4 * i:4 * (i + 1)]), i
+        # a solo request is its batch's leader: its trace carries the
+        # root -> score:batch -> score:dispatch tree (followers only ride)
+        client.score(gbm.key, rows)
+        trace = client.trace(client.last_trace_id)
+        kinds = {sp["kind"] for sp in trace["spans"]}
+        assert "serving" in kinds and "dispatch" in kinds
+        snap = {m["name"]: m for m in client.metrics()
+                if m["name"].startswith("h2o3_score") and not m["labels"]}
+        assert snap["h2o3_score_batch_size_count"]["value"] >= 1
 
     def test_rest_503_and_stats(self, frame, gbm, glm, client):
         SCORING.budget_bytes = 16          # bigger-than-budget → terminal 400
