@@ -134,7 +134,7 @@ Phases, each of which fails the run on error:
    torch.profiler (for maxr and the infogram, a like part of the fit: 20
    of its GLMs, one of its GBMs) with its throughput, idle share, host
    syncs and peak memory, and held to the CPU on a head (2,000-200,000 rows) at the CPU
-   tests' tolerances: (a) ModelSelection maxr to 3 of 20 predictors (1,350
+   tests' tolerances: (a) ModelSelection maxr to 2 of 20 predictors (210
    GLM fits) and ANOVAGLM on 1M rows; (b) a binomial GAM (cr, thin plate,
    I-spline) on phase 4's frame; (c) RuleFit at the JAX package's defaults
    and (d) the core infogram (1 + 28 GBM surrogates) on phase 4's frame;
@@ -313,7 +313,16 @@ Phases, each of which fails the run on error:
    with 429 and ``Retry-After``, scoring under ``tenant_scope`` charging
    device-seconds, a ``serving_shed_rate`` incident widening the resident
    model's admission target 50 → 75 and its rollback restoring 50, and
-   ``/3/TimeSeries`` holding the flight recorder's series.
+   ``/3/TimeSeries`` holding the flight recorder's series;
+20. the multi-process cloud on the card: ``python -m
+   h2o3_tpu_torch.launch --fork 2`` (two ranks on cuda:0 over gloo) and
+   ``--fork 1`` (nccl), each rank running this script with
+   ``--cloud-rank`` on its row block of a 1M-row frame (the main path's
+   GBM, a binomial GLM at lambda 1e-3), beside the same fits here on the
+   whole frame: the GBM's trees and predictions bit for bit, the launches
+   of the fixed kernel's two distributed modes and the all_reduces as
+   planned, the GLM within rtol 1e-5; then those two modes held bit for
+   bit to their plain versions and timed at a rank's level shapes.
 
 The line before the last is the ``kernels`` JSON object (the main path's
 object, one per further path with its ``path``, one for the global kernel
@@ -325,7 +334,8 @@ line, phase 9's the ``tree_family`` line, phase 10's the
 12's the ``cv_explain`` line, phase 13's the ``orchestration`` line,
 phase 14's the ``text`` line, phase 15's the ``munge`` line, phase
 16's the ``data_plane`` line, phase 17's the ``persist`` line and phase
-18's the ``serving`` line before the ``kernels`` line (which has a
+18's the ``serving`` line, phase 19's the ``observability`` line and
+phase 20's the ``cloud`` line before the ``kernels`` line (which has a
 ``recovery_gbm`` object for 17e and a ``rest_gbm`` object for 18a). Without a CUDA
 card the script exits non-zero and prints no result. It imports nothing
 of JAX or ``h2o3_tpu``.
@@ -3594,6 +3604,10 @@ def phase_dl_unsupervised(fr, air_fr) -> dict:
 
 #: 11a: the H2O-3 ModelSelection docs' gaussian example's 20 predictors
 MS_ROWS, MS_FEAT = 1_000_000, 20
+#: 11a's maxr grows subsets to this many predictors on the card: 210 GLM
+#: fits (the docs' example goes to 3, 1,350 fits: the cut that pays for
+#: phase 20, ROADMAP.md "Reduced checks")
+MS_MAX_PREDICTORS = 2
 #: 11e-11g's frames; 11f's covariates and 11g's groups
 ISO_ROWS = COX_ROWS = HGLM_ROWS = 1_000_000
 COX_FEAT, HGLM_GROUPS = 10, 1000
@@ -3675,29 +3689,33 @@ def ms_check(card_sub, cpu_sub, x) -> dict:
 
 
 def builders_model_selection(device) -> dict:
-    """11a: ModelSelection maxr to 3 predictors (1,350 GLM fits; the
-    device's busy share profiled on its 20 one-predictor fits) and
-    ANOVAGLM (21 fits) on the 1M x 20 frame."""
+    """11a: ModelSelection maxr to ``MS_MAX_PREDICTORS`` predictors (210
+    GLM fits at 2; the device's busy share profiled on its 20
+    one-predictor fits) and ANOVAGLM (21 fits) on the 1M x 20 frame."""
     from h2o3_tpu_torch.models.model_selection import ANOVAGLM, ModelSelection
     fr = ms_frame(MS_ROWS, device)
     prime_rollups(fr)
     x = [f"m{i}" for i in range(MS_FEAT)]
-    n_fits = sum(math.comb(MS_FEAT, k) for k in (1, 2, 3))
+    n_fits = sum(math.comb(MS_FEAT, k)
+                 for k in range(1, MS_MAX_PREDICTORS + 1))
 
     def fit():
-        return ModelSelection(mode="maxr", max_predictor_number=3).train(
+        return ModelSelection(
+            mode="maxr", max_predictor_number=MS_MAX_PREDICTORS).train(
             x=x, y="y", training_frame=fr)
 
     def sizes_1():
         return ModelSelection(mode="maxr", max_predictor_number=1).train(
             x=x, y="y", training_frame=fr)
 
-    model, res = timed_fit(f"11a ModelSelection maxr to 3 of {MS_FEAT} "
-                           f"predictors, {MS_ROWS} rows, {n_fits} GLM fits",
+    model, res = timed_fit(f"11a ModelSelection maxr to {MS_MAX_PREDICTORS} "
+                           f"of {MS_FEAT} predictors, {MS_ROWS} rows, "
+                           f"{n_fits} GLM fits",
                            fit, MS_ROWS * n_fits, "rows*fits",
                            sample=("its 20 one-predictor fits", sizes_1))
     best = [r["predictors"] for r in model.result()]
-    if best != [["m0"], ["m0", "m1"], ["m0", "m1", "m2"]] or not all(
+    if best != [["m0"], ["m0", "m1"], ["m0", "m1", "m2"]][
+            :MS_MAX_PREDICTORS] or not all(
             np.isfinite(r["r2"]) for r in model.result()):
         raise AssertionError(f"11a: best subsets {best}")
     res.update(n_fits=n_fits, best=best,
@@ -7685,6 +7703,343 @@ def gc_collect() -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 20: the multi-process cloud on one card -------------------------
+
+#: phase 20's frame: 13a's 1M rows of the HIGGS-shaped generator, one row
+#: block of 500k a rank at two ranks
+CLOUD_ROWS = 1_000_000
+#: tests/scripts/multiproc_train.py's GLM (the JAX package's multi-process
+#: scenario)
+CLOUD_GLM = dict(family="binomial", lambda_=1e-3, seed=2)
+#: the rows of the predictions each rank writes
+CLOUD_HEAD = 4096
+#: all_reduces of one tree: two a histogram level, two for the node totals
+CLOUD_REDUCES_PER_TREE = 2 * DEPTH + 2
+
+
+def _tree_arrays(model) -> dict:
+    """Every heap field of every tree of a GBM as numpy, [trees, heap]."""
+    from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+    trees = model.output["trees"]
+    return {f: np.stack([getattr(t, f).cpu().numpy() for t in trees])
+            for f in HEAP_FIELDS}
+
+
+def _bitwise(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal bit for bit (floats by their bits: -0.0 is not 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind == "f":
+        a, b = a.view(f"i{a.itemsize}"), b.view(f"i{b.itemsize}")
+    return bool(np.array_equal(a, b))
+
+
+def cloud_rank(outdir: str) -> int:
+    """One rank of phase 20's cloud, run by ``python -m
+    h2o3_tpu_torch.launch --fork N chip_smoke.py --cloud-rank OUTDIR``:
+    the main path's GBM and the binomial GLM on this rank's block of the
+    1M-row frame, with every kernel launch by mode and every all_reduce of
+    the histograms counted; then the all_reduce's ms at each level's
+    accumulator (and the exponent counts) over the WORLD group, timed on
+    the host around a synchronise. Writes ``rank<i>.npz`` (trees, head of
+    the predictions, GLM coefficients) and ``rank<i>.json``."""
+    import torch.distributed as dist
+
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.glm import GLM
+    from h2o3_tpu_torch.ops import hist as H
+    from h2o3_tpu_torch.parallel import distributed as D
+    rank, world = D.process_index(), D.process_count()
+    t0 = time.perf_counter()
+    fr = Frame.from_arrays(higgs_arrays(CLOUD_ROWS))
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    for c in (H.mesh_level_histograms, H.mesh_node_totals):
+        c.kernel_launches = dict.fromkeys(c.kernel_launches, 0)
+        c.all_reduces = 0
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    gbm = GBM(**MAIN_GBM).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    gbm_s = time.perf_counter() - t0
+    normal, totals = kernel_counts()
+    launches = dict(levels=dict(H.mesh_level_histograms.kernel_launches),
+                    totals=dict(H.mesh_node_totals.kernel_launches),
+                    normal=normal, normal_totals=totals)
+    reduces = dict(levels=H.mesh_level_histograms.all_reduces,
+                   totals=H.mesh_node_totals.all_reduces)
+    t0 = time.perf_counter()
+    glm = GLM(**CLOUD_GLM).train(y="y", training_frame=fr)
+    torch.cuda.synchronize()
+    glm_s = time.perf_counter() - t0
+    pred = D.fetch(gbm.predict(fr).vec("ps").data)[:CLOUD_HEAD]
+    # the collective alone, at the level accumulators' shapes (int64) and
+    # the exponent counts, over WORLD (so W = 1 runs it too)
+    reduce_ms = []
+    counts = torch.zeros((3, 256), dtype=torch.int64, device="cuda")
+    for level in range(DEPTH):
+        N = 1 if level == 0 else 2 ** (level - 1)
+        acc = torch.zeros((1, NFEAT, N * (NBINS + 1), 3), dtype=torch.int64,
+                          device="cuda")
+        for reps in (3, 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                D.all_reduce(counts, group=dist.group.WORLD)
+                D.all_reduce(acc, group=dist.group.WORLD)
+            torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) / reps * 1e3)
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), pred=pred,
+             coef=np.asarray(glm.output["coef"]), **_tree_arrays(gbm))
+    path = os.path.join(outdir, f"rank{rank}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(dict(
+            rank=rank, world=world, backend=D.backend(),
+            block=list(fr.block or (0, fr.nrows, fr.nrows)),
+            launches=launches, reduces=reduces,
+            logloss=gbm.training_metrics.logloss,
+            auc=gbm.training_metrics.auc,
+            glm_logloss=glm.training_metrics.logloss,
+            frame_s=frame_s, gbm_s=gbm_s, glm_s=glm_s,
+            reduce_ms_by_level=reduce_ms), f, default=float)
+    os.replace(path + ".tmp", path)
+    D.barrier("phase20")
+    return 0
+
+
+def time_dist_modes(R: int) -> tuple[list, float]:
+    """The fixed kernel's two distributed modes at a rank's level shapes
+    (R rows x 28 features, 65 int8 bins, levels 0-5) at the one-launch
+    plan of 2R rows: the scale-only mode's counts and the accumulator mode's
+    int64 sums each equal bit for bit their plain versions, and the
+    accumulators (and counts) of the two row halves, summed, equal one
+    launch over all the rows; each mode timed beside its plain version,
+    one ``index_add_`` computing the level's sums (the float function, the
+    yardstick of the other paths) and its bound: each input once, the
+    output once (3 x 256 int64 counts; the K x F x N x Bt x 3 int64
+    accumulator). Returns the rows (two a level: scale_only, acc_out) and
+    the max abs err (0 when every check holds)."""
+    from h2o3_tpu_torch.ops import hist as H
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    Bt = NBINS + 1
+    binned_T, _, g, h, w = hist_inputs(R, NFEAT, Bt, 1, torch.int8, gen)
+    g2, h2 = g[None], h[None]
+    rows = []
+    half = R // 2
+    for level in range(DEPTH):
+        N, node = level_nodes(R, level, gen)
+        node2 = node[None]
+        q = H._card_plan(0, 2 * R, NFEAT, N, Bt, 1, 1)["qbits"]
+        p = H.mesh_plan(binned_T, node2, N, Bt, q)
+        counts = H.fixed_counts(node2, g2, h2, w, N, p)
+        if not torch.equal(counts,
+                           H.fixed_counts_plain(node2, g2, h2, w, N)):
+            raise AssertionError(f"phase 20: scale-only counts at level "
+                                 f"{level} differ from the plain version")
+        exps, bad = H.exponents_from_counts(counts, q)
+        acc = H.fixed_acc(binned_T, node2, g2, h2, w, N, Bt, exps, bad, p)
+        plain = H.fixed_acc_plain(binned_T, node2, g2, h2, w, N, Bt,
+                                  exps.tolist(), bad.tolist())
+        if not torch.equal(acc, plain):
+            raise AssertionError(f"phase 20: the accumulator at level "
+                                 f"{level} differs from the plain version")
+        parts = [(binned_T[:, a:b].contiguous(), node2[:, a:b].contiguous(),
+                  g2[:, a:b].contiguous(), h2[:, a:b].contiguous(),
+                  w[a:b].contiguous()) for a, b in ((0, half), (half, R))]
+        c2 = sum(H.fixed_counts(pn, pg, ph, pw, N,
+                                H.mesh_plan(pb, pn, N, Bt, q))
+                 for pb, pn, pg, ph, pw in parts)
+        a2 = sum(H.fixed_acc(pb, pn, pg, ph, pw, N, Bt, exps, bad,
+                             H.mesh_plan(pb, pn, N, Bt, q))
+                 for pb, pn, pg, ph, pw in parts)
+        if not (torch.equal(c2, counts) and torch.equal(a2, acc)):
+            raise AssertionError(f"phase 20: two halves' sums at level "
+                                 f"{level} differ from one launch")
+        active = int((node >= 0).sum())
+        ids = ((torch.arange(NFEAT, device="cuda")[:, None] * N
+                + node.long()[None]) * Bt + binned_T.long())
+        keep = (node >= 0)[None].expand(NFEAT, R)
+        ids = ids[keep]
+        src = torch.stack([g, h, w], 1)[None].expand(NFEAT, R, 3)[keep]
+        library_ms = cuda_ms(lambda: torch.zeros(
+            (NFEAT * N * Bt, 3), device="cuda").index_add_(0, ids, src),
+            reps=3, warmup=1)
+        del ids, src, keep
+        for mode, fn, plain_fn, nbytes in (
+                ("scale_only",
+                 lambda: H.fixed_counts(node2, g2, h2, w, N, p),
+                 lambda: H.fixed_counts_plain(node2, g2, h2, w, N),
+                 R * 16 + 3 * 256 * 8),
+                ("acc_out",
+                 lambda: H.fixed_acc(binned_T, node2, g2, h2, w, N, Bt, exps,
+                                     bad, p),
+                 lambda: H.fixed_acc_plain(binned_T, node2, g2, h2, w, N, Bt,
+                                           exps.tolist(), bad.tolist()),
+                 R * NFEAT + R * 16 + 6 * 4 + NFEAT * N * Bt * 3 * 8)):
+            flops = 3 * active * (NFEAT if mode == "acc_out" else 1)
+            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+            rows.append(dict(
+                level=level, nodes=N, mode=mode, qbits=q,
+                ms=cuda_ms_auto(fn),
+                plain_ms=cuda_ms(plain_fn, reps=2, warmup=1),
+                library_ms=library_ms, bound_ms=bound_s * 1e3,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= flops / F32_FLOPS_PER_S else "operations"))
+    return rows, 0.0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _check_ranks(key: str, world: int, ranks: list, ref: dict) -> None:
+    """Phase 20's checks of one cloud's ranks against the one-rank fit."""
+    want = "gloo" if world > 1 else "nccl"
+    for m in ranks:
+        a = m["arrays"]
+        bad = [f for f, v in ref["trees"].items() if not _bitwise(a[f], v)]
+        if m["backend"] != want or m["world"] != world or bad:
+            raise AssertionError(f"phase {key} rank {m['rank']}: backend "
+                                 f"{m['backend']}, world {m['world']}, "
+                                 f"trees differ in {bad}")
+        if not _bitwise(a["pred"], ref["pred"]):
+            raise AssertionError(f"phase {key} rank {m['rank']}: the "
+                                 "predictions differ from one rank's")
+        for k in ("logloss", "auc"):
+            if not np.isclose(m[k], ref[k], rtol=1e-6, atol=0):
+                raise AssertionError(f"phase {key} rank {m['rank']}: {k} "
+                                     f"{m[k]} against {ref[k]}")
+        # the Gram's float32 sums change order with the rank count: rtol
+        # 1e-5, and an absolute floor of 1e-5 of the largest coefficient
+        # for the ones near zero (tests/test_torch_glm.py's convention)
+        if not np.allclose(a["coef"], ref["coef"], rtol=1e-5,
+                           atol=1e-5 * np.abs(ref["coef"]).max()):
+            raise AssertionError(f"phase {key} rank {m['rank']}: GLM "
+                                 f"{a['coef']} against {ref['coef']}")
+        if world == 1:
+            continue
+        per_mode = NTREES * DEPTH
+        planned = dict(levels={"scale_only": per_mode, "acc_out": per_mode},
+                       totals={"scale_only": NTREES, "acc_out": NTREES})
+        got = {k: m["launches"][k] for k in planned}
+        reduces = m["reduces"]["levels"] + m["reduces"]["totals"]
+        if got != planned or reduces != NTREES * CLOUD_REDUCES_PER_TREE \
+                or sum(m["launches"]["normal"].values()):
+            raise AssertionError(f"phase {key} rank {m['rank']}: launches "
+                                 f"{m['launches']} against {planned}; "
+                                 f"{reduces} all_reduces")
+    if world > 1 and not all(_bitwise(m["arrays"]["coef"],
+                                      ranks[0]["arrays"]["coef"])
+                             for m in ranks):
+        raise AssertionError(f"phase {key}: the ranks' GLM coefficients "
+                             "differ")
+
+
+def phase_cloud() -> dict:
+    """Phase 20: the multi-process cloud on one card. (a) Two ranks of
+    ``python -m h2o3_tpu_torch.launch --fork 2`` share the card over gloo
+    and train the main path's GBM and the binomial GLM on their 500k-row
+    blocks of the 1M-row frame; this process trains both on the whole
+    frame with no group. Both ranks' trees and prediction heads equal each
+    other's and this fit's bit for bit (its fixed kernel at every level,
+    theirs in the two distributed modes at the same qbits), the training
+    logloss and AUC within rtol 1e-6, the GLM coefficients the ranks'
+    bit for bit and this fit's within rtol 1e-5 (atol 1e-5 of the largest
+    coefficient); each rank launched each distributed mode once a level
+    and once a tree for the node totals, and made two all_reduces a level
+    and two for the node totals. (b) ``--fork 1``: the backend is nccl,
+    and the GBM and GLM equal this fit's as (a)'s do. The two clouds and
+    this process's fit run at once (each rank spends its first seconds
+    starting Python, torch and CUDA), so the ranks' seconds and
+    all_reduce times are taken with the card shared. Then the two modes
+    timed at a rank's level shapes."""
+    import shutil
+    import tempfile
+
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.gbm import GBM
+    from h2o3_tpu_torch.models.glm import GLM
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    clouds = {}
+    for world, key in ((2, "20a"), (1, "20b")):
+        tmp = tempfile.mkdtemp(prefix="h2o3_cloud_")
+        clouds[key] = (world, tmp, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "h2o3_tpu_torch.launch", "--fork",
+             str(world), "--port", str(_free_port()),
+             os.path.join(here, "chip_smoke.py"), "--cloud-rank", tmp],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    try:
+        fr = Frame.from_arrays(higgs_arrays(CLOUD_ROWS))
+        reset_kernel_counts()
+        gbm = GBM(**MAIN_GBM).train(y="y", training_frame=fr)
+        normal, _ = kernel_counts()
+        if normal.get("global") or normal.get("fixed") != NTREES * DEPTH:
+            raise AssertionError(f"phase 20: the one-rank fit launched "
+                                 f"{normal}")
+        glm = GLM(**CLOUD_GLM).train(y="y", training_frame=fr)
+        ref = dict(trees=_tree_arrays(gbm), pred=gbm.predict(fr).vec(
+            "ps").data[:CLOUD_HEAD].cpu().numpy(),
+            coef=np.asarray(glm.output["coef"]),
+            logloss=gbm.training_metrics.logloss,
+            auc=gbm.training_metrics.auc)
+        del fr, gbm, glm
+        drop_models()
+        out = dict(one_rank_s=time.perf_counter() - t_phase)
+        for key, (world, tmp, t0, proc) in clouds.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"phase {key}: the cloud failed "
+                                     f"({proc.returncode}):\n"
+                                     f"{stdout[-3000:]}\n{stderr[-6000:]}")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    meta = json.load(f)
+                meta["arrays"] = dict(np.load(os.path.join(tmp,
+                                                           f"rank{r}.npz")))
+                ranks.append(meta)
+            _check_ranks(key, world, ranks, ref)
+            r0 = ranks[0]
+            print(f"{key} --fork {world}: backend {r0['backend']}, world "
+                  f"{world}, {seconds:.2f} s from start to exit (frame "
+                  f"{r0['frame_s']:.2f} s, GBM {r0['gbm_s']:.3f} s, GLM "
+                  f"{r0['glm_s']:.3f} s on rank 0); trees and predictions "
+                  f"bit for bit one rank's, logloss {r0['logloss']:.7f} "
+                  f"({ref['logloss']:.7f}), AUC {r0['auc']:.7f} "
+                  f"({ref['auc']:.7f}); launches {r0['launches']}; "
+                  f"all_reduces {r0['reduces']}; all_reduce ms a level "
+                  f"(counts + accumulator) "
+                  f"{[round(x, 4) for x in r0['reduce_ms_by_level']]}")
+            out[key] = dict(
+                seconds=seconds, backend=r0["backend"], world=world,
+                frame_s=r0["frame_s"], gbm_s=r0["gbm_s"],
+                glm_s=r0["glm_s"], launches=r0["launches"],
+                reduces=r0["reduces"],
+                reduce_ms_by_level=r0["reduce_ms_by_level"],
+                logloss=r0["logloss"], auc=r0["auc"], trees_bitwise=True,
+                coef_abs_err=float(np.max(np.abs(r0["arrays"]["coef"]
+                                                 - ref["coef"]))),
+                coef_max=float(np.abs(ref["coef"]).max()))
+    finally:
+        for _, tmp, _, proc in clouds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["kernel_times"], out["err"] = time_dist_modes(CLOUD_ROWS // 2)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['seconds']:.1f} s")
+    return out
+
+
 def drop_models() -> None:
     """Empty the port's DKV, where ``train`` puts every finished model, so
     that no later phase's peak memory holds an earlier phase's models."""
@@ -7693,10 +8048,21 @@ def drop_models() -> None:
     torch.cuda.empty_cache()
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed on a line of their own (the
+    budget of the script is the sum of its phases)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{name}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cloud-rank"]:
+        return cloud_rank(sys.argv[2])
     try:
         import h2o3_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -7705,59 +8071,67 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_env()
+    timed("phase_env", phase_env)
     sass = sass_check()
-    max_err = phase_kernel_checks()
-    fixed = phase_fixed_checks()
-    skewed = phase_skewed_checks()
-    phase_cross_device()
+    max_err = timed("phase_kernel_checks", phase_kernel_checks)
+    fixed = timed("phase_fixed_checks", phase_fixed_checks)
+    skewed = timed("phase_skewed_checks", phase_skewed_checks)
+    timed("phase_cross_device", phase_cross_device)
     drop_models()
-    phase_cross_device_new()
+    timed("phase_cross_device_new", phase_cross_device_new)
     drop_models()
-    fr = build_frame()
-    main_path = phase_main_path(fr)
+    fr = timed("build_frame", build_frame)
+    main_path = timed("phase_main_path", phase_main_path, fr)
     drop_models()
     times = phase_kernel_times()["levels"]
-    tot_times = totals_times()
-    new_paths = phase_new_paths(fr)
+    tot_times = timed("totals_times", totals_times)
+    new_paths = timed("phase_new_paths", phase_new_paths, fr)
     drop_models()
-    glm_multi = phase_glm_multinomial(fr)
+    glm_multi = timed("phase_glm_multinomial", phase_glm_multinomial, fr)
     drop_models()
-    tree_family = phase_tree_family(fr)
+    tree_family = timed("phase_tree_family", phase_tree_family, fr)
     drop_models()
-    new_times = phase_new_path_times()
+    new_times = timed("phase_new_path_times", phase_new_path_times)
     air_fr, air_vf = airlines_frames()
-    airlines = phase_airlines(air_fr, air_vf)
+    airlines = timed("phase_airlines", phase_airlines, air_fr, air_vf)
     drop_models()
-    glm_airlines = phase_glm_airlines(air_fr, air_vf)
+    glm_airlines = timed("phase_glm_airlines", phase_glm_airlines, air_fr,
+                         air_vf)
     drop_models()
     del air_vf
     torch.cuda.empty_cache()
-    unsupervised = phase_dl_unsupervised(fr, air_fr)
+    unsupervised = timed("phase_dl_unsupervised", phase_dl_unsupervised, fr,
+                         air_fr)
     drop_models()
-    builders = phase_builders(fr)
+    builders = timed("phase_builders", phase_builders, fr)
     drop_models()
     air_vf = airlines_frame(airlines_arrays(AIRLINE_VALID, 32), "cuda")
-    cv_explain = phase_cv_explain(fr, air_fr, air_vf)
+    cv_explain = timed("phase_cv_explain", phase_cv_explain, fr, air_fr,
+                       air_vf)
     drop_models()
     del air_vf
-    orchestration = phase_orchestration(fr, air_fr)
+    orchestration = timed("phase_orchestration", phase_orchestration, fr,
+                          air_fr)
     drop_models()
-    text = phase_text(fr)
+    text = timed("phase_text", phase_text, fr)
     drop_models()
-    munging = phase_munge(air_fr)
+    munging = timed("phase_munge", phase_munge, air_fr)
     drop_models()
-    persist = phase_persist(fr)
+    persist = timed("phase_persist", phase_persist, fr)
     drop_models()
-    serving = phase_serving(fr)
+    serving = timed("phase_serving", phase_serving, fr)
     drop_models()
-    observability = phase_observability(fr)
+    observability = timed("phase_observability", phase_observability,
+                          fr)
     drop_models()
     del fr, air_fr
     torch.cuda.empty_cache()
-    data_plane = phase_data_plane()
+    cloud = timed("phase_cloud", phase_cloud)
     drop_models()
-    glm = phase_glm(glm_airlines, glm_multi)
+    torch.cuda.empty_cache()
+    data_plane = timed("phase_data_plane", phase_data_plane)
+    drop_models()
+    glm = timed("phase_glm", phase_glm, glm_airlines, glm_multi)
     gen = torch.Generator(device="cuda").manual_seed(37)
     binned_T, _, g, h, w = hist_inputs(AIRLINE_ROWS, len(AIRLINE_X),
                                        NBINS + 1, 1, torch.int8, gen)
@@ -7892,6 +8266,17 @@ def main() -> int:
         path="observed_gbm", node_totals=og["node_totals"],
         timed_at="13a's GBM levels 0-5 at 1M x 28 (phase 13e), this "
                  "path's level shapes"))
+    # phase 20: the fixed kernel's two distributed modes, launched by each
+    # rank of 20a, timed at a rank's level shapes
+    cl = cloud["20a"]["launches"]
+    for mode in ("scale_only", "acc_out"):
+        rows = [r for r in cloud["kernel_times"] if r["mode"] == mode]
+        kernels.append(kernel_entry(
+            cl["levels"][mode] + cl["totals"][mode], cloud["err"], rows,
+            name=f"fixed_hist_kernel[{mode}]", path="cloud_gbm_rank",
+            launches_by_part={"levels": cl["levels"][mode],
+                              "node_totals": cl["totals"][mode]},
+            all_reduce_ms_by_level=cloud["20a"]["reduce_ms_by_level"]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"glm": glm}, default=float))
     print(json.dumps({"tree_family": {
@@ -7913,6 +8298,8 @@ def main() -> int:
     print(json.dumps({"persist": persist}, default=float))
     print(json.dumps({"serving": serving}, default=float))
     print(json.dumps({"observability": observability}, default=float))
+    print(json.dumps({"cloud": {k: v for k, v in cloud.items()
+                                if k != "kernel_times"}}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

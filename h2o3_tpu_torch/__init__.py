@@ -65,7 +65,10 @@ batch bucket, with byte-accounted residency, SLO shedding and replicas on
 scheduler streams; :mod:`h2o3_tpu_torch.api` is the V3 REST server (the
 JAX package's route table), its client and the Flow page, and
 :func:`init`/:func:`connect` open a session as h2o-py's do. The builders
-of the later slices are exported here.
+of the later slices are exported here. The multi-process cloud:
+:mod:`h2o3_tpu_torch.parallel` (the rank mesh, ``init_distributed``) and
+``python -m h2o3_tpu_torch.launch``; GBM, XGBoost's gbtree and GLM train
+across its ranks.
 """
 
 __version__ = "0.1.0"
@@ -86,6 +89,9 @@ from h2o3_tpu_torch.models.psvm import PSVM
 from h2o3_tpu_torch.models.rulefit import RuleFit
 from h2o3_tpu_torch.models.target_encoder import TargetEncoder
 from h2o3_tpu_torch.models.word2vec import Word2Vec
+from h2o3_tpu_torch.parallel.mesh import (bind_mesh, get_mesh, mesh_context,
+                                          num_devices, set_mesh,
+                                          slice_meshes)
 from h2o3_tpu_torch.persist.frame_io import export_file, load_frame, save_frame
 from h2o3_tpu_torch.persist.model_io import load_model, save_model
 from h2o3_tpu_torch.session import (cluster, connect, connection, init,
@@ -98,4 +104,5 @@ __all__ = ["ANOVAGLM", "GAM", "HGLM", "PSVM", "Aggregator", "CoxPH", "Grep",
            "import_sql_table", "load_frame", "load_model", "parse_raw",
            "resolve_device", "save_frame", "save_model", "set_device",
            "upload_file", "init", "connect", "connection", "cluster",
-           "shutdown", "__version__"]
+           "shutdown", "bind_mesh", "get_mesh", "mesh_context",
+           "num_devices", "set_mesh", "slice_meshes", "__version__"]

@@ -6,8 +6,10 @@ annotations) and ``water/api/schemas3/*.java`` (FrameV3, ModelSchemaV3,
 JobV3, CloudV3 …). The wire format keys (``__meta.schema_type``, field names)
 follow the reference so existing h2o-py response parsing recognizes them.
 Tensors are fetched to numpy before serialisation; the histograms of
-``ColV3`` are counted on the column's device. CloudV3's ``workers``
-(elastic membership, multi-GPU) is empty.
+``ColV3`` are counted on the column's device. CloudV3 counts the ranks of
+a multi-process cloud (``cloud_size`` the world size, a node row a rank);
+its ``workers`` (elastic membership) stay empty until elastic training is
+ported.
 """
 
 from __future__ import annotations
@@ -42,11 +44,16 @@ def _meta(schema_type: str) -> dict:
 
 
 def _cloud_devices() -> list[str]:
-    """The devices of this process's cloud: every CUDA card when the port
+    """The devices of this process's cloud: in a multi-process cloud one
+    per rank (its host and device), else every CUDA card when the port
     runs on the card, else the one device the caller chose."""
     import torch
 
     from h2o3_tpu_torch.device import _default
+    from h2o3_tpu_torch.parallel.distributed import placements
+    ranks = placements()
+    if len(ranks) > 1:
+        return [f"rank {r}: {p}" for r, p in enumerate(ranks)]
     if (_default is None or _default.type == "cuda") \
             and torch.cuda.is_available():
         return [f"cuda:{i} ({torch.cuda.get_device_name(i)})"
@@ -76,7 +83,7 @@ def cloud_v3(version: str) -> dict:
     return {**_meta("CloudV3"), "version": version,
             "cloud_name": "h2o3_tpu_torch",
             "mesh_slices": SLICE_STATS.snapshot(),
-            # elastic local-SGD membership belongs to multi-GPU (not ported)
+            # elastic local-SGD membership is not ported yet
             "workers": [],
             "cloud_size": len(devs), "cloud_healthy": True, "bad_nodes": 0,
             "consensus": True, "locked": True, "is_client": False,

@@ -313,13 +313,29 @@ __device__ __forceinline__ Quad load_quad(const int32_t* __restrict__ node,
 // bins (every row's bin is 0), [K, N, 3] from node, g, h and w alone, with
 // the same scale and sums, so its bits repeat from run to run as the float
 // index_add_ it replaces did not.
+//
+// Across ranks (h2o3_tpu_torch/ops/hist.py:mesh_level_histograms). The
+// W ranks of a cloud each hold a block of the rows, and a level's
+// histograms must equal, bit for bit, what one launch over all the rows
+// gives. Two distributed modes make that so. kScaleOnly runs the scale
+// kernel alone and leaves its exponent counts [3][256] in the caller's
+// buffer; the ranks sum the counts (an all_reduce), so every rank picks
+// the scale one launch over all the rows would pick, with qbits of that
+// launch's plan. kAccOut (kTotalsAcc for the node totals) then takes those
+// exponents as an input instead of deriving them, and leaves the int64
+// accumulator unconverted; the ranks sum the accumulators (a second
+// all_reduce), which integer addition makes order-free, and the wrapper
+// scales the sums back once, as this kernel's last block does.
 
 // Modes of the fixed kernel: count rows into the slab; the same with the
 // slab's atomic adds and flushes compiled out (it stages, quantises and lists
 // the same rows and reads their bins); only load and store the tiles; count
 // rows into node totals, reading no bins. The second and third are
-// measurement instances.
-enum { kCount, kUpdatesOut, kStagingOnly, kTotals };
+// measurement instances. kAccOut and kTotalsAcc are kCount and kTotals with
+// the scale read from `exps_in` and the accumulator left as the output;
+// kScaleOnly is no instance of this kernel, only its scale kernel.
+enum { kCount, kUpdatesOut, kStagingOnly, kTotals, kAccOut, kTotalsAcc,
+       kScaleOnly };
 constexpr int kFixedThreads = 512;
 constexpr int kFixedWarps = kFixedThreads / 32;
 constexpr int kFixedRows = 256;                 // rows of a tile
@@ -542,12 +558,17 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
                   unsigned long long* __restrict__ acc,
                   unsigned* __restrict__ done,
                   const unsigned long long* __restrict__ exp_counts,
+                  const int* __restrict__ exps_in,
                   long long R, int F, int N, int Bt, int Fb, int Nb,
                   int row_splits, int flush_tiles, int qbits, float qlimit,
                   long long w_stride) {
   using W = typename Word<BinT>::T;
-  constexpr bool kBins = kMode != kTotals;
-  constexpr bool kAdds = kMode == kCount || kMode == kTotals;
+  constexpr bool kBins = kMode != kTotals && kMode != kTotalsAcc;
+  constexpr bool kAdds = kMode == kCount || kMode == kTotals
+                         || kMode == kAccOut || kMode == kTotalsAcc;
+  // the scale comes in (exps_in: the exponents of g, h, w, then whether
+  // each is bad), and the accumulator is the output
+  constexpr bool kExpsIn = kMode == kAccOut || kMode == kTotalsAcc;
   extern __shared__ int4 smem_fixed[];
   const int groups = (F + Fb - 1) / Fb;
   const int node_blocks = (N + Nb - 1) / Nb;
@@ -601,7 +622,18 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
   // holding eight buckets, with a suffix sum of the counts over the lanes
   {
     for (int i = tid; i < 3 * stat_len; i += kFixedThreads) slab[i] = 0;
-    if (warp < 3) {
+    if (kExpsIn && tid < 3) {
+      const int e = exps_in[tid];
+      const bool nonfinite = exps_in[3 + tid] != 0;
+      const float f1 = nonfinite ? 0.0f : pow2f(e / 2);
+      const float f2 = nonfinite ? 0.0f : pow2f(e - e / 2);
+      bad[tid] = nonfinite;
+      exps[tid] = e;
+      if (tid == 0) factors_gh.x = f1, factors_gh.y = f2;
+      if (tid == 1) factors_gh.z = f1, factors_gh.w = f2;
+      if (tid == 2) factors_w = make_float2(f1, f2);
+    }
+    if (!kExpsIn && warp < 3) {
       const unsigned full = 0xffffffffu;
       unsigned long long c[8];
 #pragma unroll
@@ -842,6 +874,8 @@ fixed_hist_kernel(const BinT* __restrict__ binned_T, long long bin_skew,
     // keeps the updates-out instance's reads alive; nothing reads its output
     if (kMode == kUpdatesOut && sink == INT_MIN) out[0] = 1.0f;
   }
+  // the distributed modes leave the accumulator as it is: the ranks sum it
+  if (kExpsIn) return;
 
   // the last block of this (class, feature group, node block) converts its
   // part of the accumulator
@@ -1058,7 +1092,8 @@ long long skew_of(const void* binned_T) {
 // mirrors it.
 template <typename BinT, int kMode>
 cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
-                         int flush_tiles, int qbits) {
+                         int flush_tiles, int qbits,
+                         const int* exps_in = nullptr) {
   const long long combos = static_cast<long long>((a.F + a.Fb - 1) / a.Fb)
                            * ((a.N + a.Nb - 1) / a.Nb);
   const long long blocks = combos * a.row_splits;
@@ -1080,21 +1115,28 @@ cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
   const long long done_words = (a.K * combos + 1) / 2;
   auto* done = reinterpret_cast<unsigned*>(acc + a.K * entries);
   auto* counts = acc + a.K * entries + done_words;
-  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(unsigned long long)
-                                  * 3 * kExpBuckets, a.stream);
+  constexpr bool kExpsIn = kMode == kAccOut || kMode == kTotalsAcc;
+  cudaError_t e = kExpsIn
+      // no scale kernel to zero the accumulator and the done counters
+      ? cudaMemsetAsync(acc, 0, sizeof(unsigned long long)
+                        * (a.K * entries + done_words), a.stream)
+      : cudaMemsetAsync(counts, 0, sizeof(unsigned long long)
+                        * 3 * kExpBuckets, a.stream);
   if (e != cudaSuccess) return e;
   const bool vec = vec_aligned(a);
-  const dim3 sgrid(static_cast<unsigned>(scale_blocks),
-                   static_cast<unsigned>(a.K));
-  auto scale = vec ? fixed_scale_kernel<true> : fixed_scale_kernel<false>;
-  e = prepare(scale, kScaleSmem);
-  if (e != cudaSuccess) return e;
-  scale<<<sgrid, kScaleThreads, kScaleSmem, a.stream>>>(
-      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
-      static_cast<const float*>(a.h), static_cast<const float*>(a.w), a.R,
-      a.N, a.w_stride, counts, acc, a.K * entries + done_words);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (!kExpsIn) {
+    const dim3 sgrid(static_cast<unsigned>(scale_blocks),
+                     static_cast<unsigned>(a.K));
+    auto scale = vec ? fixed_scale_kernel<true> : fixed_scale_kernel<false>;
+    e = prepare(scale, kScaleSmem);
+    if (e != cudaSuccess) return e;
+    scale<<<sgrid, kScaleThreads, kScaleSmem, a.stream>>>(
+        static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+        static_cast<const float*>(a.h), static_cast<const float*>(a.w), a.R,
+        a.N, a.w_stride, counts, acc, a.K * entries + done_words);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   auto kernel = fixed_hist_kernel<BinT, kMode>;
   e = prepare(kernel, a.smem_bytes);
   if (e != cudaSuccess) return e;
@@ -1103,8 +1145,8 @@ cudaError_t launch_fixed(const Args& a, void* scratch, int scale_blocks,
       static_cast<const BinT*>(a.binned_T), skew_of<BinT>(a.binned_T),
       static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
       static_cast<const float*>(a.h), static_cast<const float*>(a.w),
-      static_cast<float*>(a.out), acc, done, counts, a.R, a.F, a.N, a.Bt,
-      a.Fb, a.Nb, a.row_splits, flush_tiles, qbits,
+      static_cast<float*>(a.out), acc, done, counts, exps_in, a.R, a.F, a.N,
+      a.Bt, a.Fb, a.Nb, a.row_splits, flush_tiles, qbits,
       ldexpf(1.0f, qbits), a.w_stride);
   return cudaGetLastError();
 }
@@ -1134,9 +1176,35 @@ cudaError_t launch_global(const Args& a) {
   return cudaGetLastError();
 }
 
+// kScaleOnly: the scale kernel alone, its exponent counts [3][256] of the
+// active values of all classes added into `counts` (zeroed here); it
+// zeroes nothing else.
+cudaError_t launch_scale_only(const Args& a, unsigned long long* counts,
+                              int scale_blocks) {
+  if (!classes_ok(a) || scale_blocks < 1
+      || a.K * static_cast<long long>(scale_blocks) > INT_MAX
+      || (reinterpret_cast<uintptr_t>(counts) & 7) != 0)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(unsigned long long)
+                                  * 3 * kExpBuckets, a.stream);
+  if (e != cudaSuccess) return e;
+  auto scale = vec_aligned(a) ? fixed_scale_kernel<true>
+                              : fixed_scale_kernel<false>;
+  e = prepare(scale, kScaleSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 sgrid(static_cast<unsigned>(scale_blocks),
+                   static_cast<unsigned>(a.K));
+  scale<<<sgrid, kScaleThreads, kScaleSmem, a.stream>>>(
+      static_cast<const int32_t*>(a.node), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.h), static_cast<const float*>(a.w), a.R,
+      a.N, a.w_stride, counts, counts, 0);
+  return cudaGetLastError();
+}
+
 template <typename BinT>
 cudaError_t dispatch_fixed(int mode, const Args& a, void* scratch,
-                           int scale_blocks, int flush_tiles, int qbits) {
+                           int scale_blocks, int flush_tiles, int qbits,
+                           void* aux) {
   if (mode == kCount)
     return launch_fixed<BinT, kCount>(a, scratch, scale_blocks, flush_tiles,
                                       qbits);
@@ -1146,11 +1214,22 @@ cudaError_t dispatch_fixed(int mode, const Args& a, void* scratch,
   if (mode == kStagingOnly)
     return launch_fixed<BinT, kStagingOnly>(a, scratch, scale_blocks,
                                             flush_tiles, qbits);
+  if (mode == kAccOut)
+    return launch_fixed<BinT, kAccOut>(a, scratch, scale_blocks, flush_tiles,
+                                       qbits, static_cast<const int*>(aux));
+  if (mode == kScaleOnly)
+    return launch_scale_only(a, static_cast<unsigned long long*>(aux),
+                             scale_blocks);
   // node totals read no bins: one instance, at the int8 width
   if constexpr (sizeof(BinT) == 1)
     if (mode == kTotals && a.F == 1 && a.Bt == 1)
       return launch_fixed<BinT, kTotals>(a, scratch, scale_blocks,
                                          flush_tiles, qbits);
+  if constexpr (sizeof(BinT) == 1)
+    if (mode == kTotalsAcc && a.F == 1 && a.Bt == 1)
+      return launch_fixed<BinT, kTotalsAcc>(a, scratch, scale_blocks,
+                                            flush_tiles, qbits,
+                                            static_cast<const int*>(aux));
   return cudaErrorInvalidValue;
 }
 
@@ -1168,7 +1247,12 @@ cudaError_t occupancy(K kernel, int threads, int smem_bytes, int* blocks) {
 // Launches fixed_hist_kernel (after its scale kernel) on `stream` in `mode`
 // (0 counts; 1 and 2 are its measurement instances, updates out and staging
 // only; 3 counts node totals, F = 1 and Bt = 1 with bin_bytes 1 and
-// binned_T unread); returns the cudaError_t of the launches. The Python wrapper
+// binned_T unread); returns the cudaError_t of the launches. The
+// distributed modes: 6 runs the scale kernel alone, its exponent counts
+// [3][256] (uint64) into `aux`; 4 (and 5, the node totals') takes the
+// exponents of g, h, w and their bad flags from `aux` (int32 [6]), runs no
+// scale kernel, and leaves the int64 accumulator at the start of `scratch`
+// as its output (`out` unwritten). The Python wrapper
 // (h2o3_tpu_torch/ops/hist.py) has checked every argument and planned Fb,
 // Nb, row_splits, smem_bytes, the scale kernel's blocks per class, the
 // tiles a block walks between two flushes and the bits of the largest |q|.
@@ -1182,16 +1266,16 @@ extern "C" int h2o3_fixed_hist(int mode, const void* binned_T, int bin_bytes,
                                int Bt, int Fb, int Nb, int row_splits,
                                int smem_bytes, int K, long long w_stride,
                                int scale_blocks, int flush_tiles, int qbits,
-                               void* stream) {
+                               void* aux, void* stream) {
   const Args a{binned_T, node, g, h, w, out, R, F, N, Bt, Fb, Nb,
                row_splits, smem_bytes, K, w_stride,
                static_cast<cudaStream_t>(stream)};
   if (bin_bytes == 1)
     return dispatch_fixed<int8_t>(mode, a, scratch, scale_blocks,
-                                  flush_tiles, qbits);
+                                  flush_tiles, qbits, aux);
   if (bin_bytes == 2)
     return dispatch_fixed<int16_t>(mode, a, scratch, scale_blocks,
-                                   flush_tiles, qbits);
+                                   flush_tiles, qbits, aux);
   return cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,14 @@ methods (sort, group_by, merge, ...) call :mod:`h2o3_tpu_torch.rapids`.
 Columns of the streaming parse keep compressed host payloads whose
 tensors are built on first use; :attr:`Frame.nbytes` and
 :meth:`Frame.drop_device_views` serve the memory meter and the Cleaner.
-The reference's mesh views are left out: one card has no mesh.
+
+Under a mesh of W > 1 ranks a frame made from host columns is row-blocked
+(``frame/vec.py``): each rank's device holds its block of every column,
+:attr:`Frame.nrows` counts all the rows and :attr:`Frame.block` names the
+block. ``sort`` and ``split_frame`` gather the whole frame and cut the
+result into blocks again (correct, not fast); every other whole-frame
+operation raises :class:`~h2o3_tpu_torch.parallel.mesh.MeshUnsupported`
+there. The reference's mesh views are left out.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import torch
 
 from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.frame.types import VecType
-from h2o3_tpu_torch.frame.vec import Vec, _factorize, _guess_type
+from h2o3_tpu_torch.frame.vec import (Vec, _factorize, _guess_type,
+                                      row_block, upload_rows)
+from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
 
 
 class Frame:
@@ -36,6 +45,8 @@ class Frame:
             raise ValueError("vecs disagree on nrows")
         if len({v.device for v in vecs if v.device is not None}) > 1:
             raise ValueError("vecs live on different devices")
+        if len({v.block for v in vecs}) > 1:
+            raise ValueError("vecs disagree on their row blocks")
         self.names: list[str] = list(names)
         self.vecs: list[Vec] = list(vecs)
         self.key = key
@@ -58,8 +69,8 @@ class Frame:
             t = types.get(k) or _guess_type(v)
             if t is VecType.CAT and v.dtype.kind not in "iu":
                 codes, dom = _factorize(v)
-                vecs[k] = Vec(torch.as_tensor(codes).to(dev), VecType.CAT,
-                              domain=tuple(dom))
+                data, kw = upload_rows(codes, dev)
+                vecs[k] = Vec(data, VecType.CAT, domain=tuple(dom), **kw)
             elif t in (VecType.NUM, VecType.INT) and v.dtype.kind in "fiub":
                 floats.append((k, v, t))
             else:
@@ -68,9 +79,16 @@ class Frame:
             mat = np.empty((len(floats), len(floats[0][1])), np.float32)
             for i, (_, v, _) in enumerate(floats):
                 mat[i] = v
-            dmat = torch.as_tensor(mat).to(dev)
-            for i, (k, _, t) in enumerate(floats):
-                vecs[k] = Vec(dmat[i], t)
+            block = row_block(mat.shape[1])
+            if block is None:
+                dmat = torch.as_tensor(mat).to(dev)
+                for i, (k, _, t) in enumerate(floats):
+                    vecs[k] = Vec(dmat[i], t)
+            else:   # this rank's rows; each column's whole on the host
+                dmat = torch.as_tensor(np.ascontiguousarray(
+                    mat[:, block[0]:block[1]])).to(dev)
+                for i, (k, _, t) in enumerate(floats):
+                    vecs[k] = Vec(dmat[i], t, block=block, host_full=mat[i])
         return Frame(names, [vecs[k] for k in names], key=key)
 
     @staticmethod
@@ -107,6 +125,7 @@ class Frame:
         """The frame as a pandas DataFrame: categorical columns as their
         labels (None for missing), string columns as objects, TIME columns
         as datetimes, numbers as float32."""
+        refuse_on_mesh("Frame.to_pandas")
         import pandas as pd
         out = {}
         for n, v in zip(self.names, self.vecs):
@@ -122,7 +141,23 @@ class Frame:
 
     @property
     def nrows(self) -> int:
+        """Rows of the frame: all of them for a row-blocked frame."""
+        if not self.vecs:
+            return 0
+        b = self.vecs[0].block
+        return b[2] if b is not None else self.vecs[0].nrows
+
+    @property
+    def local_nrows(self) -> int:
+        """Rows this rank holds on its device: all of them outside a
+        mesh."""
         return self.vecs[0].nrows if self.vecs else 0
+
+    @property
+    def block(self) -> tuple | None:
+        """(lo, hi, nrows) of this rank's row block, or None for a frame
+        that holds all its rows."""
+        return self.vecs[0].block if self.vecs else None
 
     @property
     def ncols(self) -> int:
@@ -184,7 +219,8 @@ class Frame:
 
     def add(self, name: str, vec: Vec) -> "Frame":
         """Append a column in place."""
-        if self.vecs and vec.nrows != self.nrows:
+        if self.vecs and (vec.nrows != self.local_nrows
+                          or vec.block != self.block):
             raise ValueError("row count mismatch")
         if name in self.names:
             raise ValueError(f"duplicate column name: {name!r}")
@@ -200,7 +236,8 @@ class Frame:
 
     def replace_vec(self, col: int | str, vec: Vec) -> "Frame":
         """Replace a column's Vec in place (impute, transforms)."""
-        if self.vecs and vec.nrows != self.nrows:
+        if self.vecs and (vec.nrows != self.local_nrows
+                          or vec.block != self.block):
             raise ValueError("row count mismatch")
         self.vecs[self._index(col)] = vec
         return self
@@ -225,13 +262,35 @@ class Frame:
         return torch.stack(arrs, dim=1)
 
     def row_mask(self) -> torch.Tensor:
-        """Boolean [nrows] mask of logical rows: all True, since the port's
-        columns carry no padding (kept so row-weight code reads as in the
-        reference)."""
-        return torch.ones(self.nrows, dtype=torch.bool, device=self.device)
+        """Boolean mask of the logical rows this rank holds: all True, since
+        the port's columns carry no padding (kept so row-weight code reads
+        as in the reference)."""
+        return torch.ones(self.local_nrows, dtype=torch.bool,
+                          device=self.device)
+
+    def _gathered(self) -> "Frame":
+        """The whole of a row-blocked frame as an ordinary frame on this
+        rank's device (host copies where the columns have them, every
+        rank's block gathered where not: a collective)."""
+        vecs = [Vec(torch.as_tensor(np.ascontiguousarray(v.to_numpy()))
+                    .to(self.device), v.type, domain=v.domain)
+                for v in self.vecs]
+        return Frame(self.names, vecs, key=self.key)
+
+    @staticmethod
+    def _reblocked(whole: "Frame") -> "Frame":
+        """An ordinary frame cut into row blocks again (its whole kept on
+        the host)."""
+        dev = whole.device
+        vecs = []
+        for v in whole.vecs:
+            data, kw = upload_rows(v.data.cpu().numpy(), dev)
+            vecs.append(Vec(data, v.type, domain=v.domain, **kw))
+        return Frame(whole.names, vecs, key=whole.key)
 
     def head(self, n: int = 10):
         """The first ``n`` rows as a pandas DataFrame."""
+        refuse_on_mesh("Frame.head")
         from h2o3_tpu_torch.rapids.munge import gather_rows
         idx = torch.arange(min(n, self.nrows), device=self.device)
         return gather_rows(self, idx).to_pandas()
@@ -240,57 +299,84 @@ class Frame:
 
     def sort(self, by, ascending=True) -> "Frame":
         from h2o3_tpu_torch.rapids import munge
+        if self.block is not None:
+            return Frame._reblocked(munge.sort(self._gathered(), by,
+                                               ascending))
         return munge.sort(self, by, ascending)
 
     def group_by(self, by):
+        refuse_on_mesh("Frame.group_by")
         from h2o3_tpu_torch.rapids import GroupBy
         return GroupBy(self, by)
 
     def merge(self, other: "Frame", by=None, all_x: bool = False,
               all_y: bool = False) -> "Frame":
+        refuse_on_mesh("Frame.merge")
         from h2o3_tpu_torch.rapids import munge
         return munge.merge(self, other, by=by, all_x=all_x, all_y=all_y)
 
     def filter(self, mask) -> "Frame":
+        refuse_on_mesh("Frame.filter")
         from h2o3_tpu_torch.rapids import munge
         return munge.filter_rows(self, mask)
 
     def rbind(self, *others: "Frame") -> "Frame":
+        refuse_on_mesh("Frame.rbind")
         from h2o3_tpu_torch.rapids import munge
         return munge.rbind(self, *others)
 
     def cbind(self, *others: "Frame") -> "Frame":
+        refuse_on_mesh("Frame.cbind")
         from h2o3_tpu_torch.rapids import munge
         return munge.cbind(self, *others)
 
     def split_frame(self, ratios=(0.75,), destination_frames=None,
                     seed: int = -1) -> list["Frame"]:
         from h2o3_tpu_torch.frame.utils import split_frame
+        if self.block is not None:
+            from h2o3_tpu_torch.parallel.distributed import common_seed
+            parts = split_frame(self._gathered(), ratios, None,
+                                common_seed(seed))
+            parts = [Frame._reblocked(p) for p in parts]
+            if destination_frames is not None:
+                from h2o3_tpu_torch.utils.registry import DKV
+                if len(destination_frames) != len(parts):
+                    raise ValueError("need len(ratios)+1 destination_frames")
+                for p, key in zip(parts, destination_frames):
+                    p.key = key
+                    DKV.put(key, p)
+            return parts
         return split_frame(self, ratios, destination_frames, seed)
 
     def unique(self, cols=None) -> "Frame":
+        refuse_on_mesh("Frame.unique")
         from h2o3_tpu_torch.rapids import munge
         return munge.unique(self, cols)
 
     def pivot(self, index: str, column: str, value: str,
               agg: str = "mean") -> "Frame":
+        refuse_on_mesh("Frame.pivot")
         from h2o3_tpu_torch.rapids import munge
         return munge.pivot(self, index, column, value, agg)
 
     def melt(self, id_vars, value_vars=None, **kw) -> "Frame":
+        refuse_on_mesh("Frame.melt")
         from h2o3_tpu_torch.rapids import munge
         return munge.melt(self, id_vars, value_vars, **kw)
 
     def quantile(self, probs=(0.001, 0.01, 0.1, 0.25, 0.333, 0.5, 0.667,
                               0.75, 0.9, 0.99, 0.999)) -> "Frame":
+        refuse_on_mesh("Frame.quantile")
         from h2o3_tpu_torch.rapids import ops
         return ops.quantile(self, probs)
 
     def impute(self, column: str, method: str = "mean", by=None) -> "Frame":
+        refuse_on_mesh("Frame.impute")
         from h2o3_tpu_torch.rapids import ops
         return ops.impute(self, column, method, by)
 
     def scale(self, center: bool = True, scale: bool = True) -> "Frame":
+        refuse_on_mesh("Frame.scale")
         from h2o3_tpu_torch.rapids import ops
         return ops.scale(self, center, scale)
 

@@ -9,7 +9,18 @@ relative to ``time_offset`` on the device (epoch milliseconds overflow a
 float32 mantissa) and the exact float64 epoch milliseconds on the host.
 The element-wise operators (arithmetic, comparisons, ``& | ~``) give
 float32 NUM columns with NaN where an operand is missing, as the
-reference's do. The reference's mesh sharding is left out.
+reference's do.
+
+Under a mesh of W > 1 ranks (``parallel/mesh.py``) a column made from host
+values is **row-blocked**: each rank's device holds only its block
+[lo, hi) of the rows (:func:`~h2o3_tpu_torch.parallel.mesh.row_sharding`
+of :func:`padded_len`), while every process keeps the whole column on the
+host (``host_full``), as the JAX package's ``_put`` assumes.
+``block = (lo, hi, nrows)`` marks such a Vec: its ``nrows`` is the block's
+length, the frame's is the whole. Its rollups come from the whole column
+and ``to_numpy`` returns it; its element-wise operators, which this slice
+has not made rank-aware, raise :class:`~h2o3_tpu_torch.parallel.mesh.
+MeshUnsupported`.
 
 A column of the streaming parse (:meth:`Vec.from_compressed`) keeps a
 compressed host payload (:mod:`h2o3_tpu_torch.ingest.encode`); its tensor
@@ -33,6 +44,54 @@ from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.frame.rollups import Rollups, cat_rollups, numeric_rollups
 from h2o3_tpu_torch.frame.types import CAT_NA, VecType
 
+# Pad row counts to a multiple of (ranks * _ROW_ALIGN), the JAX package's
+# sublane alignment: the port's columns carry no pad rows, but row blocks
+# are cut from the padded length, as the reference's shards are
+_ROW_ALIGN = 8
+
+
+def padded_len(nrows: int, ndev: int | None = None) -> int:
+    """The padded length of a column of ``nrows`` rows, against the global
+    rank count (never just a bound mesh's: a frame's padded length is one
+    process-wide invariant); a bound mesh whose size does not divide the
+    global unit widens it to the lcm, so blocks cut cleanly on both."""
+    if ndev is None:
+        import math
+
+        from h2o3_tpu_torch.parallel.mesh import (ROWS, bound_mesh,
+                                                  num_global_devices)
+        ndev = num_global_devices()
+        b = bound_mesh()
+        if b is not None and ROWS in b.shape:
+            ndev = math.lcm(ndev, b.shape[ROWS])
+    unit = ndev * _ROW_ALIGN
+    return max(unit, ((nrows + unit - 1) // unit) * unit)
+
+
+def upload_rows(host: np.ndarray, device) -> tuple[torch.Tensor, dict]:
+    """A host column on ``device``: the whole of it, or under a mesh of
+    W > 1 ranks this rank's row block, with the :class:`Vec` keywords
+    (``block``, ``host_full``) that mark it row-blocked."""
+    block = row_block(len(host))
+    if block is None:
+        return torch.as_tensor(host).to(device), {}
+    part = torch.as_tensor(np.ascontiguousarray(
+        host[block[0]:block[1]])).to(device)
+    return part, dict(block=block, host_full=host)
+
+
+def row_block(nrows: int) -> tuple | None:
+    """(lo, hi, nrows) of this rank's block of a new column of ``nrows``
+    rows under a mesh of W > 1 ranks (the global mesh's layout), or None
+    on one rank."""
+    from h2o3_tpu_torch.parallel.mesh import (global_mesh,
+                                              num_global_devices,
+                                              row_sharding)
+    if num_global_devices() == 1:
+        return None
+    lo, hi = row_sharding(nrows, global_mesh())
+    return lo, hi, nrows
+
 
 class Vec:
     """One named, typed column of a Frame."""
@@ -41,8 +100,15 @@ class Vec:
                  domain: tuple[str, ...] | None = None,
                  host_values: np.ndarray | None = None,
                  time_offset: float = 0.0, compressed=None,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 block: tuple | None = None,
+                 host_full: np.ndarray | None = None):
         self._data = data       # [nrows] float32 (numeric) or int32 (codes)
+        # a row-blocked column: (lo, hi, nrows) of this rank's block, and
+        # the whole column on the host (None for a column computed on the
+        # blocks, such as predictions)
+        self.block = block
+        self.host_full = host_full
         # a compressed host payload (ingest/encode.CompressedChunk), with the
         # device its view is built on; _data is then the derived view
         self._compressed = compressed
@@ -69,6 +135,9 @@ class Vec:
             return Vec(None, type,
                        host_values=np.asarray(values, dtype=object))
         dev = resolve_device(device)
+        if type is VecType.TIME:
+            from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
+            refuse_on_mesh("a TIME column")
         if type is VecType.TIME and np.asarray(values).dtype.kind == "M":
             ns = np.asarray(values).astype("datetime64[ns]")
             ms = ns.astype(np.int64).astype(np.float64) / 1e6
@@ -81,12 +150,13 @@ class Vec:
                 codes, domain = _factorize(values)
             else:
                 codes = np.asarray(values, dtype=np.int32)
-            return Vec(torch.as_tensor(codes.astype(np.int32)).to(dev),
-                       type, domain=tuple(domain))
+            data, kw = upload_rows(codes.astype(np.int32), dev)
+            return Vec(data, type, domain=tuple(domain), **kw)
         if not type.on_device:
             raise ValueError(f"{type} columns are not supported by the port yet")
         host = np.ascontiguousarray(values, dtype=np.float32)
-        return Vec(torch.as_tensor(host).to(dev), type)
+        data, kw = upload_rows(host, dev)
+        return Vec(data, type, **kw)
 
     @staticmethod
     def from_device(data: torch.Tensor, type: VecType = VecType.NUM,
@@ -186,7 +256,13 @@ class Vec:
 
     def rollups(self) -> Rollups:
         if self._rollups is None:
-            if self._data is None and self._compressed is not None:
+            if self.block is not None:
+                # the whole column, on the block's device: the numbers of
+                # the one-rank frame, on every rank alike
+                t = torch.as_tensor(self.to_numpy()).to(self.device)
+                self._rollups = (cat_rollups(t) if self.is_categorical
+                                 else numeric_rollups(t))
+            elif self._data is None and self._compressed is not None:
                 # a transient tensor of the payload on the Vec's device, so
                 # the numbers equal the eager column's bit for bit; the
                 # view itself stays unbuilt
@@ -222,7 +298,15 @@ class Vec:
         return self.rollups().sigma
 
     def to_numpy(self) -> np.ndarray:
-        """The column on the host (a TIME column: exact epoch ms)."""
+        """The column on the host (a TIME column: exact epoch ms). A
+        row-blocked column gives all its rows (every rank's block gathered
+        where the host holds no copy: a collective, so every rank calls
+        it)."""
+        if self.block is not None:
+            if self.host_full is not None:
+                return self.host_full
+            from h2o3_tpu_torch.parallel.distributed import fetch
+            return fetch(self.data)
         if self._data is None and self._compressed is not None:
             # a fresh copy: the identity codec decodes to its payload
             return self._compressed.decode().copy()
@@ -241,6 +325,18 @@ class Vec:
         ok = codes >= 0
         out[ok] = np.array(self.domain, dtype=object)[codes[ok]]
         return out
+
+    def rows_at(self, idx: torch.Tensor) -> torch.Tensor:
+        """:meth:`as_float` at the frame's rows ``idx`` (global row numbers
+        for a row-blocked column, read from its whole host column), on the
+        column's device."""
+        if self.block is None:
+            return self.as_float()[idx]
+        host = self.to_numpy()
+        vals = host[idx.cpu().numpy()]
+        if self.is_categorical:
+            vals = np.where(vals < 0, np.nan, vals.astype(np.float32))
+        return torch.as_tensor(np.asarray(vals, np.float32)).to(self.device)
 
     def as_float(self) -> torch.Tensor:
         """Column as float32 with NaN for missing (cats → code floats)."""
@@ -294,7 +390,14 @@ class Vec:
                     np.asarray(other.host_values, np.float64))
         return None
 
+    def _refuse_blocked(self, other=None) -> None:
+        """The element-wise operators are not rank-aware yet."""
+        if self.block is not None or getattr(other, "block", None):
+            from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
+            refuse_on_mesh("Vec arithmetic")
+
     def _ew(self, other, fn, host_fn, swap: bool = False):
+        self._refuse_blocked(other)
         pair = self._time_pair_host(other)
         if pair is not None:
             a, o = pair
@@ -338,6 +441,7 @@ class Vec:
     def __neg__(self): return self._ew(-1.0, torch.mul, np.multiply)
 
     def _cmp(self, other, fn):
+        self._refuse_blocked(other)
         pair = self._time_pair_host(other)
         if pair is not None:
             a, o = pair
@@ -371,6 +475,7 @@ class Vec:
 
     def isna(self) -> "Vec":
         """1.0 where the value is missing."""
+        self._refuse_blocked()
         return Vec(torch.isnan(self.as_float()).to(torch.float32),
                    VecType.NUM)
 

@@ -80,10 +80,10 @@ class DataInfo:
         """The [rows, P] float32 design on the frame's device; categorical
         levels adapted to the training domains by name."""
         dev = frame.device
-        X = torch.zeros((frame.nrows, self.ncols_expanded),
+        X = torch.zeros((frame.local_nrows, self.ncols_expanded),
                         dtype=torch.float32, device=dev)
         lo = 0 if self.use_all_factor_levels else 1
-        rows = torch.arange(frame.nrows, device=dev)
+        rows = torch.arange(frame.local_nrows, device=dev)
         for col, dom, off in zip(self.cat_cols, self.cat_domains,
                                  self.cat_offsets):
             v = frame.vec(col)

@@ -61,7 +61,8 @@ from h2o3_tpu_torch.models.tree import (Tree, TreeParams, _walk_binned,
                                         fold_binned, grow_cost, grow_tree,
                                         grow_trees_batched, predict_binned,
                                         predict_raw)
-from h2o3_tpu_torch.ops.map_reduce import retrying
+from h2o3_tpu_torch.ops.map_reduce import mesh_reduce, retrying
+from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
 from h2o3_tpu_torch.ops.quantile import (bin_column, bin_dtype, bin_features,
                                          compute_bin_edges)
 from h2o3_tpu_torch.persist.recovery import checkpoint_every
@@ -129,9 +130,11 @@ def sigmoid(f: torch.Tensor) -> torch.Tensor:
 def _weighted_quantile_host(y: torch.Tensor, w: torch.Tensor,
                             prob: float) -> float:
     """Weighted quantile of y over rows with w > 0 (host side, once per
-    training: the initial margin of laplace, quantile and huber)."""
-    yh = y.detach().cpu().numpy().astype(np.float64)
-    wh = w.detach().cpu().numpy().astype(np.float64)
+    training: the initial margin of laplace, quantile and huber); across
+    ranks over every rank's rows, gathered."""
+    from h2o3_tpu_torch.parallel.distributed import fetch
+    yh = fetch(y.detach()).astype(np.float64)
+    wh = fetch(w.detach()).astype(np.float64)
     ok = wh > 0
     if not ok.any():
         return 0.0
@@ -215,20 +218,27 @@ def _metric_device(metric: str, dist: str, F: torch.Tensor, y: torch.Tensor,
     ``F``: margins ([rows, K] for multinomial); ``dist="drf_prob"`` means
     ``F`` already is the prediction (DRF's averaged probability or mean).
     AUC credits tied predictions at half, exactly. A custom distribution
-    scores in response space, through its ``custom_link``'s inverse."""
-    n = torch.clamp(w.sum(), min=1e-30)
+    scores in response space, through its ``custom_link``'s inverse.
+    Across ranks each weighted mean is one all_reduce of its numerator and
+    ``w``'s sum; AUC, a rank statistic, is not rank-aware yet."""
+    def mean(num):
+        """num / Σw over the mesh's rows."""
+        num, den = mesh_reduce(lambda a, b: torch.stack([a, b.sum()]),
+                               num, w)
+        return num / torch.clamp(den, min=1e-30)
+
     if nclass > 1:
         prob = F if dist == "drf_prob" else torch.softmax(F, dim=1)
         prob = torch.clamp(prob, 1e-15, 1.0)
         yi = y.long()[:, None]
         if metric in ("AUTO", "deviance", "logloss"):
-            return -(w * torch.log(prob).gather(1, yi)[:, 0]).sum() / n
+            return mean(-(w * torch.log(prob).gather(1, yi)[:, 0]).sum())
         if metric in ("MSE", "RMSE"):
-            mse = (w * (1.0 - prob.gather(1, yi)[:, 0]) ** 2).sum() / n
+            mse = mean((w * (1.0 - prob.gather(1, yi)[:, 0]) ** 2).sum())
             return torch.sqrt(mse) if metric == "RMSE" else mse
         if metric == "misclassification":
             pred = torch.argmax(prob, dim=1).float()
-            return (w * (pred != y)).sum() / n
+            return mean((w * (pred != y)).sum())
         raise ValueError(f"unsupported multinomial stopping_metric {metric!r}")
     prob = mu = None
     if dist == "bernoulli":
@@ -244,18 +254,20 @@ def _metric_device(metric: str, dist: str, F: torch.Tensor, y: torch.Tensor,
     if metric in ("AUTO", "deviance", "logloss"):
         if prob is not None:
             pc = torch.clamp(prob, 1e-7, 1 - 1e-7)
-            return -(w * (y * torch.log(pc)
-                          + (1 - y) * torch.log1p(-pc))).sum() / n
+            return mean(-(w * (y * torch.log(pc)
+                               + (1 - y) * torch.log1p(-pc))).sum())
         if dist in LOG_LINK:
-            return (w * (mu - y * torch.clamp(F, -30, 30))).sum() / n
-        return (w * (mu - y) ** 2).sum() / n
+            return mean((w * (mu - y * torch.clamp(F, -30, 30))).sum())
+        return mean((w * (mu - y) ** 2).sum())
     if metric in ("MSE", "RMSE"):
         err = (prob - y) ** 2 if prob is not None else (mu - y) ** 2
-        mse = (w * err).sum() / n
+        mse = mean((w * err).sum())
         return torch.sqrt(mse) if metric == "RMSE" else mse
     if metric == "misclassification":
-        return (w * ((prob > 0.5).float() != y)).sum() / n
+        return mean((w * ((prob > 0.5).float() != y)).sum())
     if metric == "AUC":
+        from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
+        refuse_on_mesh("the AUC stopping metric")
         # weighted Mann-Whitney: a positive earns the negative weight below
         # its score plus half of its tie group's
         order = torch.argsort(prob, stable=True)
@@ -363,7 +375,7 @@ class SharedTreeModel(Model):
 
     def _tree_raw_sum(self, frame: Frame) -> torch.Tensor:
         if not self.output["trees"]:
-            return torch.zeros(frame.nrows, dtype=torch.float32,
+            return torch.zeros(frame.local_nrows, dtype=torch.float32,
                                device=frame.device)
         X = tree_matrix(frame, self.output["x_cols"], self.output["feat_domains"])
         return self._predict_trees(X, self.output["trees"])
@@ -372,7 +384,7 @@ class SharedTreeModel(Model):
         """[rows, K] per-class sums (``trees_multi[k]`` is class k)."""
         per_class = self.output["trees_multi"]
         if not any(per_class):
-            return torch.zeros((frame.nrows, len(per_class)),
+            return torch.zeros((frame.local_nrows, len(per_class)),
                                dtype=torch.float32, device=frame.device)
         X = tree_matrix(frame, self.output["x_cols"], self.output["feat_domains"])
         return torch.stack([self._predict_trees(X, ts) for ts in per_class],
@@ -556,6 +568,9 @@ class SharedTreeBuilder(ModelBuilder):
     #: the inherited parameters this builder does not apply: each must
     #: keep its default
     UNUSED: tuple = ()
+    #: (lo, hi, nrows) of the training frame's row block under a mesh of
+    #: several ranks (set by ``_prepare``), else None
+    _row_block = None
 
     def _maybe_calibrate(self, model) -> None:
         """Fit probability calibration on ``calibration_frame`` (reference:
@@ -595,10 +610,16 @@ class SharedTreeBuilder(ModelBuilder):
         nrows = frame.nrows
         stride = max(1, nrows // 100_000)
         idx = torch.arange(0, nrows, stride, device=frame.device)
-        sample = torch.stack([frame.vec(c).as_float()[idx] for c in x],
+        # the same sample of the whole frame on every rank of a mesh
+        sample = torch.stack([frame.vec(c).rows_at(idx) for c in x],
                              dim=1).cpu().numpy()
+        self._row_block = frame.block
+        if frame.block is not None:
+            from h2o3_tpu_torch.parallel.distributed import fetch
+            weights = torch.as_tensor(fetch(weights))
         # weighted edges keep the weights-as-replication contract
-        w_sample = weights[idx].cpu().numpy().astype(np.float64)
+        w_sample = weights[idx.to(weights.device)].cpu().numpy().astype(
+            np.float64)
         edges = torch.as_tensor(compute_bin_edges(
             sample, int(self.params["nbins"]), w_sample)).to(frame.device)
         self._setup_cat_info(frame, x)
@@ -799,10 +820,21 @@ class SharedTreeBuilder(ModelBuilder):
 
     @staticmethod
     def _row_weights(gen: torch.Generator, w: torch.Tensor, rate: float,
-                     bootstrap: bool) -> torch.Tensor:
+                     bootstrap: bool, block: tuple | None = None
+                     ) -> torch.Tensor:
         """Row sampling as weights: a bootstrap multiplies by Poisson(rate)
         counts (a ``rate`` fraction in expectation, static shapes), plain
-        sampling keeps each row with probability ``rate``."""
+        sampling keeps each row with probability ``rate``. On a row block
+        ``block`` = (lo, hi, nrows) every rank draws for all the rows and
+        keeps its block's draws, so the sample is one rank's."""
+        if block is not None and (bootstrap or rate < 1.0):
+            lo, hi, n = block
+            shape = tuple(w.shape[:-1]) + (n,)
+            if bootstrap:
+                full = torch.full(shape, rate, dtype=w.dtype, device=w.device)
+                return w * torch.poisson(full, generator=gen)[..., lo:hi]
+            return w * (torch.rand(shape, generator=gen,
+                                   device=w.device)[..., lo:hi] < rate)
         if bootstrap:
             return w * torch.poisson(torch.full_like(w, rate), generator=gen)
         if rate >= 1.0:
@@ -825,6 +857,17 @@ class GBM(SharedTreeBuilder):
     """h2o-py surface: ``H2OGradientBoostingEstimator``."""
 
     algo = "gbm"
+    rank_aware = True
+    mesh_refused = ModelBuilder.mesh_refused + ("calibrate_model",)
+
+    def _check_mesh(self, frame, validation_frame) -> None:
+        """As the base's; across ranks the custom and huber distributions
+        (an uploaded UDF, and huber's per-tree quantile of the residuals)
+        are not rank-aware yet."""
+        super()._check_mesh(frame, validation_frame)
+        dist = str(self.params.get("distribution") or "AUTO").lower()
+        if dist in ("custom", "huber"):
+            refuse_on_mesh(f"{self.algo}'s distribution={dist!r}")
 
     #: early-stopping metrics honoured (reference: ScoreKeeper.StoppingMetric)
     STOPPING_METRICS = ("AUTO", "deviance", "logloss", "MSE", "RMSE", "AUC",
@@ -875,8 +918,14 @@ class GBM(SharedTreeBuilder):
 
     @staticmethod
     def _f0(dist: str, yy, yc, w, p) -> float:
-        """The initial margin of each family (reference GBM._fit)."""
-        ybar = float((w * yc).sum() / torch.clamp(w.sum(), min=1e-30))
+        """The initial margin of each family (reference GBM._fit). The
+        weighted mean's sums are taken in float64 (exact for whole weights
+        and responses, in any order, so across ranks too), then rounded to
+        float32 for the division."""
+        num, den = mesh_reduce(
+            lambda w, yc: torch.stack([(w.double() * yc.double()).sum(),
+                                       w.double().sum()]), w, yc).float()
+        ybar = float(num / torch.clamp(den, min=1e-30))
         if dist == "bernoulli":
             ybar = min(max(ybar, 1e-6), 1 - 1e-6)
             return float(np.log(ybar / (1 - ybar)))
@@ -1191,7 +1240,8 @@ class GBM(SharedTreeBuilder):
 
         def grow_round(m, F):
             gen = self._tree_generator(dev, m)
-            wt = self._row_weights(gen, w, sample_rate, bootstrap=False)
+            wt = self._row_weights(gen, w, sample_rate, bootstrap=False,
+                                   block=self._row_block)
             g, h = _grad_hess(dist, F, yc, wt, *hp, custom=custom)
             fmask = self._sample_fmask(gen, fmask_base, col_tree_rate)
             tree, row_leaf = grow_tree(binned, binned_T, edges, g, h, wt,
@@ -1262,9 +1312,10 @@ class GBM(SharedTreeBuilder):
         if cp is not None:
             f0 = cp.output["f0_multi"].to(dev)
         else:
-            yoh = torch.nn.functional.one_hot(yc.long(), K).float() * w[:, None]
-            prior = yoh.sum(0).cpu().numpy().astype(np.float64)
-            del yoh
+            prior = mesh_reduce(
+                lambda yc, w: (torch.nn.functional.one_hot(yc.long(), K)
+                               .float() * w[:, None]).sum(0),
+                yc, w).cpu().numpy().astype(np.float64)
             prior = np.maximum(prior / max(prior.sum(), 1e-30), 1e-10)
             f0 = torch.as_tensor(np.log(prior).astype(np.float32)).to(dev)
         lr = float(p["learn_rate"])
@@ -1295,7 +1346,8 @@ class GBM(SharedTreeBuilder):
 
         def grow_round(m, F):
             gen = self._tree_generator(dev, m)
-            wt = self._row_weights(gen, w, sample_rate, bootstrap=False)
+            wt = self._row_weights(gen, w, sample_rate, bootstrap=False,
+                                   block=self._row_block)
             G, H = _grad_hess_multinomial(F, yc, wt)
             fmask = self._sample_fmask(gen, fmask_base, col_tree_rate)
             return grow_trees_batched(

@@ -44,6 +44,8 @@ from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.model_base import (Model, ModelBuilder,
                                               make_model_key,
                                               publish_dispatch_audit)
+from h2o3_tpu_torch.ops.map_reduce import mesh_reduce
+from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
 from h2o3_tpu_torch.utils import telemetry as _tm
 from h2o3_tpu_torch.utils.costs import accounted
 from h2o3_tpu_torch.utils.registry import DKV
@@ -122,12 +124,10 @@ def _row_blocks(R: int, P: int):
     return [(s, min(s + step, R)) for s in range(0, R, step)] or [(0, 0)]
 
 
-def _weighted_gram(X, W, z, l2, nobs, jitter):
-    """Normal equations for weighted least squares with an unpenalised
-    intercept column: gram = [X,1]'W[X,1] + l2*nobs*diag(1..1,0) +
-    jitter*I, rhs = [X,1]'Wz; the jitter is relative to the Gram's trace,
-    so collinear designs stay factorizable. Summed over row blocks in a
-    fixed order."""
+def _gram_partials(X, W, z):
+    """This rank's [X,1]'W[X,1] and [X,1]'Wz parts: X'WX [k, k], the
+    columns X'Wz and X'W [k, 2], and (ΣW, ΣWz). Summed over row blocks in
+    a fixed order."""
     R, k = X.shape
     G = torch.zeros((k, k), dtype=torch.float32, device=X.device)
     side = torch.zeros((k, 2), dtype=torch.float32, device=X.device)
@@ -136,12 +136,23 @@ def _weighted_gram(X, W, z, l2, nobs, jitter):
         Xw = X[s:e] * W[s:e, None]
         G.addmm_(Xw.T, X[s:e])
         side.addmm_(Xw.T, zw[s:e])
+    return G, side, torch.stack([W.sum(), (W * z).sum()])
+
+
+def _weighted_gram(X, W, z, l2, nobs, jitter):
+    """Normal equations for weighted least squares with an unpenalised
+    intercept column: gram = [X,1]'W[X,1] + l2*nobs*diag(1..1,0) +
+    jitter*I, rhs = [X,1]'Wz; the jitter is relative to the Gram's trace,
+    so collinear designs stay factorizable. Across ranks the parts are
+    summed over every rank's rows by one all_reduce (``map_reduce``)."""
+    k = X.shape[1]
+    G, side, sums = mesh_reduce(_gram_partials, X, W, z)
     gram = torch.empty((k + 1, k + 1), dtype=torch.float32, device=X.device)
     gram[:k, :k] = G
     gram[:k, k] = side[:, 1]
     gram[k, :k] = side[:, 1]
-    gram[k, k] = W.sum()
-    rhs = torch.cat([side[:, 0], (W * z).sum()[None]])
+    gram[k, k] = sums[0]
+    rhs = torch.cat([side[:, 0], sums[1:]])
     penalty = l2 * nobs * torch.cat([torch.ones(k, device=X.device),
                                      torch.zeros(1, device=X.device)])
     j = jitter * (torch.trace(gram) / (k + 1) + 1.0)
@@ -151,12 +162,21 @@ def _weighted_gram(X, W, z, l2, nobs, jitter):
 
 
 def _weighted_sq_sums(X, W):
-    """Σ_r W_r x_rj² per column, over the same row blocks."""
-    out = torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
-    for s, e in _row_blocks(*X.shape):
-        Xb = X[s:e]
-        out += (Xb * Xb).T @ W[s:e]
-    return out
+    """Σ_r W_r x_rj² per column, over the same row blocks (and every
+    rank's rows)."""
+    def sq_sums(X, W):
+        out = torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
+        for s, e in _row_blocks(*X.shape):
+            Xb = X[s:e]
+            out += (Xb * Xb).T @ W[s:e]
+        return out
+
+    return mesh_reduce(sq_sums, X, W)
+
+
+def _rows_sums(*vals):
+    """Σ over the mesh's rows of each per-row tensor, [len(vals)]."""
+    return mesh_reduce(lambda *v: torch.stack([x.sum() for x in v]), *vals)
 
 
 def _nn_solve(gram, rhs, beta0, tol: float = 1e-7, max_passes: int = 100):
@@ -210,10 +230,10 @@ def _irls_step(fam, X, y, w, beta, l2, non_negative: bool, off,
     var = fam.variance(mu)
     W = w * d * d / var.clamp_min(1e-12)
     z = eta + (y - mu) / d.clamp_min(1e-12) - off
-    nobs = w.sum().clamp_min(1.0)
+    wsum, dev = _rows_sums(w, w * fam.deviance(y, mu))
+    nobs = wsum.clamp_min(1.0)
     gram, rhs = _weighted_gram(X, W, z, l2, nobs, jitter)
     new_beta, info = _solve(gram, rhs, beta, non_negative)
-    dev = (w * fam.deviance(y, mu)).sum()
     return new_beta, dev, (new_beta - beta).abs().max(), info
 
 
@@ -222,7 +242,7 @@ def _l1_threshold(fam, X, w, beta, lam1, lam2, off=0.0):
     eta = _eta(X, beta, off)
     d = fam.dmu_deta(eta)
     W = w * d * d / fam.variance(fam.linkinv(eta)).clamp_min(1e-12)
-    nobs = w.sum().clamp_min(1.0)
+    nobs = _rows_sums(w)[0].clamp_min(1.0)
     gram_diag = _weighted_sq_sums(X, W) + lam2 * nobs
     return lam1 * nobs / gram_diag.clamp_min(1e-12)
 
@@ -266,12 +286,13 @@ def _p_values(z: np.ndarray) -> np.ndarray:
 
 
 def _deviance_at(fam, X, y, w, beta, off=0.0):
-    return (w * fam.deviance(y, fam.linkinv(_eta(X, beta, off)))).sum()
+    return _rows_sums(w * fam.deviance(y, fam.linkinv(_eta(X, beta, off))))[0]
 
 
 def _null_deviance(fam, y, w):
-    mu0 = ((w * y).sum() / w.sum().clamp_min(1e-30)).expand_as(y)
-    return (w * fam.deviance(y, mu0)).sum()
+    wy, ws = _rows_sums(w * y, w)
+    mu0 = (wy / ws.clamp_min(1e-30)).expand_as(y)
+    return _rows_sums(w * fam.deviance(y, mu0))[0]
 
 
 def _glm_score(family: str, nclasses: int, tweedie_p: float, X, beta,
@@ -441,10 +462,25 @@ class GLM(ModelBuilder):
     matrix-free path of :mod:`h2o3_tpu_torch.models.glm_sparse`."""
 
     algo = "glm"
+    rank_aware = True
+    mesh_refused = ModelBuilder.mesh_refused + (
+        "lambda_search", "compute_p_values", "interactions")
+
+    def _check_mesh(self, frame, validation_frame) -> None:
+        """As the base's; across ranks GLM fits the IRLS path of the
+        binomial and numeric families (the Gram, X'Wz, the deviance and the
+        L1 pass summed over the ranks); Skip's row filter, the multinomial
+        and ordinal families are not rank-aware yet."""
+        super()._check_mesh(frame, validation_frame)
+        if self._mvh_mode() == "skip":
+            refuse_on_mesh("GLM's missing_values_handling='Skip'")
+        if str(self.params.get("family")) in ("multinomial", "ordinal"):
+            refuse_on_mesh(f"GLM's family={self.params['family']!r}")
 
     def train(self, x=None, y=None, training_frame=None,
               validation_frame=None, weights=None):
         if isinstance(training_frame, SparseFrame):
+            refuse_on_mesh("GLM on a SparseFrame")
             if x is not None:
                 raise ValueError("column selection (x) is not supported on "
                                  "SparseFrame inputs: slice the COO instead")
@@ -536,6 +572,7 @@ class GLM(ModelBuilder):
         betas 0.9/0.999, eps 1e-8) for 20 × max_iterations steps, the
         gradient from autograd and the update by hand, as the reference's
         ``lax.scan`` takes it."""
+        refuse_on_mesh("GLM's ordinal family")
         params = self.params
         if params.get("interactions") or params.get("offset_column"):
             raise ValueError("interactions/offset_column are not supported "
@@ -936,7 +973,8 @@ class GLM(ModelBuilder):
         mu0 = fam.initialize_mu(yy)
         k = X.shape[1]
         beta = torch.zeros(k + 1, dtype=torch.float32, device=X.device)
-        beta[-1] = fam.link((w * mu0).sum() / w.sum().clamp_min(1e-30))
+        wmu, ws = _rows_sums(w * mu0, w)
+        beta[-1] = fam.link(wmu / ws.clamp_min(1e-30))
 
         self._beta_bounds = self._build_beta_bounds(di, params, family,
                                                     X.device)
@@ -1004,6 +1042,7 @@ class GLM(ModelBuilder):
         """Softmax regression by cyclic per-class IRLS blocks (reference:
         GLM.java multinomial path); the deviance's plateau stops it, checked
         after every sweep with one host fetch."""
+        refuse_on_mesh("GLM's multinomial family")
         params = self.params
         if params.get("interactions") or params.get("offset_column"):
             raise ValueError("interactions/offset_column are not supported "

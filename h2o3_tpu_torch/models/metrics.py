@@ -5,6 +5,12 @@ Binomial AUC uses the reference's 400-bin streaming histogram of scores
 (``hex/AUC2.java``): one pass on the device fills per-bin positive,
 negative and score sums plus logloss and MSE; ROC, PR and the max-F1
 confusion matrix come from the histogram on the host.
+
+Under a mesh of several ranks each pass sums its rank's rows and the
+partial sums are added over the ranks (``ops/map_reduce.mesh_reduce``)
+before the one division: the metrics of all the rows, on every rank. The
+float32 sums change order with the rank count, so their last bits may
+differ from one rank's.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.models.distributions import get_family
+from h2o3_tpu_torch.ops.map_reduce import mesh_reduce
 
 NBINS = 400  # reference: AUC2.NBINS=400
 #: numpy 2 renamed trapz; the card's machine may carry either numpy
@@ -84,20 +91,27 @@ class ModelMetricsMultinomial(MetricsBase):
 def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
                        mask: torch.Tensor) -> ModelMetricsRegression:
     """Gaussian regression metrics over rows where ``mask`` holds."""
-    w = mask.float()
-    n = w.sum()
-    err = torch.where(mask, pred - y, 0.0)
-    mse = (err * err).sum() / n
-    mae = err.abs().sum() / n
-    both_pos = mask & (pred > -1) & (y > -1)
-    le = torch.where(both_pos, torch.log1p(pred.clamp_min(-1 + 1e-10))
-                     - torch.log1p(y), 0.0)
-    rmsle = torch.sqrt((le * le).sum() / n)
-    ymean = torch.where(mask, y, 0.0).sum() / n
-    ss_tot = torch.where(mask, (y - ymean) ** 2, 0.0).sum()
-    r2 = 1.0 - (err * err).sum() / ss_tot.clamp_min(1e-30)
-    dev = get_family("gaussian").deviance(y, pred)
-    mrd = torch.where(mask, dev, 0.0).sum() / n
+    def sums(pred, y, mask):
+        err = torch.where(mask, pred - y, 0.0)
+        both_pos = mask & (pred > -1) & (y > -1)
+        le = torch.where(both_pos, torch.log1p(pred.clamp_min(-1 + 1e-10))
+                         - torch.log1p(y), 0.0)
+        dev = get_family("gaussian").deviance(y, pred)
+        return torch.stack([mask.float().sum(), (err * err).sum(),
+                            err.abs().sum(), (le * le).sum(),
+                            torch.where(mask, y, 0.0).sum(),
+                            torch.where(mask, dev, 0.0).sum()])
+
+    n, sq, ab, lsq, ysum, dsum = mesh_reduce(sums, pred, y, mask)
+    mse = sq / n
+    mae = ab / n
+    rmsle = torch.sqrt(lsq / n)
+    ymean = ysum / n
+    ss_tot = mesh_reduce(
+        lambda y, mask: torch.where(mask, (y - ymean) ** 2, 0.0).sum(),
+        y, mask)
+    r2 = 1.0 - sq / ss_tot.clamp_min(1e-30)
+    mrd = dsum / n
     r = torch.stack([n, mse, mae, rmsle, r2, mrd]).tolist()
     return ModelMetricsRegression(nobs=int(r[0]), mse=r[1], mae=r[2],
                                   rmsle=r[3], mean_residual_deviance=r[5],
@@ -107,16 +121,21 @@ def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
 def _binomial_pass(p: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                    nbins: int = NBINS) -> dict:
     """One pass: 400-bin score histogram (AUC2 semantics) + logloss + MSE."""
-    w = mask.float()
-    n = w.sum()
-    pc = p.clamp(1e-7, 1 - 1e-7)
-    logloss = -(w * (y * torch.log(pc) + (1 - y) * torch.log1p(-pc))).sum() / n
-    err = torch.where(mask, p - y, 0.0)
-    mse = (err * err).sum() / n
-    bins = (p * nbins).to(torch.int32).clamp(0, nbins - 1)
-    bins = torch.where(mask, bins, 0).long()
-    hist = torch.zeros((nbins, 3), dtype=torch.float32, device=p.device)
-    hist.index_add_(0, bins, torch.stack([w * y, w * (1.0 - y), w * p], 1))
+    def sums(p, y, mask):
+        w = mask.float()
+        pc = p.clamp(1e-7, 1 - 1e-7)
+        ll = -(w * (y * torch.log(pc) + (1 - y) * torch.log1p(-pc))).sum()
+        err = torch.where(mask, p - y, 0.0)
+        bins = (p * nbins).to(torch.int32).clamp(0, nbins - 1)
+        bins = torch.where(mask, bins, 0).long()
+        hist = torch.zeros((nbins, 3), dtype=torch.float32, device=p.device)
+        hist.index_add_(0, bins,
+                        torch.stack([w * y, w * (1.0 - y), w * p], 1))
+        return torch.stack([w.sum(), ll, (err * err).sum()]), hist
+
+    (n, ll, sq), hist = mesh_reduce(sums, p, y, mask)
+    logloss = ll / n
+    mse = sq / n
     return dict(n=float(n), logloss=float(logloss), mse=float(mse),
                 tp_h=hist[:, 0].cpu().numpy(), fp_h=hist[:, 1].cpu().numpy(),
                 s_h=hist[:, 2].cpu().numpy())
@@ -156,16 +175,21 @@ def _multinomial_pass(probs: torch.Tensor, y: torch.Tensor,
                       mask: torch.Tensor, nclass: int) -> dict:
     """One pass: logloss and MSE of the true class's probability, and the
     confusion matrix as one ``index_add_`` on actual*K + predicted."""
-    w = mask.float()
-    n = w.sum()
-    yi = torch.where(mask, y.long(), 0)
-    p_true = probs.gather(1, yi[:, None])[:, 0].clamp(1e-15, 1.0)
-    logloss = -(w * torch.log(p_true)).sum() / n
-    mse = (w * (1.0 - p_true) ** 2).sum() / n
-    pred = probs.argmax(dim=1)
-    idx = torch.where(mask, yi * nclass + pred, 0)
-    cm = torch.zeros(nclass * nclass, dtype=torch.float32, device=probs.device)
-    cm.index_add_(0, idx, w)
+    def sums(probs, y, mask):
+        w = mask.float()
+        yi = torch.where(mask, y.long(), 0)
+        p_true = probs.gather(1, yi[:, None])[:, 0].clamp(1e-15, 1.0)
+        pred = probs.argmax(dim=1)
+        idx = torch.where(mask, yi * nclass + pred, 0)
+        cm = torch.zeros(nclass * nclass, dtype=torch.float32,
+                         device=probs.device)
+        cm.index_add_(0, idx, w)
+        return torch.stack([w.sum(), -(w * torch.log(p_true)).sum(),
+                            (w * (1.0 - p_true) ** 2).sum()]), cm
+
+    (n, ll, sq), cm = mesh_reduce(sums, probs, y, mask)
+    logloss = ll / n
+    mse = sq / n
     return dict(n=float(n), logloss=float(logloss), mse=float(mse),
                 cm=cm.reshape(nclass, nclass).cpu().numpy())
 

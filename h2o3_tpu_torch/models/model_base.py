@@ -25,6 +25,15 @@ and counts into ``h2o3_model_builds_total`` and
 ``h2o3_model_build_seconds``; ``max_runtime_secs`` is its job's deadline
 (builders that keep partial results stop and return them). The reference's
 mesh slices are left out.
+
+Under a mesh of W > 1 ranks (``parallel/``) a :attr:`ModelBuilder.
+rank_aware` builder (GBM, XGBoost's gbtree, GLM) trains on the row blocks
+of a frame made under the mesh: every rank runs the same fit on its block
+and the fit's sums are reduced over the ranks, so every rank ends with
+the model of all the rows; its predictions stay row-blocked. Every other
+builder, and the options that are not rank-aware yet
+(:attr:`ModelBuilder.mesh_refused`), raise
+:class:`~h2o3_tpu_torch.parallel.mesh.MeshUnsupported` there.
 """
 
 from __future__ import annotations
@@ -45,6 +54,10 @@ from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.metrics import (binomial_metrics,
                                            multinomial_metrics,
                                            regression_metrics)
+from h2o3_tpu_torch.ops.hist import mesh_rows
+from h2o3_tpu_torch.ops.map_reduce import mesh_reduce
+from h2o3_tpu_torch.parallel.mesh import (MeshUnsupported,
+                                          num_global_devices, refuse_on_mesh)
 from h2o3_tpu_torch.utils import telemetry as _tm
 from h2o3_tpu_torch.utils.costs import COSTS
 from h2o3_tpu_torch.utils.registry import DKV, LOCKS
@@ -67,6 +80,12 @@ def publish_dispatch_audit(builder, loop: str, iterations: int,
                        device_dispatches=int(device_dispatches),
                        syncs_per_iteration=round(host_syncs / iters, 4))
     _tm.DISPATCHES_PER_ITER.labels(loop=loop).set(host_syncs / iters)
+
+
+def _weight_rollup(w: torch.Tensor) -> torch.Tensor:
+    """(rows with weight, weight sum) of this rank's rows — the MRTask row
+    count over the weights the fit used (Skip rows carry weight 0)."""
+    return torch.stack([(w > 0).float().sum(), w.sum()])
 
 
 class Model:
@@ -126,13 +145,14 @@ class Model:
         frame = self._preprocess(frame)
         raw = self._score_raw(frame)
         if not self.is_classifier:
-            return Frame(["predict"], [Vec.from_device(raw, VecType.NUM)])
+            return _blocked_like(frame, Frame(
+                ["predict"], [Vec.from_device(raw, VecType.NUM)]))
         labels = decision_labels(raw, self).to(torch.int32)
         names = ["predict"] + [f"p{d}" for d in self.response_domain]
         vecs = [Vec.from_device(labels, VecType.CAT, domain=self.response_domain)]
         vecs += [Vec.from_device(raw[:, k].contiguous(), VecType.NUM)
                  for k in range(self.nclasses)]
-        return Frame(names, vecs)
+        return _blocked_like(frame, Frame(names, vecs))
 
     def model_performance(self, frame: Frame):
         """Metrics of this model on a frame that holds the response (a
@@ -171,6 +191,16 @@ class Model:
         return "\n".join(lines)
 
 
+def _blocked_like(frame: Frame, out: Frame) -> Frame:
+    """``out`` (computed on ``frame``'s rows) as a row-blocked frame where
+    ``frame`` is one: each rank's predictions of its block, gathered by
+    ``fetch`` or ``to_numpy``."""
+    if frame.block is not None:
+        for v in out.vecs:
+            v.block = frame.block
+    return out
+
+
 def decision_labels(raw: torch.Tensor, model=None) -> torch.Tensor:
     """Class labels from [n, K] probabilities: argmax, or for a binomial
     model whose threshold was reset (``model.reset.threshold``, reference
@@ -201,6 +231,14 @@ class ModelBuilder:
     supports_classification = True
     #: whether a numeric response is taken
     supports_regression = True
+    #: whether the builder trains across the ranks of a mesh (each rank on
+    #: its row block, the fit's sums reduced over the ranks); the others
+    #: raise MeshUnsupported under a mesh of more than one rank
+    rank_aware = False
+    #: parameters a rank-aware builder does not take across ranks yet:
+    #: each raises MeshUnsupported there when set
+    mesh_refused = ("nfolds", "fold_column", "checkpoint",
+                    "custom_metric_func", "auto_recovery_dir")
 
     def __init__(self, **params):
         self.params = self.defaults()
@@ -246,6 +284,28 @@ class ModelBuilder:
         ``ValueError`` for a request no build could ever satisfy. The
         port's builders refuse unknown and unapplied parameters in
         ``__init__`` already, so the base has nothing more to check."""
+
+    def _check_mesh(self, frame: Frame,
+                    validation_frame: Frame | None) -> None:
+        """Under a mesh of W > 1 ranks: refuse a builder or an option that
+        is not rank-aware, and a frame that is not row-blocked (made before
+        the cloud formed: every rank would train on all its rows and the
+        reductions would count each row W times)."""
+        n = num_global_devices()
+        if n == 1:
+            return
+        if not self.rank_aware:
+            refuse_on_mesh(f"the {self.algo} builder")
+        for p in self.mesh_refused:
+            if self.params.get(p):
+                refuse_on_mesh(f"{self.algo}'s {p}")
+        for what, f in (("training_frame", frame),
+                        ("validation_frame", validation_frame)):
+            if f is not None and f.block is None:
+                raise MeshUnsupported(
+                    f"{what} holds all its rows on this rank: under a mesh "
+                    f"of {n} ranks a builder trains on a frame made after "
+                    "the cloud formed, cut into row blocks")
 
     def supports_auto_recovery(self) -> bool:
         """Whether this builder writes snapshots under
@@ -311,6 +371,7 @@ class ModelBuilder:
              if c != y and c not in ignored and frame.vec(c).type.on_device]
         if not x:
             raise ValueError("no usable feature columns")
+        self._check_mesh(frame, validation_frame)
         self._validate(frame, x, y)
         if validation_frame is not None and \
                 validation_frame.device != frame.device:
@@ -347,7 +408,7 @@ class ModelBuilder:
             # the build's span and timeline event, under the cost scope
             # that credits its kernel builds to this algo
             with timed_event("model", f"{self.algo}:fit"), \
-                    COSTS.scope(f"fit:{self.algo}"):
+                    COSTS.scope(f"fit:{self.algo}"), mesh_rows(frame.nrows):
                 model = self._fit(job, frame, x, y, base_w)
             model.run_time_ms = int((time.time() - t0) * 1000)
             _tm.MODEL_BUILDS.labels(algo=self.algo).inc()
@@ -356,6 +417,11 @@ class ModelBuilder:
             w_metrics = self._metrics_weights
             if w_metrics is None:
                 w_metrics = base_w
+            if num_global_devices() > 1:
+                # rows with weight and the weight sum over every rank's rows
+                nobs, wsum = mesh_reduce(_weight_rollup, w_metrics).tolist()
+                model.output.setdefault("effective_nobs", int(nobs))
+                model.output.setdefault("weight_sum", wsum)
             if y is not None:
                 model.training_metrics = self._holdout_metrics(
                     model, frame, y, w_metrics)

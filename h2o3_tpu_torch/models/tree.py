@@ -34,7 +34,9 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.ops.hist import (hist_bytes, hist_flops,
-                                     level_histograms, node_totals)
+                                     level_histograms, mesh_level_histograms,
+                                     mesh_node_totals, node_totals,
+                                     summed_over_mesh)
 from h2o3_tpu_torch.utils.costs import accounted
 
 
@@ -107,7 +109,12 @@ HEAP_FIELDS = ("feat", "thresh_bin", "thresh_val", "na_left", "is_split",
 def _histograms(binned_T, node_local, g, h, w, n_nodes: int, n_bins_tot: int):
     """Level histograms [K, F, n_nodes*n_bins_tot, 3] of K class trees in one
     call: the CUDA kernel on the card, its plain version on the CPU
-    (reference ``_histograms`` under ``vmap``)."""
+    (reference ``_histograms`` under ``vmap``); across the ranks of a mesh,
+    every rank's rows summed (the reference's ``_level_histograms_fused``:
+    shard-local sums, then one psum)."""
+    if summed_over_mesh(binned_T.device):
+        return mesh_level_histograms(binned_T, node_local, g, h, w, n_nodes,
+                                     n_bins_tot)
     return level_histograms(binned_T, node_local, g, h, w, n_nodes, n_bins_tot)
 
 
@@ -115,7 +122,9 @@ def _node_totals(node_local, g, h, w, n_nodes: int):
     """Per-node (G, H, W) sums [K, n_nodes, 3] of K trees — all the final
     level needs: the node-totals instance of the fixed kernel on the card
     (integer sums, the same bits every run), one ``index_add_`` on the
-    CPU."""
+    CPU; across the ranks of a mesh, every rank's rows summed."""
+    if summed_over_mesh(node_local.device):
+        return mesh_node_totals(node_local, g, h, w, n_nodes)
     return node_totals(node_local, g, h, w, n_nodes)
 
 

@@ -93,6 +93,14 @@ class XGBoost(GBM):
                     params.setdefault(target, v)
         super().__init__(**params)
 
+    def _check_mesh(self, frame, validation_frame) -> None:
+        """As GBM's; DART's rounds (dropped trees' margins, its own base
+        margin) are not rank-aware yet."""
+        super()._check_mesh(frame, validation_frame)
+        if str(self.params.get("booster") or "gbtree").lower() == "dart":
+            from h2o3_tpu_torch.parallel.mesh import refuse_on_mesh
+            refuse_on_mesh("xgboost's booster='dart'")
+
     def supports_auto_recovery(self) -> bool:
         # DART neither checkpoints nor resumes (its prior trees' weights
         # are renormalised each round); gbtree shares GBM's snapshots

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "h2o3_fixed_hist": (_I, [_I, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P]),
+                             _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P,
+                             _P]),
     "h2o3_global_hist": (_I, [_P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                               _I, _I, _I, _L, _P]),
     "h2o3_level_hist_blocks_per_sm": (_I, [_I, _I, _I, _I,

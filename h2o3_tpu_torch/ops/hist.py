@@ -20,10 +20,26 @@ where nodes are few (below 64 at 65 bins, 32 at 129, 16 at 257, 4 at
 they are many. It takes the plain version only for tensors on the CPU.
 ``level_histograms.kernel_launches`` counts each kernel's launches and
 :func:`launch_count` their sum.
+
+Across the ranks of a cloud (``parallel/``), :func:`mesh_level_histograms`
+and :func:`mesh_node_totals` give every rank the histograms of all the
+rows from its own block, equal bit for bit to one launch over all of them
+at every fixed-kernel level: the ranks sum the scale kernel's exponent
+counts (one all_reduce), each derives the one-launch scale from them, the
+fixed kernel adds its block at that scale into its int64 accumulator, and
+the ranks sum the accumulators (a second all_reduce) before one
+conversion. Integer sums do not depend on the order of the adds, so the
+result does not depend on the ranks' count. Global-kernel levels sum
+float32 histograms, as the JAX package's psum does, and are not bit-exact
+across rank counts. On the CPU the same steps run through the plain fixed
+version (:func:`fixed_counts_plain`, :func:`fixed_acc_plain`), which
+:func:`fixed_point_on_cpu` also selects for a one-rank fit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import math
@@ -47,6 +63,10 @@ _GRID_Y_MAX = 65535
 # staging-only measurement instances
 _FIXED = 0
 _COUNT, _UPDATES_OUT, _STAGING_ONLY, _TOTALS = 0, 1, 2, 3
+# the distributed modes (hist.cu: kAccOut, kTotalsAcc, kScaleOnly): the
+# accumulator out at exponents given, for levels and node totals, and the
+# scale kernel's exponent counts alone
+_ACC_OUT, _TOTALS_ACC, _SCALE_ONLY = 4, 5, 6
 #: threads per block (one block per SM), rows of one tile, and the most
 #: features of a group (kFixedThreads, kFixedRows, kFixedMaxFeatures)
 _FIXED_THREADS = 512
@@ -209,10 +229,24 @@ def level_histograms_fixed_plain(binned_T: torch.Tensor, node: torch.Tensor,
         return level_histograms_fixed_plain(binned_T, node[None], g[None],
                                             h[None], w, n_nodes, n_bins_tot,
                                             qbits)[0]
+    exps, bad = fixed_exponents(node, g, h, w, n_nodes, qbits)
+    acc = fixed_acc_plain(binned_T, node, g, h, w, n_nodes, n_bins_tot,
+                          exps, bad)
+    return fixed_from_acc(acc, torch.tensor(exps), torch.tensor(bad))
+
+
+def fixed_acc_plain(binned_T: torch.Tensor, node: torch.Tensor,
+                    g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                    n_nodes: int, n_bins_tot: int, exps: list,
+                    bad: list) -> torch.Tensor:
+    """The int64 accumulator [K, F, n_nodes*n_bins_tot, 3] of
+    :func:`level_histograms_fixed_plain` (node, g, h as [K, R]) at the
+    given scale: each active value rounded to an integer at 2**exps[s],
+    nothing for a ``bad`` stat. What the fixed kernel's distributed mode
+    leaves in its accumulator, bit for bit."""
     K, R = node.shape
     F = binned_T.shape[0]
     NB = n_nodes * n_bins_tot
-    exps, bad = fixed_exponents(node, g, h, w, n_nodes, qbits)
     active = (node >= 0) & (node < n_nodes)
     cls = torch.arange(K, device=node.device)[:, None] * n_nodes
     base = torch.where(active, (cls + node.long()) * n_bins_tot, 0)
@@ -241,11 +275,19 @@ def level_histograms_fixed_plain(binned_T: torch.Tensor, node: torch.Tensor,
             rows = large[st][~skip[large[st]]]
             if rows.numel():
                 acc[f, :, st].index_add_(0, ids[rows], q[st][rows])
-    scale = torch.tensor([2.0 ** -e for e in exps], dtype=torch.float64,
-                         device=binned_T.device)
+    return acc.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
+
+
+def fixed_from_acc(acc: torch.Tensor, exps: torch.Tensor,
+                   bad: torch.Tensor) -> torch.Tensor:
+    """float32 sums of an int64 accumulator [..., 3] at the scales 2**exps
+    (int [3]): each sum scaled back in float64 by an exact power of two,
+    then rounded once (the fixed kernel's conversion); NaN throughout a
+    ``bad`` stat. ``exps`` and ``bad`` may lie on the card: no sync."""
+    e = exps.to(device=acc.device, dtype=torch.int64)
+    scale = ((1023 - e) << 52).view(torch.float64)     # 2**-e, exactly
     out = (acc.double() * scale).float()
-    out[..., torch.tensor(bad, device=out.device)] = float("nan")
-    return out.reshape(F, K, NB, 3).transpose(0, 1).contiguous()
+    return torch.where(bad.to(acc.device), float("nan"), out)
 
 
 def _fixed_stride(Fb: int) -> int:
@@ -459,16 +501,23 @@ def launch_plan(binned_T: torch.Tensor, n_nodes: int, n_bins_tot: int,
     inputs and K classes (or, with ``kernel``, the plan of that kernel):
     :func:`_plan` at the card's SM count and the kernel's occupancy."""
     F, R = binned_T.shape
-    bb = binned_T.element_size()
-    dev = binned_T.device.index
+    return _card_plan(binned_T.device.index, R, F, n_nodes, n_bins_tot,
+                      binned_T.element_size(), K, kernel)
+
+
+def _card_plan(dev: int | None, R: int, F: int, n_nodes: int,
+               n_bins_tot: int, bin_bytes: int, K: int,
+               kernel: str | None = "fixed", min_qbits: int = 0) -> dict:
+    """:func:`_plan` at these shapes on card ``dev`` (the current one for
+    None): its SM count and the kernel's occupancy."""
     if dev is None:
         dev = torch.cuda.current_device()
-    k = _kernel_plan(F, n_nodes, n_bins_tot, bb, kernel, K)
-    kind = _KINDS[k["kernel"]]
+    k = _kernel_plan(F, n_nodes, n_bins_tot, bin_bytes, kernel, K)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _plan(R, F, n_nodes, n_bins_tot, bb, sms,
-                 _blocks_per_sm(dev, kind, bb, 32 * k["warps"],
-                                k["smem_bytes"]), kernel, K)
+    return _plan(R, F, n_nodes, n_bins_tot, bin_bytes, sms,
+                 _blocks_per_sm(dev, _KINDS[k["kernel"]], bin_bytes,
+                                32 * k["warps"], k["smem_bytes"]), kernel, K,
+                 min_qbits)
 
 
 def _fixed_scratch_words(p: dict, F: int, n_nodes: int,
@@ -483,11 +532,14 @@ def _fixed_scratch_words(p: dict, F: int, n_nodes: int,
 
 
 def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
-                  n_bins_tot: int, shape: tuple, mode: int) -> tuple:
+                  n_bins_tot: int, shape: tuple, mode: int,
+                  aux: torch.Tensor | None = None) -> tuple:
     """fixed_hist_kernel in ``mode`` (after its scale kernel) into a new
     output, every entry of which it writes; returns the output and the
     launch's error. ``binned_T`` is None for the node-totals instance,
-    which reads no bins (F = 1)."""
+    which reads no bins (F = 1). In a distributed mode the output is the
+    scratch, whose first K·F·N·Bt·3 words are the int64 accumulator, and
+    ``aux`` the exponents in (int32 [6]) or the counts out (int64 [3, 256])."""
     if p["flush_rows"] << p["qbits"] > _INT32_MAX:
         raise RuntimeError(f"fixed plan may overflow: {p['flush_rows']} rows "
                            f"of up to 2^{p['qbits']} per int32 entry")
@@ -495,9 +547,12 @@ def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
     F, bins, bin_bytes = ((1, 0, 1) if binned_T is None else
                           (binned_T.shape[0], binned_T.data_ptr(),
                            binned_T.element_size()))
-    out = torch.empty(shape, dtype=torch.float32, device=node.device)
-    scratch = torch.empty(_fixed_scratch_words(p, F, n_nodes, n_bins_tot),
+    dist_mode = mode in (_ACC_OUT, _TOTALS_ACC, _SCALE_ONLY)
+    scratch = torch.empty(0 if mode == _SCALE_ONLY else
+                          _fixed_scratch_words(p, F, n_nodes, n_bins_tot),
                           dtype=torch.int64, device=node.device)
+    out = scratch if dist_mode else torch.empty(
+        shape, dtype=torch.float32, device=node.device)
     stream = torch.cuda.current_stream().cuda_stream
     with _LAUNCH_LOCK:
         err = lib.h2o3_fixed_hist(
@@ -506,7 +561,8 @@ def _launch_fixed(lib, p: dict, binned_T, node, g, h, w, n_nodes: int,
             scratch.data_ptr(), R, F, n_nodes, n_bins_tot,
             p["features_per_group"], p["nodes_per_block"], p["row_splits"],
             p["smem_bytes"], p["classes"], R if w.dim() == 2 else 0,
-            p["scale_blocks"], p["flush_tiles"], p["qbits"], stream)
+            p["scale_blocks"], p["flush_tiles"], p["qbits"],
+            ctypes.c_void_p(0 if aux is None else aux.data_ptr()), stream)
     return out, err
 
 
@@ -619,14 +675,8 @@ def _totals_plan(node: torch.Tensor, n_nodes: int) -> dict:
     """The node-totals instance's plan on the card: the fixed kernel's at
     F = 1 and Bt = 1, keeping ``_TOTALS_QBITS`` bits a value."""
     K, R = node.shape
-    dev = node.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    k = _kernel_plan(1, n_nodes, 1, 1, "fixed", K)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _plan(R, 1, n_nodes, 1, 1, sms,
-                 _blocks_per_sm(dev, _FIXED, 1, _FIXED_THREADS,
-                                k["smem_bytes"]), "fixed", K, _TOTALS_QBITS)
+    return _card_plan(node.device.index, R, 1, n_nodes, 1, 1, K,
+                      min_qbits=_TOTALS_QBITS)
 
 
 def node_totals(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
@@ -695,3 +745,258 @@ def hist_flops(active_rows: int, F: int) -> int:
     """Float adds the function needs: three per active row (summed over the
     classes of a batch) and feature."""
     return 3 * active_rows * F
+
+
+# ---------------------------------------------------------------------------
+# across ranks
+
+#: the global row count of the row-blocked arrays a fit grows trees on
+#: (set by a rank-aware builder around its growth, :func:`mesh_rows`)
+_MESH_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "h2o3_torch_mesh_rows", default=None)
+#: a one-rank fit on the CPU through the fixed plain version, the path a
+#: cloud of CPU ranks takes (:func:`fixed_point_on_cpu`)
+_FIXED_ON_CPU: contextvars.ContextVar = contextvars.ContextVar(
+    "h2o3_torch_fixed_on_cpu", default=False)
+
+
+@contextlib.contextmanager
+def mesh_rows(nrows: int):
+    """Within the block, the trees grow on row blocks of ``nrows`` rows in
+    all: the scale of a fixed level is planned for them."""
+    token = _MESH_ROWS.set(int(nrows))
+    try:
+        yield
+    finally:
+        _MESH_ROWS.reset(token)
+
+
+@contextlib.contextmanager
+def fixed_point_on_cpu():
+    """Within the block, CPU fits sum every level's histograms and node
+    totals as a cloud of CPU ranks does (the fixed plain version, integer
+    sums), so a one-rank fit equals a cloud's bit for bit."""
+    token = _FIXED_ON_CPU.set(True)
+    try:
+        yield
+    finally:
+        _FIXED_ON_CPU.reset(token)
+
+
+def summed_over_mesh(device: torch.device) -> bool:
+    """Whether tree growth on ``device`` takes :func:`mesh_level_histograms`
+    and :func:`mesh_node_totals`: under a mesh of more than one rank, or on
+    the CPU inside :func:`fixed_point_on_cpu`."""
+    from h2o3_tpu_torch.parallel.mesh import get_mesh
+    return get_mesh().size > 1 or (device.type == "cpu"
+                                   and _FIXED_ON_CPU.get())
+
+
+def _global_rows(R: int) -> int:
+    from h2o3_tpu_torch.parallel.mesh import get_mesh
+    n = _MESH_ROWS.get()
+    if get_mesh().size == 1:
+        return R
+    if n is None:
+        raise RuntimeError("tree growth across ranks needs the global row "
+                           "count: wrap the fit in ops.hist.mesh_rows(n)")
+    return n
+
+
+def fixed_counts_plain(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                       w: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """The scale kernel's exponent counts [3, 256] int64 in plain PyTorch:
+    for each of g, h and w, its values at a node in [0, n_nodes) of every
+    class counted by float exponent (bucket 255: NaN and infinity)."""
+    node2 = node.reshape(-1, node.shape[-1])
+    active = (node2 >= 0) & (node2 < n_nodes)
+    rows = []
+    for v in (g, h, w):
+        vals = v.reshape(-1, v.shape[-1]).expand(node2.shape)[active]
+        bits = vals.float().contiguous().view(torch.int32) & 0x7fffffff
+        rows.append(torch.bincount((bits >> 23).long(),
+                                   minlength=_EXP_BUCKETS))
+    return torch.stack(rows)
+
+
+def exponents_from_counts(counts: torch.Tensor, qbits: int) -> tuple:
+    """fixed_hist_kernel's scale rule (:func:`_scale_buckets`) on exponent
+    counts [3, 256], on their device without a sync: (exps int [3], the
+    exponent that scales each stat to its integers, 0 for a stat without
+    values; bad bool [3], a stat holding a NaN or an infinity)."""
+    c = counts.to(torch.int64)
+    bad = c[:, _EXP_BUCKETS - 1] > 0
+    c = torch.cat([c[:, :-1], torch.zeros_like(c[:, :1])], dim=1)
+    idx = torch.arange(_EXP_BUCKETS, device=c.device)
+    top = torch.where(c > 0, idx, -1).amax(dim=1)
+    incl = c.flip(1).cumsum(1).flip(1)      # counts at or above each bucket
+    brk = torch.where(incl > _OUTLIER_CAP, idx, -1).amax(dim=1)
+    bulk = torch.where(brk < 0, top,
+                       torch.maximum(brk, top - (_OUTLIER_BITS - qbits)))
+    e = torch.where(top < 0, 0, bulk.clamp_min(1) - 126)
+    return torch.where(bad, 0, qbits - e), bad
+
+
+def _forced_qbits(p: dict, qbits: int) -> dict:
+    """A fixed plan of a rank's block, flushing often enough to add values
+    of ``qbits`` bits (the one-launch plan's) into int32 slab entries."""
+    ft = max(1, min(-(-p["tiles"] // p["row_splits"]),
+                    (_INT32_MAX >> qbits) // _FIXED_ROWS))
+    return dict(p, flush_tiles=ft, flush_rows=ft * _FIXED_ROWS, qbits=qbits)
+
+
+def fixed_counts(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                 w: torch.Tensor, n_nodes: int, p: dict | None = None,
+                 counter=None) -> torch.Tensor:
+    """The scale kernel's exponent counts [3, 256] int64 of the active
+    values (node/g/h [K, R]): on the card one launch of the fixed kernel's
+    scale-only mode on plan ``p`` (counted in ``counter.kernel_launches``
+    where given), on the CPU :func:`fixed_counts_plain`."""
+    if node.device.type == "cpu":
+        return fixed_counts_plain(node, g, h, w, n_nodes)
+    counts = torch.zeros((3, _EXP_BUCKETS), dtype=torch.int64,
+                         device=node.device)
+    if node.shape[-1] == 0:
+        return counts
+    from h2o3_tpu_torch.ops import _build
+    with torch.cuda.device(node.device):
+        _, err = _launch_fixed(_build.library(), p, None, node, g, h, w,
+                               n_nodes, 1, None, _SCALE_ONLY, aux=counts)
+    _build.check(err, "fixed scale counts launch")
+    if counter is not None:
+        with _LAUNCH_LOCK:
+            counter.kernel_launches["scale_only"] += 1
+    return counts
+
+
+def fixed_acc(binned_T, node: torch.Tensor, g: torch.Tensor,
+              h: torch.Tensor, w: torch.Tensor, n_nodes: int,
+              n_bins_tot: int, exps: torch.Tensor, bad: torch.Tensor,
+              p: dict | None = None, counter=None) -> torch.Tensor:
+    """The int64 accumulator [K, F, n_nodes*n_bins_tot, 3] of the active
+    rows at the scale ``exps``/``bad`` (node/g/h [K, R]; ``binned_T`` None
+    for the node totals, F = Bt = 1): on the card one launch of the fixed
+    kernel's accumulator mode on plan ``p`` (counted in ``counter``), on
+    the CPU :func:`fixed_acc_plain`."""
+    K, R = node.shape
+    F = 1 if binned_T is None else binned_T.shape[0]
+    shape = (K, F, n_nodes * n_bins_tot, 3)
+    if node.device.type == "cpu":
+        bins = (torch.zeros((1, R), dtype=torch.int8, device=node.device)
+                if binned_T is None else binned_T)
+        return fixed_acc_plain(bins, node, g, h, w, n_nodes, n_bins_tot,
+                               exps.tolist(), bad.tolist())
+    if R == 0:
+        return torch.zeros(shape, dtype=torch.int64, device=node.device)
+    from h2o3_tpu_torch.ops import _build
+    exps_in = torch.cat([exps, bad.to(torch.int64)]).to(torch.int32)
+    with torch.cuda.device(node.device):
+        scratch, err = _launch_fixed(
+            _build.library(), p, binned_T, node, g, h, w, n_nodes,
+            n_bins_tot, None, _TOTALS_ACC if binned_T is None else _ACC_OUT,
+            aux=exps_in)
+    _build.check(err, "fixed accumulator launch")
+    if counter is not None:
+        with _LAUNCH_LOCK:
+            counter.kernel_launches["acc_out"] += 1
+    return scratch[:K * F * n_nodes * n_bins_tot * 3].view(shape)
+
+
+def mesh_plan(binned_T, node: torch.Tensor, n_nodes: int, n_bins_tot: int,
+              qbits: int, min_qbits: int = 0) -> dict | None:
+    """The fixed plan of this rank's block on the card at ``qbits`` bits a
+    value (None on the CPU); ``binned_T`` None for the node totals."""
+    if node.device.type == "cpu":
+        return None
+    K, R = node.shape
+    F, bb = (1, 1) if binned_T is None else (binned_T.shape[0],
+                                             binned_T.element_size())
+    return _forced_qbits(_card_plan(node.device.index, max(R, 1), F,
+                                    n_nodes, n_bins_tot, bb, K,
+                                    min_qbits=min_qbits), qbits)
+
+
+def _mesh_fixed(binned_T, node, g, h, w, n_nodes: int, n_bins_tot: int,
+                qbits_of, counter, min_qbits: int = 0) -> torch.Tensor:
+    """Histograms [K, F, N·Bt, 3] (``binned_T`` [F, R]) or node totals
+    (``binned_T`` None) summed over the mesh by integer partials:
+    ``qbits_of(R_global)`` the bits of the one-launch plan. Counts each
+    kernel launch and all_reduce in ``counter``."""
+    from h2o3_tpu_torch.parallel.distributed import all_reduce
+    qbits = qbits_of(_global_rows(node.shape[-1]))
+    p = mesh_plan(binned_T, node, n_nodes, n_bins_tot, qbits, min_qbits)
+    counts = fixed_counts(node, g, h, w, n_nodes, p, counter)
+    all_reduce(counts)
+    counter.all_reduces += 1
+    exps, bad = exponents_from_counts(counts, qbits)
+    acc = fixed_acc(binned_T, node, g, h, w, n_nodes, n_bins_tot, exps, bad,
+                    p, counter)
+    all_reduce(acc)
+    counter.all_reduces += 1
+    return fixed_from_acc(acc, exps, bad)
+
+
+def mesh_level_histograms(binned_T: torch.Tensor, node: torch.Tensor,
+                          g: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                          n_nodes: int, n_bins_tot: int) -> torch.Tensor:
+    """:func:`level_histograms` of all the mesh's rows from this rank's
+    block (every rank calls it, in the same order), node/g/h as [K, R]:
+    at a fixed-kernel level the integer sums above, bit for bit one
+    launch's over all the rows at that launch's ``qbits``; at a
+    global-kernel level this rank's float32 histograms, all_reduced. On the
+    CPU the plain versions, the fixed one at :func:`fixed_needed_qbits` of
+    the global rows."""
+    from h2o3_tpu_torch.parallel.distributed import all_reduce
+    _check(binned_T, node, g, h, w, n_nodes, n_bins_tot)
+    F, R = binned_T.shape
+    bb = binned_T.element_size()
+    counter = mesh_level_histograms
+    if node.dim() == 1:
+        return mesh_level_histograms(binned_T, node[None], g[None], h[None],
+                                     w, n_nodes, n_bins_tot)[0]
+    K = node.shape[0]
+    if _kernel_plan(F, n_nodes, n_bins_tot, bb, None, K)["kernel"] != "fixed":
+        out = level_histograms(binned_T, node, g, h, w, n_nodes, n_bins_tot)
+        all_reduce(out)
+        counter.all_reduces += 1
+        return out
+
+    def qbits_of(rows: int) -> int:
+        if binned_T.device.type == "cpu":
+            return fixed_needed_qbits(rows, n_nodes, n_bins_tot)
+        return _card_plan(binned_T.device.index, rows, F, n_nodes,
+                          n_bins_tot, bb, K)["qbits"]
+
+    return _mesh_fixed(binned_T, node, g, h, w, n_nodes, n_bins_tot,
+                       qbits_of, counter)
+
+
+mesh_level_histograms.kernel_launches = {"scale_only": 0, "acc_out": 0}
+mesh_level_histograms.all_reduces = 0
+
+
+def mesh_node_totals(node: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                     w: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """:func:`node_totals` of all the mesh's rows from this rank's block,
+    [K, n_nodes, 3]: the node-totals instance's integer sums at the
+    one-launch plan's ``qbits`` (``_TOTALS_QBITS`` on the CPU, as
+    :func:`node_totals_fixed_plain`), summed over the ranks."""
+    if node.dim() != 2:
+        raise ValueError(f"node must be [K, R], got {tuple(node.shape)}")
+    zeros = torch.empty((1, node.shape[1]), dtype=torch.int8,
+                        device=node.device)
+    _check(zeros, node, g, h, w, n_nodes, 1)
+    K = node.shape[0]
+
+    def qbits_of(rows: int) -> int:
+        if node.device.type == "cpu":
+            return _TOTALS_QBITS
+        return _card_plan(node.device.index, rows, 1, n_nodes, 1, 1, K,
+                          min_qbits=_TOTALS_QBITS)["qbits"]
+
+    return _mesh_fixed(None, node, g, h, w, n_nodes, 1, qbits_of,
+                       mesh_node_totals, _TOTALS_QBITS)[:, 0]
+
+
+mesh_node_totals.kernel_launches = {"scale_only": 0, "acc_out": 0}
+mesh_node_totals.all_reduces = 0

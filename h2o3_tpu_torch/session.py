@@ -8,9 +8,9 @@ running cluster; ``h2o.cluster()`` exposes status/shutdown.
 Here ``init`` boots the in-process REST server (the "node" is this process
 and its card) and returns a client bound to it; ``connect`` attaches to any
 running server of the port or of the JAX package. The multi-host arguments
-of the JAX package's ``init`` (``coordinator_address``, ``num_processes``,
-``process_id``) belong to the multi-GPU slice and are refused by name.
-``init`` enables the kernel-build cache (``utils/compile_cache.py``,
+(``coordinator_address``, ``num_processes``, ``process_id``) join a
+multi-process cloud first (:func:`~h2o3_tpu_torch.parallel.distributed.
+init_distributed`); only rank 0 serves REST. ``init`` enables the kernel-build cache (``utils/compile_cache.py``,
 ``H2O3TPU_COMPILE_CACHE``) where the reference enables its XLA cache.
 """
 
@@ -31,15 +31,15 @@ def init(port: int = 54321, strict_port: bool = False,
          process_id: int | None = None) -> "H2OClient":
     """Start (once) an in-process server and bind the module client
     (h2o-py: ``h2o.init``). Falls back to an ephemeral port unless
-    ``strict_port``. A process-spanning cloud (``coordinator_address``,
-    ``num_processes``, ``process_id``) is not ported yet and raises."""
-    multi = {k: v for k, v in (("coordinator_address", coordinator_address),
-                               ("num_processes", num_processes),
-                               ("process_id", process_id)) if v is not None}
-    if multi:
-        raise NotImplementedError(
-            f"init({', '.join(sorted(multi))}=...): a multi-process cloud "
-            "belongs to the multi-GPU slice, which is not ported yet")
+    ``strict_port``.
+
+    Multi-host: pass ``coordinator_address`` with ``num_processes`` and
+    ``process_id`` to join a process-spanning cloud first — every process
+    calls ``init`` with the same coordinator and blocks until the cloud
+    forms (reference ``waitForCloudSize``); only rank 0 serves REST and
+    gets a client, the others get None. See also ``python -m
+    h2o3_tpu_torch.launch``. Without a coordinator the other two are
+    ignored, as in the JAX package."""
     from h2o3_tpu_torch.api.client import H2OClient
     from h2o3_tpu_torch.api.server import H2OServer
     from h2o3_tpu_torch.utils import compile_cache
@@ -50,6 +50,12 @@ def init(port: int = 54321, strict_port: bool = False,
     global _server, _client
     if _client is not None:
         return _client
+    if coordinator_address is not None:
+        from h2o3_tpu_torch.parallel.distributed import (init_distributed,
+                                                         process_index)
+        init_distributed(coordinator_address, num_processes, process_id)
+        if process_index() != 0:
+            return None
     try:
         _server = H2OServer(port=port).start()
     except OSError:

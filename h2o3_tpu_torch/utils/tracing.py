@@ -67,6 +67,16 @@ def enabled() -> bool:
     return os.environ.get("H2O3TPU_TRACE_OFF", "") != "1"
 
 
+def trace_partitions_enabled() -> bool:
+    """Full-fidelity partition tracing: with ``H2O3TPU_TRACE_PARTITIONS=1``
+    every ``map_reduce`` dispatch gathers each rank's map seconds and, in
+    a trace, records a partition span a rank with the straggler's
+    attributes (``ops/map_reduce.py``). Off by default: reading the map's
+    end event waits for the card. Read per call, so it can be flipped at
+    run time."""
+    return os.environ.get("H2O3TPU_TRACE_PARTITIONS", "") == "1"
+
+
 class SpanContext:
     """Immutable (trace_id, span_id) pair — what propagates."""
 

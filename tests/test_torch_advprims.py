@@ -25,6 +25,7 @@ from rapids_pair import (_cpu_port, pair, same_frame, same_value,  # noqa
 from h2o3_tpu.rapids import advprims as jap
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.rapids import advprims as ap
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 96
 rng = np.random.default_rng(31)

@@ -25,6 +25,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import aggregator
 from h2o3_tpu_torch.models.aggregator import Aggregator
 from h2o3_tpu_torch.models.data_info import DataInfo
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 1536
 

@@ -2,10 +2,8 @@
 target encoding and the lr-annealed exploitation step at
 tests/test_orchestration.py's test_automl_exploitation_and_te settings,
 held against the JAX package's AutoML on the same frame, with the tree
-models scoring through their encoder; and the port's run repeated bit for
-bit at parallelism 1 and 2 (the JAX package's contract for its own
-AutoML), model by model in plan order: every tree, every CV metric, the
-metalearner's coefficients and the leaderboard.
+models scoring through their encoder. The port's run repeated bit for bit
+at parallelism 1 and 2 is in tests/test_torch_automl_bits.py.
 
 Tolerances of the target-encoding run: the encoded column at rtol 1e-6
 (KFold folds are Modulo in both packages, so both divide the same float32
@@ -27,9 +25,9 @@ from h2o3_tpu.frame.frame import Frame as JFrame
 from h2o3_tpu.orchestration.automl import AutoML as JAutoML
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.orchestration.automl import AutoML
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -91,9 +89,14 @@ def _by_plan(aml):
 
 def test_target_encoding_and_exploitation():
     cols = te_cols()
+    # parallelism 1 (the reference's settings run 2): one build at a time
+    # compiles each of the JAX package's plan programs once, on one mesh;
+    # the port's plan, models and leaderboard are the same bits at 1 and 2
+    # (tests/test_torch_automl_bits.py)
     kw = dict(max_models=5, nfolds=0, seed=7, project_name="te",
               include_algos=["GBM", "STACKEDENSEMBLE"],
-              preprocessing=["target_encoding"], exploitation_ratio=0.2)
+              preprocessing=["target_encoding"], exploitation_ratio=0.2,
+              parallelism=1)
     jaml = JAutoML(**kw)
     jaml.train(y="y", training_frame=JFrame.from_arrays(cols))
     fr = Frame.from_arrays(cols)
@@ -129,55 +132,3 @@ def test_target_encoding_and_exploitation():
         raw = m.predict(fr)
         assert torch.equal(raw.vec("pyes").data,
                            m.predict(enc).vec("pyes").data)
-
-
-def _trees(m):
-    out = m.output
-    return out.get("trees_multi") or [out.get("trees") or []]
-
-
-def _same_model(a, b):
-    assert a.algo == b.algo and a.params.get("max_depth") == \
-        b.params.get("max_depth")
-    for ta, tb in zip(_trees(a), _trees(b)):
-        for x, y in zip(ta, tb):
-            for f in HEAP_FIELDS:
-                assert torch.equal(getattr(x, f), getattr(y, f)), f
-    if a.algo == "glm":
-        assert torch.equal(a.output["beta"], b.output["beta"])
-    if a.algo == "stackedensemble":
-        assert torch.equal(a.output["metalearner"].output["beta"],
-                           b.output["metalearner"].output["beta"])
-    else:
-        assert torch.equal(a.cv_holdout_predictions,
-                           b.cv_holdout_predictions)
-    ca, cb = a.cross_validation_metrics, b.cross_validation_metrics
-    assert (ca.auc, ca.logloss) == (cb.auc, cb.logloss)
-
-
-def test_parallelism_one_and_two_repeat_bit_for_bit():
-    """Sampling on (the GBM steps' 0.8 row and column rates): plan order,
-    models and the leaderboard the same bits."""
-    rng = np.random.default_rng(3)
-    X = rng.normal(size=(320, 3)).astype(np.float32)
-    y = np.where(X[:, 0] - X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=320)
-                 > 0, "t", "f")
-    fr = Frame.from_arrays({"a": X[:, 0], "b": X[:, 1], "c": X[:, 2],
-                            "y": y})
-    runs = []
-    for par in (1, 2):
-        aml = AutoML(max_models=3, nfolds=2, seed=11, parallelism=par,
-                     project_name="bits",
-                     include_algos=["GLM", "GBM", "STACKEDENSEMBLE"])
-        aml.train(y="y", training_frame=fr)
-        runs.append(aml)
-    steps = [[m for m in aml.leaderboard._rows] for aml in runs]
-    assert [r["algo"] for r in steps[0]] == [r["algo"] for r in steps[1]]
-    assert [r["algo"] for r in steps[0]] == ["glm", "gbm", "gbm",
-                                             "stackedensemble",
-                                             "stackedensemble"]
-    for ra, rb in zip(*steps):
-        _same_model(ra["_model"], rb["_model"])
-    rank = [[(r["algo"], r["auc"]) for r in aml.leaderboard._sorted()]
-            for aml in runs]
-    assert rank[0] == rank[1]

@@ -15,6 +15,7 @@ from h2o3_tpu_torch.frame import binfmt, parse
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import same_frame as _same
 from dataplane_pair import write_avro, write_xlsx, zigzag
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from h2o3_tpu_torch.models import gbm as pgbm
 from h2o3_tpu_torch.models.gbm import DRF, GBM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.models.xgboost import XGBoost
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 DOMAIN = ("n", "p")
 

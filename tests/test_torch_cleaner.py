@@ -30,6 +30,7 @@ from h2o3_tpu_torch.utils.cleaner import (CLEANER, SwappedFrame,
 from h2o3_tpu_torch.utils.memory import MEMORY
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import heaps_equal, same_frame
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

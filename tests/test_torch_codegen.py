@@ -33,6 +33,7 @@ from h2o3_tpu_torch.models.gbm import DRF, GBM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.kmeans import KMeans
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 256
 

@@ -19,6 +19,7 @@ from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.gbm import DRF, GBM
 from h2o3_tpu_torch.models.xgboost import XGBoost
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 SPLIT_KEYS = ("feat", "thresh_bin", "na_left", "is_split")
 

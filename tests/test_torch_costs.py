@@ -16,6 +16,7 @@ import torch
 from h2o3_tpu.utils import costs as jco
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import costs as pco
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -28,6 +28,7 @@ from h2o3_tpu.models import coxph as jcox
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import coxph as pcox
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 640
 

@@ -43,6 +43,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import model_base
 from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.glm import GLM
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 1024
 TREES = dict(ntrees=4, max_depth=3, nbins=16, learn_rate=0.2, seed=5)
@@ -389,13 +390,16 @@ def _inject_dl_init(monkeypatch):
     monkeypatch.setattr(pdl, "_init_params", pinit)
 
 
-@pytest.mark.parametrize("case", list(OTHER_BUILDERS))
-def test_every_supervised_builder_cross_validates(frames, case, monkeypatch):
+def check_builder_cv(frames, case, monkeypatch):
     """Each builder's CV against the JAX package's on the same frame: the
     CV metrics, the per-fold summary and the kept out-of-fold predictions
     at SAME_AS_REFERENCE's tolerances. DRF and PSVM fit otherwise in each
     package and are held by metric (test_random_builders_cross_validate_
-    like_the_reference); here their CV is checked for its shape."""
+    like_the_reference); here their CV is checked for its shape. The
+    cases of ``test_every_supervised_builder_cross_validates`` run in
+    tests/test_torch_cv_trees.py, tests/test_torch_cv_linear.py and
+    tests/test_torch_cv_rulefit.py, so that pytest-xdist's ``--dist
+    loadfile`` spreads them over its workers."""
     mod, cls, params, y = OTHER_BUILDERS[case]
     cols, jf, pf = frames
     x = ["x0"] if case == "isotonic" else ["x0", "x1"]
@@ -470,8 +474,11 @@ def _auc(p: np.ndarray, y: np.ndarray) -> float:
     return (ranks[y].sum() - npos * (npos + 1) / 2) / (npos * (len(p) - npos))
 
 
-@pytest.mark.parametrize("case", list(BY_METRIC))
-def test_random_builders_cross_validate_like_the_reference(case):
+def check_random_builder_cv(case):
+    """DRF and PSVM, whose fits draw from each package's own stream or are
+    chaotic, held to the reference by metric (``BY_METRIC``); their cases
+    of ``test_random_builders_cross_validate_like_the_reference`` run in
+    tests/test_torch_cv_trees.py."""
     mod, cls, params, y = OTHER_BUILDERS[case]
     what, seeds = BY_METRIC[case]
     kw = dict(nfolds=3, keep_cross_validation_predictions=True, **params)
@@ -501,32 +508,3 @@ def test_random_builders_cross_validate_like_the_reference(case):
                                    rtol=0.05)
     else:
         assert np.abs(got[:, 0] - ref[:, 0]).max() < 0.02
-
-
-def test_coxph_cross_validates_through_its_own_train():
-    from h2o3_tpu.models.coxph import CoxPH as JCoxPH
-    from h2o3_tpu_torch.models.coxph import CoxPH
-    rng = np.random.default_rng(4)
-    n = 512
-    x1, x2 = rng.normal(size=(2, n)).astype(np.float32)
-    t = np.ceil(rng.exponential(1.0 / np.exp(0.7 * x1)) * 8).astype(
-        np.float32)
-    cols = {"x1": x1, "x2": x2, "t": t,
-            "event": (rng.random(n) > 0.3).astype(np.float32)}
-    kw = dict(stop_column="t", nfolds=3)
-    pm = CoxPH(**kw).train(y="event", training_frame=Frame.from_arrays(cols))
-    jm = JCoxPH(**kw).train(y="event",
-                            training_frame=JFrame.from_arrays(cols))
-    np.testing.assert_allclose(pm.cross_validation_metrics.mse,
-                               jm.cross_validation_metrics.mse, rtol=1e-3)
-    assert pm.cv_metrics_summary[0] == jm.cv_metrics_summary[0]
-
-
-def test_sparse_glm_refuses_cv():
-    from h2o3_tpu_torch.frame.sparse import SparseFrame, SparseMatrix
-    from h2o3_tpu_torch.frame.vec import Vec
-    sf = SparseFrame(SparseMatrix.from_scipy_like(
-        np.array([0, 1]), np.array([0, 1]), np.ones(2), 2, 2),
-        {"C0": Vec.from_numpy(np.array([0.0, 1.0], np.float32))})
-    with pytest.raises(NotImplementedError, match="cross-validation"):
-        GLM(family="binomial", nfolds=2).train(training_frame=sf)

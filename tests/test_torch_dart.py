@@ -23,6 +23,7 @@ from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import xgboost as pxgb
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 BASE = dict(booster="dart", ntrees=10, max_depth=4, max_bin=64, eta=0.3,
             seed=7)

@@ -24,6 +24,7 @@ from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import data_info as pdi
 from h2o3_tpu_torch.models.glm import GLM
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 ROWS = 2500
 X = ["c1", "x0", "c2", "x1", "x2", "x3", "x4"]

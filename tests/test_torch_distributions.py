@@ -25,6 +25,7 @@ from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import gbm as pgbm
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 DISTS = ("poisson", "gamma", "tweedie", "laplace", "quantile", "huber")
 INT_FIELDS = ("feat", "thresh_bin", "na_left", "is_split")

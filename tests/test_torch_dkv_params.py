@@ -33,6 +33,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.utils.registry import DKV, LOCKS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 512
 X = ["x0", "x1", "x2"]

@@ -12,6 +12,7 @@ import torch
 
 from h2o3_tpu.ingest import encode as jenc
 from h2o3_tpu_torch.ingest import encode as penc
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -34,6 +34,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.glm import GLM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.rapids.munge import gather_rows
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 512
 

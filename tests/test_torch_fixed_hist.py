@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from h2o3_tpu.models.tree import _level_histograms
 from h2o3_tpu_torch.ops import hist
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 #: (rows, features, bins incl. NA, nodes)
 SHAPES = [(4096, 7, 17, 8), (2048, 3, 257, 128), (3001, 5, 1025, 2)]

@@ -18,6 +18,7 @@ from h2o3_tpu.utils import telemetry as jtm
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import flight as pfl
 from h2o3_tpu_torch.utils import telemetry as ptm
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

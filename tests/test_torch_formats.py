@@ -19,6 +19,7 @@ from h2o3_tpu_torch.frame import parse
 from h2o3_tpu_torch.frame.sparse import SparseFrame
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import same_frame
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.persist import frame_io
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import same_frame
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

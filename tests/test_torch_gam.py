@@ -27,6 +27,7 @@ from h2o3_tpu.models import gam as jgam
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import gam as pgam
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 640
 RTOL = 1e-6

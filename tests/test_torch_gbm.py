@@ -26,6 +26,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.job import Job
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS, fold_binned
 from h2o3_tpu_torch.ops import hist
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 ROWS = 20_000
 PARAMS = dict(ntrees=5, max_depth=5, nbins=32, learn_rate=0.1, seed=42)

@@ -22,6 +22,7 @@ from h2o3_tpu.models.glm import GLM as JGLM
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.glm import GLM
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 ROWS = 4000
 NUM = [f"x{i}" for i in range(6)]

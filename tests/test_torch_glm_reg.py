@@ -21,6 +21,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.glm import GLM
 
 from test_torch_glm import NUM, assert_same_fit, fit_both, glm_cols
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

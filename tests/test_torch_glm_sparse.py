@@ -24,6 +24,7 @@ from h2o3_tpu_torch.frame import sparse as psp
 from h2o3_tpu_torch.frame import vec as pvec
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.glm import GLM
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 R, C = 3000, 40
 

@@ -25,6 +25,7 @@ from h2o3_tpu.models import decomposition as jdec
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import decomposition as pdec
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 256          # a multiple of 8 devices x 8 rows: the reference pads none
 

@@ -17,6 +17,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.models.grep_algo import Grep, GrepModel
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 TEXT = np.array(["the cat sat on the mat", None, "", "cats and dogs",
                  "ünïcödé cat", "concatenate", "no match here",

@@ -29,6 +29,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.orchestration.grid import Grid, GridSearch
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 448
 HYPER = {"max_depth": [2, 3], "learn_rate": [0.1, 0.3]}

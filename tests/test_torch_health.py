@@ -27,6 +27,20 @@ from h2o3_tpu.utils import incidents as jim
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import health as phm
 from h2o3_tpu_torch.utils import incidents as pim
+from jax_reference import _jax_compile_cache  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _quiet_flight():
+    """The port's flight recorder stopped and empty around each test, as
+    tests/conftest.py's ``_clear_flight`` keeps the reference's: a
+    recorder that an earlier module's server started goes on sampling this
+    worker's RSS, and its trend rules would read that history."""
+    from h2o3_tpu_torch.utils.flight import FLIGHT
+    FLIGHT.stop()
+    FLIGHT.reset()
+    yield
+    FLIGHT.reset()
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -25,6 +25,7 @@ from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.models import hglm as phglm
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N, G = 640, 12
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from h2o3_tpu.models.tree import _level_histograms
 from h2o3_tpu.ops import pallas_hist
 from h2o3_tpu_torch.ops import hist
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 #: the shapes of tests/test_pallas_interpret.py: (rows, features, bins, nodes)
 SHAPES = [(4096, 7, 16, 8), (2048, 3, 256, 128)]

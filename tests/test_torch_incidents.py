@@ -17,6 +17,7 @@ import torch
 from h2o3_tpu.utils import incidents as jim
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import incidents as pim
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -27,6 +27,7 @@ from h2o3_tpu_torch.ingest import stream_import
 from h2o3_tpu_torch.models import job as jobmod
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import heaps_equal, same_frame as _same
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ from h2o3_tpu.models import isofor as jiso
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import isofor as piso
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ from h2o3_tpu.models import kmeans as jkm
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import kmeans as pkm
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 RTOL = 1e-5
 N = 400

@@ -28,6 +28,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.orchestration.leaderboard import Leaderboard
 from h2o3_tpu_torch.utils.registry import DKV
 from test_torch_carry import carry
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 512
 

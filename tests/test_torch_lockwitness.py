@@ -19,6 +19,7 @@ import torch
 from h2o3_tpu.utils import lockwitness as jlw
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import lockwitness as plw
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

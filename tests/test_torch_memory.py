@@ -24,6 +24,7 @@ from h2o3_tpu_torch.utils.memory import (MEMORY, LeakDetector,
                                          fast_device_bytes, host_stats,
                                          value_host_bytes, value_kind_bytes)
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ from h2o3_tpu_torch import load_model, save_model, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.persist.model_io import TensorArray, host_copy
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 256
 

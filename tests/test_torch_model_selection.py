@@ -25,6 +25,7 @@ from h2o3_tpu.models import model_selection as jms
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import model_selection as pms
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 640
 X = [f"x{i}" for i in range(6)]

@@ -46,6 +46,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.genmodel import mojo as pmojo
 from h2o3_tpu_torch.genmodel import tools as ptools
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 320
 RTOL, ATOL = 1e-5, 1e-6

@@ -33,6 +33,7 @@ from h2o3_tpu_torch import import_mojo, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.genmodel import mojo_ref as pref
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 DATA = "tests/data/ref_mojo"
 ZIPS = ["gbm_variable_importance", "glm_model", "kmeans_model",

@@ -29,6 +29,7 @@ from h2o3_tpu_torch.models import metrics as pmetrics
 from h2o3_tpu_torch.models import tree as ptree
 from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 INT_FIELDS = ("feat", "thresh_bin", "na_left", "is_split")
 ROWS = 12_000

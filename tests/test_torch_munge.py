@@ -23,6 +23,7 @@ from h2o3_tpu.rapids import munge as jm
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.rapids import munge
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 240
 rng = np.random.default_rng(11)

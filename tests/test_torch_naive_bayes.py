@@ -21,6 +21,7 @@ from h2o3_tpu.models import naive_bayes as jnb
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import naive_bayes as pnb
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 RTOL = 1e-6
 N = 384

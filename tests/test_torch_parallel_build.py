@@ -17,6 +17,7 @@ from h2o3_tpu.orchestration.parallel_build import \
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.orchestration import scheduler as psched
 from h2o3_tpu_torch.orchestration.parallel_build import windowed_parallel
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -24,6 +24,7 @@ from h2o3_tpu_torch.persist import cloud
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import same_frame
 from test_persist_cloud import ACCESS, SECRET, _FakeCloud
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -21,6 +21,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.genmodel import pipeline as ppipe
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

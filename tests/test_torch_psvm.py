@@ -37,6 +37,7 @@ from h2o3_tpu.models import psvm as jpsvm
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import psvm as ppsvm
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 640
 

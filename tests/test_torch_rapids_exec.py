@@ -23,6 +23,7 @@ from h2o3_tpu.utils.registry import DKV as JDKV
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.rapids import exec as px
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 64
 rng = np.random.default_rng(41)

@@ -25,6 +25,7 @@ from h2o3_tpu.rapids import timeops as jtime
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.rapids import ops, timeops
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 120
 rng = np.random.default_rng(21)

@@ -45,6 +45,7 @@ from h2o3_tpu_torch.orchestration.scheduler import MeshScheduler
 from h2o3_tpu_torch.persist import Recovery
 from h2o3_tpu_torch.persist import recovery as prec
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 320
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -14,6 +14,7 @@ import pytest
 
 from h2o3_tpu.utils import registry as jreg
 from h2o3_tpu_torch.utils import registry as preg
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 class Obj:

@@ -21,6 +21,7 @@ from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.serving import SCORING
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

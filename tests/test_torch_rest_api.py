@@ -31,6 +31,7 @@ from h2o3_tpu_torch.api import H2OClient, H2OServer
 from h2o3_tpu_torch.api import server as pserver
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -31,6 +31,7 @@ from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import rulefit as prf
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 640
 X = [f"x{i}" for i in range(5)] + ["c"]

@@ -20,6 +20,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.orchestration.segments import (SegmentModels,
                                                    train_segments)
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 448
 SPLITS = ("feat", "thresh_bin", "na_left", "is_split")

@@ -28,6 +28,7 @@ from h2o3_tpu_torch.serving import (SCORING, ServiceUnavailable, Shed,
                                     SLOController)
 from h2o3_tpu_torch.serving.slo import LatencyRing, clamp_priority
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

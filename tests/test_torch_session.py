@@ -35,6 +35,7 @@ from h2o3_tpu_torch.models.gbm import GBM
 from h2o3_tpu_torch.utils import extensions as ext
 from h2o3_tpu_torch.utils import scope as pscope
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -99,9 +100,28 @@ def test_init_falls_back_to_a_free_port_unless_strict():
                                 dict(num_processes=2),
                                 dict(process_id=0)])
 def test_multi_host_arguments_are_refused_by_name(kw):
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        session.init(port=0, **kw)
-    assert session.connection() is None
+    """init's multi-host arguments as the JAX package's init takes them: a
+    coordinator without the cloud's size and this process's rank is
+    refused by name before any connection is tried; the size or the rank
+    alone, without a coordinator, joins no cloud and starts the
+    one-process server, in both packages."""
+    from h2o3_tpu_torch.parallel import distributed
+    if "coordinator_address" in kw:
+        with pytest.raises(ValueError, match="num_processes"):
+            session.init(port=0, **kw)
+        assert session.connection() is None
+        return
+    from h2o3_tpu import session as jsession
+    try:
+        client = session.init(port=0, **kw)
+        jclient = jsession.init(port=0, **kw)
+        assert client.cloud_status()["cloud_healthy"]
+        assert jclient.cloud_status()["cloud_healthy"]
+        assert client.cloud_status()["cloud_size"] == 1
+        assert not distributed.is_multiprocess()
+    finally:
+        session.shutdown()
+        jsession.shutdown()
 
 
 def test_connect_to_the_reference_server():

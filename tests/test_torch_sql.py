@@ -15,6 +15,7 @@ from h2o3_tpu.frame import sql as jsql
 from h2o3_tpu_torch import import_sql_select, import_sql_table, set_device
 from h2o3_tpu_torch.utils.registry import DKV
 from dataplane_pair import same_frame
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -37,6 +37,7 @@ from h2o3_tpu_torch.orchestration.stacked_ensemble import (
     StackedEnsemble, StackedEnsembleModel)
 from h2o3_tpu_torch.utils.registry import DKV
 from test_torch_carry import carry
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 512
 X = ["x0", "x1", "x2"]

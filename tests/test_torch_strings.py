@@ -20,6 +20,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.frame.vec import Vec
 from h2o3_tpu_torch.rapids import advprims, strings
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 VALUES = np.array(["  Hello World ", "héllo wörld", None, "", "ABC abc",
                    "data,science", "Ünïcödé  TEXT", "x", "aaa bbb aaa",

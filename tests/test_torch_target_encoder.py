@@ -23,6 +23,7 @@ from h2o3_tpu.models.target_encoder import TargetEncoder as JTE
 from h2o3_tpu_torch import convert, set_device
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.target_encoder import TargetEncoder
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 BASE = {"a": 0.8, "b": 0.5, "c": 0.3, "d": 0.1}
 

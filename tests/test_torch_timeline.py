@@ -19,6 +19,7 @@ import torch
 from h2o3_tpu.utils import timeline as jtl
 from h2o3_tpu_torch import set_device
 from h2o3_tpu_torch.utils import timeline as ptl
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 # the JAX package's ``ops`` exports a function of the module's name
 jmr = importlib.import_module("h2o3_tpu.ops.map_reduce")

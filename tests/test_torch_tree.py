@@ -20,6 +20,7 @@ from h2o3_tpu.models import tree as jtree
 from h2o3_tpu.ops import quantile as jquantile
 from h2o3_tpu_torch.models import tree as ptree
 from h2o3_tpu_torch.ops import quantile as pquantile
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 INT_FIELDS = ("feat", "thresh_bin", "na_left", "is_split")
 FLOAT_FIELDS = ("thresh_val", "leaf", "gain", "cover")

@@ -29,6 +29,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.genmodel import treeshap as pshap
 from h2o3_tpu_torch.models.gbm import DRF, GBM
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -42,6 +42,7 @@ from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.models.xgboost import XGBoost
 from h2o3_tpu_torch.utils import udf
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 MAE_METRIC_SRC = """# Generated code
 import water.udf.CMetricFunc as MetricFunc

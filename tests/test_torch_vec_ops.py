@@ -12,6 +12,7 @@ import pytest
 
 from rapids_pair import _cpu_port, pair, same_vec  # noqa: F401
 from h2o3_tpu_torch.frame.types import VecType
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 N = 40
 rng = np.random.default_rng(7)

@@ -33,6 +33,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.frame.types import VecType
 from h2o3_tpu_torch.models import word2vec as pw
 from h2o3_tpu_torch.utils.registry import DKV
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 TOPICS = [["cat", "dog", "pet", "fur", "paw"],
           ["car", "bus", "road", "wheel", "fuel"],

@@ -20,6 +20,7 @@ from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models import xgboost as pxgb
 from h2o3_tpu_torch.models.tree import HEAP_FIELDS
 from h2o3_tpu_torch.ops import hist
+from jax_reference import _jax_compile_cache  # noqa: F401
 
 INT_FIELDS = ("feat", "thresh_bin", "na_left", "is_split")
 ROWS = 20_000
